@@ -1,0 +1,11 @@
+"""libldpc_tpu_torch — the LDPC simulator of :mod:`libldpc_tpu` on PyTorch,
+with hand-written CUDA decode kernels for NVIDIA Hopper (sm_90a).
+
+The JAX package stays the reference: this package is tested against it
+on the CPU, through the plain PyTorch version beside each kernel.  It reuses
+the JAX package's jax-free host layer (``libldpc_tpu.models``,
+``libldpc_tpu.utils.params``) and never imports jax.  Kernels are built with
+``nvcc`` at first use (:mod:`.ops.kernels.build`), never at import.
+"""
+
+__version__ = "0.1.0"

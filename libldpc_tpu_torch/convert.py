@@ -1,0 +1,88 @@
+"""Carry the JAX package's state into the port.
+
+The system has no weights: a code's index tables are its parameters, and a
+streaming sweep's state is the per-lane decode state.  These functions take
+that state from the JAX package as NumPy arrays (``np.asarray`` of each
+field) and build the port's counterparts, so both packages can compute from
+identical tables and state.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .ops.sorted import TorchSortedCode
+from .ops.streaming_fused import StreamState
+
+
+def from_sorted_device(arrays: Mapping, device="cpu") -> TorchSortedCode:
+    """A :class:`TorchSortedCode` from the fields of JAX's
+    ``SortedDeviceCode``: ``col_sorted``, ``perm_c2v``, ``bit_pos``,
+    ``puncture``, ``shorten``, ``vn_perm``, ``vn_inv``, ``G`` (or None) and
+    the ``cn_classes``/``vn_classes`` tuples."""
+    cn_classes = tuple((int(c), int(d)) for c, d in arrays["cn_classes"])
+    vn_classes = tuple((int(c), int(d)) for c, d in arrays["vn_classes"])
+
+    def idx(name):
+        return torch.as_tensor(np.asarray(arrays[name], dtype=np.int32)).to(device)
+
+    G = arrays.get("G")
+    return TorchSortedCode(
+        nc=sum(c for c, _ in vn_classes),
+        mc=sum(c for c, _ in cn_classes),
+        nnz=int(np.asarray(arrays["col_sorted"]).shape[0]),
+        cn_classes=cn_classes,
+        vn_classes=vn_classes,
+        col_sorted=idx("col_sorted"),
+        perm_c2v=idx("perm_c2v"),
+        bit_pos=idx("bit_pos"),
+        puncture=idx("puncture"),
+        shorten=idx("shorten"),
+        vn_perm=idx("vn_perm"),
+        vn_inv=idx("vn_inv"),
+        G=None if G is None else torch.as_tensor(np.asarray(G, dtype=np.float32)).to(device),
+    )
+
+
+def position_major_slots(cn_classes) -> np.ndarray:
+    """For each CN-space slot of the sorted layout (check ``i`` of a class,
+    edge ``j`` of the check at ``base + i*d + j``), the slot of the same
+    edge in the JAX fused kernel's position-major layout
+    (``base + j*count + i``)."""
+    out = []
+    base = 0
+    for count, d in cn_classes:
+        i, j = np.meshgrid(np.arange(count), np.arange(d), indexing="ij")
+        out.append((base + j * count + i).ravel())
+        base += count * d
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def from_pstream_state(arrays: Mapping, cn_classes, device="cpu") -> StreamState:
+    """The port's :class:`StreamState` from the fields of JAX's
+    ``PStreamState`` (single device).  ``lv2c`` moves from the
+    position-major padded edge space to the sorted CN-space slots; the
+    ``[8, B]`` flag planes give their row 0 and ``ctr8`` its rows 0-4;
+    ``fresh_lv2c`` is dropped (the kernel gathers reload priors itself)."""
+
+    def t(name, dtype):
+        return torch.as_tensor(np.ascontiguousarray(arrays[name]).astype(dtype)).to(device)
+
+    lv2c = np.asarray(arrays["lv2c"], dtype=np.float32)[position_major_slots(cn_classes)]
+    return StreamState(
+        llr_in=t("llr_in", np.float32),
+        codeword=t("codeword", np.uint8),
+        lv2c=torch.as_tensor(np.ascontiguousarray(lv2c)).to(device),
+        done=t("done8", np.int32)[0].contiguous(),
+        iters=t("iters8", np.int32)[0].contiguous(),
+        age=t("age8", np.int32)[0].contiguous(),
+        avail=t("avail8", np.int32)[0].contiguous(),
+        ctr=t("ctr8", np.int32)[:5].contiguous(),
+        fresh_llr=t("fresh_llr", np.float32),
+        fresh_cw=t("fresh_cw", np.uint8),
+        started=torch.tensor([int(np.asarray(arrays["started"]).sum())], dtype=torch.int64,
+                             device=device),
+    )

@@ -1,0 +1,100 @@
+"""On-device channel simulation: encode -> BPSK -> noise -> LLRs.
+
+The port of :mod:`libldpc_tpu.ops.channel` for the AWGN and BSC channels,
+node-major ``[nc, B]`` in the sorted VN labelling.  Random numbers come from
+an explicit ``torch.Generator`` on the channel's device (one per sweep point
+and batch, see :func:`make_generator`); they are not jax's threefry draws,
+so channels agree with the JAX package in distribution only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from libldpc_tpu.utils.params import SHORTEN_LLR
+
+from .sorted import TorchSortedCode
+
+
+class ChannelOutput(NamedTuple):
+    """One simulated batch ready for decoding."""
+
+    llr: torch.Tensor  # f32 [nc, B] decoder input
+    codeword: torch.Tensor  # u8 [nc, B] true transmitted codeword
+
+
+def make_generator(device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``SeedSequence(key)``, e.g.
+    ``(seed, point, batch)``: distinct keys give independent streams."""
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed & (2**63 - 1))
+    return gen
+
+
+def encode_batch(sdc: TorchSortedCode, gen: torch.Generator, batch: int) -> torch.Tensor:
+    """Random Bernoulli(1/2) info words encoded as ``c = u G mod 2``:
+    ``u8 [nc, B]``, all zeros when the code has no generator.  The product
+    runs in float32; the counts stay exact below 2**24 info bits."""
+    if sdc.G is None:
+        return torch.zeros((sdc.nc, batch), dtype=torch.uint8, device=sdc.device)
+    u = torch.randint(0, 2, (sdc.kc, batch), generator=gen, device=sdc.device)
+    c = torch.matmul(sdc.G.t(), u.to(torch.float32))
+    return (c.to(torch.int32) % 2).to(torch.uint8)
+
+
+def _place(sdc: TorchSortedCode, values: torch.Tensor, shorten_value: float) -> torch.Tensor:
+    """Full ``[nc, B]`` LLRs: transmitted bits get ``values``, punctured bits
+    0 and shortened bits ``shorten_value``."""
+    llr = torch.zeros((sdc.nc, values.shape[1]), dtype=torch.float32, device=values.device)
+    if sdc.shorten.shape[0]:
+        llr[sdc.shorten.long()] = shorten_value
+    llr[sdc.bit_pos.long()] = values
+    return llr
+
+
+def awgn_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, snr_db: float) -> ChannelOutput:
+    """BPSK (0 -> +1, 1 -> -1) over AWGN with ``sigma^2 = 10^(-snr/10)``,
+    ``LLR = 2y/sigma^2``."""
+    c = encode_batch(sdc, gen, batch)
+    sigma2 = np.float32(10.0 ** (-float(snr_db) / 10.0))
+    x = 1.0 - 2.0 * c.index_select(0, sdc.bit_pos).to(torch.float32)
+    noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+    y = x + noise * float(np.sqrt(sigma2))
+    return ChannelOutput(llr=_place(sdc, 2.0 * y / float(sigma2), SHORTEN_LLR), codeword=c)
+
+
+def bsc_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon: float) -> ChannelOutput:
+    """Binary symmetric channel: flip with probability ``epsilon``,
+    ``LLR = ±log((1-eps)/eps)``; shortened bits get ``+delta``."""
+    c = encode_batch(sdc, gen, batch)
+    x = c.index_select(0, sdc.bit_pos)
+    flips = torch.rand(x.shape, generator=gen, device=x.device) < epsilon
+    y = x ^ flips.to(torch.uint8)
+    delta = float(np.float32(np.log((1.0 - epsilon) / epsilon)))
+    return ChannelOutput(llr=_place(sdc, delta * (1.0 - 2.0 * y.to(torch.float32)), delta), codeword=c)
+
+
+def simulate_channel(
+    sdc: TorchSortedCode,
+    channel_type: str,
+    gen: torch.Generator,
+    batch: int,
+    x_value: float,
+    modulation=None,
+) -> ChannelOutput:
+    """Dispatch on the reference's channel-type strings."""
+    if modulation is not None:
+        raise NotImplementedError(
+            "higher-order modulation is not ported yet (ROADMAP Queue 1 item 11)"
+        )
+    if channel_type == "AWGN":
+        return awgn_channel(sdc, gen, batch, x_value)
+    if channel_type == "BSC":
+        return bsc_channel(sdc, gen, batch, x_value)
+    if channel_type == "BEC":
+        raise NotImplementedError("the BEC is not ported yet (ROADMAP Queue 1 item 10)")
+    raise ValueError(f"No channel selected: {channel_type!r}")

@@ -1,0 +1,115 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+``libldpc_tpu_torch/csrc/*.cu`` is compiled at first use into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), under ``build/kernels/`` at the root of the checkout.  The file
+name carries a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  Nothing is built when a
+module is imported.  A missing ``nvcc`` or a failed build raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+#: ``-fmad=false``: no FMA contraction, so every multiply and add rounds on
+#: its own, as in the plain PyTorch versions (the NMS scale and the BP_LIN
+#: line would otherwise differ in the last bit).  No ``--use_fast_math``.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+#: The last build's command and compiler output (``-Xptxas -v`` register
+#: and spill report), for the smoke run to print; None if loaded from cache.
+last_build_log = None
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "are built from libldpc_tpu_torch/csrc at first use"
+        )
+    return nvcc
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libldpc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless this source hash is already built."""
+    global last_build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    last_build_log = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every entry point's
+    ``argtypes`` and ``restype`` declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.ldpc_max_dc.argtypes = []
+            lib.ldpc_max_dc.restype = I
+            lib.ldpc_bp_decode_fused.argtypes = [
+                P, P, P, P, P, P,  # llr_in llr_out iters iscw lv2c lc2v
+                P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
+                I, I, I, I,  # nc mc nnz B
+                I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                P,  # stream
+            ]
+            lib.ldpc_bp_decode_fused.restype = I
+            lib.ldpc_bp_stream_chunk_fused.argtypes = [
+                P, P, P,  # llr cw lv2c
+                P, P, P, P, P,  # done iters age avail ctr
+                P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                P, P,  # lc2v llr_post (scratch)
+                P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
+                I, I, I, I, I,  # nc mc nnz nct B
+                I, I, I, F, F,  # k cap cn_mode scale offset
+                P,  # stream
+            ]
+            lib.ldpc_bp_stream_chunk_fused.restype = I
+            lib.ldpc_error_string.argtypes = [I]
+            lib.ldpc_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

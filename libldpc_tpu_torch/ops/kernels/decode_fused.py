@@ -1,0 +1,267 @@
+"""The two flooding decode kernels, their wrappers and their plain versions.
+
+* :func:`bp_decode_fused` runs ``csrc/decode_fused.cu``'s batch kernel, the
+  port of ``libldpc_tpu/ops/pallas/decode_fused.py`` ``kernel`` (reached
+  there through ``bp_decode_pallas``): the whole decode of a batch, all
+  iterations in one launch, with per-frame early termination.
+* :func:`bp_stream_chunk_fused` runs its streaming kernel, the port of
+  ``kernel_stream`` (``bp_stream_chunk_pallas``): ``k`` self-refilling
+  passes per lane with in-kernel reload, an exact global start quota and
+  per-lane counters.
+
+Each wrapper takes its plain PyTorch version (same signature, beside it)
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.  Each keeps a launch count, ``<wrapper>.launches``, raised by one
+at every kernel launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..sorted import SortedDecodeOutput, bp_decode_sorted, bp_pass, syndrome_ok_from_posterior
+from . import build
+from .layout import KernelTables
+
+#: CN form -> the kernel's mode number (``enum CnMode`` in the source).
+CN_MODES = {"BP": 0, "BP_MS": 1, "BP_LIN": 2, "BP_NMS": 3, "BP_OMS": 4,
+            "BP_TANH": 5, "BP_PHI": 6}
+
+
+def cn_mode_args(minsum_mode) -> tuple[int, float, float]:
+    """``(mode, scale, offset)`` for the kernel.  NMS/OMS correct only when
+    given as a ``(type, scale, offset)`` tuple (as ``DecoderParams.cn_mode``
+    gives them); a bare string of theirs is plain min-sum, and an unknown
+    string is ``BP`` (the reference's fallback)."""
+    scale = offset = 0.0
+    if isinstance(minsum_mode, tuple):
+        kind, scale, offset = minsum_mode
+    elif isinstance(minsum_mode, str):
+        kind = "BP_MS" if minsum_mode in ("BP_NMS", "BP_OMS") else minsum_mode
+    else:
+        kind = "BP_MS" if minsum_mode else "BP"
+    return CN_MODES.get(kind, 0), float(scale), float(offset)
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)}, got "
+            f"{'contiguous' if t.is_contiguous() else 'strided'} {t.dtype} "
+            f"{tuple(t.shape)}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the code tables on {device}")
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the decode kernels take CPU or CUDA tensors, not {t.device}")
+
+
+def _lib(tables: KernelTables):
+    lib = build.load()
+    if tables.max_dc > lib.ldpc_max_dc():
+        raise ValueError(
+            f"largest check degree {tables.max_dc} exceeds the kernels' "
+            f"LDPC_MAX_DC {lib.ldpc_max_dc()}"
+        )
+    return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: {lib.ldpc_error_string(err).decode()}")
+
+
+def _p(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _zero_output(llr_in: torch.Tensor) -> SortedDecodeOutput:
+    B = llr_in.shape[1]
+    return SortedDecodeOutput(
+        llr_out=torch.zeros_like(llr_in),
+        hard=torch.zeros_like(llr_in, dtype=torch.bool),
+        iterations=torch.zeros(B, dtype=torch.int32, device=llr_in.device),
+        is_codeword=torch.zeros(B, dtype=torch.bool, device=llr_in.device),
+    )
+
+
+def bp_decode_fused_plain(
+    tables: KernelTables,
+    llr_in: torch.Tensor,
+    iterations: int = 50,
+    early_term: bool = True,
+    minsum_mode=False,
+) -> SortedDecodeOutput:
+    """Plain version of :func:`bp_decode_fused`: the sorted decoder, with
+    ``bp_decode_pallas``'s all-zero output at ``iterations == 0``."""
+    if iterations == 0:
+        return _zero_output(llr_in)
+    return bp_decode_sorted(tables.code, llr_in, iterations, early_term, minsum_mode)
+
+
+def bp_decode_fused(
+    tables: KernelTables,
+    llr_in: torch.Tensor,  # f32 [nc, B], sorted VN labelling
+    iterations: int = 50,
+    early_term: bool = True,
+    minsum_mode=False,
+) -> SortedDecodeOutput:
+    """Flooding BP of a batch, all iterations in one kernel launch.
+
+    Same boundary as ``bp_decode_pallas`` in float32: ``llr_out``, ``hard =
+    llr_out <= 0``, break-before-increment ``iterations`` and
+    ``is_codeword``; with ``early_term=False`` every frame reports the cap
+    and ``is_codeword`` comes from the last pass; ``iterations == 0``
+    returns all zeros.  Any ``B``: the last block is masked."""
+    nc = tables.code.nc
+    B = llr_in.shape[1] if llr_in.dim() == 2 else -1
+    _check(llr_in, "llr_in", torch.float32, (nc, B), tables.device)
+    if iterations == 0:
+        return _zero_output(llr_in)
+    if llr_in.device.type == "cpu":
+        return bp_decode_fused_plain(tables, llr_in, iterations, early_term, minsum_mode)
+    _require_cuda(llr_in)
+    lib = _lib(tables)
+    dev = llr_in.device
+    nnz = tables.code.nnz
+    llr_out = torch.empty_like(llr_in)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    iscw = torch.empty(B, dtype=torch.int32, device=dev)
+    lv2c = torch.empty((nnz, B), dtype=torch.float32, device=dev)
+    lc2v = torch.empty((nnz, B), dtype=torch.float32, device=dev)
+    mode, scale, offset = cn_mode_args(minsum_mode)
+    err = lib.ldpc_bp_decode_fused(
+        _p(llr_in), _p(llr_out), _p(iters), _p(iscw), _p(lv2c), _p(lc2v),
+        _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
+        nc, tables.code.mc, nnz, B, iterations, int(bool(early_term)), mode, scale, offset,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _raise_on(lib, err, "bp_decode_fused")
+    bp_decode_fused.launches += 1
+    return SortedDecodeOutput(
+        llr_out=llr_out,
+        hard=llr_out <= 0,
+        iterations=iters,
+        is_codeword=iscw > 0,
+    )
+
+
+bp_decode_fused.launches = 0
+
+
+def bp_stream_chunk_fused_plain(
+    tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
+    refill, remaining, *, k: int, cap: int, minsum_mode=False,
+) -> None:
+    """Plain version of :func:`bp_stream_chunk_fused`, pass for pass as
+    ``kernel_stream``: starts are granted in lane order (an inclusive scan
+    against ``remaining``)."""
+    sdc = tables.code
+    is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=llr.device)
+    is_tx[sdc.bit_pos.long()] = True
+    refill_on = refill != 0
+    for _ in range(k):
+        # ---- reload idle lanes from the pool, within the quota
+        eligible = refill_on & (done != 0) & (avail != 0)
+        rs = eligible & (torch.cumsum(eligible.to(torch.int32), 0) <= remaining)
+        remaining -= rs.sum().to(torch.int32)
+        llr.copy_(torch.where(rs, fresh_llr, llr))
+        cw.copy_(torch.where(rs, fresh_cw, cw))
+        lv2c.copy_(torch.where(rs, fresh_llr.index_select(0, sdc.col_sorted), lv2c))
+        r = rs.to(torch.int32)
+        done.mul_(1 - r)
+        age.copy_(torch.where(rs, 1, age))
+        iters.mul_(1 - r)
+        avail.sub_(r)
+        ctr[4] += r
+        # ---- one BP pass over the lanes in flight
+        active = done == 0
+        post, lv2c_new = bp_pass(sdc, llr, lv2c, minsum_mode)
+        checking = active & (age >= 1)
+        ok = syndrome_ok_from_posterior(sdc, post.index_select(0, sdc.col_sorted))
+        iters += (checking & ~ok).to(torch.int32)
+        age += active.to(torch.int32)
+        finished = active & ((checking & ok) | (age >= cap + 1))
+        f = finished.to(torch.int32)
+        done += f
+        biterr = (((post <= 0) != (cw != 0)) & is_tx[:, None]).sum(0, dtype=torch.int32)
+        ctr[0] += f * biterr
+        ctr[1] += f * (biterr > 0).to(torch.int32)
+        ctr[2] += f
+        ctr[3] += f * iters
+        lv2c.copy_(torch.where(active, lv2c_new, lv2c))
+
+
+def bp_stream_chunk_fused(
+    tables: KernelTables,
+    llr: torch.Tensor,  # f32 [nc, B] carried channel LLRs
+    cw: torch.Tensor,  # u8 [nc, B] carried true codewords
+    lv2c: torch.Tensor,  # f32 [nnz, B] carried messages (CN-space slots)
+    done: torch.Tensor,  # i32 [B] lane idle (finished or empty)
+    iters: torch.Tensor,  # i32 [B]
+    age: torch.Tensor,  # i32 [B] passes since (re)load
+    avail: torch.Tensor,  # i32 [B] pool entry unused
+    ctr: torch.Tensor,  # i32 [5, B] counters
+    fresh_llr: torch.Tensor,  # f32 [nc, B] fresh-frame pool
+    fresh_cw: torch.Tensor,  # u8 [nc, B]
+    refill: torch.Tensor,  # i32 [1]: reloads allowed
+    remaining: torch.Tensor,  # i32 [1]: starts left in the quota
+    *,
+    k: int,
+    cap: int,
+    minsum_mode=False,
+) -> None:
+    """``k`` self-refilling BP passes per lane, updating the state in place.
+
+    Per pass and lane: an idle lane (``done``) with an unused pool entry
+    (``avail``) starts that entry if the quota allows (``remaining`` is
+    decremented per start; lv2c starts at the prior, ``age = 1``); then a
+    lane in flight runs one BP pass, checks its syndrome once ``age >= 1``,
+    and finishes on convergence or at ``age >= cap + 1``, adding its
+    transmitted-bit errors, a frame error, a frame and its iteration count
+    to ``ctr`` rows 0-3 (row 4 counts starts).  On CUDA the quota is one
+    device counter taken with ``atomicSub``: which lanes start differs from
+    the plain version's lane order, the number that start does not."""
+    sdc = tables.code
+    nc, nnz = sdc.nc, sdc.nnz
+    B = llr.shape[1] if llr.dim() == 2 else -1
+    dev = tables.device
+    for name, t, dtype, shape in (
+        ("llr", llr, torch.float32, (nc, B)), ("cw", cw, torch.uint8, (nc, B)),
+        ("lv2c", lv2c, torch.float32, (nnz, B)), ("done", done, torch.int32, (B,)),
+        ("iters", iters, torch.int32, (B,)), ("age", age, torch.int32, (B,)),
+        ("avail", avail, torch.int32, (B,)), ("ctr", ctr, torch.int32, (5, B)),
+        ("fresh_llr", fresh_llr, torch.float32, (nc, B)),
+        ("fresh_cw", fresh_cw, torch.uint8, (nc, B)),
+        ("refill", refill, torch.int32, (1,)), ("remaining", remaining, torch.int32, (1,)),
+    ):
+        _check(t, name, dtype, shape, dev)
+    if k < 1 or cap < 1:
+        raise ValueError(f"k ({k}) and cap ({cap}) must be >= 1")
+    if llr.device.type == "cpu":
+        return bp_stream_chunk_fused_plain(
+            tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr,
+            fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=minsum_mode,
+        )
+    _require_cuda(llr)
+    lib = _lib(tables)
+    lc2v = torch.empty((nnz, B), dtype=torch.float32, device=llr.device)
+    post = torch.empty((nc, B), dtype=torch.float32, device=llr.device)
+    mode, scale, offset = cn_mode_args(minsum_mode)
+    err = lib.ldpc_bp_stream_chunk_fused(
+        _p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+        _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p(lc2v), _p(post),
+        _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
+        _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, mode, scale, offset,
+        ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream),
+    )
+    _raise_on(lib, err, "bp_stream_chunk_fused")
+    bp_stream_chunk_fused.launches += 1
+
+
+bp_stream_chunk_fused.launches = 0

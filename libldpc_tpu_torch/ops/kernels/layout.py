@@ -1,0 +1,61 @@
+"""Index tables for the CUDA decode kernels.
+
+The kernels walk the sorted layout (:mod:`..sorted`) node by node, one
+thread per frame: a check's edges are a contiguous range of CN-space slots
+(``row_ptr``), a variable's edges a contiguous range of VN-space slots
+(``vn_ptr``) whose CN-space slots ``perm_c2v`` gives, and ``col_sorted``
+names the variable on each CN-space slot.  On the GPU the CN<->VN
+permutation is therefore an indexed load from these tables; the TPU
+kernels' Beneš, Clos and one-hot transports have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..sorted import TorchSortedCode
+
+
+@dataclasses.dataclass
+class KernelTables:
+    """int32 tables of one code on one device, plus the sorted code they
+    were built from (the plain versions decode over it)."""
+
+    code: TorchSortedCode
+    row_ptr: torch.Tensor  # int32 [mc + 1] CN-space slot range per check
+    vn_ptr: torch.Tensor  # int32 [nc + 1] VN-space slot range per variable
+    col_sorted: torch.Tensor  # int32 [nnz] variable per CN-space slot
+    perm_c2v: torch.Tensor  # int32 [nnz] CN-space slot per VN-space slot
+    bit_pos: torch.Tensor  # int32 [nct] transmitted variables
+    max_dc: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+
+def _node_ptr(classes) -> np.ndarray:
+    degrees = np.repeat([d for _, d in classes], [c for c, _ in classes])
+    return np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+
+
+def kernel_tables(sdc: TorchSortedCode) -> KernelTables:
+    """Build the kernels' tables on ``sdc``'s device."""
+    if sdc.nnz >= 2**31:
+        raise ValueError(f"nnz {sdc.nnz} overflows the kernels' int32 slot index")
+
+    def dev(x):
+        return torch.as_tensor(x).to(sdc.device)
+
+    return KernelTables(
+        code=sdc,
+        row_ptr=dev(_node_ptr(sdc.cn_classes)),
+        vn_ptr=dev(_node_ptr(sdc.vn_classes)),
+        col_sorted=sdc.col_sorted.contiguous(),
+        perm_c2v=sdc.perm_c2v.contiguous(),
+        bit_pos=sdc.bit_pos.contiguous(),
+        max_dc=sdc.max_dc,
+    )

@@ -1,0 +1,134 @@
+"""Streaming early-termination sweep on the fused streaming kernel.
+
+The port of :mod:`libldpc_tpu.ops.streaming_pallas` on one device.  Every
+batch lane is an independent frame stream that reloads as soon as its frame
+converges, so device work per frame tracks ``avg_iter`` rather than the
+batch's slowest frame.  The per-lane loop (decode, counting, reload) lives
+in :func:`~.kernels.decode_fused.bp_stream_chunk_fused`; between its
+launches this module refreshes the lane-aligned fresh-frame pool.
+
+**Pool.**  Lane ``i`` reloads only from pool entry ``i``.  Before each
+chunk, once at least 3/4 of the entries (the JAX package's watermark)
+are consumed, the consumed entries take the frames of a new channel batch;
+unused entries keep theirs.  Whether the watermark is met is a device-side
+mask, not a host branch, so a super-step never waits for the device: the
+channel batch is drawn for every chunk and only merged when the mask is
+set.
+
+**Quota.**  ``max_frames`` is exact: before each chunk the device computes
+``remaining = quota - started`` and the kernel grants starts against it.
+
+The state is updated in place; the driver reads the counters of a
+super-step (:class:`~.streaming.StreamDeltas`) when it absorbs them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .channel import simulate_channel
+from .kernels.decode_fused import bp_stream_chunk_fused
+from .kernels.layout import KernelTables
+from .streaming import _INT32_SAFE, StreamDeltas
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Per-lane stream state (batch on the last axis)."""
+
+    llr_in: torch.Tensor  # f32 [nc, B] carried channel LLRs
+    codeword: torch.Tensor  # u8 [nc, B] carried true codewords
+    lv2c: torch.Tensor  # f32 [nnz, B] messages (CN-space slots)
+    done: torch.Tensor  # i32 [B] lane idle (finished or empty)
+    iters: torch.Tensor  # i32 [B]
+    age: torch.Tensor  # i32 [B] passes since (re)load (0 = warm-up pending)
+    avail: torch.Tensor  # i32 [B] pool entry unused
+    ctr: torch.Tensor  # i32 [5, B] counters (see bp_stream_chunk_fused)
+    fresh_llr: torch.Tensor  # f32 [nc, B] fresh-frame pool
+    fresh_cw: torch.Tensor  # u8 [nc, B]
+    started: torch.Tensor  # i64 [1] frames started so far
+
+
+def init_state(tables: KernelTables, batch: int) -> StreamState:
+    """Empty streams (every lane idle, pool empty)."""
+    sdc, dev = tables.code, tables.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    return StreamState(
+        llr_in=torch.zeros((sdc.nc, batch), dtype=torch.float32, device=dev),
+        codeword=torch.zeros((sdc.nc, batch), dtype=torch.uint8, device=dev),
+        lv2c=torch.zeros((sdc.nnz, batch), dtype=torch.float32, device=dev),
+        done=torch.ones(batch, **i32),
+        iters=torch.zeros(batch, **i32),
+        age=torch.zeros(batch, **i32),
+        avail=torch.zeros(batch, **i32),
+        ctr=torch.zeros((5, batch), **i32),
+        fresh_llr=torch.zeros((sdc.nc, batch), dtype=torch.float32, device=dev),
+        fresh_cw=torch.zeros((sdc.nc, batch), dtype=torch.uint8, device=dev),
+        started=torch.zeros(1, dtype=torch.int64, device=dev),
+    )
+
+
+def make_streaming_fused_step(
+    tables: KernelTables,
+    channel_type: str,
+    dec,
+    batch: int,
+    chunk_iters: int = 0,
+    max_frames: int = int(10e9),
+):
+    """Build ``(init_fn, step_fn)``.  ``step_fn(state, gen, x_value,
+    refill) -> (state, StreamDeltas)`` runs one super-step of about one
+    decode's worth of passes (``n_outer`` chunks of ``k`` passes), drawing
+    channel batches from ``gen``; ``refill=False`` drains."""
+    if channel_type == "BEC":
+        raise ValueError("streaming decode does not cover the BEC decoder")
+    iterations = dec.iterations
+    if iterations < 1:
+        raise ValueError("streaming decode requires iterations >= 1")
+    k = chunk_iters or max(4, min(8, iterations // 8))
+    n_outer = max(1, -(-iterations // k))
+    gen_watermark = max(1, 3 * batch // 4)
+    dev = tables.device
+    quota = torch.tensor(min(int(max_frames), _INT32_SAFE), dtype=torch.int64, device=dev)
+    refill_flag = {
+        flag: torch.full((1,), int(flag), dtype=torch.int32, device=dev) for flag in (False, True)
+    }
+    sdc = tables.code
+
+    def init_fn() -> StreamState:
+        return init_state(tables, batch)
+
+    def step_fn(st: StreamState, gen: torch.Generator, x_value: float, refill: bool):
+        refill_t = refill_flag[bool(refill)]
+        st.ctr.zero_()
+        for _ in range(n_outer):
+            # refresh the consumed pool entries once the watermark is met
+            used = batch - st.avail.sum()
+            do_gen = (refill_t > 0) & (used >= gen_watermark)
+            ch = simulate_channel(sdc, channel_type, gen, batch, x_value)
+            take = do_gen & (st.avail == 0)
+            st.fresh_llr.copy_(torch.where(take, ch.llr, st.fresh_llr))
+            st.fresh_cw.copy_(torch.where(take, ch.codeword, st.fresh_cw))
+            st.avail.copy_(torch.where(do_gen, 1, st.avail))
+            remaining = torch.clamp(
+                quota - st.started - st.ctr[4].sum(dtype=torch.int64), 0, _INT32_SAFE
+            ).to(torch.int32)
+            bp_stream_chunk_fused(
+                tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
+                st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_t, remaining,
+                k=k, cap=iterations, minsum_mode=dec.cn_mode,
+            )
+        sums = st.ctr.sum(dim=1, dtype=torch.int64)
+        acc = StreamDeltas(
+            bit_errors=sums[0],
+            frame_errors=sums[1],
+            frames=sums[2],
+            iter_sum=sums[3],
+            n_active=(st.done == 0).sum(),
+        )
+        st.started += sums[4]
+        return st, acc
+
+    return init_fn, step_fn

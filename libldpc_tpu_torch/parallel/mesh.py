@@ -1,0 +1,63 @@
+"""The per-batch simulation step (from :mod:`libldpc_tpu.parallel.mesh`).
+
+One device, no mesh: channel simulation -> decode -> error counting.
+Points-parallel and multi-GPU sharding are not ported yet (ROADMAP Queue 1
+item 13).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..ops.channel import simulate_channel
+from ..ops.kernels.decode_fused import bp_decode_fused
+from ..ops.kernels.layout import KernelTables
+
+
+class StepCounters(NamedTuple):
+    """Counters of one decoded batch, as int64 device scalars."""
+
+    bit_errors: torch.Tensor  # wrong transmitted bits
+    frame_errors: torch.Tensor  # frames with >= 1 bit error
+    frames: torch.Tensor
+    iter_sum: torch.Tensor  # sum of per-frame iterations
+
+
+def _sim_and_count(
+    tables: KernelTables,
+    gen: torch.Generator,
+    x_value: float,
+    channel_type: str,
+    dec,
+    batch: int,
+) -> StepCounters:
+    """Simulate, decode with the batch kernel, count.  Bit errors count the
+    transmitted bits (``bit_pos``) only."""
+    ch = simulate_channel(tables.code, channel_type, gen, batch, x_value)
+    out = bp_decode_fused(
+        tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
+        minsum_mode=dec.cn_mode,
+    )
+    bit_pos = tables.code.bit_pos
+    frame_errs = (
+        out.hard.index_select(0, bit_pos) != ch.codeword.index_select(0, bit_pos).bool()
+    ).sum(0)
+    return StepCounters(
+        bit_errors=frame_errs.sum(),
+        frame_errors=(frame_errs > 0).sum(),
+        frames=torch.full((), batch, dtype=torch.int64, device=ch.llr.device),
+        iter_sum=out.iterations.sum(dtype=torch.int64),
+    )
+
+
+def make_sim_step(
+    tables: KernelTables, channel_type: str, dec, batch: int
+) -> Callable[[torch.Generator, float], StepCounters]:
+    """``step(gen, x_value) -> StepCounters`` on ``tables``' device."""
+
+    def step(gen: torch.Generator, x_value: float) -> StepCounters:
+        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch)
+
+    return step

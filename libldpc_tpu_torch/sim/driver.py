@@ -1,0 +1,328 @@
+"""Monte-Carlo sweep driver (from :mod:`libldpc_tpu.sim.driver`), one device.
+
+Each sweep point runs device batches until the reference's stopping rule
+``fec >= minFec || frames >= maxFrames || stop`` is met, evaluated on the
+host between batches.  With early termination on (the default) the point
+runs on the streaming kernel; otherwise each batch is one launch of the
+batch decode kernel.  Routing is by device only: on a CUDA device the two
+CUDA kernels run, on the CPU their plain PyTorch versions.
+
+Kept from the JAX driver: the sweep values (float accumulation, max
+exclusive, reversed for BSC), the warm-up batch outside the frame clock,
+the lookahead batch pipeline, the streaming window / absorb / drain loop
+and its stall guard, the live console row, the results file rewritten on
+every new frame error with the decode-path provenance line, and the BER
+divided by ``frames * nc``.  Checkpoint/resume, the forensic error log,
+points-parallel and multi-device sweeps are not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+import warnings
+from typing import Callable, Optional
+
+import torch
+
+from libldpc_tpu.models.code import LDPCCode
+from libldpc_tpu.models.io import format_result_row, write_results_file
+from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationParams
+
+from ..ops.channel import make_generator
+from ..ops.kernels.layout import kernel_tables
+from ..ops.sorted import to_sorted_device
+from ..ops.streaming_fused import make_streaming_fused_step
+from ..parallel.mesh import make_sim_step
+from .results import SimResults
+
+_CONSOLE_HEADER = (
+    "==============================================================="
+    "=============================\n"
+    "  FEC   |      FRAME     |   {xval}   |    BER     |    FER     "
+    "| AVGITERS  |  TIME/FRAME   \n"
+    "========+================+=========+============+============+="
+    "==========+=============="
+)
+
+#: Batch key of the warm-up batch (outside every point's key space).
+_WARMUP_BATCH = 0x7FFFFFFF
+
+
+@dataclasses.dataclass
+class _PointCounters:
+    """Raw accumulators of one sweep point."""
+
+    bit_errors: int = 0
+    frame_errors: int = 0
+    frames: int = 0
+    iter_sum: int = 0
+    elapsed_s: float = 0.0
+    next_batch: int = 0
+
+
+def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams) -> None:
+    """Raise for every setting the port does not cover yet, naming the
+    ROADMAP item that will."""
+    if dec.layered:
+        raise NotImplementedError("layered schedule: ROADMAP Queue 1 item 9")
+    if dec.message_dtype != "float32":
+        raise NotImplementedError(
+            f"message dtype {dec.message_dtype}: ROADMAP Queue 2, bf16/int8 "
+            "forms of kernels 1-2"
+        )
+    if ch.type == "BEC":
+        raise NotImplementedError("BEC channel: ROADMAP Queue 1 item 10")
+    if sim.checkpoint_file:
+        raise NotImplementedError("checkpoint/resume: ROADMAP Queue 1 item 6")
+    if sim.error_log_file:
+        raise NotImplementedError("forensic error log: ROADMAP Queue 1 item 6")
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; a CUDA device without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is False"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+
+
+class Simulator:
+    """Drives a BER/FER sweep for one code over one channel family."""
+
+    def __init__(
+        self,
+        code: LDPCCode,
+        decoder_params: DecoderParams = DecoderParams(),
+        channel_params: ChannelParams = ChannelParams(),
+        simulation_params: SimulationParams = SimulationParams(),
+        device="cuda",
+        verbose: bool = True,
+    ):
+        check_supported(decoder_params, channel_params, simulation_params)
+        self.device = resolve_device(device)
+        self.code = code
+        self.dec = decoder_params
+        self.ch = channel_params
+        self.sim = simulation_params
+        self.verbose = verbose
+        self.tables = kernel_tables(to_sorted_device(code, self.device))
+        batch = simulation_params.batch_size
+        self._streaming = (
+            simulation_params.streaming
+            and decoder_params.early_term
+            and decoder_params.iterations >= 1
+        )
+        if self._streaming:
+            self._stream_init, self._stream_step = make_streaming_fused_step(
+                self.tables,
+                channel_params.type,
+                decoder_params,
+                batch,
+                chunk_iters=simulation_params.streaming_chunk,
+                max_frames=simulation_params.max_frames,
+            )
+            self._step = None
+        else:
+            self._step = make_sim_step(self.tables, channel_params.type, decoder_params, batch)
+        self.results: Optional[SimResults] = None
+        self.decode_path = self._describe_decode_path()
+
+    def _describe_decode_path(self) -> str:
+        """One-line provenance of the decode path, written above the results
+        file's column header."""
+        kernel = "cuda-fused" if self.device.type == "cuda" else "torch-plain"
+        parts = [
+            f"kernel={kernel}",
+            "dtype=float32",
+            f"cn={self.dec.type}",
+            "schedule=flooding",
+            f"streaming={'on' if self._streaming else 'off'}",
+        ]
+        if self.device.type == "cuda":
+            parts.append(f"device={torch.cuda.get_device_name(self.device).replace(' ', '_')}")
+        return " ".join(parts)
+
+    def _gen(self, point: int, batch: int) -> torch.Generator:
+        return make_generator(self.device, self.ch.seed, point, batch)
+
+    # ------------------------------------------------------------------ API
+
+    def start(self, stop_flag: Optional[Callable[[], bool]] = None) -> SimResults:
+        """Run the sweep; ``stop_flag`` is polled between batches."""
+        x_vals = self.ch.sweep_values()
+        results = SimResults.empty(len(x_vals), x_vals)
+        self.results = results
+        xval_name = "SNR" if self.ch.type == "AWGN" else "EPS"
+        if self.verbose:
+            print(_CONSOLE_HEADER.format(xval=xval_name))
+        result_rows = [""] * len(x_vals)
+
+        if x_vals:
+            # build the kernels and warm the device outside the frame clock;
+            # the warm-up batch is discarded
+            if self._streaming:
+                _, wacc = self._stream_step(
+                    self._stream_init(), self._gen(_WARMUP_BATCH, 0), x_vals[0], False
+                )
+                int(wacc.frames)
+            else:
+                int(self._step(self._gen(_WARMUP_BATCH, 0), x_vals[0]).frames)
+
+        def should_stop() -> bool:
+            return stop_flag is not None and bool(stop_flag())
+
+        for i in range(len(x_vals)):
+            c = _PointCounters()
+            if self._streaming:
+                self._run_point_streaming(i, x_vals, c, results, result_rows, should_stop)
+            else:
+                self._run_point_batches(i, x_vals, c, results, result_rows, should_stop)
+            if self.verbose:
+                sys.stdout.write("\n")
+            if should_stop():
+                break
+        return results
+
+    # ------------------------------------------------------------- internals
+
+    def _absorb_counts(self, i, c: _PointCounters, results: SimResults, counts, t_point) -> None:
+        for bec_, fec_, fr_, it_ in counts:
+            c.bit_errors += int(bec_)
+            c.frame_errors += int(fec_)
+            c.frames += int(fr_)
+            c.iter_sum += int(it_)
+        c.elapsed_s = time.perf_counter() - t_point
+        if c.frames:
+            results.update_point(
+                i, bit_errors=c.bit_errors, frame_errors=c.frame_errors,
+                frames=c.frames, iter_sum=c.iter_sum, elapsed_s=c.elapsed_s,
+                nc=self.code.nc,
+            )
+
+    def _run_point_batches(self, i, x_vals, c, results, result_rows, should_stop) -> None:
+        """Batch stepping with a lookahead pipeline: ``pipeline_depth``
+        batches in flight, so the host's counter read does not idle the
+        device."""
+        depth = max(1, self.sim.pipeline_depth)
+        inflight: list = []
+        last_print_fec = -1
+        t_point = time.perf_counter()
+
+        def can_dispatch() -> bool:
+            # never launch a batch whose frames could not be counted
+            return (
+                c.frame_errors < self.sim.fec
+                and c.frames + len(inflight) * self.sim.batch_size < self.sim.max_frames
+                and not should_stop()
+            )
+
+        while (
+            c.frame_errors < self.sim.fec and c.frames < self.sim.max_frames and not should_stop()
+        ) or inflight:
+            while len(inflight) < depth and can_dispatch():
+                inflight.append(self._step(self._gen(i, c.next_batch), x_vals[i]))
+                c.next_batch += 1
+            if not inflight:
+                break
+            out = inflight.pop(0)
+            counts = torch.stack(
+                [out.bit_errors, out.frame_errors, out.frames, out.iter_sum]
+            ).tolist()  # one host read, waits for the batch
+            self._absorb_counts(i, c, results, [counts], t_point)
+            t_io = time.perf_counter()
+            if c.frame_errors != last_print_fec:
+                last_print_fec = c.frame_errors
+                result_rows[i] = self._row(results, i)
+                self._emit(results, i, x_vals[i], result_rows)
+            # printing and file IO are not charged to the frame clock
+            t_point += time.perf_counter() - t_io
+
+    def _run_point_streaming(self, i, x_vals, c, results, result_rows, should_stop) -> None:
+        """One sweep point on the streaming kernel.
+
+        Super-steps run with ``refill = stopping rule unmet``; once the rule
+        is met, further steps drain (``refill=False``) until no frame is in
+        flight, so every started frame is counted.  Counters are absorbed
+        ``window`` super-steps behind dispatch (the window slow-starts at 1
+        and doubles up to ``max(4, pipeline_depth)``), with one host read per
+        absorb."""
+        x = float(x_vals[i])
+        state = self._stream_init()
+        pending: list = []
+        last_print_fec = -1
+        n_active_last: Optional[int] = None
+        depth = max(4, self.sim.pipeline_depth)
+        window = 1
+        stall_rounds = 0
+        t_point = time.perf_counter()
+
+        while True:
+            can_refill = (
+                c.frame_errors < self.sim.fec
+                and c.frames < self.sim.max_frames
+                and not should_stop()
+            )
+            if not can_refill and n_active_last == 0 and not pending:
+                break  # drained
+            while (can_refill or n_active_last != 0) and len(pending) < window:
+                state, acc = self._stream_step(state, self._gen(i, c.next_batch), x, can_refill)
+                c.next_batch += 1
+                # snapshot: the next super-step reuses the counter planes
+                pending.append(torch.stack(list(acc)))
+            if not can_refill and n_active_last == 0:
+                n = len(pending)  # draining: flush everything
+            else:
+                n = max(1, len(pending) - (window - 1) // 2)
+            rows = torch.stack(pending[:n]).tolist()  # one host read
+            del pending[:n]
+            frames_before = c.frames
+            self._absorb_counts(i, c, results, [r[:4] for r in rows], t_point)
+            n_active_last = int(rows[-1][4])
+            t_io = time.perf_counter()
+            if c.frame_errors != last_print_fec and c.frames:
+                last_print_fec = c.frame_errors
+                result_rows[i] = self._row(results, i)
+                self._emit(results, i, x, result_rows)
+            t_point += time.perf_counter() - t_io
+            # quota-exhaustion guard: refill requested, nothing in flight and
+            # no progress means the start quota is spent; treat max_frames as
+            # reached instead of spinning no-op super-steps
+            if can_refill and n_active_last == 0 and c.frames == frames_before:
+                stall_rounds += 1
+                if stall_rounds >= 3 and not pending:
+                    warnings.warn(
+                        "streaming point stalled with start quotas exhausted before "
+                        "the stopping rule was met; treating max_frames as reached"
+                    )
+                    break
+            else:
+                stall_rounds = 0
+            if can_refill:
+                window = min(depth, window * 2)
+
+    def _row(self, results: SimResults, i: int) -> str:
+        return format_result_row(
+            results.x_values[i], results.fer[i], results.ber[i],
+            int(results.frames[i]), results.avg_iter[i], results.time[i],
+        )
+
+    def _emit(self, results: SimResults, i: int, x: float, rows) -> None:
+        """Console line and full results-file rewrite, reference format."""
+        if self.verbose:
+            sys.stdout.write(
+                "\r %2d/%2d  |  %12d  |  %.3f  |  %.2e  |  %.2e  |  %.1e  |  %.3fms"
+                % (
+                    int(results.fec[i]), self.sim.fec, int(results.frames[i]), x,
+                    results.ber[i], results.fer[i], results.avg_iter[i],
+                    results.time[i] * 1e3,
+                )
+            )
+            sys.stdout.flush()
+        if self.sim.result_file:
+            write_results_file(self.sim.result_file, rows, comment=self.decode_path)
