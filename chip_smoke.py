@@ -4,13 +4,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the two CUDA decode kernels from ``libldpc_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main path's shapes,
-drives the ``ldpcsim-torch`` sweep (streaming early termination, and one
-fixed-iteration point) on the card, times kernels against plain versions,
-and prints a ``{"kernels": [...]}`` line and, last, an ``{"ok": true, ...}``
-line.  Any failure raises and exits non-zero; without a CUDA device it
-exits non-zero before printing any result.
+It builds the CUDA decode kernels from ``libldpc_tpu_torch/csrc``, holds
+each against its plain PyTorch version at the main paths' shapes, drives
+the ``ldpcsim-torch`` sweeps on the card (the flooding sweep of the 1152
+code; the 802.11n layered sweep: wifi 1944 on the fast QC engine, streaming
+and fixed-iteration, and wifi 648 on the exact layered schedule), times
+kernels against plain versions, and prints a ``{"kernels": [...]}`` line
+and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
+non-zero; without a CUDA device it exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "build" / "smoke"
 BATCH = 16384
 ITERS = 50
-COMPARE_SNR_DB = 1.5  # inside the waterfall of both codes (sigma^2 = 10^(-snr/10))
+COMPARE_SNR_DB = 1.5  # inside the waterfall of every code here (sigma^2 = 10^(-snr/10))
 SWEEP = ["1.0", "3.01", "0.5"]  # 1.0 .. 3.0 dB: the 1152 code's waterfall
+LAYERED_SWEEP = ["1.0", "2.51", "0.5"]  # 1.0 .. 2.5 dB: wifi 1944's waterfall
+FORMS = ("BP_MS", ("BP_NMS", 0.75, 0.15), "BP")
 
 
 def check(cond, msg: str) -> None:
@@ -65,16 +69,52 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def compare_batch(tag, kernel, plain, tb, llr) -> float:
+    """Hold a batch decode kernel against its plain version: every CN form
+    of FORMS, early termination on and off.  The min-sum family must be
+    bit-exact; BP must agree in decisions and iteration counts on >= 99.9 %
+    of frames and within 1e-4 on their posteriors.  Returns the largest
+    absolute posterior difference over agreeing frames."""
+    worst = 0.0
+    for form in FORMS:
+        for et in (True, False):
+            got = kernel(tb, llr, ITERS, et, form)
+            want = plain(tb, llr, ITERS, et, form)
+            torch.cuda.synchronize()
+            same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
+            diff = (got.llr_out - want.llr_out)[:, same].abs()
+            err = diff.max().item() if diff.numel() else 0.0
+            worst = max(worst, err)
+            label = form if isinstance(form, str) else form[0]
+            print(f"{tag} {label} et={int(et)}: frames agreeing "
+                  f"{same.float().mean().item():.6f} max_abs_err {err:.3e} "
+                  f"avg_iter {got.iterations.float().mean().item():.3f} "
+                  f"codewords {got.is_codeword.float().mean().item():.4f}")
+            check(torch.isfinite(got.llr_out).all(), f"{tag} output not finite")
+            if label == "BP":
+                check(same.float().mean().item() >= 0.999, f"{tag} BP decisions disagree")
+                torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
+                                           rtol=1e-4, atol=1e-4)
+            else:
+                check(bool(same.all()) and torch.equal(got.llr_out, want.llr_out)
+                      and torch.equal(got.is_codeword, want.is_codeword),
+                      f"{tag} {label} not bit-exact")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from libldpc_tpu_torch import cli
-    from libldpc_tpu_torch.models import make_benchmark_code, wifi_code, write_codefile
+    from libldpc_tpu_torch.models import (
+        make_benchmark_code, wifi_code, write_codefile, write_layerfile,
+    )
     from libldpc_tpu_torch.ops.channel import awgn_channel, make_generator
     from libldpc_tpu_torch.ops.kernels import build
     from libldpc_tpu_torch.ops.kernels import decode_fused as df
+    from libldpc_tpu_torch.ops.kernels import decode_layered as dl
     from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
     from libldpc_tpu_torch.ops.sorted import to_sorted_device
     from libldpc_tpu_torch.ops.streaming_fused import init_state
@@ -98,7 +138,7 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
 
-    # ---- 2. build
+    # ---- 2. build (one nvcc per source, in parallel) and dims
     t0 = time.perf_counter()
     lib_path = build.build()
     build.load()
@@ -108,41 +148,26 @@ def main() -> int:
 
     codes = {
         "bench1152": make_benchmark_code(1152, 3, 6, seed=0, with_G=True),
-        "wifi1944": wifi_code(1944),
+        "wifi1944": wifi_code(1944),  # Z = 81, 12 natural layers
+        "wifi648": wifi_code(648),  # Z = 27, 12 natural layers
     }
-    tables = {k: kernel_tables(to_sorted_device(c, dev)) for k, c in codes.items()}
+    tables = {k: kernel_tables(to_sorted_device(c, dev, with_layers=True))
+              for k, c in codes.items()}
     for k, t in tables.items():
-        print(f"code {k}: nc {t.code.nc} mc {t.code.mc} nnz {t.code.nnz} max_dc {t.max_dc}")
+        print(f"code {k}: nc {t.code.nc} mc {t.code.mc} nnz {t.code.nnz} max_dc {t.max_dc} "
+              f"layers {t.n_layers} disjoint {t.layers_disjoint}")
 
-    # ---- 3. kernel 1 against its plain version
+    def llrs(key, point):
+        tb_ = tables[key]
+        return awgn_channel(tb_.code, make_generator(dev, 7, point, 0), BATCH, COMPARE_SNR_DB)
+
+    # ---- 3. kernel 1 (flooding batch) against its plain version
     err1 = 0.0
-    for key, tb in tables.items():
-        ch = awgn_channel(tb.code, make_generator(dev, 7, 0, 0), BATCH, COMPARE_SNR_DB)
-        for form in ("BP_MS", ("BP_NMS", 0.75, 0.15), "BP"):
-            for et in (True, False):
-                got = df.bp_decode_fused(tb, ch.llr, ITERS, et, form)
-                want = df.bp_decode_fused_plain(tb, ch.llr, ITERS, et, form)
-                torch.cuda.synchronize()
-                same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
-                diff = (got.llr_out - want.llr_out)[:, same].abs()
-                err = diff.max().item() if diff.numel() else 0.0
-                err1 = max(err1, err)
-                label = form if isinstance(form, str) else form[0]
-                print(f"kernel1 {key} {label} et={int(et)}: frames agreeing "
-                      f"{same.float().mean().item():.6f} max_abs_err {err:.3e} "
-                      f"avg_iter {got.iterations.float().mean().item():.3f} "
-                      f"codewords {got.is_codeword.float().mean().item():.4f}")
-                check(torch.isfinite(got.llr_out).all(), "kernel 1 output not finite")
-                if label == "BP":
-                    check(same.float().mean().item() >= 0.999, "BP decisions disagree")
-                    torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
-                                               rtol=1e-4, atol=1e-4)
-                else:
-                    check(bool(same.all()) and torch.equal(got.llr_out, want.llr_out)
-                          and torch.equal(got.is_codeword, want.is_codeword),
-                          f"{label} kernel 1 not bit-exact")
+    for key in ("bench1152", "wifi1944"):
+        err1 = max(err1, compare_batch(f"kernel1 {key}", df.bp_decode_fused,
+                                       df.bp_decode_fused_plain, tables[key], llrs(key, 0).llr))
 
-    # ---- 4. kernel 2 against its plain version
+    # ---- 4. kernel 2 (flooding stream) against its plain version
     def drain(fn, tb, llr, cw, form):
         st = init_state(tb, llr.shape[1])
         st.llr_in.copy_(llr)
@@ -157,119 +182,220 @@ def main() -> int:
                 return st.ctr.sum(1).tolist()
         raise RuntimeError("streams did not drain")
 
-    tb = tables["bench1152"]
-    ch = awgn_channel(tb.code, make_generator(dev, 7, 1, 0), BATCH, COMPARE_SNR_DB)
-    err2 = 0
-    for form in ("BP_MS", "BP"):
-        got = drain(df.bp_stream_chunk_fused, tb, ch.llr, ch.codeword, form)
-        want = drain(df.bp_stream_chunk_fused_plain, tb, ch.llr, ch.codeword, form)
-        print(f"kernel2 drain {form}: kernel {got} plain {want}")
-        check(got[2] == BATCH, "not every injected frame was counted")
-        if form == "BP_MS":
-            check(got == want, "BP_MS drained totals differ")
-        err2 = max(err2, max(abs(a - b) for a, b in zip(got, want)))
-
-    def fresh_pool_state():
+    def fresh_pool_state(tb, ch):
         st = init_state(tb, BATCH)
         st.fresh_llr.copy_(ch.llr)
         st.fresh_cw.copy_(ch.codeword)
         st.avail.fill_(1)
         return st
 
-    quota = 5000
-    st = fresh_pool_state()
-    remaining = torch.full((1,), quota, dtype=torch.int32, device=dev)
     refill_on = torch.ones(1, dtype=torch.int32, device=dev)
-    df.bp_stream_chunk_fused(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
-                             st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining,
-                             k=6, cap=ITERS, minsum_mode="BP")
-    starts = int(st.ctr[4].sum())
-    print(f"kernel2 quota {quota}: starts {starts}, pool entries used "
-          f"{BATCH - int(st.avail.sum())}")
-    check(starts == quota == BATCH - int(st.avail.sum()), "quota not exact")
 
-    # ---- 5. the slice: the CLI sweep on the card
+    def check_stream(tag, kernel, plain, key, point):
+        tb = tables[key]
+        ch = llrs(key, point)
+        err = 0
+        for form in ("BP_MS", "BP"):
+            got = drain(kernel, tb, ch.llr, ch.codeword, form)
+            want = drain(plain, tb, ch.llr, ch.codeword, form)
+            print(f"{tag} drain {key} {form}: kernel {got} plain {want}")
+            check(got[2] == BATCH, f"{tag}: not every injected frame was counted")
+            if form == "BP_MS":
+                check(got == want, f"{tag}: BP_MS drained totals differ")
+            err = max(err, max(abs(a - b) for a, b in zip(got, want)))
+        quota = 5000
+        st = fresh_pool_state(tb, ch)
+        remaining = torch.full((1,), quota, dtype=torch.int32, device=dev)
+        kernel(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+               st.fresh_llr, st.fresh_cw, refill_on, remaining, k=6, cap=ITERS, minsum_mode="BP")
+        starts = int(st.ctr[4].sum())
+        print(f"{tag} quota {quota}: starts {starts}, pool entries used "
+              f"{BATCH - int(st.avail.sum())}")
+        check(starts == quota == BATCH - int(st.avail.sum()), f"{tag}: quota not exact")
+        return err
+
+    err2 = check_stream("kernel2", df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
+                        "bench1152", 1)
+
+    # ---- 5. K3 (fast layered engine, batch) against its plain version
+    err3 = compare_batch("K3 wifi1944", dl.bp_decode_layered_fast,
+                         dl.bp_decode_layered_fast_plain, tables["wifi1944"],
+                         llrs("wifi1944", 3).llr)
+
+    # ---- 6. K4 (fast layered engine, stream) against its plain version
+    err4 = check_stream("K4", dl.bp_stream_chunk_layered_fast,
+                        dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 4)
+
+    # ---- 7. K5 (exact layered schedule) against its plain version
+    err5 = compare_batch("K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain,
+                         tables["wifi648"], llrs("wifi648", 5).llr)
+
+    # ---- 8. the flooding slice: the CLI sweep of the 1152 code on the card
     WORK.mkdir(parents=True, exist_ok=True)
-    code = codes["bench1152"]
-    write_codefile(str(WORK / "h.txt"), code.rows, code.cols, code.nc, code.mc)
-    r, c = code.G.nonzero()
-    (WORK / "g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r, c)))
-    args = [str(WORK / "h.txt"), str(WORK / "res.txt"), *SWEEP, "-G", str(WORK / "g.txt"),
-            "-i", str(ITERS), "--frame-error-count", "50", "--max-frames", "2000000",
-            "--batch-size", str(BATCH), "--pallas"]
-    df.bp_decode_fused.launches = 0
-    df.bp_stream_chunk_fused.launches = 0
-    t0 = time.perf_counter()
-    check(cli.main(args) == 0, "ET sweep failed")
-    sweep_s = time.perf_counter() - t0
-    fixed_args = [str(WORK / "h.txt"), str(WORK / "res_fixed.txt"), "2.0", "2.01", "1",
-                  "-G", str(WORK / "g.txt"), "-i", str(ITERS), "--frame-error-count", "50",
-                  "--max-frames", str(8 * BATCH), "--batch-size", str(BATCH), "--pallas",
-                  "--no-early-term"]
-    check(cli.main(fixed_args) == 0, "fixed-iteration point failed")
-    launches = {"bp_decode_fused": df.bp_decode_fused.launches,
-                "bp_stream_chunk_fused": df.bp_stream_chunk_fused.launches}
-    print(f"main-path launches: {launches} (ET sweep {sweep_s:.1f} s)")
-    check(launches["bp_stream_chunk_fused"] > 0, "the sweep did not run kernel 2")
-    check(launches["bp_decode_fused"] > 0, "the fixed-iteration point did not run kernel 1")
-    for f in ("res.txt", "res_fixed.txt"):
-        print(f"--- {f}\n{(WORK / f).read_text()}", end="")
-    lines = (WORK / "res.txt").read_text().splitlines()
-    check(lines[0].startswith("# kernel=cuda-fused"), "provenance line")
-    rows = [[float(v) for v in ln.split()] for ln in lines[2:]]
-    check(len(rows) == 5 and all(math.isfinite(v) for r in rows for v in r), "sweep rows")
-    check(rows[0][1] > rows[-1][1], "FER does not fall across the sweep")
-    check(all(0 < r[4] <= ITERS for r in rows), "avg_iter out of range")
-    fixed = [float(v) for v in (WORK / "res_fixed.txt").read_text().splitlines()[2].split()]
-    check(fixed[4] == ITERS, "fixed-iteration point did not run every iteration")
 
-    # ---- 6. times (CUDA events), kernel against plain
+    def write_files(key):
+        code = codes[key]
+        write_codefile(str(WORK / f"{key}_h.txt"), code.rows, code.cols, code.nc, code.mc)
+        r, c = code.G.nonzero()
+        (WORK / f"{key}_g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r, c)))
+        files = [str(WORK / f"{key}_h.txt"), "-G", str(WORK / f"{key}_g.txt")]
+        if code.layers:
+            write_layerfile(str(WORK / f"{key}_layers.txt"), code.layers)
+        return files
+
+    def run_cli(key, out, snrs, *flags, layered=False):
+        files = write_files(key)
+        h, g = files[0], files[1:]
+        args = [h, str(WORK / out), *snrs, *g, "-i", str(ITERS), "--batch-size", str(BATCH),
+                "--pallas", *flags]
+        if layered:
+            args += ["--layer-file", str(WORK / f"{key}_layers.txt")]
+        t0 = time.perf_counter()
+        check(cli.main(args) == 0, f"CLI run {out} failed")
+        text = (WORK / out).read_text()
+        print(f"--- {out} ({time.perf_counter() - t0:.1f} s)\n{text}", end="")
+        lines = text.splitlines()
+        rows = [[float(v) for v in ln.split()] for ln in lines[2:]]
+        check(rows and all(math.isfinite(v) for r in rows for v in r), f"{out} rows")
+        return lines[0], rows
+
+    counted = (df.bp_decode_fused, df.bp_stream_chunk_fused, dl.bp_decode_layered_fast,
+               dl.bp_stream_chunk_layered_fast, dl.bp_decode_layered)
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def read_counts():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    zero_counts()
+    head, rows = run_cli("bench1152", "res.txt", SWEEP, "--frame-error-count", "50",
+                         "--max-frames", "2000000")
+    head_fixed, fixed = run_cli("bench1152", "res_fixed.txt", ["2.0", "2.01", "1"],
+                                "--frame-error-count", "50", "--max-frames", str(8 * BATCH),
+                                "--no-early-term")
+    flooding_launches = read_counts()
+    print(f"flooding path launches: {flooding_launches}")
+    check(flooding_launches["bp_stream_chunk_fused"] > 0, "the sweep did not run kernel 2")
+    check(flooding_launches["bp_decode_fused"] > 0, "the fixed point did not run kernel 1")
+    check(head.startswith("# kernel=cuda-fused") and "schedule=flooding streaming=on" in head,
+          "flooding provenance line")
+    check(len(rows) == 5 and rows[0][1] > rows[-1][1], "FER does not fall across the sweep")
+    check(all(0 < r[4] <= ITERS for r in rows), "avg_iter out of range")
+    check(fixed[0][4] == ITERS, "fixed-iteration point did not run every iteration")
+
+    # ---- 9. the layered slice: the 802.11n sweep on the card
+    zero_counts()
+    head_l, rows_l = run_cli("wifi1944", "res_layered.txt", LAYERED_SWEEP, "--qc-z", "81",
+                             "--frame-error-count", "50", "--max-frames", "4000000",
+                             layered=True)
+    head_lf, fixed_l = run_cli("wifi1944", "res_layered_fixed.txt", ["2.0", "2.01", "1"],
+                               "--qc-z", "81", "--frame-error-count", "50", "--max-frames",
+                               str(4 * BATCH), "--no-early-term", layered=True)
+    head_648, rows_648 = run_cli("wifi648", "res_layered_648.txt", ["2.0", "2.01", "1"],
+                                 "--frame-error-count", "50", "--max-frames", str(4 * BATCH),
+                                 layered=True)
+    layered_launches = read_counts()
+    print(f"layered path launches: {layered_launches}")
+    check(layered_launches["bp_stream_chunk_layered_fast"] > 0, "the layered sweep did not run K4")
+    check(layered_launches["bp_decode_layered_fast"] > 0, "the fixed layered point did not run K3")
+    check(layered_launches["bp_decode_layered"] > 0, "the wifi 648 point did not run K5")
+    check("schedule=layered-fast streaming=on" in head_l, "wifi 1944 sweep provenance")
+    check("schedule=layered-fast streaming=off" in head_lf, "wifi 1944 fixed provenance")
+    check("schedule=layered streaming=off" in head_648, "wifi 648 provenance")
+    check(len(rows_l) == 4 and rows_l[0][1] > rows_l[-1][1],
+          "FER does not fall across the layered sweep")
+    check(all(0 < r[4] <= ITERS for r in rows_l + rows_648), "layered avg_iter out of range")
+    check(fixed_l[0][4] == ITERS, "fixed layered point did not run every iteration")
+    # flooding on the same code at one SNR of the layered sweep
+    _, rows_flood = run_cli("wifi1944", "res_flooding_1944.txt", ["1.5", "1.51", "1"],
+                            "--frame-error-count", "50", "--max-frames", "4000000")
+    at15 = [r for r in rows_l if abs(r[0] - 1.5) < 1e-6][0]
+    print(f"wifi 1944 at 1.5 dB: layered avg_iter {at15[4]} FER {at15[1]}, flooding avg_iter "
+          f"{rows_flood[0][4]} FER {rows_flood[0][1]} [{name_power}]")
+    check(at15[4] < rows_flood[0][4], "layered avg_iter not below flooding")
+
+    # ---- 10. times (CUDA events), kernel against plain
     times = {}
-    for key, tb_ in tables.items():
-        llr = awgn_channel(tb_.code, make_generator(dev, 7, 2, 0), BATCH, COMPARE_SNR_DB).llr
-        k_ms = cuda_ms(lambda: df.bp_decode_fused(tb_, llr, ITERS, False, "BP"), 5)
-        p_ms = cuda_ms(lambda: df.bp_decode_fused_plain(tb_, llr, ITERS, False, "BP"), 2)
-        times[key] = (k_ms, p_ms)
-        print(f"time kernel1 {key} BP {ITERS} it no-ET B={BATCH}: kernel {k_ms:.3f} ms "
+    for key in ("bench1152", "wifi1944"):
+        tb_, llr = tables[key], llrs(key, 2).llr
+        times[f"k1 {key}"] = (cuda_ms(lambda: df.bp_decode_fused(tb_, llr, ITERS, False, "BP"), 5),
+                              cuda_ms(lambda: df.bp_decode_fused_plain(tb_, llr, ITERS, False, "BP"), 2))
+    tb3, llr3 = tables["wifi1944"], llrs("wifi1944", 2).llr
+    times["K3 wifi1944"] = (
+        cuda_ms(lambda: dl.bp_decode_layered_fast(tb3, llr3, ITERS, False, "BP"), 5),
+        cuda_ms(lambda: dl.bp_decode_layered_fast_plain(tb3, llr3, ITERS, False, "BP"), 1))
+    tb5, llr5 = tables["wifi648"], llrs("wifi648", 2).llr
+    times["K5 wifi648"] = (
+        cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, "BP"), 3),
+        cuda_ms(lambda: dl.bp_decode_layered_plain(tb5, llr5, ITERS, False, "BP"), 1))
+    for tag, (k_ms, p_ms) in times.items():
+        print(f"time {tag} BP {ITERS} it no-ET B={BATCH}: kernel {k_ms:.3f} ms "
               f"({BATCH / k_ms * 1e3:.0f} frames/s), plain {p_ms:.3f} ms "
               f"({BATCH / p_ms * 1e3:.0f} frames/s) [{name_power}]")
-    st2 = {}
 
-    def reset_state():
-        st2["st"] = fresh_pool_state()
-        st2["rem"] = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
+    def time_chunk(kernel, plain, key, reps_plain):
+        tb = tables[key]
+        ch = llrs(key, 2)
+        box = {}
 
-    def chunk(fn):
-        st = st2["st"]
-        fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
-           st.fresh_llr, st.fresh_cw, refill_on, st2["rem"], k=6, cap=ITERS, minsum_mode="BP")
+        def reset():
+            box["st"] = fresh_pool_state(tb, ch)
+            box["rem"] = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
 
-    k2_ms = cuda_ms(lambda: chunk(df.bp_stream_chunk_fused), 5, reset_state)
-    p2_ms = cuda_ms(lambda: chunk(df.bp_stream_chunk_fused_plain), 2, reset_state)
-    print(f"time kernel2 bench1152 BP 6 passes from a full pool B={BATCH}: kernel {k2_ms:.3f} ms, "
-          f"plain {p2_ms:.3f} ms [{name_power}]")
-    # the results file keeps frame_time to 6 decimals; take the sweep rate
-    # from the Simulator's own float timing
-    for snr in (2.0, 2.5):
-        res = Simulator(
-            code, DecoderParams(iterations=ITERS), ChannelParams(seed=1, x_range=(snr, snr + 0.01, 1.0)),
-            SimulationParams(batch_size=BATCH, fec=50, max_frames=2_000_000),
-            device=dev, verbose=False,
-        ).start()
-        print(f"sweep bench1152 BP ET SNR {snr} dB: {1.0 / res.time[0]:.0f} frames/s "
-              f"(avg_iter {res.avg_iter[0]:.3f}, FER {res.fer[0]:.3e}, {int(res.frames[0])} frames) "
-              f"[{name_power}]")
+        def run(fn):
+            st = box["st"]
+            fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+               st.fresh_llr, st.fresh_cw, refill_on, box["rem"], k=6, cap=ITERS,
+               minsum_mode="BP")
 
-    src = "libldpc_tpu_torch/csrc/decode_fused.cu"
+        return cuda_ms(lambda: run(kernel), 5, reset), cuda_ms(lambda: run(plain), reps_plain, reset)
+
+    times["k2 bench1152"] = time_chunk(df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
+                                       "bench1152", 2)
+    times["K4 wifi1944"] = time_chunk(dl.bp_stream_chunk_layered_fast,
+                                      dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 1)
+    for tag in ("k2 bench1152", "K4 wifi1944"):
+        print(f"time {tag} BP 6 passes from a full pool B={BATCH}: kernel {times[tag][0]:.3f} ms, "
+              f"plain {times[tag][1]:.3f} ms [{name_power}]")
+    # end-to-end sweep rate from the Simulator's own float timing (the
+    # results file keeps frame_time to 6 decimals)
+    for key, layered, snrs in (("bench1152", False, (2.0, 2.5)), ("wifi1944", False, (1.5, 2.0)),
+                               ("wifi1944", True, (1.5, 2.0))):
+        for snr in snrs:
+            res = Simulator(
+                codes[key], DecoderParams(iterations=ITERS, layered=layered),
+                ChannelParams(seed=1, x_range=(snr, snr + 0.01, 1.0)),
+                SimulationParams(batch_size=BATCH, fec=50, max_frames=2_000_000),
+                device=dev, verbose=False, use_pallas=True,
+            ).start()
+            print(f"sweep {key} {'layered-fast' if layered else 'flooding'} BP ET SNR {snr} dB: "
+                  f"{1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, "
+                  f"FER {res.fer[0]:.3e}, {int(res.frames[0])} frames) [{name_power}]")
+
+    # each kernel's count from the run of the path it belongs to
+    launches = {**layered_launches,
+                "bp_decode_fused": flooding_launches["bp_decode_fused"],
+                "bp_stream_chunk_fused": flooding_launches["bp_stream_chunk_fused"]}
+    fused = "libldpc_tpu_torch/csrc/decode_fused.cu"
+    layered_src = "libldpc_tpu_torch/csrc/decode_layered.cu"
+    rows_json = [
+        ("bp_decode_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
+         times["k1 bench1152"]),
+        ("bp_stream_chunk_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404", err2,
+         times["k2 bench1152"]),
+        ("bp_decode_layered_fast", layered_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1153",
+         err3, times["K3 wifi1944"]),
+        ("bp_stream_chunk_layered_fast", layered_src,
+         "libldpc_tpu/ops/pallas/decode_lanes.py:753", err4, times["K4 wifi1944"]),
+        ("bp_decode_layered", layered_src, "libldpc_tpu/ops/pallas/decode_fused.py:544", err5,
+         times["K5 wifi648"]),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "bp_decode_fused", "route": "cuda", "source": src,
-         "replaces": "libldpc_tpu/ops/pallas/decode_fused.py:617",
-         "launches": launches["bp_decode_fused"], "max_abs_err": err1,
-         "ms": times["bench1152"][0], "plain_ms": times["bench1152"][1]},
-        {"name": "bp_stream_chunk_fused", "route": "cuda", "source": src,
-         "replaces": "libldpc_tpu/ops/pallas/decode_fused.py:404",
-         "launches": launches["bp_stream_chunk_fused"], "max_abs_err": err2,
-         "ms": k2_ms, "plain_ms": p2_ms},
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+        for name, src, rep, err, t in rows_json
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
 """Command-line simulator: the ``ldpcsim`` CLI of :mod:`libldpc_tpu.cli` on
 PyTorch, with the decode kernels on a CUDA device.
 
-Same flags as the JAX CLI plus ``--device`` (default ``cuda``).  Flags for
-what the port does not cover yet are refused with an error naming the
-ROADMAP item; none is silently ignored.
+Same flags as the JAX CLI plus ``--device`` (default ``cuda``).
+``--layer-file`` loads the decoding layers and selects the layered
+schedule, ``--qc-z N|auto`` declares (or finds) the code's QC lifting, and
+``--pallas`` picks between the exact layered schedule and the fast QC
+engine exactly as in the JAX CLI.  Flags for what the port does not cover
+yet are refused with an error naming the ROADMAP item by its title; none
+is silently ignored.
 
 Usage::
 
@@ -18,17 +22,18 @@ import sys
 
 from libldpc_tpu.cli import build_parser as _jax_parser
 
+_CHECKPOINT = 'ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"'
+_MULTI_GPU = 'ROADMAP Queue 1, "Multi-GPU"'
+
 #: flag -> (value it must keep, ROADMAP item that ports it)
 _NOT_PORTED = {
-    "checkpoint": ("", "checkpoint/resume: ROADMAP Queue 1 item 6"),
-    "resume": (False, "checkpoint/resume: ROADMAP Queue 1 item 6"),
-    "error_log": ("", "forensic error log: ROADMAP Queue 1 item 6"),
-    "log_codewords": (False, "forensic error log: ROADMAP Queue 1 item 6"),
-    "points_parallel": (1, "points-parallel sweeps: ROADMAP Queue 1 item 13"),
-    "multihost": (False, "multi-host sweeps: ROADMAP Queue 1 item 13"),
-    "layer_file": ("", "layered schedule: ROADMAP Queue 1 item 9"),
-    "message_dtype": ("float32", "bf16/int8 messages: ROADMAP Queue 2, forms of kernels 1-2"),
-    "qc_z": ("", "QC layered engine: ROADMAP Queue 2 kernel 3"),
+    "checkpoint": ("", _CHECKPOINT),
+    "resume": (False, _CHECKPOINT),
+    "error_log": ("", _CHECKPOINT),
+    "log_codewords": (False, _CHECKPOINT),
+    "points_parallel": (1, _MULTI_GPU),
+    "multihost": (False, _MULTI_GPU),
+    "message_dtype": ("float32", 'ROADMAP Queue 1, "bf16/int8 message forms of kernels 1-2"'),
 }
 
 
@@ -41,8 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "their plain PyTorch versions. (Default: cuda)")
     for action in p._actions:
         if action.dest == "pallas":
-            action.help = ("Accepted for compatibility: on a CUDA device the "
-                           "port always decodes with its fused kernels.")
+            action.help = ("Choose the layered schedule as the JAX CLI does: with "
+                           "--layer-file, a QC code on its natural layers (Z >= 64) "
+                           "runs the fast layered engine, otherwise the exact "
+                           "layered schedule.  Flooding runs the same CUDA kernels "
+                           "with or without it.")
     return p
 
 
@@ -54,9 +62,9 @@ def refused_flags(args) -> list[str]:
         if getattr(args, dest) != keep
     ]
     if args.devices not in (0, 1):
-        out.append("--devices: multi-GPU sweeps are not ported yet (ROADMAP Queue 1 item 13)")
+        out.append(f"--devices: multi-GPU sweeps are not ported yet ({_MULTI_GPU})")
     if args.channel == "BEC":
-        out.append("--channel BEC: not ported yet (ROADMAP Queue 1 item 10)")
+        out.append('--channel BEC: not ported yet (ROADMAP Queue 1, "BEC")')
     return out
 
 
@@ -87,9 +95,15 @@ def main(argv=None) -> int:
     from libldpc_tpu.models.code import LDPCCode
     from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationParams
 
+    from .models import detect_qc
     from .sim.driver import Simulator
 
-    code = LDPCCode.from_files(args.codefile, args.gen_matrix)
+    code = LDPCCode.from_files(args.codefile, args.gen_matrix, args.layer_file)
+    if args.qc_z:
+        # raises when H is not QC at this Z (or, for 'auto', at any Z)
+        detect_qc(code, None if args.qc_z == "auto" else int(args.qc_z))
+        if args.qc_z == "auto":
+            print(f"QC structure detected: Z = {code.qc[0]}")
     bar = "=" * 88
     print(bar)
     print(f"Parity-Check Matrix: {args.codefile}")
@@ -104,6 +118,7 @@ def main(argv=None) -> int:
             early_term=not args.no_early_term,
             iterations=args.num_iterations,
             type=args.decoding,
+            layered=bool(args.layer_file),
         ),
         ChannelParams(seed=args.seed, x_range=tuple(snr), type=args.channel),
         SimulationParams(
@@ -113,6 +128,7 @@ def main(argv=None) -> int:
             result_file=args.output_file,
         ),
         device=args.device,
+        use_pallas=args.pallas,
     )
     print("== Decoder Parameters")
     print(f"Type: {args.decoding}\nIterations: {args.num_iterations}\n"

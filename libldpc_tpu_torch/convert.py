@@ -21,8 +21,9 @@ from .ops.streaming_fused import StreamState
 def from_sorted_device(arrays: Mapping, device="cpu") -> TorchSortedCode:
     """A :class:`TorchSortedCode` from the fields of JAX's
     ``SortedDeviceCode``: ``col_sorted``, ``perm_c2v``, ``bit_pos``,
-    ``puncture``, ``shorten``, ``vn_perm``, ``vn_inv``, ``G`` (or None) and
-    the ``cn_classes``/``vn_classes`` tuples."""
+    ``puncture``, ``shorten``, ``vn_perm``, ``vn_inv``, ``G`` (or None),
+    ``layer_edge_masks`` (or None; optional) and the
+    ``cn_classes``/``vn_classes`` tuples."""
     cn_classes = tuple((int(c), int(d)) for c, d in arrays["cn_classes"])
     vn_classes = tuple((int(c), int(d)) for c, d in arrays["vn_classes"])
 
@@ -30,6 +31,7 @@ def from_sorted_device(arrays: Mapping, device="cpu") -> TorchSortedCode:
         return torch.as_tensor(np.asarray(arrays[name], dtype=np.int32)).to(device)
 
     G = arrays.get("G")
+    masks = arrays.get("layer_edge_masks")
     return TorchSortedCode(
         nc=sum(c for c, _ in vn_classes),
         mc=sum(c for c, _ in cn_classes),
@@ -44,6 +46,8 @@ def from_sorted_device(arrays: Mapping, device="cpu") -> TorchSortedCode:
         vn_perm=idx("vn_perm"),
         vn_inv=idx("vn_inv"),
         G=None if G is None else torch.as_tensor(np.asarray(G, dtype=np.float32)).to(device),
+        layer_edge_masks=None if masks is None else torch.as_tensor(
+            np.asarray(masks, dtype=bool)).to(device),
     )
 
 

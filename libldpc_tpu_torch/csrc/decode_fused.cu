@@ -43,128 +43,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define LDPC_MAX_DC 32
-#define LDPC_FRAMES 32  // frames per block: one per lane of a warp
-#define LDPC_WARPS 8    // warps per block, splitting each phase
+#include "bp_phases.cuh"
+#include "cn_forms.cuh"
 
 namespace {
-
-constexpr float kPadLLR = 1e30f;
-constexpr float kTanhClip = 0.99999994f;  // nextafter(1, 0) in float32
-constexpr float kPhiSumFloor = 1e-30f;
-
-// CN forms, in the order of ops/kernels/decode_fused.py CN_MODES
-enum CnMode { BP = 0, BP_MS = 1, BP_LIN = 2, BP_NMS = 3, BP_OMS = 4, BP_TANH = 5, BP_PHI = 6 };
-
-struct Code {
-  const int* __restrict__ row_ptr;     // [mc + 1]
-  const int* __restrict__ col_sorted;  // [nnz]
-  const int* __restrict__ vn_ptr;      // [nc + 1]
-  const int* __restrict__ perm_c2v;    // [nnz]
-  int nc, mc, nnz;
-};
-
-struct CnParams {
-  int mode;
-  float scale, offset;
-};
-
-__device__ __forceinline__ float sgn(float x) { return signbit(x) ? -1.0f : 1.0f; }
-
-__device__ __forceinline__ float softplus_neg(float a) { return log1pf(expf(-a)); }
-
-__device__ __forceinline__ float lin_approx(float L) {
-  float a = fabsf(L);
-  return a < 1.0f ? -0.375f * a + 0.6825f : (a < 2.625f ? -0.1875f * a + 0.5f : 0.0f);
-}
-
-__device__ __forceinline__ float pair_op(int mode, float x, float y) {
-  float m = fminf(fabsf(x), fabsf(y));
-  float s = sgn(x) * sgn(y) * m;
-  if (mode == BP_MS || mode == BP_NMS || mode == BP_OMS) return s;
-  if (mode == BP_LIN) return s + lin_approx(x + y) - lin_approx(x - y);
-  return s + (softplus_neg(fabsf(x + y)) - softplus_neg(fabsf(x - y)));
-}
-
-__device__ __forceinline__ float tanh_post(float t) {
-  float p = fminf(fmaxf(t, -kTanhClip), kTanhClip);
-  return log1pf(p) - log1pf(-p);
-}
-
-__device__ __forceinline__ float phi(float x) {
-  float e = expf(-fmaxf(x, 1e-6f));
-  return log1pf(e) - log1pf(-e);
-}
-
-__device__ __forceinline__ float phi_out(float s) {
-  return -logf(tanhf(fmaxf(s, kPhiSumFloor) * 0.5f));
-}
-
-__device__ __forceinline__ float postprocess(const CnParams& cp, float v) {
-  if (cp.mode == BP_NMS) return v * cp.scale;
-  if (cp.mode == BP_OMS) return sgn(v) * fmaxf(fabsf(v) - cp.offset, 0.0f);
-  return v;
-}
-
-// The exclusion combine of one check of degree d (2 <= d <= LDPC_MAX_DC)
-// for frame b: out[j] = combine of every input but j, from forward prefixes
-// f[j] = op(f[j-1], M[j]) and a running backward prefix, in the association
-// order of ops/cn_ops.py exclusion_combine (out[j] = op(f[j-1], bwd), bwd
-// grown as op(bwd, M[j])).
-__device__ void check_update(const CnParams& cp, const float* __restrict__ lv2c,
-                             float* __restrict__ lc2v, int e0, int d, size_t B, size_t b) {
-  float M[LDPC_MAX_DC];
-  float F[LDPC_MAX_DC];
-  if (d == 1) {
-    lc2v[e0 * B + b] = postprocess(cp, kPadLLR);
-    return;
-  }
-  if (cp.mode == BP_PHI) {
-    // sign chains (products of +-1) and magnitude chains (sums of phi(|x|))
-    float S[LDPC_MAX_DC];
-    float FS[LDPC_MAX_DC];
-    for (int j = 0; j < d; ++j) {
-      float x = lv2c[(e0 + j) * B + b];
-      S[j] = sgn(x);
-      M[j] = phi(fabsf(x));
-    }
-    FS[0] = S[0];
-    F[0] = M[0];
-    for (int j = 1; j < d; ++j) {
-      FS[j] = FS[j - 1] * S[j];
-      F[j] = F[j - 1] + M[j];
-    }
-    float bs = S[d - 1], ba = M[d - 1];
-    lc2v[(e0 + d - 1) * B + b] = postprocess(cp, FS[d - 2] * phi_out(F[d - 2]));
-    for (int j = d - 2; j >= 1; --j) {
-      lc2v[(e0 + j) * B + b] = postprocess(cp, FS[j - 1] * bs * phi_out(F[j - 1] + ba));
-      bs = bs * S[j];
-      ba = ba + M[j];
-    }
-    lc2v[e0 * B + b] = postprocess(cp, bs * phi_out(ba));
-    return;
-  }
-  const bool tanh_form = cp.mode == BP_TANH;
-  for (int j = 0; j < d; ++j) {
-    float x = lv2c[(e0 + j) * B + b];
-    M[j] = tanh_form ? tanhf(x * 0.5f) : x;
-  }
-  F[0] = M[0];
-  for (int j = 1; j < d; ++j) F[j] = tanh_form ? F[j - 1] * M[j] : pair_op(cp.mode, F[j - 1], M[j]);
-  float bwd = M[d - 1];
-  float o = F[d - 2];
-  lc2v[(e0 + d - 1) * B + b] = postprocess(cp, tanh_form ? tanh_post(o) : o);
-  for (int j = d - 2; j >= 1; --j) {
-    o = tanh_form ? F[j - 1] * bwd : pair_op(cp.mode, F[j - 1], bwd);
-    lc2v[(e0 + j) * B + b] = postprocess(cp, tanh_form ? tanh_post(o) : o);
-    bwd = tanh_form ? bwd * M[j] : pair_op(cp.mode, bwd, M[j]);
-  }
-  lc2v[e0 * B + b] = postprocess(cp, tanh_form ? tanh_post(bwd) : bwd);
-}
-
-// The warps of a block split each phase between them: warp w of the block
-// takes checks (or variables, or transmitted bits) w, w + W, w + 2W, ...
-// for the block's 32 frames, one frame per lane.
 
 // CN phase over this warp's checks: lv2c -> lc2v.
 __device__ void cn_phase(const Code& c, const CnParams& cp, const float* __restrict__ lv2c,
@@ -173,46 +55,6 @@ __device__ void cn_phase(const Code& c, const CnParams& cp, const float* __restr
     int e0 = __ldg(c.row_ptr + r);
     int d = __ldg(c.row_ptr + r + 1) - e0;
     if (d > 0) check_update(cp, lv2c, lc2v, e0, d, B, b);
-  }
-}
-
-// VN phase over this warp's variables: posterior = prior + (m0 + m1 + ...),
-// extrinsic lv2c = posterior - lc2v at each of the variable's edges.
-__device__ void vn_phase(const Code& c, const float* __restrict__ prior,
-                         float* __restrict__ lv2c, const float* __restrict__ lc2v,
-                         float* __restrict__ post, size_t B, size_t b) {
-  for (int v = threadIdx.y; v < c.nc; v += blockDim.y) {
-    int s0 = __ldg(c.vn_ptr + v);
-    int s1 = __ldg(c.vn_ptr + v + 1);
-    float llr = prior[v * B + b];
-    if (s1 > s0) {
-      float tot = lc2v[__ldg(c.perm_c2v + s0) * B + b];
-      for (int s = s0 + 1; s < s1; ++s) tot = tot + lc2v[__ldg(c.perm_c2v + s) * B + b];
-      llr = llr + tot;
-    }
-    post[v * B + b] = llr;
-    for (int s = s0; s < s1; ++s) {
-      size_t e = __ldg(c.perm_c2v + s) * B + b;
-      lv2c[e] = llr - lc2v[e];
-    }
-  }
-}
-
-// Sets bad[lane] when one of this warp's checks is unsatisfied by the
-// decisions post <= 0; stops at the first such check, or as soon as another
-// warp has found one for this frame.
-__device__ void syndrome_part(const Code& c, const float* __restrict__ post, size_t B, size_t b,
-                              volatile int* bad) {
-  for (int r = threadIdx.y; r < c.mc; r += blockDim.y) {
-    if (bad[threadIdx.x]) return;
-    int e1 = __ldg(c.row_ptr + r + 1);
-    int parity = 0;
-    for (int e = __ldg(c.row_ptr + r); e < e1; ++e)
-      parity ^= post[__ldg(c.col_sorted + e) * B + b] <= 0.0f ? 1 : 0;
-    if (parity) {
-      bad[threadIdx.x] = 1;
-      return;
-    }
   }
 }
 
@@ -372,9 +214,6 @@ bp_stream_chunk_fused_kernel(Code c, CnParams cp, float* __restrict__ llr,
     ctr[4 * B + b] += n_start;
   }
 }
-
-inline unsigned grid_for(int B) { return (unsigned)((B + LDPC_FRAMES - 1) / LDPC_FRAMES); }
-const dim3 kBlock(LDPC_FRAMES, LDPC_WARPS);
 
 }  // namespace
 

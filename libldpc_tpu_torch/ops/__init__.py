@@ -1,1 +1,1 @@
-"""PyTorch ops: CN forms, the sorted layout, channels and streaming."""
+"""PyTorch ops: CN forms, the sorted layout, channels, streaming and the layered engine."""

@@ -89,12 +89,12 @@ def simulate_channel(
     """Dispatch on the reference's channel-type strings."""
     if modulation is not None:
         raise NotImplementedError(
-            "higher-order modulation is not ported yet (ROADMAP Queue 1 item 11)"
+            'higher-order modulation is not ported yet (ROADMAP Queue 1, "Modulation")'
         )
     if channel_type == "AWGN":
         return awgn_channel(sdc, gen, batch, x_value)
     if channel_type == "BSC":
         return bsc_channel(sdc, gen, batch, x_value)
     if channel_type == "BEC":
-        raise NotImplementedError("the BEC is not ported yet (ROADMAP Queue 1 item 10)")
+        raise NotImplementedError('the BEC is not ported yet (ROADMAP Queue 1, "BEC")')
     raise ValueError(f"No channel selected: {channel_type!r}")

@@ -2,11 +2,12 @@
 
 ``libldpc_tpu_torch/csrc/*.cu`` is compiled at first use into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds), under ``build/kernels/`` at the root of the checkout.  The file
-name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing is built when a
-module is imported.  A missing ``nvcc`` or a failed build raises with the
-compiler's output.
+seconds), under ``build/kernels/`` at the root of the checkout: one
+``nvcc -c`` per source, all started together, then one link.  The file
+name carries a hash of the sources (headers included) and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
+is built when a module is imported.  A missing ``nvcc`` or a failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: line would otherwise differ in the last bit).  No ``--use_fast_math``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -59,6 +60,19 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libldpc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their output, or a RuntimeError with
+    the compiler's output of every one that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}): {' '.join(c)}\n{o}"
+              for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(f"{' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless this source hash is already built."""
     global last_build_log
@@ -66,17 +80,24 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc = find_nvcc()
+    tag = f"tmp{os.getpid()}"
+    objs = []
+    compiles = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    tmp = out.with_suffix(f".{tag}.so")
+    try:
+        log = _run(compiles)
+        log += _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                      "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    last_build_log = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    last_build_log = log
     return out
 
 
@@ -109,6 +130,33 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_stream_chunk_fused.restype = I
+            tables = [P, P, P, P, P, P]  # row_ptr col_sorted vn_ptr perm_c2v layer_ptr layer_checks
+            lib.ldpc_bp_decode_layered_fast.argtypes = [
+                P, P, P, P, P,  # llr_in app iters iscw lc2v
+                *tables,
+                I, I, I, I, I,  # nc mc nnz nl B
+                I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                P,  # stream
+            ]
+            lib.ldpc_bp_decode_layered_fast.restype = I
+            lib.ldpc_bp_stream_chunk_layered_fast.argtypes = [
+                P, P, P,  # app cw lc2v
+                P, P, P, P, P,  # done iters age avail ctr
+                P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                *tables, P,  # ..., bit_pos
+                I, I, I, I, I, I,  # nc mc nnz nl nct B
+                I, I, I, F, F,  # k cap cn_mode scale offset
+                P,  # stream
+            ]
+            lib.ldpc_bp_stream_chunk_layered_fast.restype = I
+            lib.ldpc_bp_decode_layered.argtypes = [
+                P, P, P, P, P, P,  # llr_in llr_out iters iscw lv2c lc2v
+                *tables,
+                I, I, I, I, I,  # nc mc nnz nl B
+                I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                P,  # stream
+            ]
+            lib.ldpc_bp_decode_layered.restype = I
             lib.ldpc_error_string.argtypes = [I]
             lib.ldpc_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,0 +1,278 @@
+"""The three layered decode kernels, their wrappers and their plain versions.
+
+* :func:`bp_decode_layered_fast` runs ``csrc/decode_layered.cu``'s fast
+  engine, the port of ``libldpc_tpu/ops/pallas/decode_lanes.py``
+  ``kernel_layered_qc`` (with ``_qc_engine``): a batch decode with a
+  persistent APP, each layer updating only its own checks' slots, early
+  termination once per full iteration.
+* :func:`bp_stream_chunk_layered_fast` runs its streaming form, the port of
+  ``kernel_stream_layered_qc``: ``k`` self-refilling passes per lane on the
+  fast engine, with the flooding stream kernel's reload, exact start quota
+  and counters.
+* :func:`bp_decode_layered` runs the exact layered schedule, the port of
+  ``decode_fused.py`` ``kernel_layered`` and ``decode_lanes.py``
+  ``kernel_layered`` (one function, two TPU layouts): per layer, the
+  layer's checks refresh, the whole APP and every extrinsic recompute, and
+  a converged frame freezes.
+
+Each wrapper takes its plain PyTorch version (same signature) only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+Each keeps a launch count, ``<wrapper>.launches``, raised by one at every
+kernel launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..layered import bp_decode_layered_fast_plain, layered_fast_pass
+from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
+from .decode_fused import _check, _lib, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args
+from .layout import KernelTables
+
+
+def _require_fast_layers(tables: KernelTables) -> None:
+    """The fast engine's host gate: its APP updates are race-free only when
+    no layer reaches a variable twice."""
+    if tables.n_layers < 1:
+        raise ValueError("the fast layered engine needs the code's layers "
+                         "(to_sorted_device(code, with_layers=True))")
+    if not tables.layers_disjoint:
+        raise ValueError("the fast layered engine needs layers that touch each "
+                         "variable at most once; decode with the exact layered schedule")
+
+
+def _tables_args(tables: KernelTables):
+    return (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
+            _p(tables.layer_ptr), _p(tables.layer_checks))
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def bp_decode_layered_fast(
+    tables: KernelTables,
+    llr_in: torch.Tensor,  # f32 [nc, B], sorted VN labelling
+    iterations: int = 50,
+    early_term: bool = True,
+    minsum_mode=False,
+) -> SortedDecodeOutput:
+    """The fast layered engine's batch decode, all iterations in one kernel
+    launch.  Same boundary as ``bp_decode_lanes(..., layered=True)`` on a
+    layout with natural-QC layers, in float32: ``llr_out`` is the APP,
+    ``hard = llr_out <= 0``, break-before-increment ``iterations`` and
+    ``is_codeword``; without early termination every frame reports the cap
+    and ``is_codeword`` comes from the last iteration; ``iterations == 0``
+    returns all zeros.  Any ``B``: the last block is masked."""
+    nc = tables.code.nc
+    B = llr_in.shape[1] if llr_in.dim() == 2 else -1
+    _check(llr_in, "llr_in", torch.float32, (nc, B), tables.device)
+    _require_fast_layers(tables)
+    if iterations == 0:
+        return _zero_output(llr_in)
+    if llr_in.device.type == "cpu":
+        return bp_decode_layered_fast_plain(tables, llr_in, iterations, early_term, minsum_mode)
+    _require_cuda(llr_in)
+    lib = _lib(tables)
+    dev = llr_in.device
+    sdc = tables.code
+    app = torch.empty_like(llr_in)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    iscw = torch.empty(B, dtype=torch.int32, device=dev)
+    lc2v = torch.empty((sdc.nnz, B), dtype=torch.float32, device=dev)
+    mode, scale, offset = cn_mode_args(minsum_mode)
+    err = lib.ldpc_bp_decode_layered_fast(
+        _p(llr_in), _p(app), _p(iters), _p(iscw), _p(lc2v), *_tables_args(tables),
+        nc, sdc.mc, sdc.nnz, tables.n_layers, B, iterations, int(bool(early_term)),
+        mode, scale, offset, _stream(llr_in),
+    )
+    _raise_on(lib, err, "bp_decode_layered_fast")
+    bp_decode_layered_fast.launches += 1
+    return SortedDecodeOutput(llr_out=app, hard=app <= 0, iterations=iters, is_codeword=iscw > 0)
+
+
+bp_decode_layered_fast.launches = 0
+
+
+def bp_stream_chunk_layered_fast_plain(
+    tables, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
+    refill, remaining, *, k: int, cap: int, minsum_mode=False,
+) -> None:
+    """Plain version of :func:`bp_stream_chunk_layered_fast`, pass for pass
+    as ``kernel_stream_layered_qc``: starts are granted in lane order (an
+    inclusive scan against ``remaining``)."""
+    sdc = tables.code
+    is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=app.device)
+    is_tx[sdc.bit_pos.long()] = True
+    refill_on = refill != 0
+    for _ in range(k):
+        # ---- lanes injected in flight at age 0 start the engine here
+        raw = (done == 0) & (age == 0)
+        lc2v.masked_fill_(raw[None, :], 0.0)
+        age += raw.to(torch.int32)
+        # ---- reload idle lanes from the pool, within the quota
+        eligible = refill_on & (done != 0) & (avail != 0)
+        rs = eligible & (torch.cumsum(eligible.to(torch.int32), 0) <= remaining)
+        remaining -= rs.sum().to(torch.int32)
+        app.copy_(torch.where(rs, fresh_llr, app))
+        cw.copy_(torch.where(rs, fresh_cw, cw))
+        lc2v.masked_fill_(rs[None, :], 0.0)
+        r = rs.to(torch.int32)
+        done.mul_(1 - r)
+        age.copy_(torch.where(rs, 1, age))
+        iters.mul_(1 - r)
+        avail.sub_(r)
+        ctr[4] += r
+        # ---- one layered iteration over the lanes in flight
+        active = done == 0
+        layered_fast_pass(tables, app, lc2v, ~active, minsum_mode)
+        checking = active & (age >= 1)
+        ok = syndrome_ok_from_posterior(sdc, app.index_select(0, sdc.col_sorted))
+        iters += (checking & ~ok).to(torch.int32)
+        age += active.to(torch.int32)
+        finished = active & ((checking & ok) | (age >= cap + 1))
+        f = finished.to(torch.int32)
+        done += f
+        biterr = (((app <= 0) != (cw != 0)) & is_tx[:, None]).sum(0, dtype=torch.int32)
+        ctr[0] += f * biterr
+        ctr[1] += f * (biterr > 0).to(torch.int32)
+        ctr[2] += f
+        ctr[3] += f * iters
+
+
+def bp_stream_chunk_layered_fast(
+    tables: KernelTables,
+    app: torch.Tensor,  # f32 [nc, B] carried APP posterior
+    cw: torch.Tensor,  # u8 [nc, B] carried true codewords
+    lc2v: torch.Tensor,  # f32 [nnz, B] carried CN-space check messages
+    done: torch.Tensor,  # i32 [B] lane idle (finished or empty)
+    iters: torch.Tensor,  # i32 [B]
+    age: torch.Tensor,  # i32 [B] passes since (re)load (0 = injected, not started)
+    avail: torch.Tensor,  # i32 [B] pool entry unused
+    ctr: torch.Tensor,  # i32 [5, B] counters
+    fresh_llr: torch.Tensor,  # f32 [nc, B] fresh-frame pool
+    fresh_cw: torch.Tensor,  # u8 [nc, B]
+    refill: torch.Tensor,  # i32 [1]: reloads allowed
+    remaining: torch.Tensor,  # i32 [1]: starts left in the quota
+    *,
+    k: int,
+    cap: int,
+    minsum_mode=False,
+) -> None:
+    """``k`` self-refilling passes of the fast layered engine per lane,
+    updating the state in place.
+
+    Per pass and lane: a lane in flight at ``age == 0`` (injected) starts
+    the engine (``lc2v = 0``, ``age = 1``); an idle lane (``done``) with an
+    unused pool entry (``avail``) starts that entry if the quota allows
+    (``remaining`` is decremented per start; APP = the fresh LLRs,
+    ``lc2v = 0``, ``age = 1``); then a lane in flight runs one full layered
+    iteration, checks the syndrome of ``app <= 0``, and finishes on
+    convergence or at ``age >= cap + 1``, adding its transmitted-bit errors
+    (decided from the APP), a frame error, a frame and its iteration count
+    to ``ctr`` rows 0-3 (row 4 counts starts).  On CUDA the quota is one
+    device counter taken with ``atomicSub``: which lanes start differs from
+    the plain version's lane order, the number that start does not."""
+    sdc = tables.code
+    nc, nnz = sdc.nc, sdc.nnz
+    B = app.shape[1] if app.dim() == 2 else -1
+    dev = tables.device
+    for name, t, dtype, shape in (
+        ("app", app, torch.float32, (nc, B)), ("cw", cw, torch.uint8, (nc, B)),
+        ("lc2v", lc2v, torch.float32, (nnz, B)), ("done", done, torch.int32, (B,)),
+        ("iters", iters, torch.int32, (B,)), ("age", age, torch.int32, (B,)),
+        ("avail", avail, torch.int32, (B,)), ("ctr", ctr, torch.int32, (5, B)),
+        ("fresh_llr", fresh_llr, torch.float32, (nc, B)),
+        ("fresh_cw", fresh_cw, torch.uint8, (nc, B)),
+        ("refill", refill, torch.int32, (1,)), ("remaining", remaining, torch.int32, (1,)),
+    ):
+        _check(t, name, dtype, shape, dev)
+    if k < 1 or cap < 1:
+        raise ValueError(f"k ({k}) and cap ({cap}) must be >= 1")
+    _require_fast_layers(tables)
+    if app.device.type == "cpu":
+        return bp_stream_chunk_layered_fast_plain(
+            tables, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr,
+            fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=minsum_mode,
+        )
+    _require_cuda(app)
+    lib = _lib(tables)
+    mode, scale, offset = cn_mode_args(minsum_mode)
+    err = lib.ldpc_bp_stream_chunk_layered_fast(
+        _p(app), _p(cw), _p(lc2v), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+        _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), *_tables_args(tables),
+        _p(tables.bit_pos), nc, sdc.mc, nnz, tables.n_layers, sdc.nct, B, k, cap,
+        mode, scale, offset, _stream(app),
+    )
+    _raise_on(lib, err, "bp_stream_chunk_layered_fast")
+    bp_stream_chunk_layered_fast.launches += 1
+
+
+bp_stream_chunk_layered_fast.launches = 0
+
+
+def bp_decode_layered_plain(
+    tables: KernelTables,
+    llr_in: torch.Tensor,
+    iterations: int = 50,
+    early_term: bool = True,
+    minsum_mode=False,
+) -> SortedDecodeOutput:
+    """Plain version of :func:`bp_decode_layered`: the sorted decoder's
+    exact layered schedule, with ``bp_decode_pallas``'s all-zero output at
+    ``iterations == 0``."""
+    if iterations == 0:
+        return _zero_output(llr_in)
+    return bp_decode_sorted(tables.code, llr_in, iterations, early_term, minsum_mode,
+                            layered=True)
+
+
+def bp_decode_layered(
+    tables: KernelTables,
+    llr_in: torch.Tensor,  # f32 [nc, B], sorted VN labelling
+    iterations: int = 50,
+    early_term: bool = True,
+    minsum_mode=False,
+) -> SortedDecodeOutput:
+    """The exact layered schedule of a batch, all iterations in one kernel
+    launch.  Same boundary as ``bp_decode_pallas(..., layered=True)`` in
+    float32 (see :func:`..sorted.bp_decode_sorted` for the schedule); a
+    frame's iteration counts iff it is unconverged at the start and at the
+    end of the full iteration; without early termination every frame
+    reports the cap and ``is_codeword`` comes from the last layer's
+    syndrome.  Needs at least two layers (with fewer the schedule is
+    flooding: :func:`.decode_fused.bp_decode_fused`)."""
+    nc = tables.code.nc
+    B = llr_in.shape[1] if llr_in.dim() == 2 else -1
+    _check(llr_in, "llr_in", torch.float32, (nc, B), tables.device)
+    if tables.n_layers < 2:
+        raise ValueError(f"the exact layered kernel needs >= 2 layers, got {tables.n_layers}")
+    if iterations == 0:
+        return _zero_output(llr_in)
+    if llr_in.device.type == "cpu":
+        return bp_decode_layered_plain(tables, llr_in, iterations, early_term, minsum_mode)
+    _require_cuda(llr_in)
+    lib = _lib(tables)
+    dev = llr_in.device
+    sdc = tables.code
+    llr_out = torch.empty_like(llr_in)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    iscw = torch.empty(B, dtype=torch.int32, device=dev)
+    lv2c = torch.empty((sdc.nnz, B), dtype=torch.float32, device=dev)
+    lc2v = torch.empty((sdc.nnz, B), dtype=torch.float32, device=dev)
+    mode, scale, offset = cn_mode_args(minsum_mode)
+    err = lib.ldpc_bp_decode_layered(
+        _p(llr_in), _p(llr_out), _p(iters), _p(iscw), _p(lv2c), _p(lc2v), *_tables_args(tables),
+        nc, sdc.mc, sdc.nnz, tables.n_layers, B, iterations, int(bool(early_term)),
+        mode, scale, offset, _stream(llr_in),
+    )
+    _raise_on(lib, err, "bp_decode_layered")
+    bp_decode_layered.launches += 1
+    return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
+                              is_codeword=iscw > 0)
+
+
+bp_decode_layered.launches = 0

@@ -53,6 +53,9 @@ class TorchSortedCode:
     vn_perm: torch.Tensor  # int32 [nc] sorted label -> original label
     vn_inv: torch.Tensor  # int32 [nc] original label -> sorted label
     G: Optional[torch.Tensor]  # f32 [kc, nc] generator, columns sorted
+    #: bool [nl, nnz] per-layer membership of each CN-space slot (the
+    #: layered schedule's masks), or None without layers
+    layer_edge_masks: Optional[torch.Tensor] = None
 
     @property
     def nct(self) -> int:
@@ -82,8 +85,9 @@ class TorchSortedCode:
         return dataclasses.replace(self, **moved)
 
 
-def to_sorted_device(code: LDPCCode, device="cpu") -> TorchSortedCode:
-    """Build the sorted-layout tables of ``code`` on ``device``."""
+def to_sorted_device(code: LDPCCode, device="cpu", with_layers: bool = False) -> TorchSortedCode:
+    """Build the sorted-layout tables of ``code`` on ``device``;
+    ``with_layers`` adds the per-layer CN-slot masks of ``code.layers``."""
     rows = code.rows.astype(np.int64)
     cols = code.cols.astype(np.int64)
     nc, mc, nnz = code.nc, code.mc, code.nnz
@@ -110,6 +114,17 @@ def to_sorted_device(code: LDPCCode, device="cpu") -> TorchSortedCode:
     def dev(x, dtype=torch.int32):
         return torch.as_tensor(np.asarray(x, dtype=np.int64)).to(dtype).to(device)
 
+    layer_edge_masks = None
+    if with_layers and code.layers:
+        # sorted row label of each CN-space slot: class blocks are contiguous rows
+        slot_row = np.repeat(np.arange(mc), np.sort(cn_deg))
+        masks = np.zeros((len(code.layers), nnz), dtype=bool)
+        for li, layer in enumerate(code.layers):
+            in_layer = np.zeros(mc, dtype=bool)
+            in_layer[cn_inv[np.asarray(layer, dtype=np.int64)]] = True
+            masks[li] = in_layer[slot_row]
+        layer_edge_masks = torch.as_tensor(masks).to(device)
+
     return TorchSortedCode(
         nc=nc,
         mc=mc,
@@ -126,6 +141,7 @@ def to_sorted_device(code: LDPCCode, device="cpu") -> TorchSortedCode:
         G=None if code.G is None else torch.as_tensor(
             np.ascontiguousarray(code.G[:, vn_perm], dtype=np.float32)
         ).to(device),
+        layer_edge_masks=layer_edge_masks,
     )
 
 
@@ -218,11 +234,13 @@ def bp_decode_sorted(
     break-before-increment iteration counts (a frame that converges at
     pass ``i`` reports ``i - 1``; one that never converges reports the
     cap).  Without early termination every frame runs every pass and
-    ``is_codeword`` comes from the last one."""
-    if layered:
-        raise NotImplementedError(
-            "layered schedule is not ported yet (ROADMAP Queue 1 item 9)"
-        )
+    ``is_codeword`` comes from the last one.
+
+    ``layered=True`` runs the exact layered schedule when ``sdc`` carries
+    more than one layer mask, and flooding otherwise (as the JAX decoder
+    does)."""
+    if layered and sdc.layer_edge_masks is not None and sdc.layer_edge_masks.shape[0] > 1:
+        return _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode)
     B = llr_in.shape[1]
     dev = llr_in.device
     lv2c = llr_in.index_select(0, sdc.col_sorted)
@@ -246,6 +264,46 @@ def bp_decode_sorted(
             iters += 1
     # with no pass run, the decision word is all zeros (like the JAX decoder)
     hard = llr_out <= 0 if iterations > 0 else torch.zeros_like(llr_in, dtype=torch.bool)
+    return SortedDecodeOutput(
+        llr_out=llr_out,
+        hard=hard,
+        iterations=iters,
+        is_codeword=syndrome_ok_sorted(sdc, hard),
+    )
+
+
+def _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode):
+    """The exact layered schedule of ``_bp_decode_sorted_layered`` in the
+    JAX package: per layer, the full CN update masked to the layer's slots,
+    the full APP recompute from every check's current message, the
+    extrinsics of every slot, and (with early termination) a syndrome
+    check that freezes a frame for the rest of the decode.  An iteration
+    counts for a frame unconverged both at its start and at its end."""
+    B = llr_in.shape[1]
+    dev = llr_in.device
+    masks = sdc.layer_edge_masks[:, :, None]  # [nl, nnz, 1]
+    lv2c = llr_in.index_select(0, sdc.col_sorted)
+    lc2v = torch.zeros((sdc.nnz, B), dtype=llr_in.dtype, device=dev)
+    llr_out = torch.zeros_like(llr_in)
+    hard = torch.zeros_like(llr_in, dtype=torch.bool)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(iterations):
+        if bool(done.all()):
+            break
+        done_start = done
+        for mask in masks:
+            lc2v_l = torch.where(mask, cn_update_sorted(sdc, lv2c, minsum_mode), lc2v)
+            llr_out_l = vn_posterior_sorted(sdc, llr_in, lc2v_l.index_select(0, sdc.perm_c2v))
+            g = llr_out_l.index_select(0, sdc.col_sorted)
+            keep = done[None, :]
+            lv2c = torch.where(keep, lv2c, g - lc2v_l)
+            lc2v = torch.where(keep, lc2v, lc2v_l)
+            llr_out = torch.where(keep, llr_out, llr_out_l)
+            hard = torch.where(keep, hard, llr_out_l <= 0)
+            if early_term:
+                done = done | syndrome_ok_from_posterior(sdc, g)
+        iters += (~done_start & ~done).to(torch.int32)
     return SortedDecodeOutput(
         llr_out=llr_out,
         hard=hard,

@@ -2,7 +2,7 @@
 :mod:`libldpc_tpu.ops.streaming`).
 
 The XLA streaming decoder of that module (``StreamState``,
-``_superstep_body``) is not ported yet (ROADMAP Queue 1 item 7); the
+``_superstep_body``) is not ported yet (ROADMAP Queue 1, "XLA streaming"); the
 streaming sweep runs on the fused kernel (:mod:`.streaming_fused`), which
 needs only these pieces.
 """

@@ -1,11 +1,19 @@
-"""Streaming early-termination sweep on the fused streaming kernel.
+"""Streaming early-termination sweep on the fused streaming kernels.
 
 The port of :mod:`libldpc_tpu.ops.streaming_pallas` on one device.  Every
 batch lane is an independent frame stream that reloads as soon as its frame
 converges, so device work per frame tracks ``avg_iter`` rather than the
 batch's slowest frame.  The per-lane loop (decode, counting, reload) lives
-in :func:`~.kernels.decode_fused.bp_stream_chunk_fused`; between its
-launches this module refreshes the lane-aligned fresh-frame pool.
+in :func:`~.kernels.decode_fused.bp_stream_chunk_fused` (flooding) or, with
+``layered=True``, in the fast layered engine's
+:func:`~.kernels.decode_layered.bp_stream_chunk_layered_fast`; between
+their launches this module refreshes the lane-aligned fresh-frame pool.
+
+**Layered state.**  As in the JAX package (``kernel_stream_layered_qc``),
+the state tuple keeps its shapes and is read differently: the ``llr_in``
+plane carries the persistent APP and the ``lv2c`` plane the CN-space check
+messages; a reload sets the APP to the fresh LLRs, the messages to 0 and
+``age`` to 1.
 
 **Pool.**  Lane ``i`` reloads only from pool entry ``i``.  Before each
 chunk, once at least 3/4 of the entries (the JAX package's watermark)
@@ -30,6 +38,7 @@ import torch
 
 from .channel import simulate_channel
 from .kernels.decode_fused import bp_stream_chunk_fused
+from .kernels.decode_layered import bp_stream_chunk_layered_fast
 from .kernels.layout import KernelTables
 from .streaming import _INT32_SAFE, StreamDeltas
 
@@ -38,9 +47,9 @@ from .streaming import _INT32_SAFE, StreamDeltas
 class StreamState:
     """Per-lane stream state (batch on the last axis)."""
 
-    llr_in: torch.Tensor  # f32 [nc, B] carried channel LLRs
+    llr_in: torch.Tensor  # f32 [nc, B] carried channel LLRs (layered: the APP)
     codeword: torch.Tensor  # u8 [nc, B] carried true codewords
-    lv2c: torch.Tensor  # f32 [nnz, B] messages (CN-space slots)
+    lv2c: torch.Tensor  # f32 [nnz, B] messages (CN-space slots; layered: lc2v)
     done: torch.Tensor  # i32 [B] lane idle (finished or empty)
     iters: torch.Tensor  # i32 [B]
     age: torch.Tensor  # i32 [B] passes since (re)load (0 = warm-up pending)
@@ -77,11 +86,14 @@ def make_streaming_fused_step(
     batch: int,
     chunk_iters: int = 0,
     max_frames: int = int(10e9),
+    layered: bool = False,
 ):
     """Build ``(init_fn, step_fn)``.  ``step_fn(state, gen, x_value,
     refill) -> (state, StreamDeltas)`` runs one super-step of about one
     decode's worth of passes (``n_outer`` chunks of ``k`` passes), drawing
-    channel batches from ``gen``; ``refill=False`` drains."""
+    channel batches from ``gen``; ``refill=False`` drains.  ``layered``
+    decodes on the fast layered engine (a pass is one full layered
+    iteration) instead of flooding."""
     if channel_type == "BEC":
         raise ValueError("streaming decode does not cover the BEC decoder")
     iterations = dec.iterations
@@ -96,6 +108,7 @@ def make_streaming_fused_step(
         flag: torch.full((1,), int(flag), dtype=torch.int32, device=dev) for flag in (False, True)
     }
     sdc = tables.code
+    chunk = bp_stream_chunk_layered_fast if layered else bp_stream_chunk_fused
 
     def init_fn() -> StreamState:
         return init_state(tables, batch)
@@ -115,7 +128,7 @@ def make_streaming_fused_step(
             remaining = torch.clamp(
                 quota - st.started - st.ctr[4].sum(dtype=torch.int64), 0, _INT32_SAFE
             ).to(torch.int32)
-            bp_stream_chunk_fused(
+            chunk(
                 tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
                 st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_t, remaining,
                 k=k, cap=iterations, minsum_mode=dec.cn_mode,

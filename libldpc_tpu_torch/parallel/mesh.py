@@ -1,8 +1,8 @@
 """The per-batch simulation step (from :mod:`libldpc_tpu.parallel.mesh`).
 
 One device, no mesh: channel simulation -> decode -> error counting.
-Points-parallel and multi-GPU sharding are not ported yet (ROADMAP Queue 1
-item 13).
+Points-parallel and multi-GPU sharding are not ported yet (ROADMAP Queue 1,
+"Multi-GPU").
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from ..ops.channel import simulate_channel
 from ..ops.kernels.decode_fused import bp_decode_fused
+from ..ops.kernels.decode_layered import bp_decode_layered, bp_decode_layered_fast
 from ..ops.kernels.layout import KernelTables
 
 
@@ -25,6 +26,17 @@ class StepCounters(NamedTuple):
     iter_sum: torch.Tensor  # sum of per-frame iterations
 
 
+def _batch_decoder(tables: KernelTables, schedule: str):
+    """The batch kernel of a schedule (``"flooding"``, ``"layered"`` or
+    ``"layered-fast"``).  The exact layered schedule with fewer than two
+    layers is flooding, as in the JAX decoders."""
+    if schedule == "layered-fast":
+        return bp_decode_layered_fast
+    if schedule == "layered" and tables.n_layers > 1:
+        return bp_decode_layered
+    return bp_decode_fused
+
+
 def _sim_and_count(
     tables: KernelTables,
     gen: torch.Generator,
@@ -32,11 +44,12 @@ def _sim_and_count(
     channel_type: str,
     dec,
     batch: int,
+    schedule: str,
 ) -> StepCounters:
-    """Simulate, decode with the batch kernel, count.  Bit errors count the
-    transmitted bits (``bit_pos``) only."""
+    """Simulate, decode with the schedule's batch kernel, count from its
+    posterior.  Bit errors count the transmitted bits (``bit_pos``) only."""
     ch = simulate_channel(tables.code, channel_type, gen, batch, x_value)
-    out = bp_decode_fused(
+    out = _batch_decoder(tables, schedule)(
         tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
         minsum_mode=dec.cn_mode,
     )
@@ -53,11 +66,11 @@ def _sim_and_count(
 
 
 def make_sim_step(
-    tables: KernelTables, channel_type: str, dec, batch: int
+    tables: KernelTables, channel_type: str, dec, batch: int, schedule: str
 ) -> Callable[[torch.Generator, float], StepCounters]:
     """``step(gen, x_value) -> StepCounters`` on ``tables``' device."""
 
     def step(gen: torch.Generator, x_value: float) -> StepCounters:
-        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch)
+        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch, schedule)
 
     return step

@@ -3,9 +3,12 @@
 Each sweep point runs device batches until the reference's stopping rule
 ``fec >= minFec || frames >= maxFrames || stop`` is met, evaluated on the
 host between batches.  With early termination on (the default) the point
-runs on the streaming kernel; otherwise each batch is one launch of the
-batch decode kernel.  Routing is by device only: on a CUDA device the two
-CUDA kernels run, on the CPU their plain PyTorch versions.
+runs on a streaming kernel; otherwise each batch is one launch of a batch
+decode kernel.  The schedule (flooding, exact layered, or the fast layered
+engine) is the one the JAX package runs for the same code and flags
+(:func:`select_schedule`); the exact layered schedule is batch-stepped,
+as there.  On a CUDA device the CUDA kernels run, on the CPU their plain
+PyTorch versions.
 
 Kept from the JAX driver: the sweep values (float accumulation, max
 exclusive, reversed for BSC), the warm-up batch outside the frame clock,
@@ -19,6 +22,7 @@ points-parallel and multi-device sweeps are not ported yet (ROADMAP).
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 import time
 import warnings
@@ -32,6 +36,7 @@ from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationPar
 
 from ..ops.channel import make_generator
 from ..ops.kernels.layout import kernel_tables
+from ..ops.layered import natural_qc_layers
 from ..ops.sorted import to_sorted_device
 from ..ops.streaming_fused import make_streaming_fused_step
 from ..parallel.mesh import make_sim_step
@@ -62,22 +67,57 @@ class _PointCounters:
     next_batch: int = 0
 
 
+#: Routing constants of the JAX package's driver (``libldpc_tpu/sim/driver.py``),
+#: mirrored here only so that one command line selects the same schedule in
+#: both packages (:func:`select_schedule`).  There they bound what its TPU
+#: kernels compile; the CUDA kernels have no such limits.
+FUSED_EDGE_SPACE_LIMIT = 4096
+QC_LANES_EDGE_SPACE_LIMIT = 786432
+
+
 def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams) -> None:
     """Raise for every setting the port does not cover yet, naming the
-    ROADMAP item that will."""
-    if dec.layered:
-        raise NotImplementedError("layered schedule: ROADMAP Queue 1 item 9")
+    ROADMAP Queue 1 item that will by its title."""
     if dec.message_dtype != "float32":
         raise NotImplementedError(
-            f"message dtype {dec.message_dtype}: ROADMAP Queue 2, bf16/int8 "
-            "forms of kernels 1-2"
+            f'message dtype {dec.message_dtype}: ROADMAP Queue 1, "bf16/int8 message '
+            'forms of kernels 1-2"'
         )
     if ch.type == "BEC":
-        raise NotImplementedError("BEC channel: ROADMAP Queue 1 item 10")
+        raise NotImplementedError('BEC channel: ROADMAP Queue 1, "BEC"')
     if sim.checkpoint_file:
-        raise NotImplementedError("checkpoint/resume: ROADMAP Queue 1 item 6")
+        raise NotImplementedError(
+            'checkpoint/resume: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
     if sim.error_log_file:
-        raise NotImplementedError("forensic error log: ROADMAP Queue 1 item 6")
+        raise NotImplementedError(
+            'forensic error log: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
+
+
+def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool) -> str:
+    """The schedule the JAX package's ``Simulator`` decodes with for this
+    code and these flags (the ``schedule=`` of its ``decode_path``).
+
+    ``"flooding"`` without ``dec.layered``.  ``"layered-fast"`` (the fast
+    QC engine) where its ``_select_layout`` reaches the lanes qc transport
+    with natural-QC layers: ``use_pallas``, layers that are the code's
+    natural QC schedule (:func:`..ops.layered.natural_qc_layers`),
+    ``Z >= 64`` (the qc transport's 2x lane-inflation cap), a Beneš-padded
+    edge space past ``FUSED_EDGE_SPACE_LIMIT`` and a qc edge space within
+    ``QC_LANES_EDGE_SPACE_LIMIT``.  ``"layered"`` (the exact schedule)
+    otherwise.  This mirrors the JAX routing only so that the same command
+    line gives the same schedule (and FER); it assumes that the qc lanes
+    layout builds, which holds for QC codes whose edges are listed row by
+    row in one column order per base row (``expand_qc``, and ``detect_qc``
+    on files written from such codes)."""
+    if not dec.layered:
+        return "flooding"
+    if use_pallas and natural_qc_layers(code):
+        Z = int(code.qc[0])
+        benes_pad = 1 << max(1, (max(2, code.nnz) - 1).bit_length())
+        qc_pad = code.nnz // Z * (math.ceil(Z / 128) * 128)
+        if Z >= 64 and benes_pad > FUSED_EDGE_SPACE_LIMIT and qc_pad <= QC_LANES_EDGE_SPACE_LIMIT:
+            return "layered-fast"
+    return "layered"
 
 
 def resolve_device(device) -> torch.device:
@@ -103,6 +143,7 @@ class Simulator:
         simulation_params: SimulationParams = SimulationParams(),
         device="cuda",
         verbose: bool = True,
+        use_pallas: bool = False,
     ):
         check_supported(decoder_params, channel_params, simulation_params)
         self.device = resolve_device(device)
@@ -111,12 +152,18 @@ class Simulator:
         self.ch = channel_params
         self.sim = simulation_params
         self.verbose = verbose
-        self.tables = kernel_tables(to_sorted_device(code, self.device))
+        # use_pallas (the JAX CLI's --pallas) only chooses the layered
+        # schedule, as it does in the JAX package; the CUDA kernels run either way
+        self.schedule = select_schedule(code, decoder_params, use_pallas)
+        self.tables = kernel_tables(to_sorted_device(
+            code, self.device, with_layers=self.schedule != "flooding"))
         batch = simulation_params.batch_size
+        # the exact layered schedule stays batch-stepped, as in the JAX package
         self._streaming = (
             simulation_params.streaming
             and decoder_params.early_term
             and decoder_params.iterations >= 1
+            and self.schedule != "layered"
         )
         if self._streaming:
             self._stream_init, self._stream_step = make_streaming_fused_step(
@@ -126,10 +173,12 @@ class Simulator:
                 batch,
                 chunk_iters=simulation_params.streaming_chunk,
                 max_frames=simulation_params.max_frames,
+                layered=self.schedule == "layered-fast",
             )
             self._step = None
         else:
-            self._step = make_sim_step(self.tables, channel_params.type, decoder_params, batch)
+            self._step = make_sim_step(
+                self.tables, channel_params.type, decoder_params, batch, self.schedule)
         self.results: Optional[SimResults] = None
         self.decode_path = self._describe_decode_path()
 
@@ -141,7 +190,7 @@ class Simulator:
             f"kernel={kernel}",
             "dtype=float32",
             f"cn={self.dec.type}",
-            "schedule=flooding",
+            f"schedule={self.schedule}",
             f"streaming={'on' if self._streaming else 'off'}",
         ]
         if self.device.type == "cuda":

@@ -78,9 +78,9 @@ def test_draws_follow_the_key(sdc):
 
 def test_not_ported_channels_raise(sdc):
     gen = channel.make_generator("cpu", 0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "BEC"'):
         channel.simulate_channel(sdc, "BEC", gen, 4, 0.1)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "Modulation"'):
         channel.simulate_channel(sdc, "AWGN", gen, 4, 1.0, modulation=object())
     with pytest.raises(ValueError, match="No channel"):
         channel.simulate_channel(sdc, "FOO", gen, 4, 1.0)

@@ -20,7 +20,9 @@ MODULES = [
     "libldpc_tpu_torch.ops.cn_ops",
     "libldpc_tpu_torch.ops.kernels.build",
     "libldpc_tpu_torch.ops.kernels.decode_fused",
+    "libldpc_tpu_torch.ops.kernels.decode_layered",
     "libldpc_tpu_torch.ops.kernels.layout",
+    "libldpc_tpu_torch.ops.layered",
     "libldpc_tpu_torch.ops.sorted",
     "libldpc_tpu_torch.ops.streaming",
     "libldpc_tpu_torch.ops.streaming_fused",

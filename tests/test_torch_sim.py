@@ -107,12 +107,15 @@ def test_cuda_device_without_gpu_raises(files, tmp_path):
         cli.main([str(d / "h.txt"), str(tmp_path / "r.txt")] + SWEEP + ["--device", "cuda"])
 
 
+CHECKPOINT = '"Checkpoint/resume and the forensic error log"'
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--checkpoint", "c.json"], "item 6"), (["--error-log", "e.txt"], "item 6"),
-    (["--points-parallel", "2"], "item 13"), (["--multihost"], "item 13"),
-    (["--devices", "2"], "item 13"), (["--layer-file", "l.txt"], "item 9"),
-    (["--message-dtype", "bfloat16"], "Queue 2"), (["--qc-z", "auto"], "Queue 2"),
-    (["--channel", "BEC"], "item 10"),
+    (["--checkpoint", "c.json"], CHECKPOINT), (["--error-log", "e.txt"], CHECKPOINT),
+    (["--points-parallel", "2"], '"Multi-GPU"'), (["--multihost"], '"Multi-GPU"'),
+    (["--devices", "2"], '"Multi-GPU"'),
+    (["--message-dtype", "bfloat16"], '"bf16/int8 message forms of kernels 1-2"'),
+    (["--channel", "BEC"], '"BEC"'),
 ])
 def test_refuses_unported_flags(files, tmp_path, capsys, flags, item):
     _, d = files

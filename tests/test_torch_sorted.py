@@ -120,9 +120,3 @@ def test_zero_iterations(setup):
     llr = awgn_llrs(code, jsdc.vn_perm, 8, 1.0, seed=1)
     out = tsorted.bp_decode_sorted(tsdc, torch.from_numpy(llr), 0)
     assert not out.hard.any() and out.is_codeword.all() and not out.iterations.any()
-
-
-def test_layered_not_ported(setup):
-    _, _, tsdc = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        tsorted.bp_decode_sorted(tsdc, torch.zeros(tsdc.nc, 4), 5, layered=True)
