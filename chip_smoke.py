@@ -8,9 +8,13 @@ It builds the CUDA decode kernels from ``libldpc_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main paths' shapes, drives
 the ``ldpcsim-torch`` sweeps on the card (the flooding sweep of the 1152
 code; the 802.11n layered sweep: wifi 1944 on the fast QC engine, streaming
-and fixed-iteration, and wifi 648 on the exact layered schedule), times
-kernels against plain versions, and prints a ``{"kernels": [...]}`` line
-and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
+and fixed-iteration, and wifi 648 on the exact layered schedule; the BEC
+sweep of the 1152 code and the BEC streaming step), times kernels against
+plain versions, and prints a ``{"kernels": [...]}`` line (each kernel with
+its launches on its path, its error against the plain version, its time,
+the plain version's, and its bound: the larger of the bytes it must move
+over the HBM rate and its operations over the float32 rate) and, last, an
+``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
 """
@@ -34,6 +38,23 @@ COMPARE_SNR_DB = 1.5  # inside the waterfall of every code here (sigma^2 = 10^(-
 SWEEP = ["1.0", "3.01", "0.5"]  # 1.0 .. 3.0 dB: the 1152 code's waterfall
 LAYERED_SWEEP = ["1.0", "2.51", "0.5"]  # 1.0 .. 2.5 dB: wifi 1944's waterfall
 FORMS = ("BP_MS", ("BP_NMS", 0.75, 0.15), "BP")
+BEC_EPS = 0.40  # inside the 1152 code's BEC waterfall (BP threshold ~0.429)
+BEC_SWEEP = ["0.30", "0.451", "0.05"]  # 0.45 .. 0.30, run reversed
+#: The card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s,
+#: and float32 operations/s outside the tensor cores, against which the
+#: byte and integer operations of the decoders are counted too.
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12
+#: Operations per CN-space slot and iteration, counted from the kernels:
+#: the check combine makes ~3 pairwise operations per slot (forward,
+#: backward, exclusion), a BP box-plus ~10 (min, sign, two exp, two log1p,
+#: adds), the VN sum and extrinsic 2, the syndrome 2.  The fast layered
+#: engine adds the APP update (3); the exact layered schedule recomputes
+#: every posterior and syndrome per layer.  The BEC peeling: 4 byte
+#: operations per slot in the check phase, 4 in the variable phase.
+OPS_BP_SLOT = 3 * 10 + 2 + 2
+OPS_BP_FAST_SLOT = 3 * 10 + 3 + 2
+OPS_BEC_SLOT = 8
 
 
 def check(cond, msg: str) -> None:
@@ -67,6 +88,12 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take (ms) and what sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare_batch(tag, kernel, plain, tb, llr) -> float:
@@ -111,13 +138,14 @@ def main() -> int:
     from libldpc_tpu_torch.models import (
         make_benchmark_code, wifi_code, write_codefile, write_layerfile,
     )
-    from libldpc_tpu_torch.ops.channel import awgn_channel, make_generator
+    from libldpc_tpu_torch.ops.channel import awgn_channel, bec_channel, make_generator
     from libldpc_tpu_torch.ops.kernels import build
+    from libldpc_tpu_torch.ops.kernels import decode_bec as db
     from libldpc_tpu_torch.ops.kernels import decode_fused as df
     from libldpc_tpu_torch.ops.kernels import decode_layered as dl
     from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
     from libldpc_tpu_torch.ops.sorted import to_sorted_device
-    from libldpc_tpu_torch.ops.streaming_fused import init_state
+    from libldpc_tpu_torch.ops.streaming_fused import init_state, make_streaming_fused_step
     from libldpc_tpu_torch.sim.driver import (
         ChannelParams, DecoderParams, SimulationParams, Simulator,
     )
@@ -230,6 +258,67 @@ def main() -> int:
     err5 = compare_batch("K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain,
                          tables["wifi648"], llrs("wifi648", 5).llr)
 
+    # ---- 7b. K6 (BEC peeling, batch) against its plain version: integer
+    # algebra, so all four outputs must be equal byte for byte
+    def bec_frames(key, point, eps=BEC_EPS):
+        return bec_channel(tables[key].code, make_generator(dev, 8, point, 0), BATCH, eps)
+
+    err6 = 0.0  # largest |kernel - plain| over symbols, decisions and iteration counts
+    for key in ("bench1152", "wifi1944"):
+        ch = bec_frames(key, 0)
+        for et in (True, False):
+            for stale in (None, 0):
+                got = db.bec_decode_fused(tables[key], ch.llr, ch.codeword, ITERS, et, stale)
+                want = db.bec_decode_fused_plain(tables[key], ch.llr, ch.codeword, ITERS, et, stale)
+                torch.cuda.synchronize()
+                same = [torch.equal(a, b) for a, b in zip(got, want)]
+                err6 = max([err6] + [float((a.int() - b.int()).abs().max())
+                                     for a, b in zip(got, want)])
+                print(f"K6 {key} eps {BEC_EPS} et={int(et)} compat={int(stale is not None)}: "
+                      f"equal {same} avg_iter {got.iterations.float().mean().item():.3f} "
+                      f"resolved {got.resolved.float().mean().item():.4f}")
+                check(all(same), f"K6 {key} not bit-exact")
+
+    # ---- 7c. K7 (BEC peeling, stream) against its plain version and K6:
+    # every frame enters through the pool (a reload starts from the channel
+    # symbols, as the batch decode does), then the lanes drain
+    def bec_drain(fn, tb, ch):
+        st = init_state(tb, BATCH, "BEC")
+        st.fresh_llr.copy_(ch.llr)
+        st.fresh_cw.copy_(ch.codeword)
+        st.avail.fill_(1)
+        refill = torch.ones(1, dtype=torch.int32, device=dev)
+        remaining = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
+        for _ in range(ITERS):
+            fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+               st.fresh_llr, st.fresh_cw, refill, remaining, k=6, cap=ITERS)
+            refill.zero_()
+            if int((st.done == 0).sum()) == 0:
+                return st.ctr.sum(1).tolist()
+        raise RuntimeError("BEC streams did not drain")
+
+    tb7, ch7 = tables["bench1152"], bec_frames("bench1152", 1)
+    got7 = bec_drain(db.bec_stream_chunk_fused, tb7, ch7)
+    want7 = bec_drain(db.bec_stream_chunk_fused_plain, tb7, ch7)
+    out6 = db.bec_decode_fused(tb7, ch7.llr, ch7.codeword, ITERS, True)
+    bp7 = tb7.code.bit_pos.long()
+    errs6 = (out6.hard[bp7] != ch7.codeword[bp7]).sum(0)
+    batch7 = [int(errs6.sum()), int((errs6 > 0).sum()), BATCH, int(out6.iterations.sum()), BATCH]
+    print(f"K7 drain bench1152 eps {BEC_EPS}: kernel {got7} plain {want7} K6 batch {batch7}")
+    check(got7 == want7 == batch7, "K7 drained totals differ from its plain version or K6")
+    err7 = float(max(abs(a - b) for a, b in zip(got7, want7)))
+    st = init_state(tb7, BATCH, "BEC")
+    st.fresh_llr.copy_(ch7.llr)
+    st.fresh_cw.copy_(ch7.codeword)
+    st.avail.fill_(1)
+    remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
+    db.bec_stream_chunk_fused(tb7, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
+                              st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining,
+                              k=6, cap=ITERS)
+    starts = int(st.ctr[4].sum())
+    print(f"K7 quota 5000: starts {starts}, pool entries used {BATCH - int(st.avail.sum())}")
+    check(starts == 5000 == BATCH - int(st.avail.sum()), "K7 quota not exact")
+
     # ---- 8. the flooding slice: the CLI sweep of the 1152 code on the card
     WORK.mkdir(parents=True, exist_ok=True)
 
@@ -260,7 +349,8 @@ def main() -> int:
         return lines[0], rows
 
     counted = (df.bp_decode_fused, df.bp_stream_chunk_fused, dl.bp_decode_layered_fast,
-               dl.bp_stream_chunk_layered_fast, dl.bp_decode_layered)
+               dl.bp_stream_chunk_layered_fast, dl.bp_decode_layered, db.bec_decode_fused,
+               db.bec_stream_chunk_fused)
 
     def zero_counts():
         for fn in counted:
@@ -316,6 +406,46 @@ def main() -> int:
           f"{rows_flood[0][4]} FER {rows_flood[0][1]} [{name_power}]")
     check(at15[4] < rows_flood[0][4], "layered avg_iter not below flooding")
 
+    # ---- 9b. the BEC slice: the CLI's --channel BEC sweep of the 1152 code,
+    # a fixed-iteration point, the 802.11n code with --layer-file --pallas
+    # (the peeling runs flooding), and the BEC streaming step
+    zero_counts()
+    head_b, rows_b = run_cli("bench1152", "res_bec.txt", BEC_SWEEP, "--channel", "BEC",
+                             "--frame-error-count", "50", "--max-frames", "2000000")
+    head_bf, fixed_b = run_cli("bench1152", "res_bec_fixed.txt", ["0.40", "0.401", "1"],
+                               "--channel", "BEC", "--frame-error-count", "50", "--max-frames",
+                               str(4 * BATCH), "--no-early-term")
+    head_bw, rows_bw = run_cli("wifi1944", "res_bec_1944.txt", ["0.40", "0.401", "1"],
+                               "--channel", "BEC", "--qc-z", "81", "--frame-error-count", "50",
+                               "--max-frames", str(4 * BATCH), layered=True)
+    # the second entry point: make_streaming_fused_step(tables, "BEC", ...)
+    sinit, sstep = make_streaming_fused_step(tables["bench1152"], "BEC",
+                                             DecoderParams(iterations=ITERS), BATCH,
+                                             max_frames=4 * BATCH)
+    sst, s_frames, s_fec, s_iter = sinit(), 0, 0, 0
+    for step in range(200):
+        sst, acc = sstep(sst, make_generator(dev, 9, 0, step), BEC_EPS, True)
+        vals = torch.stack(list(acc)).tolist()
+        s_frames, s_fec, s_iter = s_frames + vals[2], s_fec + vals[1], s_iter + vals[3]
+        if s_frames >= 4 * BATCH and vals[4] == 0:
+            break
+    bec_launches = read_counts()
+    print(f"BEC path launches: {bec_launches}")
+    print(f"BEC streaming step eps {BEC_EPS}: {s_frames} frames, FER {s_fec / s_frames:.4e}, "
+          f"avg_iter {s_iter / s_frames:.3f}")
+    check(bec_launches["bec_decode_fused"] > 0, "the BEC sweep did not run K6")
+    check(bec_launches["bec_stream_chunk_fused"] > 0, "the BEC streaming step did not run K7")
+    check(s_frames == 4 * BATCH and int(sst.started) == 4 * BATCH, "BEC streaming quota")
+    for head in (head_b, head_bf, head_bw):
+        check(head.startswith("# kernel=cuda-bec dtype=uint8-3state cn=peeling "
+                              "schedule=flooding streaming=off"), "BEC provenance line")
+    check(len(rows_b) == 4 and [r[0] for r in rows_b] == sorted((r[0] for r in rows_b),
+                                                                 reverse=True),
+          "BEC sweep points")
+    check(all(a[1] > b[1] for a, b in zip(rows_b, rows_b[1:])), "BEC FER does not fall with eps")
+    check(all(0 <= r[4] <= ITERS for r in rows_b + rows_bw), "BEC avg_iter out of range")
+    check(fixed_b[0][4] == ITERS, "fixed-iteration BEC point did not run every iteration")
+
     # ---- 10. times (CUDA events), kernel against plain
     times = {}
     for key in ("bench1152", "wifi1944"):
@@ -350,15 +480,70 @@ def main() -> int:
                st.fresh_llr, st.fresh_cw, refill_on, box["rem"], k=6, cap=ITERS,
                minsum_mode="BP")
 
-        return cuda_ms(lambda: run(kernel), 5, reset), cuda_ms(lambda: run(plain), reps_plain, reset)
+        ms = cuda_ms(lambda: run(kernel), 5, reset)
+        # frame-passes the kernel ran: every lane starts at age 1 and adds
+        # one per pass
+        box_passes[0] = int(box["st"].age.sum()) - int(box["st"].ctr[4].sum())
+        return ms, cuda_ms(lambda: run(plain), reps_plain, reset)
+
+    box_passes = [0]
 
     times["k2 bench1152"] = time_chunk(df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
                                        "bench1152", 2)
+    passes = {"k2 bench1152": int(box_passes[0])}
     times["K4 wifi1944"] = time_chunk(dl.bp_stream_chunk_layered_fast,
                                       dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 1)
+    passes["K4 wifi1944"] = int(box_passes[0])
     for tag in ("k2 bench1152", "K4 wifi1944"):
         print(f"time {tag} BP 6 passes from a full pool B={BATCH}: kernel {times[tag][0]:.3f} ms, "
               f"plain {times[tag][1]:.3f} ms [{name_power}]")
+    # K6 (no ET: every frame runs every iteration) and K7 (6 passes from a
+    # full pool), BEC at eps 0.40
+    for key in ("bench1152", "wifi1944"):
+        tb_, ch = tables[key], bec_frames(key, 2)
+        times[f"K6 {key}"] = (
+            cuda_ms(lambda: db.bec_decode_fused(tb_, ch.llr, ch.codeword, ITERS, False), 5),
+            cuda_ms(lambda: db.bec_decode_fused_plain(tb_, ch.llr, ch.codeword, ITERS, False), 2))
+        print(f"time K6 {key} BEC {ITERS} it no-ET B={BATCH}: kernel {times[f'K6 {key}'][0]:.3f} "
+              f"ms, plain {times[f'K6 {key}'][1]:.3f} ms [{name_power}]")
+    box7 = {}
+    ch7t = bec_frames("bench1152", 3)
+
+    def reset7():
+        st_ = init_state(tb7, BATCH, "BEC")
+        st_.fresh_llr.copy_(ch7t.llr)
+        st_.fresh_cw.copy_(ch7t.codeword)
+        st_.avail.fill_(1)
+        box7["st"] = st_
+        box7["rem"] = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
+
+    def run7(fn):
+        st_ = box7["st"]
+        fn(tb7, st_.llr_in, st_.codeword, st_.lv2c, st_.done, st_.iters, st_.age, st_.avail,
+           st_.ctr, st_.fresh_llr, st_.fresh_cw, refill_on, box7["rem"], k=6, cap=ITERS)
+
+    k7_ms = cuda_ms(lambda: run7(db.bec_stream_chunk_fused), 5, reset7)
+    passes["K7 bench1152"] = int(box7["st"].age.sum()) - int(box7["st"].ctr[4].sum())
+    times["K7 bench1152"] = (k7_ms, cuda_ms(lambda: run7(db.bec_stream_chunk_fused_plain), 2,
+                                            reset7))
+    print(f"time K7 bench1152 BEC 6 passes from a full pool B={BATCH}: kernel "
+          f"{times['K7 bench1152'][0]:.3f} ms, plain {times['K7 bench1152'][1]:.3f} ms "
+          f"({passes['K7 bench1152']} frame-passes) [{name_power}]")
+    for eps in (0.35, 0.40):
+        res = Simulator(
+            codes["bench1152"], DecoderParams(iterations=ITERS),
+            ChannelParams(seed=1, x_range=(eps, eps + 0.001, 1.0), type="BEC"),
+            # a fixed frame count: at these eps 50 frame errors come in one batch
+            SimulationParams(batch_size=BATCH, fec=10**9, max_frames=20 * BATCH),
+            device=dev, verbose=False, use_pallas=True,
+        ).start()
+        ch = bec_channel(tb7.code, make_generator(dev, 10, int(eps * 100), 0), BATCH, eps)
+        k6_et = cuda_ms(lambda: db.bec_decode_fused(tb7, ch.llr, ch.codeword, ITERS, True), 5)
+        print(f"sweep bench1152 BEC ET eps {eps}: {1.0 / res.time[0]:.0f} frames/s (avg_iter "
+              f"{res.avg_iter[0]:.3f}, FER {res.fer[0]:.3e}, {int(res.frames[0])} frames); K6 "
+              f"with ET on one batch {k6_et:.3f} ms of {res.time[0] * BATCH * 1e3:.3f} ms per "
+              f"batch [{name_power}]")
+
     # end-to-end sweep rate from the Simulator's own float timing (the
     # results file keeps frame_time to 6 decimals)
     for key, layered, snrs in (("bench1152", False, (2.0, 2.5)), ("wifi1944", False, (1.5, 2.0)),
@@ -377,9 +562,49 @@ def main() -> int:
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],
-                "bp_stream_chunk_fused": flooding_launches["bp_stream_chunk_fused"]}
+                "bp_stream_chunk_fused": flooding_launches["bp_stream_chunk_fused"],
+                "bec_decode_fused": bec_launches["bec_decode_fused"],
+                "bec_stream_chunk_fused": bec_launches["bec_stream_chunk_fused"]}
+
+    # bounds of the timed calls: each input read once, each output written
+    # once (the stream chunks' state planes are both), and the operations
+    # of the frame-iterations these inputs needed
+    def dims(key):
+        c = tables[key].code
+        return c.nc, c.nnz
+
+    def batch_bytes(key, in_b, out_b):  # per-node bytes in and out, plus 8 B per frame
+        nc, _ = dims(key)
+        return BATCH * (nc * (in_b + out_b) + 8)
+
+    def stream_bytes(key, val_b):  # values/messages of val_b bytes, u8 codewords, 9 int planes
+        nc, nnz = dims(key)
+        state = nc * val_b + nc + nnz * val_b + 9 * 4
+        return BATCH * (2 * state + nc * (val_b + 1))
+
+    nc648, nnz648 = dims("wifi648")
+    n_layers648 = tables["wifi648"].n_layers
+    bounds = {
+        "bp_decode_fused": bound(batch_bytes("bench1152", 4, 4),
+                                 BATCH * ITERS * dims("bench1152")[1] * OPS_BP_SLOT),
+        "bp_stream_chunk_fused": bound(stream_bytes("bench1152", 4),
+                                       passes["k2 bench1152"] * dims("bench1152")[1] * OPS_BP_SLOT),
+        "bp_decode_layered_fast": bound(batch_bytes("wifi1944", 4, 4),
+                                        BATCH * ITERS * dims("wifi1944")[1] * OPS_BP_FAST_SLOT),
+        "bp_stream_chunk_layered_fast": bound(
+            stream_bytes("wifi1944", 4), passes["K4 wifi1944"] * dims("wifi1944")[1]
+            * OPS_BP_FAST_SLOT),
+        "bp_decode_layered": bound(batch_bytes("wifi648", 4, 4), BATCH * ITERS * nnz648
+                                   * (3 * 10 + 4 * n_layers648)),
+        "bec_decode_fused": bound(batch_bytes("bench1152", 2, 2),
+                                  BATCH * ITERS * dims("bench1152")[1] * OPS_BEC_SLOT),
+        "bec_stream_chunk_fused": bound(stream_bytes("bench1152", 1),
+                                        passes["K7 bench1152"] * dims("bench1152")[1]
+                                        * OPS_BEC_SLOT),
+    }
     fused = "libldpc_tpu_torch/csrc/decode_fused.cu"
     layered_src = "libldpc_tpu_torch/csrc/decode_layered.cu"
+    bec_src = "libldpc_tpu_torch/csrc/decode_bec.cu"
     rows_json = [
         ("bp_decode_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
          times["k1 bench1152"]),
@@ -391,10 +616,20 @@ def main() -> int:
          "libldpc_tpu/ops/pallas/decode_lanes.py:753", err4, times["K4 wifi1944"]),
         ("bp_decode_layered", layered_src, "libldpc_tpu/ops/pallas/decode_fused.py:544", err5,
          times["K5 wifi648"]),
+        ("bec_decode_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1235", err6,
+         times["K6 bench1152"]),
+        ("bec_stream_chunk_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
+         times["K7 bench1152"]),
     ]
+    for name, _, _, _, t in rows_json:
+        print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "
+              f"({bounds[name][0] / t[0]:.1%} of the bound) [{name_power}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+         "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # no single PyTorch call decodes an LDPC code
+         "library_ms": None}
         for name, src, rep, err, t in rows_json
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,9 @@
 with hand-written CUDA decode kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package stays the reference: this package is tested against it
-on the CPU, through the plain PyTorch version beside each kernel.  It reuses
-the JAX package's jax-free host layer (``libldpc_tpu.models``,
-``libldpc_tpu.utils.params``) and never imports jax.  Kernels are built with
+on the CPU, through the plain PyTorch version beside each kernel.  It
+imports nothing of the JAX package: its host layer (code models, file
+formats, parameters) is its own copy (:mod:`.models`, :mod:`.utils.params`).  Kernels are built with
 ``nvcc`` at first use (:mod:`.ops.kernels.build`), never at import.
 """
 

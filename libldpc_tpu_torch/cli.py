@@ -2,6 +2,7 @@
 PyTorch, with the decode kernels on a CUDA device.
 
 Same flags as the JAX CLI plus ``--device`` (default ``cuda``).
+``--channel`` takes AWGN, BSC and BEC.
 ``--layer-file`` loads the decoding layers and selects the layered
 schedule, ``--qc-z N|auto`` declares (or finds) the code's QC lifting, and
 ``--pallas`` picks between the exact layered schedule and the fast QC
@@ -20,8 +21,6 @@ import argparse
 import os
 import sys
 
-from libldpc_tpu.cli import build_parser as _jax_parser
-
 _CHECKPOINT = 'ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"'
 _MULTI_GPU = 'ROADMAP Queue 1, "Multi-GPU"'
 
@@ -38,19 +37,69 @@ _NOT_PORTED = {
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _jax_parser()
-    p.prog = "ldpcsim-torch"
-    p.description = "LDPC Monte-Carlo BER/FER simulator on PyTorch / CUDA"
+    """Every flag of the JAX package's ``ldpcsim`` CLI, with its defaults
+    and choices, plus ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="ldpcsim-torch",
+        description="LDPC Monte-Carlo BER/FER simulator on PyTorch / CUDA",
+    )
+    p.add_argument("codefile", help="LDPC parity-check matrix file containing all non-zero entries.")
+    p.add_argument("output_file", metavar="output-file", help="Results output file.")
+    p.add_argument("snr_range", metavar="snr-range", nargs=3, type=float,
+                   help="{MIN} {MAX} {STEP}")
+    p.add_argument("-G", "--gen-matrix", default="", help="Generator matrix file.")
+    p.add_argument("-i", "--num-iterations", type=int, default=50,
+                   help="Number of iterations for decoding. (Default: 50)")
+    p.add_argument("-s", "--seed", type=int, default=0, help="RNG seed. (Default: 0)")
+    p.add_argument("-t", "--num-threads", type=int, default=0,
+                   help="Deprecated alias; frames are batched on device. "
+                        "If set, used as the batch size.")
+    p.add_argument("--batch-size", type=int, default=1024,
+                   help="Frames decoded per device step. (Default: 1024)")
+    p.add_argument("--channel", default="AWGN",
+                   help='Specifies channel: "AWGN", "BSC", "BEC" (Default: AWGN)')
+    p.add_argument("--decoding", default="BP",
+                   help='Specifies decoding algorithm: "BP", "BP_MS"; also "BP_PHI", '
+                        '"BP_TANH", "BP_LIN", "BP_NMS", "BP_OMS" (Default: BP)')
+    p.add_argument("--max-frames", type=float, default=10e9,
+                   help="Limit number of decoded frames.")
+    p.add_argument("--frame-error-count", type=int, default=50,
+                   help="Maximum frame errors for given simulation point.")
+    p.add_argument("--no-early-term", action="store_true",
+                   help="Disable early termination for decoding.")
+    p.add_argument("--devices", type=int, default=0,
+                   help="Shard frames over this many devices (0 = all).")
+    p.add_argument("--points-parallel", type=int, default=1,
+                   help="Simulate this many sweep points concurrently.")
+    p.add_argument("--multihost", action="store_true",
+                   help="Shard over every device of a multi-host job.")
+    p.add_argument("--pallas", action="store_true",
+                   help="Choose the layered schedule as the JAX CLI does: with "
+                        "--layer-file, a QC code on its natural layers (Z >= 64) "
+                        "runs the fast layered engine, otherwise the exact "
+                        "layered schedule.  Flooding and the BEC run the same "
+                        "CUDA kernels with or without it.")
+    p.add_argument("--message-dtype", default="float32",
+                   choices=["float32", "bfloat16", "int8"],
+                   help="Message dtype of the decode kernels.")
+    p.add_argument("--quant-scale", type=float, default=0.1875,
+                   help="int8 message lattice step in LLR units.")
+    p.add_argument("--layer-file", default="", help="Decoding-layer file for the layered schedule.")
+    p.add_argument("--qc-z", default="",
+                   help="Declare the code quasi-cyclic with this lifting size "
+                        "(verified against H); 'auto' searches the divisors of "
+                        "gcd(nc, mc) largest-first.")
+    p.add_argument("--checkpoint", default="", help="Sweep checkpoint file (enables --resume).")
+    p.add_argument("--resume", action="store_true", help="Resume from checkpoint.")
+    p.add_argument("--error-log", default="", help="Per-error-frame forensic log file.")
+    p.add_argument("--log-codewords", action="store_true",
+                   help="Also dump the decided and true codewords per errored frame.")
+    p.add_argument("--results-dir", default="",
+                   help="Provision a per-run results directory (created, must not "
+                        "already exist) and place the output file inside it.")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA decode kernels, cpu "
                         "their plain PyTorch versions. (Default: cuda)")
-    for action in p._actions:
-        if action.dest == "pallas":
-            action.help = ("Choose the layered schedule as the JAX CLI does: with "
-                           "--layer-file, a QC code on its natural layers (Z >= 64) "
-                           "runs the fast layered engine, otherwise the exact "
-                           "layered schedule.  Flooding runs the same CUDA kernels "
-                           "with or without it.")
     return p
 
 
@@ -63,8 +112,6 @@ def refused_flags(args) -> list[str]:
     ]
     if args.devices not in (0, 1):
         out.append(f"--devices: multi-GPU sweeps are not ported yet ({_MULTI_GPU})")
-    if args.channel == "BEC":
-        out.append('--channel BEC: not ported yet (ROADMAP Queue 1, "BEC")')
     return out
 
 
@@ -92,11 +139,9 @@ def main(argv=None) -> int:
         os.makedirs(args.results_dir)
         args.output_file = os.path.join(args.results_dir, os.path.basename(args.output_file))
 
-    from libldpc_tpu.models.code import LDPCCode
-    from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationParams
-
-    from .models import detect_qc
+    from .models import LDPCCode, detect_qc
     from .sim.driver import Simulator
+    from .utils.params import ChannelParams, DecoderParams, SimulationParams
 
     code = LDPCCode.from_files(args.codefile, args.gen_matrix, args.layer_file)
     if args.qc_z:

@@ -1,6 +1,6 @@
 """Carry the JAX package's state into the port.
 
-The system has no weights: a code's index tables are its parameters, and a
+The system has no weights: a code and its index tables are its parameters, and a
 streaming sweep's state is the per-lane decode state.  These functions take
 that state from the JAX package as NumPy arrays (``np.asarray`` of each
 field) and build the port's counterparts, so both packages can compute from
@@ -14,8 +14,27 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .models.code import LDPCCode
 from .ops.sorted import TorchSortedCode
 from .ops.streaming_fused import StreamState
+
+
+def code_from_jax(jax_code) -> LDPCCode:
+    """The port's :class:`LDPCCode` from the NumPy fields of a JAX
+    ``LDPCCode``: ``rows``, ``cols``, ``nc``, ``mc``, ``G``, ``puncture``,
+    ``shorten``, ``layers`` and ``qc``, each copied."""
+    G, layers, qc = jax_code.G, jax_code.layers, jax_code.qc
+    return LDPCCode(
+        rows=np.array(jax_code.rows, dtype=np.int32),
+        cols=np.array(jax_code.cols, dtype=np.int32),
+        nc=int(jax_code.nc),
+        mc=int(jax_code.mc),
+        puncture=np.array(jax_code.puncture, dtype=np.int32),
+        shorten=np.array(jax_code.shorten, dtype=np.int32),
+        G=None if G is None else np.array(G, dtype=np.uint8),
+        layers=None if layers is None else [np.array(l, dtype=np.int32) for l in layers],
+        qc=None if qc is None else (int(qc[0]), np.array(qc[1], dtype=np.int64)),
+    )
 
 
 def from_sorted_device(arrays: Mapping, device="cpu") -> TorchSortedCode:

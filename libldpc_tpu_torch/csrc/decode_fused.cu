@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of libldpc_tpu/ops/pallas/decode_fused.py:
 //   * bp_decode_fused_kernel      <- `kernel`        (via bp_decode_pallas)
-//   * bp_stream_chunk_fused_kernel <- `kernel_stream` (via bp_stream_chunk_pallas)
+//   * bp_stream_chunk_fused_kernel <- `kernel_stream` (via bp_stream_chunk_pallas),
+//     on the chunk shared with the BEC stream kernel (stream_chunk.cuh)
 // They compute what those kernels compute: the CN exclusion combine in every
 // CN form, the CN->VN and VN->CN edge permutations, the VN posterior sums,
 // the extrinsic `q - lc2v`, the syndrome of `llr <= 0` decisions and
@@ -45,6 +46,7 @@
 
 #include "bp_phases.cuh"
 #include "cn_forms.cuh"
+#include "stream_chunk.cuh"
 
 namespace {
 
@@ -107,112 +109,31 @@ bp_decode_fused_kernel(Code c, CnParams cp, const float* __restrict__ llr_in,
   }
 }
 
-// k self-refilling passes per lane (see `kernel_stream`): reload phase, one
-// BP pass over the lane if it holds a frame, then counting at the pass that
-// finishes the frame.  Counter rows: 0 bit errors (transmitted bits only),
-// 1 frame errors, 2 frames, 3 iteration sum, 4 starts.
+// The BP pass of the streaming chunk (stream_chunk.cuh): CN phase, VN
+// phase, and the syndrome of the posterior's decisions.
+struct BpStreamPass {
+  using T = float;
+  CnParams cp;
+  float* lc2v;  // [nnz, B] scratch
+  __device__ void cn(const Code& c, const float* lv2c, size_t B, size_t b) const {
+    cn_phase(c, cp, lv2c, lc2v, B, b);
+  }
+  __device__ void vn(const Code& c, const float* prior, const uint8_t*, float* lv2c, float* post,
+                     size_t B, size_t b, volatile int*) const {
+    vn_phase(c, prior, lv2c, lc2v, post, B, b);
+  }
+  __device__ void check(const Code& c, const float* post, size_t B, size_t b,
+                        volatile int* flag) const {
+    syndrome_part(c, post, B, b, flag);
+  }
+  __device__ bool bit_error(float p, uint8_t cw) const { return (p <= 0.0f) != (cw != 0); }
+};
+
+// k self-refilling BP passes per lane (see `kernel_stream`).
 __global__ void __launch_bounds__(LDPC_FRAMES * LDPC_WARPS)
-bp_stream_chunk_fused_kernel(Code c, CnParams cp, float* __restrict__ llr,
-                             uint8_t* __restrict__ cw, float* __restrict__ lv2c,
-                             int* __restrict__ done_p, int* __restrict__ iters_p,
-                             int* __restrict__ age_p, int* __restrict__ avail_p,
-                             int* __restrict__ ctr, const float* __restrict__ fresh_llr,
-                             const uint8_t* __restrict__ fresh_cw, const int* __restrict__ refill,
-                             int* remaining, float* __restrict__ lc2v,
-                             float* __restrict__ post, const int* __restrict__ bit_pos, int nct,
-                             int B_, int k, int cap) {
-  __shared__ int flag[LDPC_FRAMES];  // start granted, then check unsatisfied
-  __shared__ int berr[LDPC_FRAMES];  // bit errors of a finishing frame
-  const size_t B = B_;
-  const size_t b = (size_t)blockIdx.x * LDPC_FRAMES + threadIdx.x;
-  const bool valid = b < B;
-  const bool lead = threadIdx.y == 0;
-  int done = 1, iters = 0, age = 0, avail = 0;
-  if (valid) {
-    done = done_p[b];
-    iters = iters_p[b];
-    age = age_p[b];
-    avail = avail_p[b];
-  }
-  const bool refill_on = *refill != 0;
-  int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
-  for (int pass = 0; pass < k; ++pass) {
-    // ---- reload: an idle lane with an unused pool entry takes a ticket
-    // against the global quota; it starts iff the ticket is below the
-    // remaining count (so starts never exceed the quota, in any block order)
-    const bool want = valid && refill_on && done && avail;
-    if (lead)
-      flag[threadIdx.x] =
-          want && *(volatile int*)remaining > 0 && atomicSub(remaining, 1) > 0;
-    __syncthreads();
-    if (flag[threadIdx.x]) {
-      for (int v = threadIdx.y; v < c.nc; v += blockDim.y) {
-        llr[v * B + b] = fresh_llr[v * B + b];
-        cw[v * B + b] = fresh_cw[v * B + b];
-      }
-      // warm-up-free reload: lv2c = prior at each CN slot, so the next pass
-      // is iteration 1 (age 1, check-eligible)
-      for (int e = threadIdx.y; e < c.nnz; e += blockDim.y)
-        lv2c[e * B + b] = fresh_llr[__ldg(c.col_sorted + e) * B + b];
-      done = 0;
-      age = 1;
-      iters = 0;
-      avail = 0;
-      ++n_start;
-    }
-    const bool work = !done || (want && *(volatile int*)remaining > 0);
-    if (!__syncthreads_or(work)) break;  // also orders the reload copy
-    // ---- one BP pass; checks only once the warm-up pass is behind
-    const bool run = !done;
-    const bool checking = run && age >= 1;
-    if (run) cn_phase(c, cp, lv2c, lc2v, B, b);
-    __syncthreads();
-    if (lead) {
-      flag[threadIdx.x] = 0;
-      berr[threadIdx.x] = 0;
-    }
-    if (run) vn_phase(c, llr, lv2c, lc2v, post, B, b);
-    __syncthreads();
-    if (checking) syndrome_part(c, post, B, b, flag);
-    __syncthreads();
-    bool newly = false;
-    if (checking) {
-      newly = !flag[threadIdx.x];
-      if (!newly) ++iters;
-    }
-    if (run) ++age;
-    const bool finish = run && (newly || age >= cap + 1);
-    if (finish) {
-      // count at the finishing pass: the decisions of first convergence (or
-      // of the iteration cap), transmitted bits only
-      int be = 0;
-      for (int t = threadIdx.y; t < nct; t += blockDim.y) {
-        size_t v = __ldg(bit_pos + t) * B + b;
-        be += (post[v] <= 0.0f) != (cw[v] != 0);
-      }
-      if (be) atomicAdd(&berr[threadIdx.x], be);
-    }
-    __syncthreads();
-    if (finish) {
-      const int be = berr[threadIdx.x];
-      done = 1;
-      n_bit += be;
-      n_frame_err += be > 0;
-      n_frames += 1;
-      n_iter += iters;
-    }
-  }
-  if (valid && lead) {
-    done_p[b] = done;
-    iters_p[b] = iters;
-    age_p[b] = age;
-    avail_p[b] = avail;
-    ctr[0 * B + b] += n_bit;
-    ctr[1 * B + b] += n_frame_err;
-    ctr[2 * B + b] += n_frames;
-    ctr[3 * B + b] += n_iter;
-    ctr[4 * B + b] += n_start;
-  }
+bp_stream_chunk_fused_kernel(Code c, BpStreamPass pass, StreamArgs<float> s, int B, int k,
+                             int cap) {
+  stream_chunk(c, pass, s, B, k, cap);
 }
 
 }  // namespace
@@ -244,10 +165,11 @@ int ldpc_bp_stream_chunk_fused(float* llr, uint8_t* cw, float* lv2c, int* done, 
                                const int* bit_pos, int nc, int mc, int nnz, int nct, int B, int k,
                                int cap, int cn_mode, float scale, float offset, void* stream) {
   Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
-  CnParams cp{cn_mode, scale, offset};
-  bp_stream_chunk_fused_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
-      c, cp, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw, refill, remaining,
-      lc2v, post, bit_pos, nct, B, k, cap);
+  BpStreamPass pass{CnParams{cn_mode, scale, offset}, lc2v};
+  StreamArgs<float> s{llr,       cw,       lv2c,      done, iters, age,     avail, ctr,
+                      fresh_llr, fresh_cw, refill, remaining, post, bit_pos, nct};
+  bp_stream_chunk_fused_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(c, pass, s, B, k,
+                                                                                 cap);
   return (int)cudaGetLastError();
 }
 

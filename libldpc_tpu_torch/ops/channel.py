@@ -1,10 +1,12 @@
-"""On-device channel simulation: encode -> BPSK -> noise -> LLRs.
+"""On-device channel simulation: encode -> BPSK -> noise -> LLRs (the
+BEC: encode -> erase -> 3-state symbols).
 
-The port of :mod:`libldpc_tpu.ops.channel` for the AWGN and BSC channels,
-node-major ``[nc, B]`` in the sorted VN labelling.  Random numbers come from
-an explicit ``torch.Generator`` on the channel's device (one per sweep point
-and batch, see :func:`make_generator`); they are not jax's threefry draws,
-so channels agree with the JAX package in distribution only.
+The port of :mod:`libldpc_tpu.ops.channel` for the AWGN, BSC and BEC
+channels, node-major ``[nc, B]`` in the sorted VN labelling.  Random
+numbers come from an explicit ``torch.Generator`` on the channel's device
+(one per sweep point and batch, see :func:`make_generator`); they are not
+jax's threefry draws, so channels agree with the JAX package in
+distribution only.
 """
 
 from __future__ import annotations
@@ -14,15 +16,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from libldpc_tpu.utils.params import SHORTEN_LLR
-
+from ..utils.params import SHORTEN_LLR
 from .sorted import TorchSortedCode
+
+#: The erasure symbol of the BEC's 3-state alphabet {0, 1, ERASURE}.
+BEC_ERASURE = 2
 
 
 class ChannelOutput(NamedTuple):
     """One simulated batch ready for decoding."""
 
-    llr: torch.Tensor  # f32 [nc, B] decoder input
+    llr: torch.Tensor  # f32 [nc, B] decoder input (BEC: u8 symbols {0, 1, BEC_ERASURE})
     codeword: torch.Tensor  # u8 [nc, B] true transmitted codeword
 
 
@@ -78,6 +82,20 @@ def bsc_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon:
     return ChannelOutput(llr=_place(sdc, delta * (1.0 - 2.0 * y.to(torch.float32)), delta), codeword=c)
 
 
+def bec_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon: float) -> ChannelOutput:
+    """Binary erasure channel: each transmitted bit is erased with
+    probability ``epsilon``; u8 symbols ``{0, 1, BEC_ERASURE}``, punctured
+    bits erased and shortened bits known."""
+    c = encode_batch(sdc, gen, batch)
+    x = c.index_select(0, sdc.bit_pos)
+    erase = torch.rand(x.shape, generator=gen, device=x.device) < epsilon
+    sym = torch.full((sdc.nc, batch), BEC_ERASURE, dtype=torch.uint8, device=c.device)
+    if sdc.shorten.shape[0]:
+        sym[sdc.shorten.long()] = c.index_select(0, sdc.shorten)
+    sym[sdc.bit_pos.long()] = torch.where(erase, BEC_ERASURE, x).to(torch.uint8)
+    return ChannelOutput(llr=sym, codeword=c)
+
+
 def simulate_channel(
     sdc: TorchSortedCode,
     channel_type: str,
@@ -96,5 +114,5 @@ def simulate_channel(
     if channel_type == "BSC":
         return bsc_channel(sdc, gen, batch, x_value)
     if channel_type == "BEC":
-        raise NotImplementedError('the BEC is not ported yet (ROADMAP Queue 1, "BEC")')
+        return bec_channel(sdc, gen, batch, x_value)
     raise ValueError(f"No channel selected: {channel_type!r}")

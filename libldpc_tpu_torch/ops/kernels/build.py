@@ -157,6 +157,25 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered.restype = I
+            lib.ldpc_bec_decode_fused.argtypes = [
+                P, P, P, P, P, P, P, P,  # sym_in cw sym_out hard iters resolved lv2c lc2v
+                P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
+                I, I, I, I,  # nc mc nnz B
+                I, I, I,  # iterations early_term stale
+                P,  # stream
+            ]
+            lib.ldpc_bec_decode_fused.restype = I
+            lib.ldpc_bec_stream_chunk_fused.argtypes = [
+                P, P, P,  # sym cw lv2c
+                P, P, P, P, P,  # done iters age avail ctr
+                P, P, P, P,  # fresh_sym fresh_cw refill remaining
+                P, P,  # lc2v post (scratch)
+                P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
+                I, I, I, I, I,  # nc mc nnz nct B
+                I, I, I,  # k cap stale
+                P,  # stream
+            ]
+            lib.ldpc_bec_stream_chunk_fused.restype = I
             lib.ldpc_error_string.argtypes = [I]
             lib.ldpc_error_string.restype = ctypes.c_char_p
             _lib = lib

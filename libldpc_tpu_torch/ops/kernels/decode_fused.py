@@ -154,13 +154,14 @@ def bp_decode_fused(
 bp_decode_fused.launches = 0
 
 
-def bp_stream_chunk_fused_plain(
-    tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
-    refill, remaining, *, k: int, cap: int, minsum_mode=False,
-) -> None:
-    """Plain version of :func:`bp_stream_chunk_fused`, pass for pass as
-    ``kernel_stream``: starts are granted in lane order (an inclusive scan
-    against ``remaining``)."""
+def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
+                       refill, remaining, k: int, cap: int, decode_pass, converged,
+                       bit_errors) -> None:
+    """The streaming chunk in plain PyTorch, pass for pass as
+    ``kernel_stream``, for any decode pass: ``decode_pass(prior, cw, lv2c)
+    -> (posterior, lv2c_new)``, ``converged(posterior)`` (bool ``[B]``) and
+    ``bit_errors(posterior, cw)`` (bool ``[nc, B]``).  Starts are granted in
+    lane order (an inclusive scan against ``remaining``)."""
     sdc = tables.code
     is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=llr.device)
     is_tx[sdc.bit_pos.long()] = True
@@ -179,22 +180,39 @@ def bp_stream_chunk_fused_plain(
         iters.mul_(1 - r)
         avail.sub_(r)
         ctr[4] += r
-        # ---- one BP pass over the lanes in flight
+        # ---- one decode pass over the lanes in flight
         active = done == 0
-        post, lv2c_new = bp_pass(sdc, llr, lv2c, minsum_mode)
+        post, lv2c_new = decode_pass(llr, cw, lv2c)
         checking = active & (age >= 1)
-        ok = syndrome_ok_from_posterior(sdc, post.index_select(0, sdc.col_sorted))
+        ok = converged(post)
         iters += (checking & ~ok).to(torch.int32)
         age += active.to(torch.int32)
         finished = active & ((checking & ok) | (age >= cap + 1))
         f = finished.to(torch.int32)
         done += f
-        biterr = (((post <= 0) != (cw != 0)) & is_tx[:, None]).sum(0, dtype=torch.int32)
+        biterr = (bit_errors(post, cw) & is_tx[:, None]).sum(0, dtype=torch.int32)
         ctr[0] += f * biterr
         ctr[1] += f * (biterr > 0).to(torch.int32)
         ctr[2] += f
         ctr[3] += f * iters
         lv2c.copy_(torch.where(active, lv2c_new, lv2c))
+
+
+def bp_stream_chunk_fused_plain(
+    tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
+    refill, remaining, *, k: int, cap: int, minsum_mode=False,
+) -> None:
+    """Plain version of :func:`bp_stream_chunk_fused`: the plain chunk with
+    the BP pass, the syndrome of ``post <= 0`` and its decisions."""
+    sdc = tables.code
+    stream_chunk_plain(
+        tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw, refill,
+        remaining, k, cap,
+        decode_pass=lambda prior, _cw, msgs: bp_pass(sdc, prior, msgs, minsum_mode),
+        converged=lambda post: syndrome_ok_from_posterior(
+            sdc, post.index_select(0, sdc.col_sorted)),
+        bit_errors=lambda post, cw_: (post <= 0) != (cw_ != 0),
+    )
 
 
 def bp_stream_chunk_fused(

@@ -30,8 +30,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from libldpc_tpu.models.code import LDPCCode
-
+from ..models.code import LDPCCode
 from . import cn_ops
 from .sorted import SortedDecodeOutput, syndrome_ok_from_posterior, syndrome_ok_sorted
 

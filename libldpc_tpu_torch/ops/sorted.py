@@ -22,8 +22,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from libldpc_tpu.models.code import LDPCCode
-
+from ..models.code import LDPCCode
 from . import cn_ops
 
 

@@ -4,10 +4,17 @@ The port of :mod:`libldpc_tpu.ops.streaming_pallas` on one device.  Every
 batch lane is an independent frame stream that reloads as soon as its frame
 converges, so device work per frame tracks ``avg_iter`` rather than the
 batch's slowest frame.  The per-lane loop (decode, counting, reload) lives
-in :func:`~.kernels.decode_fused.bp_stream_chunk_fused` (flooding) or, with
-``layered=True``, in the fast layered engine's
-:func:`~.kernels.decode_layered.bp_stream_chunk_layered_fast`; between
-their launches this module refreshes the lane-aligned fresh-frame pool.
+in :func:`~.kernels.decode_fused.bp_stream_chunk_fused` (flooding), with
+``layered=True`` in the fast layered engine's
+:func:`~.kernels.decode_layered.bp_stream_chunk_layered_fast`, and for the
+BEC in :func:`~.kernels.decode_bec.bec_stream_chunk_fused` (peeling);
+between their launches this module refreshes the lane-aligned fresh-frame
+pool.
+
+**BEC state.**  The ``llr_in``, ``lv2c`` and ``fresh_llr`` planes hold u8
+3-state symbols (channel symbols, messages, the pool's symbols) instead of
+f32 LLRs: the pool is never drawn as LLRs.  The BEC has no layered
+streaming form (``layered=True`` raises, as in the JAX package).
 
 **Layered state.**  As in the JAX package (``kernel_stream_layered_qc``),
 the state tuple keeps its shapes and is read differently: the ``llr_in``
@@ -33,10 +40,12 @@ super-step (:class:`~.streaming.StreamDeltas`) when it absorbs them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from .channel import simulate_channel
+from .channel import BEC_ERASURE, simulate_channel
+from .kernels.decode_bec import bec_stream_chunk_fused
 from .kernels.decode_fused import bp_stream_chunk_fused
 from .kernels.decode_layered import bp_stream_chunk_layered_fast
 from .kernels.layout import KernelTables
@@ -47,33 +56,38 @@ from .streaming import _INT32_SAFE, StreamDeltas
 class StreamState:
     """Per-lane stream state (batch on the last axis)."""
 
-    llr_in: torch.Tensor  # f32 [nc, B] carried channel LLRs (layered: the APP)
+    llr_in: torch.Tensor  # f32 [nc, B] carried channel LLRs (layered: the APP; BEC: u8 symbols)
     codeword: torch.Tensor  # u8 [nc, B] carried true codewords
-    lv2c: torch.Tensor  # f32 [nnz, B] messages (CN-space slots; layered: lc2v)
+    lv2c: torch.Tensor  # f32 [nnz, B] messages (CN-space slots; layered: lc2v; BEC: u8)
     done: torch.Tensor  # i32 [B] lane idle (finished or empty)
     iters: torch.Tensor  # i32 [B]
     age: torch.Tensor  # i32 [B] passes since (re)load (0 = warm-up pending)
     avail: torch.Tensor  # i32 [B] pool entry unused
     ctr: torch.Tensor  # i32 [5, B] counters (see bp_stream_chunk_fused)
-    fresh_llr: torch.Tensor  # f32 [nc, B] fresh-frame pool
+    fresh_llr: torch.Tensor  # f32 [nc, B] fresh-frame pool (BEC: u8 symbols)
     fresh_cw: torch.Tensor  # u8 [nc, B]
     started: torch.Tensor  # i64 [1] frames started so far
 
 
-def init_state(tables: KernelTables, batch: int) -> StreamState:
-    """Empty streams (every lane idle, pool empty)."""
+def init_state(tables: KernelTables, batch: int, channel_type: str = "AWGN") -> StreamState:
+    """Empty streams (every lane idle, pool empty); the value planes are u8
+    symbols for the BEC and f32 otherwise.  The messages start neutral (0
+    LLRs; BEC erasures), so a lane given a frame without a reload (age 0)
+    runs a warm-up pass first."""
     sdc, dev = tables.code, tables.device
     i32 = dict(dtype=torch.int32, device=dev)
+    bec = channel_type == "BEC"
+    vals = dict(dtype=torch.uint8 if bec else torch.float32, device=dev)
     return StreamState(
-        llr_in=torch.zeros((sdc.nc, batch), dtype=torch.float32, device=dev),
+        llr_in=torch.zeros((sdc.nc, batch), **vals),
         codeword=torch.zeros((sdc.nc, batch), dtype=torch.uint8, device=dev),
-        lv2c=torch.zeros((sdc.nnz, batch), dtype=torch.float32, device=dev),
+        lv2c=torch.full((sdc.nnz, batch), BEC_ERASURE if bec else 0, **vals),
         done=torch.ones(batch, **i32),
         iters=torch.zeros(batch, **i32),
         age=torch.zeros(batch, **i32),
         avail=torch.zeros(batch, **i32),
         ctr=torch.zeros((5, batch), **i32),
-        fresh_llr=torch.zeros((sdc.nc, batch), dtype=torch.float32, device=dev),
+        fresh_llr=torch.zeros((sdc.nc, batch), **vals),
         fresh_cw=torch.zeros((sdc.nc, batch), dtype=torch.uint8, device=dev),
         started=torch.zeros(1, dtype=torch.int64, device=dev),
     )
@@ -93,9 +107,11 @@ def make_streaming_fused_step(
     decode's worth of passes (``n_outer`` chunks of ``k`` passes), drawing
     channel batches from ``gen``; ``refill=False`` drains.  ``layered``
     decodes on the fast layered engine (a pass is one full layered
-    iteration) instead of flooding."""
-    if channel_type == "BEC":
-        raise ValueError("streaming decode does not cover the BEC decoder")
+    iteration) instead of flooding.  ``channel_type="BEC"`` runs the
+    peeling chunk (with ``dec.bec_ref_bug_compat``'s stale byte)."""
+    bec = channel_type == "BEC"
+    if bec and layered:
+        raise ValueError("streaming layered decoding has no BEC form")
     iterations = dec.iterations
     if iterations < 1:
         raise ValueError("streaming decode requires iterations >= 1")
@@ -108,10 +124,16 @@ def make_streaming_fused_step(
         flag: torch.full((1,), int(flag), dtype=torch.int32, device=dev) for flag in (False, True)
     }
     sdc = tables.code
-    chunk = bp_stream_chunk_layered_fast if layered else bp_stream_chunk_fused
+    if bec:
+        stale = 0 if dec.bec_ref_bug_compat else None
+        chunk = functools.partial(bec_stream_chunk_fused, degree1_stale_byte=stale)
+    else:
+        chunk = functools.partial(
+            bp_stream_chunk_layered_fast if layered else bp_stream_chunk_fused,
+            minsum_mode=dec.cn_mode)
 
     def init_fn() -> StreamState:
-        return init_state(tables, batch)
+        return init_state(tables, batch, channel_type)
 
     def step_fn(st: StreamState, gen: torch.Generator, x_value: float, refill: bool):
         refill_t = refill_flag[bool(refill)]
@@ -131,7 +153,7 @@ def make_streaming_fused_step(
             chunk(
                 tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
                 st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_t, remaining,
-                k=k, cap=iterations, minsum_mode=dec.cn_mode,
+                k=k, cap=iterations,
             )
         sums = st.ctr.sum(dim=1, dtype=torch.int64)
         acc = StreamDeltas(

@@ -12,6 +12,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.channel import simulate_channel
+from ..ops.kernels.decode_bec import bec_decode_fused
 from ..ops.kernels.decode_fused import bp_decode_fused
 from ..ops.kernels.decode_layered import bp_decode_layered, bp_decode_layered_fast
 from ..ops.kernels.layout import KernelTables
@@ -46,21 +47,28 @@ def _sim_and_count(
     batch: int,
     schedule: str,
 ) -> StepCounters:
-    """Simulate, decode with the schedule's batch kernel, count from its
-    posterior.  Bit errors count the transmitted bits (``bit_pos``) only."""
+    """Simulate, decode with the schedule's batch kernel (the BEC: the
+    peeling kernel, flooding), count from its decisions.  Bit errors count
+    the transmitted bits (``bit_pos``) only."""
     ch = simulate_channel(tables.code, channel_type, gen, batch, x_value)
-    out = _batch_decoder(tables, schedule)(
-        tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
-        minsum_mode=dec.cn_mode,
-    )
+    if channel_type == "BEC":
+        out = bec_decode_fused(
+            tables, ch.llr, ch.codeword, iterations=dec.iterations, early_term=dec.early_term,
+            degree1_stale_byte=0 if dec.bec_ref_bug_compat else None,
+        )
+    else:
+        out = _batch_decoder(tables, schedule)(
+            tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
+            minsum_mode=dec.cn_mode,
+        )
     bit_pos = tables.code.bit_pos
     frame_errs = (
-        out.hard.index_select(0, bit_pos) != ch.codeword.index_select(0, bit_pos).bool()
+        out.hard.index_select(0, bit_pos).bool() != ch.codeword.index_select(0, bit_pos).bool()
     ).sum(0)
     return StepCounters(
         bit_errors=frame_errs.sum(),
         frame_errors=(frame_errs > 0).sum(),
-        frames=torch.full((), batch, dtype=torch.int64, device=ch.llr.device),
+        frames=torch.full((), batch, dtype=torch.int64, device=ch.codeword.device),
         iter_sum=out.iterations.sum(dtype=torch.int64),
     )
 

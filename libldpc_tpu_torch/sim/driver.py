@@ -7,8 +7,10 @@ runs on a streaming kernel; otherwise each batch is one launch of a batch
 decode kernel.  The schedule (flooding, exact layered, or the fast layered
 engine) is the one the JAX package runs for the same code and flags
 (:func:`select_schedule`); the exact layered schedule is batch-stepped,
-as there.  On a CUDA device the CUDA kernels run, on the CPU their plain
-PyTorch versions.
+as there.  The BEC runs the peeling kernel, flooding and batch-stepped
+always, as the JAX package's sweep does (with ``--layer-file`` that
+package runs its sorted peeling decoder, which ignores the layers).  On a
+CUDA device the CUDA kernels run, on the CPU their plain PyTorch versions.
 
 Kept from the JAX driver: the sweep values (float accumulation, max
 exclusive, reversed for BSC), the warm-up batch outside the frame clock,
@@ -30,16 +32,15 @@ from typing import Callable, Optional
 
 import torch
 
-from libldpc_tpu.models.code import LDPCCode
-from libldpc_tpu.models.io import format_result_row, write_results_file
-from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationParams
-
+from ..models.code import LDPCCode
+from ..models.io import format_result_row, write_results_file
 from ..ops.channel import make_generator
 from ..ops.kernels.layout import kernel_tables
 from ..ops.layered import natural_qc_layers
 from ..ops.sorted import to_sorted_device
 from ..ops.streaming_fused import make_streaming_fused_step
 from ..parallel.mesh import make_sim_step
+from ..utils.params import ChannelParams, DecoderParams, SimulationParams
 from .results import SimResults
 
 _CONSOLE_HEADER = (
@@ -83,8 +84,6 @@ def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams
             f'message dtype {dec.message_dtype}: ROADMAP Queue 1, "bf16/int8 message '
             'forms of kernels 1-2"'
         )
-    if ch.type == "BEC":
-        raise NotImplementedError('BEC channel: ROADMAP Queue 1, "BEC"')
     if sim.checkpoint_file:
         raise NotImplementedError(
             'checkpoint/resume: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
@@ -93,11 +92,14 @@ def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams
             'forensic error log: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
 
 
-def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool) -> str:
+def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
+                    channel_type: str = "AWGN") -> str:
     """The schedule the JAX package's ``Simulator`` decodes with for this
     code and these flags (the ``schedule=`` of its ``decode_path``).
 
-    ``"flooding"`` without ``dec.layered``.  ``"layered-fast"`` (the fast
+    ``"flooding"`` without ``dec.layered``, and always for the BEC (whose
+    peeling decoders in the JAX package ignore the layers, though its
+    ``decode_path`` then says ``layered``).  ``"layered-fast"`` (the fast
     QC engine) where its ``_select_layout`` reaches the lanes qc transport
     with natural-QC layers: ``use_pallas``, layers that are the code's
     natural QC schedule (:func:`..ops.layered.natural_qc_layers`),
@@ -109,7 +111,7 @@ def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool) -> str
     layout builds, which holds for QC codes whose edges are listed row by
     row in one column order per base row (``expand_qc``, and ``detect_qc``
     on files written from such codes)."""
-    if not dec.layered:
+    if not dec.layered or channel_type == "BEC":
         return "flooding"
     if use_pallas and natural_qc_layers(code):
         Z = int(code.qc[0])
@@ -154,16 +156,18 @@ class Simulator:
         self.verbose = verbose
         # use_pallas (the JAX CLI's --pallas) only chooses the layered
         # schedule, as it does in the JAX package; the CUDA kernels run either way
-        self.schedule = select_schedule(code, decoder_params, use_pallas)
+        self.schedule = select_schedule(code, decoder_params, use_pallas, channel_params.type)
         self.tables = kernel_tables(to_sorted_device(
             code, self.device, with_layers=self.schedule != "flooding"))
         batch = simulation_params.batch_size
-        # the exact layered schedule stays batch-stepped, as in the JAX package
+        # the exact layered schedule and the BEC stay batch-stepped, as in
+        # the JAX package
         self._streaming = (
             simulation_params.streaming
             and decoder_params.early_term
             and decoder_params.iterations >= 1
             and self.schedule != "layered"
+            and channel_params.type != "BEC"
         )
         if self._streaming:
             self._stream_init, self._stream_step = make_streaming_fused_step(
@@ -185,14 +189,20 @@ class Simulator:
     def _describe_decode_path(self) -> str:
         """One-line provenance of the decode path, written above the results
         file's column header."""
-        kernel = "cuda-fused" if self.device.type == "cuda" else "torch-plain"
+        bec = self.ch.type == "BEC"
+        if self.device.type == "cuda":
+            kernel = "cuda-bec" if bec else "cuda-fused"
+        else:
+            kernel = "torch-plain"
         parts = [
             f"kernel={kernel}",
-            "dtype=float32",
-            f"cn={self.dec.type}",
+            "dtype=uint8-3state" if bec else "dtype=float32",
+            "cn=peeling" if bec else f"cn={self.dec.type}",
             f"schedule={self.schedule}",
             f"streaming={'on' if self._streaming else 'off'}",
         ]
+        if bec and self.dec.bec_ref_bug_compat:
+            parts.append("bec=ref-bug-compat")
         if self.device.type == "cuda":
             parts.append(f"device={torch.cuda.get_device_name(self.device).replace(' ', '_')}")
         return " ".join(parts)

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from libldpc_tpu.models import make_benchmark_code
 from libldpc_tpu.utils.params import SHORTEN_LLR
+from libldpc_tpu_torch.models import make_benchmark_code
 from libldpc_tpu_torch.ops import channel
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 
@@ -78,8 +78,6 @@ def test_draws_follow_the_key(sdc):
 
 def test_not_ported_channels_raise(sdc):
     gen = channel.make_generator("cpu", 0)
-    with pytest.raises(NotImplementedError, match='Queue 1, "BEC"'):
-        channel.simulate_channel(sdc, "BEC", gen, 4, 0.1)
     with pytest.raises(NotImplementedError, match='Queue 1, "Modulation"'):
         channel.simulate_channel(sdc, "AWGN", gen, 4, 1.0, modulation=object())
     with pytest.raises(ValueError, match="No channel"):

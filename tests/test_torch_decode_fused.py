@@ -13,6 +13,7 @@ from libldpc_tpu.ops.pallas.decode_fused import bp_decode_pallas
 from libldpc_tpu.ops.pallas.layout import to_pallas_device
 from libldpc_tpu_torch.ops.kernels import decode_fused as df
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+from libldpc_tpu_torch.convert import code_from_jax
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 
 from test_torch_sorted import awgn_llrs, compare
@@ -24,7 +25,7 @@ torch.set_num_threads(2)
 def setup():
     code = make_benchmark_code(96, dv=3, dc=6, seed=7, with_G=True)
     pdc = to_pallas_device(code)
-    tables = kernel_tables(to_sorted_device(code))
+    tables = kernel_tables(to_sorted_device(code_from_jax(code)))
     llr = awgn_llrs(code, pdc.sorted_dc.vn_perm, 128, 1.0, seed=3)
     return code, pdc, tables, llr
 

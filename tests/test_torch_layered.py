@@ -32,6 +32,8 @@ from libldpc_tpu.ops.pallas.lanes_layout import to_lanes_device
 from libldpc_tpu.sim.driver import Simulator as JaxSimulator
 from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationParams
 from libldpc_tpu_torch import convert
+from libldpc_tpu_torch import models as tmodels
+from libldpc_tpu_torch.convert import code_from_jax
 from libldpc_tpu_torch.ops import layered
 from libldpc_tpu_torch.ops import sorted as tsorted
 from libldpc_tpu_torch.ops.kernels import decode_layered as dl
@@ -60,13 +62,13 @@ def natural_qc_code(nc, Z):
 def two_layer():
     code = two_layer_code()
     return (code, jsorted.to_sorted_device(code, with_layers=True),
-            tsorted.to_sorted_device(code, with_layers=True))
+            tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
 
 
 @pytest.fixture(scope="module")
 def wifi1944():
     code = wifi_code(1944)
-    return code, kernel_tables(tsorted.to_sorted_device(code, with_layers=True))
+    return code, kernel_tables(tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
 
 
 # ---------------------------------------------------------------- tables
@@ -90,7 +92,7 @@ def test_layer_check_lists(two_layer):
     for li, layer in enumerate(code.layers):
         assert sorted(cn_perm[checks[ptr[li]:ptr[li + 1]]]) == sorted(layer)
     assert not tables.layers_disjoint  # even and odd checks share variables
-    assert kernel_tables(tsorted.to_sorted_device(code)).n_layers == 0
+    assert kernel_tables(tsorted.to_sorted_device(code_from_jax(code))).n_layers == 0
 
 
 @pytest.mark.parametrize("Z", [81, 128])
@@ -101,8 +103,8 @@ def test_qc_layer_tables_equal_jax_segments(Z):
     ``col_lane + (j + s) mod Z``)."""
     code = wifi_code(1944) if Z == 81 else natural_qc_code(8 * Z, Z)
     ldc = to_lanes_device(code, transport="qc", with_layers=True)
-    assert ldc.qc_layers and layered.natural_qc_layers(code)
-    tables = kernel_tables(tsorted.to_sorted_device(code, with_layers=True))
+    assert ldc.qc_layers and layered.natural_qc_layers(code_from_jax(code))
+    tables = kernel_tables(tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
     assert tables.layers_disjoint and tables.n_layers == len(ldc.qc_layers)
     cn_inv = np.empty(code.mc, np.int64)
     cn_inv[np.argsort(np.bincount(code.rows, minlength=code.mc), kind="stable")] = np.arange(code.mc)
@@ -119,11 +121,11 @@ def test_qc_layer_tables_equal_jax_segments(Z):
 
 
 def test_natural_qc_layers():
-    code = wifi_code(648)
+    code = tmodels.wifi_code(648)
     assert layered.natural_qc_layers(code)
     code.layers = code.layers[::-1]
     assert not layered.natural_qc_layers(code)  # a layer order that is not natural
-    assert not layered.natural_qc_layers(two_layer_code())  # no QC metadata
+    assert not layered.natural_qc_layers(code_from_jax(two_layer_code()))  # no QC metadata
 
 
 # ---------------------------------------------------------- exact layered
@@ -156,12 +158,12 @@ def test_exact_layered_wrapper_is_plain_on_cpu(two_layer):
     zero = dl.bp_decode_layered(tables, llr, 0)
     assert not zero.llr_out.any() and not zero.is_codeword.any()
     with pytest.raises(ValueError, match=">= 2 layers"):
-        dl.bp_decode_layered(kernel_tables(tsorted.to_sorted_device(code)), llr, 5)
+        dl.bp_decode_layered(kernel_tables(tsorted.to_sorted_device(code_from_jax(code))), llr, 5)
 
 
 def test_exact_layered_single_layer_is_flooding(two_layer):
     code, jsdc, _ = two_layer
-    one = dataclasses.replace(code, layers=[np.arange(code.mc, dtype=np.int32)])
+    one = code_from_jax(dataclasses.replace(code, layers=[np.arange(code.mc, dtype=np.int32)]))
     tsdc = tsorted.to_sorted_device(one, with_layers=True)
     llr = torch.from_numpy(awgn_llrs(code, jsdc.vn_perm, 8, 1.0, seed=5))
     a = tsorted.bp_decode_sorted(tsdc, llr, 8, True, "BP_MS", layered=True)
@@ -199,7 +201,7 @@ def test_fast_engine_matches_golden(wifi1944, form, early_term):
 def test_fast_engine_matches_jax_lanes_kernel(Z, form):
     code = natural_qc_code(8 * Z, Z)
     ldc = to_lanes_device(code, transport="qc", with_layers=True)
-    tables = kernel_tables(tsorted.to_sorted_device(code, with_layers=True))
+    tables = kernel_tables(tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
     llr = awgn_llrs(code, ldc.sorted_dc.vn_perm, 16, 1.5, seed=7)
     jout = bp_decode_lanes(ldc, jnp.asarray(llr), iterations=8, early_term=True, minsum_mode=form,
                            layered=True, interpret=True)
@@ -249,12 +251,13 @@ def test_schedule_matches_jax_decode_path(name, use_pallas):
         "qc1024": lambda: natural_qc_code(8 * 128, 128),  # Beneš pad 4096: edge-major, exact
         "qc2048": lambda: natural_qc_code(16 * 128, 128),  # pad 8192: qc lanes, fast
     }[name]()
+    tcode = code_from_jax(code)
     for early_term in (True, False):
         dec = DecoderParams(iterations=8, layered=True, early_term=early_term)
-        sim = Simulator(code, dec, ChannelParams(seed=1, x_range=(1.0, 2.0, 1.0)),
+        sim = Simulator(tcode, dec, ChannelParams(seed=1, x_range=(1.0, 2.0, 1.0)),
                         SimulationParams(batch_size=32, fec=3, max_frames=128),
                         device="cpu", verbose=False, use_pallas=use_pallas)
         port = [p for p in sim.decode_path.split() if p.split("=")[0] in ("schedule", "streaming")]
         assert port == _jax_decode_path(code, dec, use_pallas)
-        assert sim.schedule == select_schedule(code, dec, use_pallas)
-    assert select_schedule(code, DecoderParams(), use_pallas) == "flooding"
+        assert sim.schedule == select_schedule(tcode, dec, use_pallas)
+    assert select_schedule(tcode, DecoderParams(), use_pallas) == "flooding"

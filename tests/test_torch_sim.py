@@ -10,11 +10,10 @@ import pytest
 import torch
 
 from libldpc_tpu import cli as jax_cli
-from libldpc_tpu.models import make_benchmark_code
-from libldpc_tpu.models.io import write_codefile
-from libldpc_tpu.utils.params import ChannelParams, DecoderParams, SimulationParams
 from libldpc_tpu_torch import cli
+from libldpc_tpu_torch.models import make_benchmark_code, write_codefile
 from libldpc_tpu_torch.sim.driver import Simulator
+from libldpc_tpu_torch.utils.params import ChannelParams, DecoderParams, SimulationParams
 
 torch.set_num_threads(2)
 
@@ -115,7 +114,6 @@ CHECKPOINT = '"Checkpoint/resume and the forensic error log"'
     (["--points-parallel", "2"], '"Multi-GPU"'), (["--multihost"], '"Multi-GPU"'),
     (["--devices", "2"], '"Multi-GPU"'),
     (["--message-dtype", "bfloat16"], '"bf16/int8 message forms of kernels 1-2"'),
-    (["--channel", "BEC"], '"BEC"'),
 ])
 def test_refuses_unported_flags(files, tmp_path, capsys, flags, item):
     _, d = files

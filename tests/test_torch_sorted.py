@@ -22,6 +22,7 @@ from libldpc_tpu.models import make_benchmark_code, wifi_code
 from libldpc_tpu.ops import sorted as jsorted
 from libldpc_tpu.utils.params import DecoderParams
 from libldpc_tpu_torch import convert
+from libldpc_tpu_torch.convert import code_from_jax
 from libldpc_tpu_torch.ops import sorted as tsorted
 
 torch.set_num_threads(2)
@@ -34,7 +35,7 @@ FIELDS = ["col_sorted", "perm_c2v", "bit_pos", "puncture", "shorten", "vn_perm",
 @pytest.fixture(scope="module")
 def setup():
     code = make_benchmark_code(96, dv=3, dc=6, seed=7, with_G=True)
-    return code, jsorted.to_sorted_device(code), tsorted.to_sorted_device(code)
+    return code, jsorted.to_sorted_device(code), tsorted.to_sorted_device(code_from_jax(code))
 
 
 def awgn_llrs(code, vn_perm, B, snr_db, seed):
@@ -107,7 +108,7 @@ def test_decoder_matches_jax(setup, form, early_term):
 def test_wifi_648_xla_only(setup):
     """802.11n n=648 (irregular, Z=27): tables and BP decoding agree."""
     code = wifi_code(648)
-    jsdc, tsdc = jsorted.to_sorted_device(code), tsorted.to_sorted_device(code)
+    jsdc, tsdc = jsorted.to_sorted_device(code), tsorted.to_sorted_device(code_from_jax(code))
     assert_same_tables(jsdc, tsdc)
     llr = awgn_llrs(code, jsdc.vn_perm, 32, 1.5, seed=5)
     jout = jax.jit(lambda l: jsorted.bp_decode_sorted(jsdc, l, 10, True, "BP"))(jnp.asarray(llr))

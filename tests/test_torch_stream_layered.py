@@ -15,10 +15,9 @@ import pytest
 import torch
 
 from libldpc_tpu import cli as jax_cli
-from libldpc_tpu.models import wifi_code
 from libldpc_tpu.utils.params import DecoderParams
 from libldpc_tpu_torch import cli
-from libldpc_tpu_torch.models import parse_layerfile, write_codefile, write_layerfile
+from libldpc_tpu_torch.models import parse_layerfile, wifi_code, write_codefile, write_layerfile
 from libldpc_tpu_torch.ops.channel import make_generator
 from libldpc_tpu_torch.ops.kernels import decode_layered as dl
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables

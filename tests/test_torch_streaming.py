@@ -24,6 +24,7 @@ from libldpc_tpu_torch import convert
 from libldpc_tpu_torch.ops.channel import make_generator
 from libldpc_tpu_torch.ops.kernels import decode_fused as df
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+from libldpc_tpu_torch.convert import code_from_jax
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 from libldpc_tpu_torch.ops.streaming import split_exact
 from libldpc_tpu_torch.ops.streaming_fused import make_streaming_fused_step
@@ -35,7 +36,7 @@ torch.set_num_threads(2)
 def setup():
     code = make_benchmark_code(96, dv=3, dc=6, seed=7, with_G=True)
     pdc = to_pallas_device(code)
-    return code, pdc, kernel_tables(to_sorted_device(code))
+    return code, pdc, kernel_tables(to_sorted_device(code_from_jax(code)))
 
 
 def frames(code, vn_perm, B, snr_db, seed):
