@@ -9,8 +9,9 @@ each against its plain PyTorch version at the main paths' shapes, drives
 the ``ldpcsim-torch`` sweeps on the card (the flooding sweep of the 1152
 code; the 802.11n layered sweep: wifi 1944 on the fast QC engine, streaming
 and fixed-iteration, and wifi 648 on the exact layered schedule; the BEC
-sweep of the 1152 code and the BEC streaming step), times kernels against
-plain versions, and prints a ``{"kernels": [...]}`` line (each kernel with
+sweep of the 1152 code and the BEC streaming step; the flooding sweeps with
+bfloat16 and int8 messages, ``--pallas --message-dtype``), times kernels
+against plain versions, and prints a ``{"kernels": [...]}`` line (each kernel with
 its launches on its path, its error against the plain version, its time,
 the plain version's, and its bound: the larger of the bytes it must move
 over the HBM rate and its operations over the float32 rate) and, last, an
@@ -38,6 +39,11 @@ COMPARE_SNR_DB = 1.5  # inside the waterfall of every code here (sigma^2 = 10^(-
 SWEEP = ["1.0", "3.01", "0.5"]  # 1.0 .. 3.0 dB: the 1152 code's waterfall
 LAYERED_SWEEP = ["1.0", "2.51", "0.5"]  # 1.0 .. 2.5 dB: wifi 1944's waterfall
 FORMS = ("BP_MS", ("BP_NMS", 0.75, 0.15), "BP")
+#: CN forms per message dtype: the int8 lattice takes the min-sum family only
+DTYPE_FORMS = {"float32": FORMS, "bfloat16": FORMS, "int8": ("BP_MS", ("BP_OMS", 0.75, 0.15))}
+#: the JSON name suffix of each message form of kernels 1 and 2
+SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
+MSG_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 BEC_EPS = 0.40  # inside the 1152 code's BEC waterfall (BP threshold ~0.429)
 BEC_SWEEP = ["0.30", "0.451", "0.05"]  # 0.45 .. 0.30, run reversed
 #: The card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s,
@@ -53,6 +59,7 @@ OPS_S = 67e12
 #: every posterior and syndrome per layer.  The BEC peeling: 4 byte
 #: operations per slot in the check phase, 4 in the variable phase.
 OPS_BP_SLOT = 3 * 10 + 2 + 2
+OPS_MS_SLOT = 3 * 3 + 2 + 2  # a min-sum pair: min, sign, multiply
 OPS_BP_FAST_SLOT = 3 * 10 + 3 + 2
 OPS_BEC_SLOT = 8
 
@@ -96,24 +103,27 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_batch(tag, kernel, plain, tb, llr) -> float:
+def compare_batch(tag, kernel, plain, tb, llr, dtype=None) -> float:
     """Hold a batch decode kernel against its plain version: every CN form
-    of FORMS, early termination on and off.  The min-sum family must be
-    bit-exact; BP must agree in decisions and iteration counts on >= 99.9 %
-    of frames and within 1e-4 on their posteriors.  Returns the largest
-    absolute posterior difference over agreeing frames."""
+    of FORMS (of DTYPE_FORMS[dtype] in a message form), early termination
+    on and off.  The min-sum family must be bit-exact; BP must agree in
+    decisions and iteration counts on >= 99.9 % of frames and within 1e-4
+    on their posteriors.  Returns the largest absolute posterior difference
+    over agreeing frames."""
     worst = 0.0
-    for form in FORMS:
+    form_args = () if dtype is None else (dtype,)
+    for form in FORMS if dtype is None else DTYPE_FORMS[dtype]:
         for et in (True, False):
-            got = kernel(tb, llr, ITERS, et, form)
-            want = plain(tb, llr, ITERS, et, form)
+            got = kernel(tb, llr, ITERS, et, form, *form_args)
+            want = plain(tb, llr, ITERS, et, form, *form_args)
             torch.cuda.synchronize()
             same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
             diff = (got.llr_out - want.llr_out)[:, same].abs()
             err = diff.max().item() if diff.numel() else 0.0
             worst = max(worst, err)
             label = form if isinstance(form, str) else form[0]
-            print(f"{tag} {label} et={int(et)}: frames agreeing "
+            print(f"{tag}{'' if dtype is None else ' ' + dtype} {label} et={int(et)}: "
+                  f"frames agreeing "
                   f"{same.float().mean().item():.6f} max_abs_err {err:.3e} "
                   f"avg_iter {got.iterations.float().mean().item():.3f} "
                   f"codewords {got.is_codeword.float().mean().item():.4f}")
@@ -210,8 +220,8 @@ def main() -> int:
                 return st.ctr.sum(1).tolist()
         raise RuntimeError("streams did not drain")
 
-    def fresh_pool_state(tb, ch):
-        st = init_state(tb, BATCH)
+    def fresh_pool_state(tb, ch, dtype="float32"):
+        st = init_state(tb, BATCH, message_dtype=dtype)
         st.fresh_llr.copy_(ch.llr)
         st.fresh_cw.copy_(ch.codeword)
         st.avail.fill_(1)
@@ -244,6 +254,64 @@ def main() -> int:
 
     err2 = check_stream("kernel2", df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
                         "bench1152", 1)
+
+    # ---- 4b. the bfloat16 and int8 forms of kernels 1 and 2 against their
+    # plain versions (int8: the min-sum family only).  Kernel 2 drains
+    # frames that every lane takes from a full pool (its reload stores the
+    # prior in the message form, as kernel 1 starts), against its plain
+    # version and kernel 1's form on the same frames; then a quota.
+    err_form = {}
+    for dtype in ("bfloat16", "int8"):
+        err_form[f"k1 {dtype}"] = max(
+            compare_batch(f"kernel1 {key}", df.bp_decode_fused, df.bp_decode_fused_plain,
+                          tables[key], llrs(key, 0).llr, dtype)
+            for key in ("bench1152", "wifi1944"))
+
+    def pool_drain(fn, tb, ch, form, dtype):
+        st = init_state(tb, BATCH, message_dtype=dtype)
+        st.fresh_llr.copy_(ch.llr)
+        st.fresh_cw.copy_(ch.codeword)
+        st.avail.fill_(1)
+        refill = torch.ones(1, dtype=torch.int32, device=dev)
+        remaining = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
+        for _ in range(ITERS):
+            fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+               st.fresh_llr, st.fresh_cw, refill, remaining, k=6, cap=ITERS, minsum_mode=form,
+               message_dtype=dtype)
+            refill.zero_()
+            if int((st.done == 0).sum()) == 0:
+                return st.ctr.sum(1).tolist()
+        raise RuntimeError("streams did not drain")
+
+    tb2, ch2 = tables["bench1152"], llrs("bench1152", 1)
+    bp2 = tb2.code.bit_pos.long()
+    for dtype in ("bfloat16", "int8"):
+        err = 0
+        for form in DTYPE_FORMS[dtype]:
+            got = pool_drain(df.bp_stream_chunk_fused, tb2, ch2, form, dtype)
+            want = pool_drain(df.bp_stream_chunk_fused_plain, tb2, ch2, form, dtype)
+            out1 = df.bp_decode_fused(tb2, ch2.llr, ITERS, True, form, dtype)
+            errs1 = (out1.hard[bp2] != ch2.codeword[bp2].bool()).sum(0)
+            batch1 = [int(errs1.sum()), int((errs1 > 0).sum()), BATCH, int(out1.iterations.sum()),
+                      BATCH]
+            label = form if isinstance(form, str) else form[0]
+            print(f"kernel2 {dtype} drain bench1152 {label}: kernel {got} plain {want} "
+                  f"kernel1 batch {batch1}")
+            check(got[2] == got[4] == BATCH, f"kernel2 {dtype}: not every frame started and counted")
+            if label != "BP":
+                check(got == want == batch1, f"kernel2 {dtype} {label}: drained totals differ")
+            err = max(err, max(abs(a - b) for a, b in zip(got, want)))
+        st = fresh_pool_state(tb2, ch2, dtype)
+        remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
+        df.bp_stream_chunk_fused(tb2, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
+                                 st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining,
+                                 k=6, cap=ITERS, minsum_mode=DTYPE_FORMS[dtype][0],
+                                 message_dtype=dtype)
+        starts = int(st.ctr[4].sum())
+        print(f"kernel2 {dtype} quota 5000: starts {starts}, pool entries used "
+              f"{BATCH - int(st.avail.sum())}")
+        check(starts == 5000 == BATCH - int(st.avail.sum()), f"kernel2 {dtype}: quota not exact")
+        err_form[f"k2 {dtype}"] = float(err)
 
     # ---- 5. K3 (fast layered engine, batch) against its plain version
     err3 = compare_batch("K3 wifi1944", dl.bp_decode_layered_fast,
@@ -348,16 +416,20 @@ def main() -> int:
         check(rows and all(math.isfinite(v) for r in rows for v in r), f"{out} rows")
         return lines[0], rows
 
-    counted = (df.bp_decode_fused, df.bp_stream_chunk_fused, dl.bp_decode_layered_fast,
-               dl.bp_stream_chunk_layered_fast, dl.bp_decode_layered, db.bec_decode_fused,
-               db.bec_stream_chunk_fused)
+    counted = (dl.bp_decode_layered_fast, dl.bp_stream_chunk_layered_fast, dl.bp_decode_layered,
+               db.bec_decode_fused, db.bec_stream_chunk_fused)
+    by_form = (df.bp_decode_fused, df.bp_stream_chunk_fused)  # a count per message form
 
     def zero_counts():
         for fn in counted:
             fn.launches = 0
+        for fn in by_form:
+            fn.launches = dict.fromkeys(SUFFIX, 0)
 
     def read_counts():
-        return {fn.__name__: fn.launches for fn in counted}
+        out = {fn.__name__: fn.launches for fn in counted}
+        out.update({fn.__name__ + SUFFIX[dt]: n for fn in by_form for dt, n in fn.launches.items()})
+        return out
 
     zero_counts()
     head, rows = run_cli("bench1152", "res.txt", SWEEP, "--frame-error-count", "50",
@@ -374,6 +446,41 @@ def main() -> int:
     check(len(rows) == 5 and rows[0][1] > rows[-1][1], "FER does not fall across the sweep")
     check(all(0 < r[4] <= ITERS for r in rows), "avg_iter out of range")
     check(fixed[0][4] == ITERS, "fixed-iteration point did not run every iteration")
+
+    # ---- 8b. the message forms: the flooding sweeps with --pallas
+    # --message-dtype (frames capped: each point stops at 50 frame errors or
+    # 1 M frames)
+    zero_counts()
+    cap = ["--frame-error-count", "50", "--max-frames", "1000000"]
+    fixed_cap = ["--frame-error-count", "50", "--max-frames", str(4 * BATCH), "--no-early-term"]
+    bf16 = ["--message-dtype", "bfloat16"]
+    int8_oms = ["--message-dtype", "int8", "--decoding", "BP_OMS"]
+    head_b16, rows_b16 = run_cli("bench1152", "res_bf16.txt", SWEEP, *bf16, *cap)
+    head_b16f, fixed_b16 = run_cli("bench1152", "res_bf16_fixed.txt", ["2.0", "2.01", "1"], *bf16,
+                                   *fixed_cap)
+    head_i8, rows_i8 = run_cli("bench1152", "res_int8.txt", SWEEP, *int8_oms, *cap)
+    head_i8f, fixed_i8 = run_cli("bench1152", "res_int8_fixed.txt", ["2.0", "2.01", "1"],
+                                 *int8_oms, *fixed_cap)
+    head_w8, rows_w8 = run_cli("wifi1944", "res_int8_1944.txt", ["1.5", "2.01", "0.5"],
+                               "--message-dtype", "int8", "--decoding", "BP_MS", *cap)
+    form_launches = read_counts()
+    print(f"message-form path launches: {form_launches}")
+    for name in ("bp_decode_fused_bf16", "bp_stream_chunk_fused_bf16", "bp_decode_fused_int8",
+                 "bp_stream_chunk_fused_int8"):
+        check(form_launches[name] > 0, f"the message-form sweeps did not run {name}")
+    for head, dtype, cn, streaming in (
+            (head_b16, "bfloat16", "BP", "on"), (head_b16f, "bfloat16", "BP", "off"),
+            (head_i8, "int8", "BP_OMS", "on"), (head_i8f, "int8", "BP_OMS", "off"),
+            (head_w8, "int8", "BP_MS", "on")):
+        check(head.startswith(f"# kernel=cuda-fused dtype={dtype} cn={cn} schedule=flooding "
+                              f"streaming={streaming}"), f"{dtype} provenance line: {head}")
+    for rows_, n in ((rows_b16, 5), (rows_i8, 5), (rows_w8, 2)):
+        check(len(rows_) == n and rows_[0][1] > rows_[-1][1], "FER does not fall across a sweep")
+        check(all(0 < r[4] <= ITERS for r in rows_), "avg_iter out of range")
+    check(fixed_b16[0][4] == ITERS == fixed_i8[0][4], "fixed points did not run every iteration")
+    for (x, fer32, *_), (_, fer8, *_) in zip(rows, rows_i8):
+        print(f"bench1152 {x} dB: FER BP float32 {fer32:.4e}, BP_OMS int8 {fer8:.4e} "
+              f"[{name_power}]")
 
     # ---- 9. the layered slice: the 802.11n sweep on the card
     zero_counts()
@@ -398,9 +505,12 @@ def main() -> int:
           "FER does not fall across the layered sweep")
     check(all(0 < r[4] <= ITERS for r in rows_l + rows_648), "layered avg_iter out of range")
     check(fixed_l[0][4] == ITERS, "fixed layered point did not run every iteration")
-    # flooding on the same code at one SNR of the layered sweep
+    # flooding on the same code at one SNR of the layered sweep, and a
+    # fixed-iteration flooding point (kernel 1 on wifi 1944)
     _, rows_flood = run_cli("wifi1944", "res_flooding_1944.txt", ["1.5", "1.51", "1"],
                             "--frame-error-count", "50", "--max-frames", "4000000")
+    run_cli("wifi1944", "res_flooding_1944_fixed.txt", ["2.0", "2.01", "1"], *fixed_cap)
+    k1_1944_launches = read_counts()["bp_decode_fused"]
     at15 = [r for r in rows_l if abs(r[0] - 1.5) < 1e-6][0]
     print(f"wifi 1944 at 1.5 dB: layered avg_iter {at15[4]} FER {at15[1]}, flooding avg_iter "
           f"{rows_flood[0][4]} FER {rows_flood[0][1]} [{name_power}]")
@@ -415,9 +525,11 @@ def main() -> int:
     head_bf, fixed_b = run_cli("bench1152", "res_bec_fixed.txt", ["0.40", "0.401", "1"],
                                "--channel", "BEC", "--frame-error-count", "50", "--max-frames",
                                str(4 * BATCH), "--no-early-term")
+    k6_before = db.bec_decode_fused.launches
     head_bw, rows_bw = run_cli("wifi1944", "res_bec_1944.txt", ["0.40", "0.401", "1"],
                                "--channel", "BEC", "--qc-z", "81", "--frame-error-count", "50",
                                "--max-frames", str(4 * BATCH), layered=True)
+    k6_1944_launches = db.bec_decode_fused.launches - k6_before
     # the second entry point: make_streaming_fused_step(tables, "BEC", ...)
     sinit, sstep = make_streaming_fused_step(tables["bench1152"], "BEC",
                                              DecoderParams(iterations=ITERS), BATCH,
@@ -460,31 +572,46 @@ def main() -> int:
     times["K5 wifi648"] = (
         cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, "BP"), 3),
         cuda_ms(lambda: dl.bp_decode_layered_plain(tb5, llr5, ITERS, False, "BP"), 1))
+    # the message forms of kernel 1: BP in bfloat16, min-sum on the lattice;
+    # and min-sum in each form, kernel only, for the forms side by side
+    for dtype, form in (("bfloat16", "BP"), ("int8", "BP_MS")):
+        for key in ("bench1152", "wifi1944"):
+            tb_, llr = tables[key], llrs(key, 2).llr
+            times[f"k1{SUFFIX[dtype]} {key}"] = (
+                cuda_ms(lambda: df.bp_decode_fused(tb_, llr, ITERS, False, form, dtype), 5),
+                cuda_ms(lambda: df.bp_decode_fused_plain(tb_, llr, ITERS, False, form, dtype), 2))
+    tb_, llr = tables["bench1152"], llrs("bench1152", 2).llr
+    for dtype in SUFFIX:
+        ms = cuda_ms(lambda: df.bp_decode_fused(tb_, llr, ITERS, False, "BP_MS", dtype), 5)
+        print(f"time k1 bench1152 BP_MS {dtype} {ITERS} it no-ET B={BATCH}: kernel {ms:.3f} ms "
+              f"[{name_power}]")
     for tag, (k_ms, p_ms) in times.items():
-        print(f"time {tag} BP {ITERS} it no-ET B={BATCH}: kernel {k_ms:.3f} ms "
+        print(f"time {tag} {'BP_MS' if 'int8' in tag else 'BP'} {ITERS} it no-ET B={BATCH}: "
+              f"kernel {k_ms:.3f} ms "
               f"({BATCH / k_ms * 1e3:.0f} frames/s), plain {p_ms:.3f} ms "
               f"({BATCH / p_ms * 1e3:.0f} frames/s) [{name_power}]")
 
-    def time_chunk(kernel, plain, key, reps_plain):
+    def time_chunk(kernel, plain, key, reps_plain, form="BP", dtype=None):
         tb = tables[key]
         ch = llrs(key, 2)
         box = {}
+        form_args = {} if dtype is None else {"message_dtype": dtype}
 
         def reset():
-            box["st"] = fresh_pool_state(tb, ch)
+            box["st"] = fresh_pool_state(tb, ch, dtype or "float32")
             box["rem"] = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
 
         def run(fn):
             st = box["st"]
             fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
                st.fresh_llr, st.fresh_cw, refill_on, box["rem"], k=6, cap=ITERS,
-               minsum_mode="BP")
+               minsum_mode=form, **form_args)
 
         ms = cuda_ms(lambda: run(kernel), 5, reset)
         # frame-passes the kernel ran: every lane starts at age 1 and adds
         # one per pass
         box_passes[0] = int(box["st"].age.sum()) - int(box["st"].ctr[4].sum())
-        return ms, cuda_ms(lambda: run(plain), reps_plain, reset)
+        return ms, plain and cuda_ms(lambda: run(plain), reps_plain, reset)
 
     box_passes = [0]
 
@@ -494,9 +621,19 @@ def main() -> int:
     times["K4 wifi1944"] = time_chunk(dl.bp_stream_chunk_layered_fast,
                                       dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 1)
     passes["K4 wifi1944"] = int(box_passes[0])
-    for tag in ("k2 bench1152", "K4 wifi1944"):
-        print(f"time {tag} BP 6 passes from a full pool B={BATCH}: kernel {times[tag][0]:.3f} ms, "
-              f"plain {times[tag][1]:.3f} ms [{name_power}]")
+    for dtype, form in (("bfloat16", "BP"), ("int8", "BP_MS")):
+        tag = f"k2{SUFFIX[dtype]} bench1152"
+        times[tag] = time_chunk(df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
+                                "bench1152", 2, form, dtype)
+        passes[tag] = int(box_passes[0])
+    for dtype in SUFFIX:  # min-sum in each form, kernel only, for the forms side by side
+        ms = time_chunk(df.bp_stream_chunk_fused, None, "bench1152", 0, "BP_MS", dtype)[0]
+        print(f"time k2 bench1152 BP_MS {dtype} 6 passes from a full pool B={BATCH}: kernel "
+              f"{ms:.3f} ms [{name_power}]")
+    for tag in ("k2 bench1152", "K4 wifi1944", "k2_bf16 bench1152", "k2_int8 bench1152"):
+        print(f"time {tag} {'BP_MS' if 'int8' in tag else 'BP'} 6 passes from a full pool "
+              f"B={BATCH}: kernel {times[tag][0]:.3f} ms, plain {times[tag][1]:.3f} ms "
+              f"({passes[tag]} frame-passes) [{name_power}]")
     # K6 (no ET: every frame runs every iteration) and K7 (6 passes from a
     # full pool), BEC at eps 0.40
     for key in ("bench1152", "wifi1944"):
@@ -546,17 +683,22 @@ def main() -> int:
 
     # end-to-end sweep rate from the Simulator's own float timing (the
     # results file keeps frame_time to 6 decimals)
-    for key, layered, snrs in (("bench1152", False, (2.0, 2.5)), ("wifi1944", False, (1.5, 2.0)),
-                               ("wifi1944", True, (1.5, 2.0))):
+    for key, layered, snrs, dtype, form in (
+            ("bench1152", False, (2.0, 2.5), "float32", "BP"),
+            ("bench1152", False, (2.0, 2.5), "bfloat16", "BP"),
+            ("bench1152", False, (2.0, 2.5), "int8", "BP_OMS"),
+            ("wifi1944", False, (1.5, 2.0), "float32", "BP"),
+            ("wifi1944", True, (1.5, 2.0), "float32", "BP")):
         for snr in snrs:
             res = Simulator(
-                codes[key], DecoderParams(iterations=ITERS, layered=layered),
+                codes[key], DecoderParams(iterations=ITERS, layered=layered, type=form,
+                                          message_dtype=dtype),
                 ChannelParams(seed=1, x_range=(snr, snr + 0.01, 1.0)),
                 SimulationParams(batch_size=BATCH, fec=50, max_frames=2_000_000),
                 device=dev, verbose=False, use_pallas=True,
             ).start()
-            print(f"sweep {key} {'layered-fast' if layered else 'flooding'} BP ET SNR {snr} dB: "
-                  f"{1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, "
+            print(f"sweep {key} {'layered-fast' if layered else 'flooding'} {form} {dtype} ET SNR "
+                  f"{snr} dB: {1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, "
                   f"FER {res.fer[0]:.3e}, {int(res.frames[0])} frames) [{name_power}]")
 
     # each kernel's count from the run of the path it belongs to
@@ -564,7 +706,11 @@ def main() -> int:
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],
                 "bp_stream_chunk_fused": flooding_launches["bp_stream_chunk_fused"],
                 "bec_decode_fused": bec_launches["bec_decode_fused"],
-                "bec_stream_chunk_fused": bec_launches["bec_stream_chunk_fused"]}
+                "bec_stream_chunk_fused": bec_launches["bec_stream_chunk_fused"],
+                **{f"{fn.__name__}{SUFFIX[dt]}": form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
+                   for fn in by_form for dt in ("bfloat16", "int8")}}
+    print(f"launches on wifi 1944: kernel 1 (flooding, fixed point) {k1_1944_launches}, "
+          f"K6 (BEC point) {k6_1944_launches}")
 
     # bounds of the timed calls: each input read once, each output written
     # once (the stream chunks' state planes are both), and the operations
@@ -577,9 +723,11 @@ def main() -> int:
         nc, _ = dims(key)
         return BATCH * (nc * (in_b + out_b) + 8)
 
-    def stream_bytes(key, val_b):  # values/messages of val_b bytes, u8 codewords, 9 int planes
+    def stream_bytes(key, val_b, msg_b=None):
+        """Channel values of val_b bytes, messages of msg_b (default val_b),
+        u8 codewords, 9 int planes; the state read and written, the pool read."""
         nc, nnz = dims(key)
-        state = nc * val_b + nc + nnz * val_b + 9 * 4
+        state = nc * val_b + nc + nnz * (msg_b or val_b) + 9 * 4
         return BATCH * (2 * state + nc * (val_b + 1))
 
     nc648, nnz648 = dims("wifi648")
@@ -601,7 +749,28 @@ def main() -> int:
         "bec_stream_chunk_fused": bound(stream_bytes("bench1152", 1),
                                         passes["K7 bench1152"] * dims("bench1152")[1]
                                         * OPS_BEC_SLOT),
+        # the forms: float32 priors in, the posterior out in the message form
+        "bp_decode_fused_bf16": bound(batch_bytes("bench1152", 4, 2),
+                                      BATCH * ITERS * dims("bench1152")[1] * OPS_BP_SLOT),
+        "bp_decode_fused_int8": bound(batch_bytes("bench1152", 4, 1),
+                                      BATCH * ITERS * dims("bench1152")[1] * OPS_MS_SLOT),
+        "bp_stream_chunk_fused_bf16": bound(stream_bytes("bench1152", 4, 2),
+                                            passes["k2_bf16 bench1152"] * dims("bench1152")[1]
+                                            * OPS_BP_SLOT),
+        "bp_stream_chunk_fused_int8": bound(stream_bytes("bench1152", 4, 1),
+                                            passes["k2_int8 bench1152"] * dims("bench1152")[1]
+                                            * OPS_MS_SLOT),
     }
+    # the wifi 1944 rows of kernel 1 (float32, BP) and K6 (BEC)
+    for name, b_, t in (
+            ("k1 wifi1944", bound(batch_bytes("wifi1944", 4, 4),
+                                  BATCH * ITERS * dims("wifi1944")[1] * OPS_BP_SLOT),
+             times["k1 wifi1944"][0]),
+            ("K6 wifi1944", bound(batch_bytes("wifi1944", 2, 2),
+                                  BATCH * ITERS * dims("wifi1944")[1] * OPS_BEC_SLOT),
+             times["K6 wifi1944"][0])):
+        print(f"bound {name}: {b_[0]:.4f} ms by {b_[1]}, kernel {t:.3f} ms "
+              f"({b_[0] / t:.1%} of the bound) [{name_power}]")
     fused = "libldpc_tpu_torch/csrc/decode_fused.cu"
     layered_src = "libldpc_tpu_torch/csrc/decode_layered.cu"
     bec_src = "libldpc_tpu_torch/csrc/decode_bec.cu"
@@ -620,6 +789,14 @@ def main() -> int:
          times["K6 bench1152"]),
         ("bec_stream_chunk_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
          times["K7 bench1152"]),
+        ("bp_decode_fused_bf16", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617",
+         err_form["k1 bfloat16"], times["k1_bf16 bench1152"]),
+        ("bp_decode_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617",
+         err_form["k1 int8"], times["k1_int8 bench1152"]),
+        ("bp_stream_chunk_fused_bf16", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404",
+         err_form["k2 bfloat16"], times["k2_bf16 bench1152"]),
+        ("bp_stream_chunk_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404",
+         err_form["k2 int8"], times["k2_int8 bench1152"]),
     ]
     for name, _, _, _, t in rows_json:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "

@@ -6,9 +6,15 @@ Same flags as the JAX CLI plus ``--device`` (default ``cuda``).
 ``--layer-file`` loads the decoding layers and selects the layered
 schedule, ``--qc-z N|auto`` declares (or finds) the code's QC lifting, and
 ``--pallas`` picks between the exact layered schedule and the fast QC
-engine exactly as in the JAX CLI.  Flags for what the port does not cover
-yet are refused with an error naming the ROADMAP item by its title; none
-is silently ignored.
+engine exactly as in the JAX CLI.  ``--message-dtype bfloat16|int8``
+(with ``--quant-scale`` for the int8 lattice) stores the flooding
+decoder's messages in that form when ``--pallas`` is given, as the JAX CLI
+does (without it both run float32); int8 takes a min-sum-family
+``--decoding`` (BP_MS, BP_NMS, BP_OMS).  Unlike the JAX package, int8 runs
+on codes without a block-local (MXU) permutation plan, such as the
+1152-node (3,6) benchmark code: that condition is a TPU transport's.
+Flags for what the port does not cover yet are refused with an error
+naming the ROADMAP item by its title; none is silently ignored.
 
 Usage::
 
@@ -32,7 +38,6 @@ _NOT_PORTED = {
     "log_codewords": (False, _CHECKPOINT),
     "points_parallel": (1, _MULTI_GPU),
     "multihost": (False, _MULTI_GPU),
-    "message_dtype": ("float32", 'ROADMAP Queue 1, "bf16/int8 message forms of kernels 1-2"'),
 }
 
 
@@ -77,11 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Choose the layered schedule as the JAX CLI does: with "
                         "--layer-file, a QC code on its natural layers (Z >= 64) "
                         "runs the fast layered engine, otherwise the exact "
-                        "layered schedule.  Flooding and the BEC run the same "
-                        "CUDA kernels with or without it.")
+                        "layered schedule; with --message-dtype, flooding "
+                        "stores its messages in that dtype.  Flooding and the "
+                        "BEC run the same CUDA kernels with or without it.")
     p.add_argument("--message-dtype", default="float32",
                    choices=["float32", "bfloat16", "int8"],
-                   help="Message dtype of the decode kernels.")
+                   help="Message dtype of the flooding decode kernels, with "
+                        "--pallas (int8: min-sum family only; refused with "
+                        "--layer-file).")
     p.add_argument("--quant-scale", type=float, default=0.1875,
                    help="int8 message lattice step in LLR units.")
     p.add_argument("--layer-file", default="", help="Decoding-layer file for the layered schedule.")
@@ -157,24 +165,31 @@ def main(argv=None) -> int:
     print(bar)
 
     batch = args.num_threads if args.num_threads > 0 else args.batch_size
-    sim = Simulator(
-        code,
-        DecoderParams(
-            early_term=not args.no_early_term,
-            iterations=args.num_iterations,
-            type=args.decoding,
-            layered=bool(args.layer_file),
-        ),
-        ChannelParams(seed=args.seed, x_range=tuple(snr), type=args.channel),
-        SimulationParams(
-            batch_size=batch,
-            max_frames=int(args.max_frames),
-            fec=args.frame_error_count,
-            result_file=args.output_file,
-        ),
-        device=args.device,
-        use_pallas=args.pallas,
-    )
+    try:
+        sim = Simulator(
+            code,
+            DecoderParams(
+                early_term=not args.no_early_term,
+                iterations=args.num_iterations,
+                type=args.decoding,
+                layered=bool(args.layer_file),
+                message_dtype=args.message_dtype,
+                quant_scale=args.quant_scale,
+            ),
+            ChannelParams(seed=args.seed, x_range=tuple(snr), type=args.channel),
+            SimulationParams(
+                batch_size=batch,
+                max_frames=int(args.max_frames),
+                fec=args.frame_error_count,
+                result_file=args.output_file,
+            ),
+            device=args.device,
+            use_pallas=args.pallas,
+        )
+    except (NotImplementedError, ValueError) as e:
+        # refused before any results file is written
+        print(e, file=sys.stderr)
+        return 2
     print("== Decoder Parameters")
     print(f"Type: {args.decoding}\nIterations: {args.num_iterations}\n"
           f"Early Termination: {int(not args.no_early_term)}")

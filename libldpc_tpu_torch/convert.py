@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .models.code import LDPCCode
+from .ops.messages import TORCH_DTYPES
 from .ops.sorted import TorchSortedCode
 from .ops.streaming_fused import StreamState
 
@@ -89,16 +90,20 @@ def from_pstream_state(arrays: Mapping, cn_classes, device="cpu") -> StreamState
     ``PStreamState`` (single device).  ``lv2c`` moves from the
     position-major padded edge space to the sorted CN-space slots; the
     ``[8, B]`` flag planes give their row 0 and ``ctr8`` its rows 0-4;
-    ``fresh_lv2c`` is dropped (the kernel gathers reload priors itself)."""
+    ``fresh_lv2c`` is dropped (the kernel gathers reload priors itself).
+    ``lv2c`` keeps its message dtype (float32, bfloat16 or int8)."""
 
     def t(name, dtype):
         return torch.as_tensor(np.ascontiguousarray(arrays[name]).astype(dtype)).to(device)
 
-    lv2c = np.asarray(arrays["lv2c"], dtype=np.float32)[position_major_slots(cn_classes)]
+    lv2c_j = np.asarray(arrays["lv2c"])
+    # every stored value is exact in float32 (bf16 and int8 alike)
+    lv2c = lv2c_j.astype(np.float32)[position_major_slots(cn_classes)]
     return StreamState(
         llr_in=t("llr_in", np.float32),
         codeword=t("codeword", np.uint8),
-        lv2c=torch.as_tensor(np.ascontiguousarray(lv2c)).to(device),
+        lv2c=torch.as_tensor(np.ascontiguousarray(lv2c)).to(TORCH_DTYPES[str(lv2c_j.dtype)])
+        .to(device),
         done=t("done8", np.int32)[0].contiguous(),
         iters=t("iters8", np.int32)[0].contiguous(),
         age=t("age8", np.int32)[0].contiguous(),

@@ -25,44 +25,64 @@ struct Code {
   int nc, mc, nnz;
 };
 
-// VN phase over this warp's variables: posterior = prior + (m0 + m1 + ...),
-// extrinsic lv2c = posterior - lc2v at each of the variable's edges.
-__device__ void vn_phase(const Code& c, const float* __restrict__ prior,
-                         float* __restrict__ lv2c, const float* __restrict__ lc2v,
-                         float* __restrict__ post, size_t B, size_t b) {
+// VN phase over this warp's variables, in the storage form Msg: posterior
+// post = store(prior(llr) + (m0 + m1 + ...)) (the prior in float32, the
+// messages widened from their stored form), extrinsic
+// lv2c = store(load(post) - load(lc2v)) at each of the variable's edges,
+// from the stored posterior.  A degree-0 variable stores its prior.
+template <class Msg>
+__device__ void vn_phase(const Code& c, const Msg& m, const float* __restrict__ prior,
+                         typename Msg::T* __restrict__ lv2c,
+                         const typename Msg::T* __restrict__ lc2v,
+                         typename Msg::T* __restrict__ post, size_t B, size_t b) {
   for (int v = threadIdx.y; v < c.nc; v += blockDim.y) {
     int s0 = __ldg(c.vn_ptr + v);
     int s1 = __ldg(c.vn_ptr + v + 1);
-    float llr = prior[v * B + b];
+    float llr = m.prior(prior[v * B + b]);
     if (s1 > s0) {
-      float tot = lc2v[__ldg(c.perm_c2v + s0) * B + b];
-      for (int s = s0 + 1; s < s1; ++s) tot = tot + lc2v[__ldg(c.perm_c2v + s) * B + b];
+      float tot = m.load(lc2v[__ldg(c.perm_c2v + s0) * B + b]);
+      for (int s = s0 + 1; s < s1; ++s) tot = tot + m.load(lc2v[__ldg(c.perm_c2v + s) * B + b]);
       llr = llr + tot;
     }
-    post[v * B + b] = llr;
+    const typename Msg::T q = m.store(llr);
+    post[v * B + b] = q;
+    const float qf = m.load(q);
     for (int s = s0; s < s1; ++s) {
       size_t e = __ldg(c.perm_c2v + s) * B + b;
-      lv2c[e] = llr - lc2v[e];
+      lv2c[e] = m.store(qf - m.load(lc2v[e]));
     }
   }
 }
 
+__device__ void vn_phase(const Code& c, const float* __restrict__ prior,
+                         float* __restrict__ lv2c, const float* __restrict__ lc2v,
+                         float* __restrict__ post, size_t B, size_t b) {
+  vn_phase(c, F32Msg{}, prior, lv2c, lc2v, post, B, b);
+}
+
 // Sets bad[lane] when one of this warp's checks is unsatisfied by the
-// decisions post <= 0; stops at the first such check, or as soon as another
-// warp has found one for this frame.
-__device__ void syndrome_part(const Code& c, const float* __restrict__ post, size_t B, size_t b,
+// decisions post <= 0 (of the stored posterior); stops at the first such
+// check, or as soon as another warp has found one for this frame.
+template <class Msg>
+__device__ void syndrome_part(const Code& c, const Msg& m,
+                              const typename Msg::T* __restrict__ post, size_t B, size_t b,
                               volatile int* bad) {
   for (int r = threadIdx.y; r < c.mc; r += blockDim.y) {
     if (bad[threadIdx.x]) return;
     int e1 = __ldg(c.row_ptr + r + 1);
     int parity = 0;
     for (int e = __ldg(c.row_ptr + r); e < e1; ++e)
-      parity ^= post[__ldg(c.col_sorted + e) * B + b] <= 0.0f ? 1 : 0;
+      parity ^= m.load(post[__ldg(c.col_sorted + e) * B + b]) <= 0.0f ? 1 : 0;
     if (parity) {
       bad[threadIdx.x] = 1;
       return;
     }
   }
+}
+
+__device__ void syndrome_part(const Code& c, const float* __restrict__ post, size_t B, size_t b,
+                              volatile int* bad) {
+  syndrome_part(c, F32Msg{}, post, B, b, bad);
 }
 
 inline unsigned grid_for(int B) { return (unsigned)((B + LDPC_FRAMES - 1) / LDPC_FRAMES); }

@@ -4,9 +4,14 @@
 // of one check for one frame.  They follow libldpc_tpu_torch/ops/cn_ops.py
 // operation for operation (association order of the combine, float32
 // constants); with -fmad=false the min-sum family is bit-exact against it.
+// Also the message storage forms (float32, bfloat16, the int8 lattice) of
+// ops/messages.py: arithmetic is float32 in every form, only loads and
+// stores of messages and posteriors change.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define LDPC_MAX_DC 32
 
@@ -120,14 +125,55 @@ __device__ __forceinline__ void check_combine(const CnParams& cp, int d, Load lo
   emit(0, postprocess(cp, tanh_form ? tanh_post(bwd) : bwd));
 }
 
+// Message storage forms (ops/messages.py MessageForm): T is the stored
+// type; load() widens to float32, store() rounds from float32, prior()
+// takes a raw float32 channel LLR to the decoder's units.
+struct F32Msg {
+  using T = float;
+  __device__ __forceinline__ float load(T x) const { return x; }
+  __device__ __forceinline__ T store(float x) const { return x; }
+  __device__ __forceinline__ float prior(float x) const { return x; }
+};
+
+// bfloat16 storage, rounded to nearest even (torch's .to(torch.bfloat16))
+struct Bf16Msg {
+  using T = __nv_bfloat16;
+  __device__ __forceinline__ float load(T x) const { return __bfloat162float(x); }
+  __device__ __forceinline__ T store(float x) const { return __float2bfloat16_rn(x); }
+  __device__ __forceinline__ float prior(float x) const { return x; }
+};
+
+// The int8 lattice q = clip(round_half_even(x), -127, 127) in lattice
+// units: rintf rounds halves to even like torch.round / jnp.round (roundf
+// would round them away from zero).  The prior is multiplied by
+// inv_q = float32(1 / quant_scale), never divided by quant_scale.
+struct Int8Msg {
+  using T = int8_t;
+  float inv_q;
+  __device__ __forceinline__ float load(T x) const { return (float)x; }
+  __device__ __forceinline__ T store(float x) const {
+    return (T)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
+  }
+  __device__ __forceinline__ float prior(float x) const { return x * inv_q; }
+};
+
 // check_combine over message planes [rows, B]: reads the check's slots
-// e0 .. e0+d-1 of lv2c for frame b and writes the same slots of lc2v.
+// e0 .. e0+d-1 of lv2c for frame b and writes the same slots of lc2v,
+// each output rounded to the storage form.
+template <class Msg>
+__device__ __forceinline__ void check_update(const CnParams& cp, const Msg& m,
+                                             const typename Msg::T* __restrict__ lv2c,
+                                             typename Msg::T* __restrict__ lc2v, int e0, int d,
+                                             size_t B, size_t b) {
+  check_combine(
+      cp, d, [&](int j) { return m.load(lv2c[(e0 + j) * B + b]); },
+      [&](int j, float o) { lc2v[(e0 + j) * B + b] = m.store(o); });
+}
+
 __device__ __forceinline__ void check_update(const CnParams& cp, const float* __restrict__ lv2c,
                                              float* __restrict__ lc2v, int e0, int d, size_t B,
                                              size_t b) {
-  check_combine(
-      cp, d, [&](int j) { return lv2c[(e0 + j) * B + b]; },
-      [&](int j, float o) { lc2v[(e0 + j) * B + b] = o; });
+  check_update(cp, F32Msg{}, lv2c, lc2v, e0, d, B, b);
 }
 
 }  // namespace

@@ -184,7 +184,8 @@ bec_decode_fused_kernel(Code c, const uint8_t* __restrict__ sym_in,
 // wrong where its posterior is E (and, in the bug-compatible mode, whose
 // constant decision 1 differs from the true bit).
 struct BecStreamPass {
-  using T = uint8_t;
+  using V = uint8_t;
+  using M = uint8_t;
   uint8_t* lc2v;  // [nnz, B] scratch
   int stale;
   __device__ void cn(const Code& c, const uint8_t* lv2c, size_t B, size_t b) const {
@@ -198,11 +199,12 @@ struct BecStreamPass {
   __device__ bool bit_error(uint8_t p, uint8_t cw) const {
     return p == kErased && (stale < 0 || cw == 0);
   }
+  __device__ uint8_t reload(uint8_t sym) const { return sym; }
 };
 
 // k self-refilling BEC passes per lane (see `kernel_stream`).
 __global__ void __launch_bounds__(LDPC_FRAMES * LDPC_WARPS)
-bec_stream_chunk_fused_kernel(Code c, BecStreamPass pass, StreamArgs<uint8_t> s, int B, int k,
+bec_stream_chunk_fused_kernel(Code c, BecStreamPass pass, StreamArgs<uint8_t, uint8_t> s, int B, int k,
                               int cap) {
   stream_chunk(c, pass, s, B, k, cap);
 }
@@ -232,8 +234,9 @@ int ldpc_bec_stream_chunk_fused(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* d
                                 int cap, int stale, void* stream) {
   Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
   BecStreamPass pass{lc2v, stale};
-  StreamArgs<uint8_t> s{sym,       cw,       lv2c,   done,      iters, age,     avail, ctr,
-                        fresh_sym, fresh_cw, refill, remaining, post,  bit_pos, nct};
+  StreamArgs<uint8_t, uint8_t> s{sym,    cw,        lv2c,      done, iters,   age,
+                                 avail,  ctr,       fresh_sym, fresh_cw, refill, remaining,
+                                 post,   bit_pos,   nct};
   bec_stream_chunk_fused_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(c, pass, s, B,
                                                                                   k, cap);
   return (int)cudaGetLastError();

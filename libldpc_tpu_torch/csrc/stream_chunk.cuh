@@ -14,11 +14,15 @@
 // only), 1 frame errors, 2 frames, 3 iteration sum, 4 starts.
 //
 // The decode pass is the template argument, a struct with
-//   using T = ...;  // element type of the value planes (float, uint8_t)
+//   using V = ...;  // element type of the channel planes: prior and pool
+//                   // (float LLRs, uint8_t BEC symbols)
+//   using M = ...;  // element type of the messages and the posterior
+//                   // (float, __nv_bfloat16, int8_t; uint8_t for the BEC)
 //   cn(c, lv2c, B, b)                          check phase
 //   vn(c, prior, cw, lv2c, post, B, b, flag)   variable phase
 //   check(c, post, B, b, flag)                 convergence test
 //   bit_error(post_value, cw_value)            a decided bit is wrong
+//   reload(prior_value)                        a slot's first message
 // where `flag[lane]` set by vn or check means "not converged this pass".
 #pragma once
 
@@ -30,22 +34,23 @@
 namespace {
 
 // The per-lane state of a chunk, in place; planes are [rows, B] with the
-// frame index fastest.
-template <typename T>
+// frame index fastest.  The channel planes (V) keep raw values; only the
+// messages and the posterior (M) take the storage form.
+template <typename V, typename M>
 struct StreamArgs {
-  T* prior;        // [nc, B] carried channel values (LLRs, or BEC symbols)
+  V* prior;        // [nc, B] carried channel values (LLRs, or BEC symbols)
   uint8_t* cw;     // [nc, B] carried true codewords
-  T* lv2c;         // [nnz, B] carried messages, CN-space slots
+  M* lv2c;         // [nnz, B] carried messages, CN-space slots
   int* done;       // [B] lane idle (finished or empty)
   int* iters;      // [B]
   int* age;        // [B] passes since (re)load
   int* avail;      // [B] pool entry unused
   int* ctr;        // [5, B] counters
-  const T* fresh_prior;    // [nc, B] fresh-frame pool
+  const V* fresh_prior;    // [nc, B] fresh-frame pool
   const uint8_t* fresh_cw;  // [nc, B]
   const int* refill;        // [1] reloads allowed
   int* remaining;           // [1] starts left in the quota
-  T* post;                  // [nc, B] scratch: the pass's posterior
+  M* post;                  // [nc, B] scratch: the pass's posterior
   const int* bit_pos;       // [nct] transmitted variables
   int nct;
 };
@@ -53,8 +58,9 @@ struct StreamArgs {
 // Every thread of a frame keeps the frame's control state in registers and
 // updates it identically; every __syncthreads is reached by the whole block.
 template <class Pass>
-__device__ void stream_chunk(const Code& c, const Pass& pass, const StreamArgs<typename Pass::T>& s,
-                             int B_, int k, int cap) {
+__device__ void stream_chunk(const Code& c, const Pass& pass,
+                             const StreamArgs<typename Pass::V, typename Pass::M>& s, int B_,
+                             int k, int cap) {
   __shared__ int flag[LDPC_FRAMES];  // start granted, then not converged
   __shared__ int berr[LDPC_FRAMES];  // bit errors of a finishing frame
   const size_t B = B_;
@@ -83,10 +89,11 @@ __device__ void stream_chunk(const Code& c, const Pass& pass, const StreamArgs<t
         s.prior[v * B + b] = s.fresh_prior[v * B + b];
         s.cw[v * B + b] = s.fresh_cw[v * B + b];
       }
-      // warm-up-free reload: lv2c = prior at each CN slot, so the next pass
-      // is iteration 1 (age 1, check-eligible)
+      // warm-up-free reload: lv2c = the prior's first message at each CN
+      // slot (as the batch decode starts), so the next pass is iteration 1
+      // (age 1, check-eligible)
       for (int e = threadIdx.y; e < c.nnz; e += blockDim.y)
-        s.lv2c[e * B + b] = s.fresh_prior[__ldg(c.col_sorted + e) * B + b];
+        s.lv2c[e * B + b] = pass.reload(s.fresh_prior[__ldg(c.col_sorted + e) * B + b]);
       done = 0;
       age = 1;
       iters = 0;

@@ -112,10 +112,11 @@ def load() -> ctypes.CDLL:
             lib.ldpc_max_dc.argtypes = []
             lib.ldpc_max_dc.restype = I
             lib.ldpc_bp_decode_fused.argtypes = [
-                P, P, P, P, P, P,  # llr_in llr_out iters iscw lv2c lc2v
+                P, P, P, P, P, P,  # llr_in post iters iscw lv2c lc2v
                 P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
                 I, I, I, I,  # nc mc nnz B
                 I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                I, F,  # msg_dtype inv_q
                 P,  # stream
             ]
             lib.ldpc_bp_decode_fused.restype = I
@@ -127,6 +128,7 @@ def load() -> ctypes.CDLL:
                 P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                 I, I, I, I, I,  # nc mc nnz nct B
                 I, I, I, F, F,  # k cap cn_mode scale offset
+                I, F,  # msg_dtype inv_q
                 P,  # stream
             ]
             lib.ldpc_bp_stream_chunk_fused.restype = I

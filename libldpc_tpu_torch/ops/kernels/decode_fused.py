@@ -9,10 +9,16 @@
   passes per lane with in-kernel reload, an exact global start quota and
   per-lane counters.
 
+Both take a message storage form (``message_dtype`` float32, bfloat16 or
+int8, and the int8 lattice step ``quant_scale``; :mod:`..messages`), as
+``bp_decode_pallas`` and ``bp_stream_chunk_pallas`` do: each kernel is
+built in the three forms.  Unlike the JAX package, int8 needs no
+particular transport here (there, the MXU one).
+
 Each wrapper takes its plain PyTorch version (same signature, beside it)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  Each keeps a launch count, ``<wrapper>.launches``, raised by one
-at every kernel launch and nowhere else.
+raises.  Each keeps a launch count per form, ``<wrapper>.launches[dtype]``,
+raised by one at every kernel launch of that form and nowhere else.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, MessageForm
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, bp_pass, syndrome_ok_from_posterior
 from . import build
 from .layout import KernelTables
@@ -96,12 +103,16 @@ def bp_decode_fused_plain(
     iterations: int = 50,
     early_term: bool = True,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> SortedDecodeOutput:
     """Plain version of :func:`bp_decode_fused`: the sorted decoder, with
     ``bp_decode_pallas``'s all-zero output at ``iterations == 0``."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode)
     if iterations == 0:
         return _zero_output(llr_in)
-    return bp_decode_sorted(tables.code, llr_in, iterations, early_term, minsum_mode)
+    return bp_decode_sorted(tables.code, llr_in, iterations, early_term, minsum_mode, form=form)
 
 
 def bp_decode_fused(
@@ -110,39 +121,50 @@ def bp_decode_fused(
     iterations: int = 50,
     early_term: bool = True,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> SortedDecodeOutput:
     """Flooding BP of a batch, all iterations in one kernel launch.
 
-    Same boundary as ``bp_decode_pallas`` in float32: ``llr_out``, ``hard =
-    llr_out <= 0``, break-before-increment ``iterations`` and
-    ``is_codeword``; with ``early_term=False`` every frame reports the cap
-    and ``is_codeword`` comes from the last pass; ``iterations == 0``
-    returns all zeros.  Any ``B``: the last block is masked."""
+    Same boundary as ``bp_decode_pallas``: ``llr_out`` (the stored
+    posterior as float32 LLRs, ``f32(q) * quant_scale`` on the int8
+    lattice), ``hard = llr_out <= 0``, break-before-increment
+    ``iterations`` and ``is_codeword``; with ``early_term=False`` every
+    frame reports the cap and ``is_codeword`` comes from the last pass;
+    ``iterations == 0`` returns all zeros.  Messages and the posterior are
+    stored in ``message_dtype``; int8 takes a min-sum-family
+    ``minsum_mode`` only (``ValueError`` otherwise).  Any ``B``: the last
+    block is masked."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
     B = llr_in.shape[1] if llr_in.dim() == 2 else -1
     _check(llr_in, "llr_in", torch.float32, (nc, B), tables.device)
     if iterations == 0:
         return _zero_output(llr_in)
     if llr_in.device.type == "cpu":
-        return bp_decode_fused_plain(tables, llr_in, iterations, early_term, minsum_mode)
+        return bp_decode_fused_plain(tables, llr_in, iterations, early_term, minsum_mode,
+                                     message_dtype, quant_scale)
     _require_cuda(llr_in)
     lib = _lib(tables)
     dev = llr_in.device
     nnz = tables.code.nnz
-    llr_out = torch.empty_like(llr_in)
+    msgs = dict(dtype=form.torch_dtype, device=dev)
+    post = torch.empty((nc, B), **msgs)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
-    lv2c = torch.empty((nnz, B), dtype=torch.float32, device=dev)
-    lc2v = torch.empty((nnz, B), dtype=torch.float32, device=dev)
-    mode, scale, offset = cn_mode_args(minsum_mode)
+    lv2c = torch.empty((nnz, B), **msgs)
+    lc2v = torch.empty((nnz, B), **msgs)
+    mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     err = lib.ldpc_bp_decode_fused(
-        _p(llr_in), _p(llr_out), _p(iters), _p(iscw), _p(lv2c), _p(lc2v),
+        _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c), _p(lc2v),
         _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
         nc, tables.code.mc, nnz, B, iterations, int(bool(early_term)), mode, scale, offset,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        form.code, form.inv_q, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on(lib, err, "bp_decode_fused")
-    bp_decode_fused.launches += 1
+    bp_decode_fused.launches[form.dtype] += 1
+    llr_out = form.dequant(post)
     return SortedDecodeOutput(
         llr_out=llr_out,
         hard=llr_out <= 0,
@@ -151,17 +173,19 @@ def bp_decode_fused(
     )
 
 
-bp_decode_fused.launches = 0
+bp_decode_fused.launches = dict.fromkeys(DTYPE_CODES, 0)
 
 
 def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
                        refill, remaining, k: int, cap: int, decode_pass, converged,
-                       bit_errors) -> None:
+                       bit_errors, reload=None) -> None:
     """The streaming chunk in plain PyTorch, pass for pass as
     ``kernel_stream``, for any decode pass: ``decode_pass(prior, cw, lv2c)
-    -> (posterior, lv2c_new)``, ``converged(posterior)`` (bool ``[B]``) and
-    ``bit_errors(posterior, cw)`` (bool ``[nc, B]``).  Starts are granted in
-    lane order (an inclusive scan against ``remaining``)."""
+    -> (posterior, lv2c_new)``, ``converged(posterior)`` (bool ``[B]``),
+    ``bit_errors(posterior, cw)`` (bool ``[nc, B]``) and ``reload(x)``, the
+    first messages of a reloaded lane from its pool values gathered at the
+    CN-space slots (the values themselves when None).  Starts are granted
+    in lane order (an inclusive scan against ``remaining``)."""
     sdc = tables.code
     is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=llr.device)
     is_tx[sdc.bit_pos.long()] = True
@@ -173,7 +197,8 @@ def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fres
         remaining -= rs.sum().to(torch.int32)
         llr.copy_(torch.where(rs, fresh_llr, llr))
         cw.copy_(torch.where(rs, fresh_cw, cw))
-        lv2c.copy_(torch.where(rs, fresh_llr.index_select(0, sdc.col_sorted), lv2c))
+        first = fresh_llr.index_select(0, sdc.col_sorted)
+        lv2c.copy_(torch.where(rs, first if reload is None else reload(first), lv2c))
         r = rs.to(torch.int32)
         done.mul_(1 - r)
         age.copy_(torch.where(rs, 1, age))
@@ -200,18 +225,23 @@ def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fres
 
 def bp_stream_chunk_fused_plain(
     tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
-    refill, remaining, *, k: int, cap: int, minsum_mode=False,
+    refill, remaining, *, k: int, cap: int, minsum_mode=False, message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> None:
     """Plain version of :func:`bp_stream_chunk_fused`: the plain chunk with
-    the BP pass, the syndrome of ``post <= 0`` and its decisions."""
+    the BP pass in the message form, the syndrome of the stored
+    posterior's ``<= 0`` decisions, and reloads of ``store(prior(x))``."""
     sdc = tables.code
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode, "int8 streaming")
     stream_chunk_plain(
         tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw, refill,
         remaining, k, cap,
-        decode_pass=lambda prior, _cw, msgs: bp_pass(sdc, prior, msgs, minsum_mode),
+        decode_pass=lambda prior, _cw, msgs: bp_pass(sdc, prior, msgs, minsum_mode, form),
         converged=lambda post: syndrome_ok_from_posterior(
-            sdc, post.index_select(0, sdc.col_sorted)),
-        bit_errors=lambda post, cw_: (post <= 0) != (cw_ != 0),
+            sdc, form.load(post).index_select(0, sdc.col_sorted)),
+        bit_errors=lambda post, cw_: (form.load(post) <= 0) != (cw_ != 0),
+        reload=lambda x: form.store(form.prior(x)),
     )
 
 
@@ -219,7 +249,7 @@ def bp_stream_chunk_fused(
     tables: KernelTables,
     llr: torch.Tensor,  # f32 [nc, B] carried channel LLRs
     cw: torch.Tensor,  # u8 [nc, B] carried true codewords
-    lv2c: torch.Tensor,  # f32 [nnz, B] carried messages (CN-space slots)
+    lv2c: torch.Tensor,  # [nnz, B] carried messages (CN-space slots), in message_dtype
     done: torch.Tensor,  # i32 [B] lane idle (finished or empty)
     iters: torch.Tensor,  # i32 [B]
     age: torch.Tensor,  # i32 [B] passes since (re)load
@@ -233,6 +263,8 @@ def bp_stream_chunk_fused(
     k: int,
     cap: int,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> None:
     """``k`` self-refilling BP passes per lane, updating the state in place.
 
@@ -244,14 +276,21 @@ def bp_stream_chunk_fused(
     transmitted-bit errors, a frame error, a frame and its iteration count
     to ``ctr`` rows 0-3 (row 4 counts starts).  On CUDA the quota is one
     device counter taken with ``atomicSub``: which lanes start differs from
-    the plain version's lane order, the number that start does not."""
+    the plain version's lane order, the number that start does not.
+
+    The messages ``lv2c`` are stored in ``message_dtype`` (a reload stores
+    ``store(prior(x))``, as the batch decode starts); the carried LLRs and
+    the pool stay raw float32, as in ``bp_stream_chunk_pallas``.  int8
+    takes a min-sum-family ``minsum_mode`` only."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode, "int8 streaming")
     sdc = tables.code
     nc, nnz = sdc.nc, sdc.nnz
     B = llr.shape[1] if llr.dim() == 2 else -1
     dev = tables.device
     for name, t, dtype, shape in (
         ("llr", llr, torch.float32, (nc, B)), ("cw", cw, torch.uint8, (nc, B)),
-        ("lv2c", lv2c, torch.float32, (nnz, B)), ("done", done, torch.int32, (B,)),
+        ("lv2c", lv2c, form.torch_dtype, (nnz, B)), ("done", done, torch.int32, (B,)),
         ("iters", iters, torch.int32, (B,)), ("age", age, torch.int32, (B,)),
         ("avail", avail, torch.int32, (B,)), ("ctr", ctr, torch.int32, (5, B)),
         ("fresh_llr", fresh_llr, torch.float32, (nc, B)),
@@ -265,21 +304,22 @@ def bp_stream_chunk_fused(
         return bp_stream_chunk_fused_plain(
             tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr,
             fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=minsum_mode,
+            message_dtype=message_dtype, quant_scale=quant_scale,
         )
     _require_cuda(llr)
     lib = _lib(tables)
-    lc2v = torch.empty((nnz, B), dtype=torch.float32, device=llr.device)
-    post = torch.empty((nc, B), dtype=torch.float32, device=llr.device)
-    mode, scale, offset = cn_mode_args(minsum_mode)
+    lc2v = torch.empty((nnz, B), dtype=form.torch_dtype, device=llr.device)
+    post = torch.empty((nc, B), dtype=form.torch_dtype, device=llr.device)
+    mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     err = lib.ldpc_bp_stream_chunk_fused(
         _p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
         _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p(lc2v), _p(post),
         _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
         _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, mode, scale, offset,
-        ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream),
+        form.code, form.inv_q, ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream),
     )
     _raise_on(lib, err, "bp_stream_chunk_fused")
-    bp_stream_chunk_fused.launches += 1
+    bp_stream_chunk_fused.launches[form.dtype] += 1
 
 
-bp_stream_chunk_fused.launches = 0
+bp_stream_chunk_fused.launches = dict.fromkeys(DTYPE_CODES, 0)

@@ -24,6 +24,7 @@ import torch
 
 from ..models.code import LDPCCode
 from . import cn_ops
+from .messages import FLOAT32, MessageForm
 
 
 def _degree_classes(degrees: np.ndarray) -> tuple[np.ndarray, list[tuple[int, int]]]:
@@ -84,9 +85,11 @@ class TorchSortedCode:
         return dataclasses.replace(self, **moved)
 
 
-def to_sorted_device(code: LDPCCode, device="cpu", with_layers: bool = False) -> TorchSortedCode:
-    """Build the sorted-layout tables of ``code`` on ``device``;
-    ``with_layers`` adds the per-layer CN-slot masks of ``code.layers``."""
+def to_sorted_device(code: LDPCCode, device="cuda", with_layers: bool = False) -> TorchSortedCode:
+    """Build the sorted-layout tables of ``code`` on ``device`` (the card
+    unless the caller names another, as the ``Simulator`` and the CLI
+    do); ``with_layers`` adds the per-layer CN-slot masks of
+    ``code.layers``."""
     rows = code.rows.astype(np.int64)
     cols = code.cols.astype(np.int64)
     nc, mc, nnz = code.nc, code.mc, code.nnz
@@ -213,11 +216,23 @@ class SortedDecodeOutput(NamedTuple):
     is_codeword: torch.Tensor  # bool [B]
 
 
-def bp_pass(sdc: TorchSortedCode, prior: torch.Tensor, lv2c: torch.Tensor, minsum_mode):
-    """One flooding iteration: ``(llr_out [nc, B], lv2c_new [nnz, B])``."""
-    lc2v = cn_update_sorted(sdc, lv2c, minsum_mode)
-    llr_out = vn_posterior_sorted(sdc, prior, lc2v.index_select(0, sdc.perm_c2v))
-    return llr_out, llr_out.index_select(0, sdc.col_sorted) - lc2v
+def bp_pass(sdc: TorchSortedCode, prior: torch.Tensor, lv2c: torch.Tensor, minsum_mode,
+            form: MessageForm = FLOAT32):
+    """One flooding iteration: ``(post [nc, B], lv2c_new [nnz, B])``, both
+    in ``form``'s storage (the posterior rounded as it is stored; see
+    :mod:`.messages` for the store points).  ``prior`` is raw float32 LLRs;
+    ``minsum_mode`` is given in LLR units."""
+    lc2v = form.store(cn_update_sorted(sdc, form.load(lv2c), form.cn_mode(minsum_mode)))
+    lc2v_f = form.load(lc2v)
+    post = form.store(vn_posterior_sorted(sdc, form.prior(prior),
+                                          lc2v_f.index_select(0, sdc.perm_c2v)))
+    return post, form.store(form.load(post).index_select(0, sdc.col_sorted) - lc2v_f)
+
+
+def init_messages(sdc: TorchSortedCode, llr_in: torch.Tensor,
+                  form: MessageForm = FLOAT32) -> torch.Tensor:
+    """First VN->CN messages: ``store(prior(llr))`` at each CN-space slot."""
+    return form.store(form.prior(llr_in.index_select(0, sdc.col_sorted)))
 
 
 def bp_decode_sorted(
@@ -227,6 +242,7 @@ def bp_decode_sorted(
     early_term: bool = True,
     minsum_mode=False,
     layered: bool = False,
+    form: MessageForm = FLOAT32,
 ) -> SortedDecodeOutput:
     """Flooding BP with the JAX package's semantics: per-frame early
     termination that freezes a converged frame's decisions, and
@@ -235,32 +251,40 @@ def bp_decode_sorted(
     cap).  Without early termination every frame runs every pass and
     ``is_codeword`` comes from the last one.
 
+    ``form`` stores messages and posteriors in bfloat16 or on the int8
+    lattice (``bp_decode_pallas``'s ``message_dtype``); ``llr_out`` is the
+    stored posterior as float32 LLRs (dequantised on the lattice).
+
     ``layered=True`` runs the exact layered schedule when ``sdc`` carries
     more than one layer mask, and flooding otherwise (as the JAX decoder
-    does)."""
+    does); the layered schedule has float32 messages only."""
+    form.check_cn_mode(minsum_mode)
     if layered and sdc.layer_edge_masks is not None and sdc.layer_edge_masks.shape[0] > 1:
+        if form != FLOAT32:
+            raise ValueError(f"the layered schedule has no {form.dtype} message form")
         return _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode)
     B = llr_in.shape[1]
     dev = llr_in.device
-    lv2c = llr_in.index_select(0, sdc.col_sorted)
-    llr_out = torch.zeros_like(llr_in)
+    lv2c = init_messages(sdc, llr_in, form)
+    post = torch.zeros(llr_in.shape, dtype=form.torch_dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
     for _ in range(iterations):
         if early_term and bool(done.all()):
             break
-        new_out, new_lv2c = bp_pass(sdc, llr_in, lv2c, minsum_mode)
+        new_post, new_lv2c = bp_pass(sdc, llr_in, lv2c, minsum_mode, form)
         keep = done[None, :]
         lv2c = torch.where(keep, lv2c, new_lv2c)
-        llr_out = torch.where(keep, llr_out, new_out)
+        post = torch.where(keep, post, new_post)
         if early_term:
             newly = ~done & syndrome_ok_from_posterior(
-                sdc, llr_out.index_select(0, sdc.col_sorted)
+                sdc, form.load(post).index_select(0, sdc.col_sorted)
             )
             iters += (~done & ~newly).to(torch.int32)
             done |= newly
         else:
             iters += 1
+    llr_out = form.dequant(post)
     # with no pass run, the decision word is all zeros (like the JAX decoder)
     hard = llr_out <= 0 if iterations > 0 else torch.zeros_like(llr_in, dtype=torch.bool)
     return SortedDecodeOutput(

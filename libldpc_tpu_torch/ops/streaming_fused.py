@@ -11,6 +11,14 @@ BEC in :func:`~.kernels.decode_bec.bec_stream_chunk_fused` (peeling);
 between their launches this module refreshes the lane-aligned fresh-frame
 pool.
 
+**Message forms.**  Flooding streams store ``lv2c`` in ``dec.message_dtype``
+(float32, bfloat16 or the int8 lattice of ``dec.quant_scale``); the
+carried LLRs and the pool stay raw float32 LLRs, and a reload stores each
+slot's prior in the message form (``bp_stream_chunk_pallas``'s
+``fresh_lv2c``), so a drained chunk equals the batch decode of the same
+frames in every form.  The layered engine and the BEC have float32 and u8
+planes only.
+
 **BEC state.**  The ``llr_in``, ``lv2c`` and ``fresh_llr`` planes hold u8
 3-state symbols (channel symbols, messages, the pool's symbols) instead of
 f32 LLRs: the pool is never drawn as LLRs.  The BEC has no layered
@@ -49,6 +57,7 @@ from .kernels.decode_bec import bec_stream_chunk_fused
 from .kernels.decode_fused import bp_stream_chunk_fused
 from .kernels.decode_layered import bp_stream_chunk_layered_fast
 from .kernels.layout import KernelTables
+from .messages import TORCH_DTYPES, MessageForm
 from .streaming import _INT32_SAFE, StreamDeltas
 
 
@@ -58,7 +67,7 @@ class StreamState:
 
     llr_in: torch.Tensor  # f32 [nc, B] carried channel LLRs (layered: the APP; BEC: u8 symbols)
     codeword: torch.Tensor  # u8 [nc, B] carried true codewords
-    lv2c: torch.Tensor  # f32 [nnz, B] messages (CN-space slots; layered: lc2v; BEC: u8)
+    lv2c: torch.Tensor  # [nnz, B] messages in the message dtype (CN-space slots; layered: lc2v; BEC: u8)
     done: torch.Tensor  # i32 [B] lane idle (finished or empty)
     iters: torch.Tensor  # i32 [B]
     age: torch.Tensor  # i32 [B] passes since (re)load (0 = warm-up pending)
@@ -69,19 +78,22 @@ class StreamState:
     started: torch.Tensor  # i64 [1] frames started so far
 
 
-def init_state(tables: KernelTables, batch: int, channel_type: str = "AWGN") -> StreamState:
+def init_state(tables: KernelTables, batch: int, channel_type: str = "AWGN",
+               message_dtype: str = "float32") -> StreamState:
     """Empty streams (every lane idle, pool empty); the value planes are u8
-    symbols for the BEC and f32 otherwise.  The messages start neutral (0
-    LLRs; BEC erasures), so a lane given a frame without a reload (age 0)
-    runs a warm-up pass first."""
+    symbols for the BEC and f32 otherwise, the messages in
+    ``message_dtype``.  The messages start neutral (0 in every form; BEC
+    erasures), so a lane given a frame without a reload (age 0) runs a
+    warm-up pass first."""
     sdc, dev = tables.code, tables.device
     i32 = dict(dtype=torch.int32, device=dev)
     bec = channel_type == "BEC"
     vals = dict(dtype=torch.uint8 if bec else torch.float32, device=dev)
+    msgs = dict(dtype=torch.uint8 if bec else TORCH_DTYPES[message_dtype], device=dev)
     return StreamState(
         llr_in=torch.zeros((sdc.nc, batch), **vals),
         codeword=torch.zeros((sdc.nc, batch), dtype=torch.uint8, device=dev),
-        lv2c=torch.full((sdc.nnz, batch), BEC_ERASURE if bec else 0, **vals),
+        lv2c=torch.full((sdc.nnz, batch), BEC_ERASURE if bec else 0, **msgs),
         done=torch.ones(batch, **i32),
         iters=torch.zeros(batch, **i32),
         age=torch.zeros(batch, **i32),
@@ -108,10 +120,15 @@ def make_streaming_fused_step(
     channel batches from ``gen``; ``refill=False`` drains.  ``layered``
     decodes on the fast layered engine (a pass is one full layered
     iteration) instead of flooding.  ``channel_type="BEC"`` runs the
-    peeling chunk (with ``dec.bec_ref_bug_compat``'s stale byte)."""
+    peeling chunk (with ``dec.bec_ref_bug_compat``'s stale byte).  Flooding
+    stores its messages in ``dec.message_dtype``; the layered engine has
+    float32 messages only (``ValueError`` otherwise)."""
     bec = channel_type == "BEC"
     if bec and layered:
         raise ValueError("streaming layered decoding has no BEC form")
+    message_dtype = "float32" if bec else dec.message_dtype
+    if layered and message_dtype != "float32":
+        raise ValueError(f"streaming layered decoding has no {message_dtype} message form")
     iterations = dec.iterations
     if iterations < 1:
         raise ValueError("streaming decode requires iterations >= 1")
@@ -127,13 +144,15 @@ def make_streaming_fused_step(
     if bec:
         stale = 0 if dec.bec_ref_bug_compat else None
         chunk = functools.partial(bec_stream_chunk_fused, degree1_stale_byte=stale)
+    elif layered:
+        chunk = functools.partial(bp_stream_chunk_layered_fast, minsum_mode=dec.cn_mode)
     else:
-        chunk = functools.partial(
-            bp_stream_chunk_layered_fast if layered else bp_stream_chunk_fused,
-            minsum_mode=dec.cn_mode)
+        MessageForm(message_dtype, dec.quant_scale).check_cn_mode(dec.cn_mode, "int8 streaming")
+        chunk = functools.partial(bp_stream_chunk_fused, minsum_mode=dec.cn_mode,
+                                  message_dtype=message_dtype, quant_scale=dec.quant_scale)
 
     def init_fn() -> StreamState:
-        return init_state(tables, batch, channel_type)
+        return init_state(tables, batch, channel_type, message_dtype)
 
     def step_fn(st: StreamState, gen: torch.Generator, x_value: float, refill: bool):
         refill_t = refill_flag[bool(refill)]

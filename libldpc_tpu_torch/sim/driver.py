@@ -7,7 +7,9 @@ runs on a streaming kernel; otherwise each batch is one launch of a batch
 decode kernel.  The schedule (flooding, exact layered, or the fast layered
 engine) is the one the JAX package runs for the same code and flags
 (:func:`select_schedule`); the exact layered schedule is batch-stepped,
-as there.  The BEC runs the peeling kernel, flooding and batch-stepped
+as there.  So is the message dtype (:func:`select_message_dtype`): with
+``--pallas`` flooding stores its messages in bfloat16 or on the int8
+lattice as asked.  The BEC runs the peeling kernel, flooding and batch-stepped
 always, as the JAX package's sweep does (with ``--layer-file`` that
 package runs its sorted peeling decoder, which ignores the layers).  On a
 CUDA device the CUDA kernels run, on the CPU their plain PyTorch versions.
@@ -30,6 +32,7 @@ import time
 import warnings
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models.code import LDPCCode
@@ -37,6 +40,7 @@ from ..models.io import format_result_row, write_results_file
 from ..ops.channel import make_generator
 from ..ops.kernels.layout import kernel_tables
 from ..ops.layered import natural_qc_layers
+from ..ops.messages import DTYPE_CODES, MessageForm
 from ..ops.sorted import to_sorted_device
 from ..ops.streaming_fused import make_streaming_fused_step
 from ..parallel.mesh import make_sim_step
@@ -74,16 +78,33 @@ class _PointCounters:
 #: kernels compile; the CUDA kernels have no such limits.
 FUSED_EDGE_SPACE_LIMIT = 4096
 QC_LANES_EDGE_SPACE_LIMIT = 786432
+#: The smallest of the JAX package's sub-32-bit compile walls is its Clos
+#: lane layout's 65536 padded edge slots; past it that package widens
+#: messages to float32.  The port does not copy the lane layouts that
+#: decide where a code lands, so it refuses a sub-32-bit dtype on a code
+#: that could reach a wall (:func:`select_message_dtype`).
+SUB32_EDGE_SPACE_LIMIT = 65536
+SUB32_EDGE_LIMIT = SUB32_EDGE_SPACE_LIMIT // 2
+
+_LAYERED_FORMS = 'ROADMAP Queue 2, "bf16/int8 forms of the layered kernels"'
+_SUB32_ROUTING = 'ROADMAP Queue 1, "Sub-32-bit routing past the TPU envelopes"'
 
 
 def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams) -> None:
     """Raise for every setting the port does not cover yet, naming the
-    ROADMAP Queue 1 item that will by its title."""
-    if dec.message_dtype != "float32":
-        raise NotImplementedError(
-            f'message dtype {dec.message_dtype}: ROADMAP Queue 1, "bf16/int8 message '
-            'forms of kernels 1-2"'
-        )
+    ROADMAP item that will by its title, and for an int8 lattice under a CN
+    form outside the min-sum family (``ValueError``, the JAX package's
+    words).  Sub-32-bit messages are refused on the layered schedules
+    (``--layer-file``), with or without ``--pallas``; the BEC ignores the
+    dtype."""
+    if dec.message_dtype not in DTYPE_CODES:
+        raise ValueError(f"message dtype {dec.message_dtype!r}: expected one of "
+                         f"{list(DTYPE_CODES)}")
+    if ch.type != "BEC" and dec.message_dtype != "float32":
+        if dec.layered:
+            raise NotImplementedError(
+                f"{dec.message_dtype} messages on the layered schedule: {_LAYERED_FORMS}")
+        MessageForm(dec.message_dtype, dec.quant_scale).check_cn_mode(dec.cn_mode)
     if sim.checkpoint_file:
         raise NotImplementedError(
             'checkpoint/resume: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
@@ -122,6 +143,42 @@ def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
     return "layered"
 
 
+def select_message_dtype(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
+                         channel_type: str = "AWGN") -> str:
+    """The message dtype the JAX package's ``Simulator`` decodes with (the
+    ``dtype=`` of its ``decode_path``), which the port then runs.
+
+    * ``uint8-3state`` for the BEC, which ignores ``--message-dtype`` (the
+      port's peeling kernels move 1-byte 3-state symbols);
+    * ``float32`` without ``use_pallas``: the JAX package's XLA decoder
+      ignores the flag;
+    * otherwise ``dec.message_dtype`` on the flooding routes.  The JAX
+      package widens a sub-32-bit dtype to float32 past its TPU compile
+      walls (the smallest at 65536 padded slots of its lane layouts), and
+      where a code lands depends on lane layouts the port does not copy.
+      Those layouts pad each degree class to 128 nodes (or a circulant to
+      whole 128-lane blocks) and then round to a power of two, so an edge
+      space may grow more than 2x: the port raises (``NotImplementedError``,
+      naming the ROADMAP item) for a code past ``SUB32_EDGE_LIMIT`` (32768)
+      slots, or whose class-padded edge space passes the wall, rather than
+      guess.  wifi 1944 has 6966 slots, the 1152 (3,6) code 3456.
+
+    Sub-32-bit dtypes on the layered schedules are refused before this
+    (:func:`check_supported`)."""
+    if channel_type == "BEC":
+        return "uint8-3state"
+    if not use_pallas or dec.message_dtype == "float32":
+        return "float32"
+    counts = np.bincount(code.rows, minlength=code.mc), np.bincount(code.cols, minlength=code.nc)
+    padded = max(sum(-(-int((deg == d).sum()) // 128) * 128 * int(d) for d in np.unique(deg))
+                 for deg in counts)
+    if code.nnz > SUB32_EDGE_LIMIT or padded > SUB32_EDGE_SPACE_LIMIT:
+        raise NotImplementedError(
+            f"{dec.message_dtype} messages on a code of {code.nnz} edges "
+            f"({padded} class-padded slots): {_SUB32_ROUTING}")
+    return dec.message_dtype
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device`` for ``device``; a CUDA device without a GPU raises."""
     dev = torch.device(device)
@@ -150,13 +207,19 @@ class Simulator:
         check_supported(decoder_params, channel_params, simulation_params)
         self.device = resolve_device(device)
         self.code = code
-        self.dec = decoder_params
         self.ch = channel_params
         self.sim = simulation_params
         self.verbose = verbose
-        # use_pallas (the JAX CLI's --pallas) only chooses the layered
-        # schedule, as it does in the JAX package; the CUDA kernels run either way
+        # use_pallas (the JAX CLI's --pallas) chooses the layered schedule and
+        # honours --message-dtype, as it does in the JAX package; the CUDA
+        # kernels run either way
         self.schedule = select_schedule(code, decoder_params, use_pallas, channel_params.type)
+        self.message_dtype = select_message_dtype(code, decoder_params, use_pallas,
+                                                  channel_params.type)
+        if channel_params.type != "BEC":
+            # the dtype the sweep runs (float32 where the JAX package ignores the flag)
+            decoder_params = dataclasses.replace(decoder_params, message_dtype=self.message_dtype)
+        self.dec = decoder_params
         self.tables = kernel_tables(to_sorted_device(
             code, self.device, with_layers=self.schedule != "flooding"))
         batch = simulation_params.batch_size
@@ -196,7 +259,7 @@ class Simulator:
             kernel = "torch-plain"
         parts = [
             f"kernel={kernel}",
-            "dtype=uint8-3state" if bec else "dtype=float32",
+            f"dtype={self.message_dtype}",
             "cn=peeling" if bec else f"cn={self.dec.type}",
             f"schedule={self.schedule}",
             f"streaming={'on' if self._streaming else 'off'}",

@@ -70,7 +70,7 @@ def assert_same(jout, tout):
 def both(jcode, sym, cw, iterations, early_term, stale=None):
     """The JAX sorted peeling decoder and the port's (through the kernel
     wrapper, which is the plain version on the CPU) on the same frames."""
-    tsdc = to_sorted_device(code_from_jax(jcode))
+    tsdc = to_sorted_device(code_from_jax(jcode), "cpu")
     sym_s, cw_s = sort_rows(tsdc, sym, cw)
     jout = jax_bec_decode_sorted(jsorted.to_sorted_device(jcode),
                                  jnp.asarray(sym_s.astype(np.int8)), jnp.asarray(cw_s),
@@ -136,7 +136,7 @@ def test_plain_matches_jax_lanes_kernel(bench96, transport, dtype):
     """The TPU kernel itself (interpret mode), min-sum over the sign
     encoding, against the port's byte algebra."""
     ldc = to_lanes_device(bench96, transport=transport)
-    tsdc = to_sorted_device(code_from_jax(bench96))
+    tsdc = to_sorted_device(code_from_jax(bench96), "cpu")
     sym, cw = sort_rows(tsdc, *frames(bench96, 16, 0.42, seed=5))
     for early_term in (True, False):
         jout = bec_decode_lanes(ldc, jnp.asarray(sym.astype(np.int8)), jnp.asarray(cw),
@@ -150,7 +150,7 @@ def test_plain_matches_jax_lanes_kernel(bench96, transport, dtype):
 
 @pytest.mark.parametrize("early_term", [True, False])
 def test_plain_matches_golden(bench96, early_term):
-    tsdc = to_sorted_device(code_from_jax(bench96))
+    tsdc = to_sorted_device(code_from_jax(bench96), "cpu")
     sym, cw = frames(bench96, 6, 0.4, seed=11)
     out = bec_decode_sorted(tsdc, *map(torch.from_numpy, sort_rows(tsdc, sym, cw)), 25,
                             early_term)
@@ -175,7 +175,7 @@ def test_degree0_variable_keeps_its_symbol():
     there."""
     H = np.array([[1, 1, 1, 0, 0], [0, 1, 1, 1, 0]], np.uint8)
     tcode = tm.LDPCCode.from_dense(H)
-    tsdc = to_sorted_device(tcode)
+    tsdc = to_sorted_device(tcode, "cpu")
     cw = np.zeros((5, 2), np.uint8)
     sym = np.zeros((5, 2), np.uint8)
     sym[0, :] = E
@@ -199,7 +199,7 @@ def test_zero_iterations(bench96):
     ``bec_decode_lanes`` returns (the channel symbols, 0 iterations); the
     sorted decoder, like the JAX one, leaves every posterior erased."""
     ldc = to_lanes_device(bench96, transport="benes")
-    tsdc = to_sorted_device(code_from_jax(bench96))
+    tsdc = to_sorted_device(code_from_jax(bench96), "cpu")
     sym, cw = sort_rows(tsdc, *frames(bench96, 8, 0.1, seed=2))
     jout = bec_decode_lanes(ldc, jnp.asarray(sym.astype(np.int8)), jnp.asarray(cw), iterations=0,
                             interpret=True)
@@ -212,7 +212,7 @@ def test_zero_iterations(bench96):
 
 
 def test_wrapper_checks_its_inputs(bench96):
-    tables = kernel_tables(to_sorted_device(code_from_jax(bench96)))
+    tables = kernel_tables(to_sorted_device(code_from_jax(bench96), "cpu"))
     sym = torch.zeros((96, 4), dtype=torch.uint8)
     with pytest.raises(ValueError, match="symbols_in"):
         db.bec_decode_fused(tables, sym.float(), sym)
@@ -265,7 +265,7 @@ def test_stream_drain_matches_batch(bench96, iters, k, via_pool):
     """As the JAX package's ``test_bec_drain_matches_batch_bec_kernel``:
     every frame runs the same passes in a lane as in the batch decoder, so
     the drained counters equal the batch's (row 4, starts, aside)."""
-    tables = kernel_tables(to_sorted_device(code_from_jax(bench96)))
+    tables = kernel_tables(to_sorted_device(code_from_jax(bench96), "cpu"))
     sym, cw = sort_rows(tables.code, *frames(bench96, 16, 0.45, seed=iters))
     got = drained_totals(tables, sym, cw, iters, k, via_pool=via_pool)
     want = batch_totals(tables, sym, cw, iters)
@@ -278,7 +278,7 @@ def test_stream_drain_matches_batch_compat():
     """The bug-compatible mode on a code with degree-1 variables, through
     the pool (a reload starts from the channel symbols, as the batch does)."""
     jcode = irregular_code(np.random.default_rng(201))
-    tables = kernel_tables(to_sorted_device(code_from_jax(jcode)))
+    tables = kernel_tables(to_sorted_device(code_from_jax(jcode), "cpu"))
     sym, cw = sort_rows(tables.code, *frames(jcode, 16, 0.3, seed=4))
     got = drained_totals(tables, sym, cw, 12, 5, stale=0)
     assert got[:4] == batch_totals(tables, sym, cw, 12, stale=0)[:4]
@@ -286,7 +286,7 @@ def test_stream_drain_matches_batch_compat():
 
 def test_streaming_step_quota_exact(bench96):
     """``max_frames`` = 37 is met exactly at ε = 0.55, with frame errors."""
-    tables = kernel_tables(to_sorted_device(code_from_jax(bench96)))
+    tables = kernel_tables(to_sorted_device(code_from_jax(bench96), "cpu"))
     init_fn, step_fn = make_streaming_fused_step(tables, "BEC", DecoderParams(iterations=8), 16,
                                                  chunk_iters=4, max_frames=37)
     st = init_fn()
@@ -303,7 +303,7 @@ def test_streaming_step_quota_exact(bench96):
 
 
 def test_streaming_layered_bec_raises(bench96):
-    tables = kernel_tables(to_sorted_device(code_from_jax(bench96)))
+    tables = kernel_tables(to_sorted_device(code_from_jax(bench96), "cpu"))
     with pytest.raises(ValueError, match="no BEC form"):
         make_streaming_fused_step(tables, "BEC", DecoderParams(iterations=8), 16, layered=True)
 
@@ -315,7 +315,7 @@ def test_bec_channel_statistics():
     code = tm.make_benchmark_code(96, 3, 6, seed=7, with_G=True)
     code.puncture = np.array([0, 1], np.int32)
     code.shorten = np.array([5, 6, 7], np.int32)
-    sdc = to_sorted_device(code)
+    sdc = to_sorted_device(code, "cpu")
     eps = 0.3
     out = channel.simulate_channel(sdc, "BEC", channel.make_generator("cpu", 4), 4096, eps)
     sym, cw = out.llr, out.codeword

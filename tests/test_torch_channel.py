@@ -23,7 +23,7 @@ def code():
 
 @pytest.fixture(scope="module")
 def sdc(code):
-    return to_sorted_device(code)
+    return to_sorted_device(code, "cpu")
 
 
 def test_codewords_satisfy_parity(code, sdc):
@@ -48,7 +48,7 @@ def test_awgn_llr_moments(sdc, snr_db):
 def test_puncture_and_shorten(code):
     pcode = dataclasses.replace(code, puncture=np.array([0, 1], np.int32),
                                 shorten=np.array([5], np.int32))
-    psdc = to_sorted_device(pcode)
+    psdc = to_sorted_device(pcode, "cpu")
     out = channel.awgn_channel(psdc, channel.make_generator("cpu", 4), 64, 1.0)
     assert (out.llr[psdc.puncture.long()] == 0).all()
     assert (out.llr[psdc.shorten.long()] == np.float32(SHORTEN_LLR)).all()

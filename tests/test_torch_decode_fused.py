@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 def setup():
     code = make_benchmark_code(96, dv=3, dc=6, seed=7, with_G=True)
     pdc = to_pallas_device(code)
-    tables = kernel_tables(to_sorted_device(code_from_jax(code)))
+    tables = kernel_tables(to_sorted_device(code_from_jax(code), "cpu"))
     llr = awgn_llrs(code, pdc.sorted_dc.vn_perm, 128, 1.0, seed=3)
     return code, pdc, tables, llr
 
@@ -41,7 +41,7 @@ def test_tables(setup):
 @pytest.mark.parametrize("form", ["BP", "BP_MS"])
 def test_matches_pallas_kernel(setup, form, early_term):
     _, pdc, tables, llr = setup
-    launches = df.bp_decode_fused.launches
+    launches = dict(df.bp_decode_fused.launches)
     jout = bp_decode_pallas(pdc, jnp.asarray(llr), iterations=12, early_term=early_term,
                             minsum_mode=form, batch_tile=128, interpret=True)
     tout = df.bp_decode_fused(tables, torch.from_numpy(llr), 12, early_term, form)

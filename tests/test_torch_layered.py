@@ -62,13 +62,13 @@ def natural_qc_code(nc, Z):
 def two_layer():
     code = two_layer_code()
     return (code, jsorted.to_sorted_device(code, with_layers=True),
-            tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
+            tsorted.to_sorted_device(code_from_jax(code), "cpu", with_layers=True))
 
 
 @pytest.fixture(scope="module")
 def wifi1944():
     code = wifi_code(1944)
-    return code, kernel_tables(tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
+    return code, kernel_tables(tsorted.to_sorted_device(code_from_jax(code), "cpu", with_layers=True))
 
 
 # ---------------------------------------------------------------- tables
@@ -92,7 +92,7 @@ def test_layer_check_lists(two_layer):
     for li, layer in enumerate(code.layers):
         assert sorted(cn_perm[checks[ptr[li]:ptr[li + 1]]]) == sorted(layer)
     assert not tables.layers_disjoint  # even and odd checks share variables
-    assert kernel_tables(tsorted.to_sorted_device(code_from_jax(code))).n_layers == 0
+    assert kernel_tables(tsorted.to_sorted_device(code_from_jax(code), "cpu")).n_layers == 0
 
 
 @pytest.mark.parametrize("Z", [81, 128])
@@ -104,7 +104,7 @@ def test_qc_layer_tables_equal_jax_segments(Z):
     code = wifi_code(1944) if Z == 81 else natural_qc_code(8 * Z, Z)
     ldc = to_lanes_device(code, transport="qc", with_layers=True)
     assert ldc.qc_layers and layered.natural_qc_layers(code_from_jax(code))
-    tables = kernel_tables(tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
+    tables = kernel_tables(tsorted.to_sorted_device(code_from_jax(code), "cpu", with_layers=True))
     assert tables.layers_disjoint and tables.n_layers == len(ldc.qc_layers)
     cn_inv = np.empty(code.mc, np.int64)
     cn_inv[np.argsort(np.bincount(code.rows, minlength=code.mc), kind="stable")] = np.arange(code.mc)
@@ -158,13 +158,13 @@ def test_exact_layered_wrapper_is_plain_on_cpu(two_layer):
     zero = dl.bp_decode_layered(tables, llr, 0)
     assert not zero.llr_out.any() and not zero.is_codeword.any()
     with pytest.raises(ValueError, match=">= 2 layers"):
-        dl.bp_decode_layered(kernel_tables(tsorted.to_sorted_device(code_from_jax(code))), llr, 5)
+        dl.bp_decode_layered(kernel_tables(tsorted.to_sorted_device(code_from_jax(code), "cpu")), llr, 5)
 
 
 def test_exact_layered_single_layer_is_flooding(two_layer):
     code, jsdc, _ = two_layer
     one = code_from_jax(dataclasses.replace(code, layers=[np.arange(code.mc, dtype=np.int32)]))
-    tsdc = tsorted.to_sorted_device(one, with_layers=True)
+    tsdc = tsorted.to_sorted_device(one, "cpu", with_layers=True)
     llr = torch.from_numpy(awgn_llrs(code, jsdc.vn_perm, 8, 1.0, seed=5))
     a = tsorted.bp_decode_sorted(tsdc, llr, 8, True, "BP_MS", layered=True)
     b = tsorted.bp_decode_sorted(tsdc, llr, 8, True, "BP_MS")
@@ -201,7 +201,7 @@ def test_fast_engine_matches_golden(wifi1944, form, early_term):
 def test_fast_engine_matches_jax_lanes_kernel(Z, form):
     code = natural_qc_code(8 * Z, Z)
     ldc = to_lanes_device(code, transport="qc", with_layers=True)
-    tables = kernel_tables(tsorted.to_sorted_device(code_from_jax(code), with_layers=True))
+    tables = kernel_tables(tsorted.to_sorted_device(code_from_jax(code), "cpu", with_layers=True))
     llr = awgn_llrs(code, ldc.sorted_dc.vn_perm, 16, 1.5, seed=7)
     jout = bp_decode_lanes(ldc, jnp.asarray(llr), iterations=8, early_term=True, minsum_mode=form,
                            layered=True, interpret=True)

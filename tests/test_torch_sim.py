@@ -11,7 +11,7 @@ import torch
 
 from libldpc_tpu import cli as jax_cli
 from libldpc_tpu_torch import cli
-from libldpc_tpu_torch.models import make_benchmark_code, write_codefile
+from libldpc_tpu_torch.models import make_benchmark_code, write_codefile, write_layerfile
 from libldpc_tpu_torch.sim.driver import Simulator
 from libldpc_tpu_torch.utils.params import ChannelParams, DecoderParams, SimulationParams
 
@@ -29,6 +29,7 @@ def files(tmp_path_factory):
     write_codefile(str(d / "h.txt"), code.rows, code.cols, code.nc, code.mc)
     r, c = np.nonzero(code.G)
     (d / "g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r, c)))
+    write_layerfile(str(d / "layers.txt"), [np.arange(24), np.arange(24, 48)])
     return code, d
 
 
@@ -113,10 +114,12 @@ CHECKPOINT = '"Checkpoint/resume and the forensic error log"'
     (["--checkpoint", "c.json"], CHECKPOINT), (["--error-log", "e.txt"], CHECKPOINT),
     (["--points-parallel", "2"], '"Multi-GPU"'), (["--multihost"], '"Multi-GPU"'),
     (["--devices", "2"], '"Multi-GPU"'),
-    (["--message-dtype", "bfloat16"], '"bf16/int8 message forms of kernels 1-2"'),
+    (["--message-dtype", "bfloat16", "--layer-file", "{d}/layers.txt"],
+     '"bf16/int8 forms of the layered kernels"'),
 ])
 def test_refuses_unported_flags(files, tmp_path, capsys, flags, item):
     _, d = files
+    flags = [f.format(d=d) for f in flags]
     argv = [str(d / "h.txt"), str(tmp_path / "r.txt")] + SWEEP + flags + ["--device", "cpu"]
     assert cli.main(argv) == 2
     assert item in capsys.readouterr().err

@@ -35,7 +35,7 @@ FIELDS = ["col_sorted", "perm_c2v", "bit_pos", "puncture", "shorten", "vn_perm",
 @pytest.fixture(scope="module")
 def setup():
     code = make_benchmark_code(96, dv=3, dc=6, seed=7, with_G=True)
-    return code, jsorted.to_sorted_device(code), tsorted.to_sorted_device(code_from_jax(code))
+    return code, jsorted.to_sorted_device(code), tsorted.to_sorted_device(code_from_jax(code), "cpu")
 
 
 def awgn_llrs(code, vn_perm, B, snr_db, seed):
@@ -108,7 +108,7 @@ def test_decoder_matches_jax(setup, form, early_term):
 def test_wifi_648_xla_only(setup):
     """802.11n n=648 (irregular, Z=27): tables and BP decoding agree."""
     code = wifi_code(648)
-    jsdc, tsdc = jsorted.to_sorted_device(code), tsorted.to_sorted_device(code_from_jax(code))
+    jsdc, tsdc = jsorted.to_sorted_device(code), tsorted.to_sorted_device(code_from_jax(code), "cpu")
     assert_same_tables(jsdc, tsdc)
     llr = awgn_llrs(code, jsdc.vn_perm, 32, 1.5, seed=5)
     jout = jax.jit(lambda l: jsorted.bp_decode_sorted(jsdc, l, 10, True, "BP"))(jnp.asarray(llr))

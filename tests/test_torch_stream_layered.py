@@ -33,7 +33,7 @@ torch.set_num_threads(2)
 @pytest.fixture(scope="module")
 def wifi1944():
     code = wifi_code(1944)
-    return code, kernel_tables(to_sorted_device(code, with_layers=True))
+    return code, kernel_tables(to_sorted_device(code, "cpu", with_layers=True))
 
 
 @pytest.mark.parametrize("snr,iters,k", [(1.0, 12, 5), (2.0, 7, 3)])

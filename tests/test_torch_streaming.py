@@ -36,7 +36,7 @@ torch.set_num_threads(2)
 def setup():
     code = make_benchmark_code(96, dv=3, dc=6, seed=7, with_G=True)
     pdc = to_pallas_device(code)
-    return code, pdc, kernel_tables(to_sorted_device(code_from_jax(code)))
+    return code, pdc, kernel_tables(to_sorted_device(code_from_jax(code), "cpu"))
 
 
 def frames(code, vn_perm, B, snr_db, seed):
