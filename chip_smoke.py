@@ -9,8 +9,9 @@ each against its plain PyTorch version at the main paths' shapes, drives
 the ``ldpcsim-torch`` sweeps on the card (the flooding sweep of the 1152
 code; the 802.11n layered sweep: wifi 1944 on the fast QC engine, streaming
 and fixed-iteration, and wifi 648 on the exact layered schedule; the BEC
-sweep of the 1152 code and the BEC streaming step; the flooding sweeps with
-bfloat16 and int8 messages, ``--pallas --message-dtype``), times kernels
+sweep of the 1152 code and the BEC streaming step; the flooding and the
+layered sweeps with bfloat16 and int8 messages, ``--pallas
+--message-dtype``), times kernels
 against plain versions, and prints a ``{"kernels": [...]}`` line (each kernel with
 its launches on its path, its error against the plain version, its time,
 the plain version's, and its bound: the larger of the bytes it must move
@@ -41,7 +42,7 @@ LAYERED_SWEEP = ["1.0", "2.51", "0.5"]  # 1.0 .. 2.5 dB: wifi 1944's waterfall
 FORMS = ("BP_MS", ("BP_NMS", 0.75, 0.15), "BP")
 #: CN forms per message dtype: the int8 lattice takes the min-sum family only
 DTYPE_FORMS = {"float32": FORMS, "bfloat16": FORMS, "int8": ("BP_MS", ("BP_OMS", 0.75, 0.15))}
-#: the JSON name suffix of each message form of kernels 1 and 2
+#: the JSON name suffix of each message form of kernels 1-5
 SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
 MSG_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 BEC_EPS = 0.40  # inside the 1152 code's BEC waterfall (BP threshold ~0.429)
@@ -61,6 +62,7 @@ OPS_S = 67e12
 OPS_BP_SLOT = 3 * 10 + 2 + 2
 OPS_MS_SLOT = 3 * 3 + 2 + 2  # a min-sum pair: min, sign, multiply
 OPS_BP_FAST_SLOT = 3 * 10 + 3 + 2
+OPS_MS_FAST_SLOT = 3 * 3 + 3 + 2
 OPS_BEC_SLOT = 8
 
 
@@ -103,13 +105,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_batch(tag, kernel, plain, tb, llr, dtype=None) -> float:
+def compare_batch(tag, kernel, plain, tb, llr, dtype=None, tol=1e-4) -> float:
     """Hold a batch decode kernel against its plain version: every CN form
     of FORMS (of DTYPE_FORMS[dtype] in a message form), early termination
     on and off.  The min-sum family must be bit-exact; BP must agree in
-    decisions and iteration counts on >= 99.9 % of frames and within 1e-4
-    on their posteriors.  Returns the largest absolute posterior difference
-    over agreeing frames."""
+    decisions and iteration counts on >= 99.9 % of frames and within
+    ``tol`` (relative and absolute) on their posteriors.  Returns the
+    largest absolute posterior difference over agreeing frames."""
     worst = 0.0
     form_args = () if dtype is None else (dtype,)
     for form in FORMS if dtype is None else DTYPE_FORMS[dtype]:
@@ -131,7 +133,7 @@ def compare_batch(tag, kernel, plain, tb, llr, dtype=None) -> float:
             if label == "BP":
                 check(same.float().mean().item() >= 0.999, f"{tag} BP decisions disagree")
                 torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
-                                           rtol=1e-4, atol=1e-4)
+                                           rtol=tol, atol=tol)
             else:
                 check(bool(same.all()) and torch.equal(got.llr_out, want.llr_out)
                       and torch.equal(got.is_codeword, want.is_codeword),
@@ -283,48 +285,81 @@ def main() -> int:
                 return st.ctr.sum(1).tolist()
         raise RuntimeError("streams did not drain")
 
-    tb2, ch2 = tables["bench1152"], llrs("bench1152", 1)
-    bp2 = tb2.code.bit_pos.long()
-    for dtype in ("bfloat16", "int8"):
-        err = 0
-        for form in DTYPE_FORMS[dtype]:
-            got = pool_drain(df.bp_stream_chunk_fused, tb2, ch2, form, dtype)
-            want = pool_drain(df.bp_stream_chunk_fused_plain, tb2, ch2, form, dtype)
-            out1 = df.bp_decode_fused(tb2, ch2.llr, ITERS, True, form, dtype)
-            errs1 = (out1.hard[bp2] != ch2.codeword[bp2].bool()).sum(0)
-            batch1 = [int(errs1.sum()), int((errs1 > 0).sum()), BATCH, int(out1.iterations.sum()),
-                      BATCH]
-            label = form if isinstance(form, str) else form[0]
-            print(f"kernel2 {dtype} drain bench1152 {label}: kernel {got} plain {want} "
-                  f"kernel1 batch {batch1}")
-            check(got[2] == got[4] == BATCH, f"kernel2 {dtype}: not every frame started and counted")
-            if label != "BP":
-                check(got == want == batch1, f"kernel2 {dtype} {label}: drained totals differ")
-            err = max(err, max(abs(a - b) for a, b in zip(got, want)))
-        st = fresh_pool_state(tb2, ch2, dtype)
-        remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
-        df.bp_stream_chunk_fused(tb2, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
-                                 st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining,
-                                 k=6, cap=ITERS, minsum_mode=DTYPE_FORMS[dtype][0],
-                                 message_dtype=dtype)
-        starts = int(st.ctr[4].sum())
-        print(f"kernel2 {dtype} quota 5000: starts {starts}, pool entries used "
-              f"{BATCH - int(st.avail.sum())}")
-        check(starts == 5000 == BATCH - int(st.avail.sum()), f"kernel2 {dtype}: quota not exact")
-        err_form[f"k2 {dtype}"] = float(err)
+    def check_form_stream(tag, chunk, chunk_plain, batch, key, point):
+        """Pool drains of ``chunk`` in each sub-32-bit form against its plain
+        version and the batch kernel's form on the same frames (min-sum
+        exact), then a quota of 5000; the largest total difference per form."""
+        tb, ch = tables[key], llrs(key, point)
+        bp = tb.code.bit_pos.long()
+        errs_out = {}
+        for dtype in ("bfloat16", "int8"):
+            err = 0
+            for form in DTYPE_FORMS[dtype]:
+                got = pool_drain(chunk, tb, ch, form, dtype)
+                want = pool_drain(chunk_plain, tb, ch, form, dtype)
+                out1 = batch(tb, ch.llr, ITERS, True, form, dtype)
+                errs1 = (out1.hard[bp] != ch.codeword[bp].bool()).sum(0)
+                batch1 = [int(errs1.sum()), int((errs1 > 0).sum()), BATCH,
+                          int(out1.iterations.sum()), BATCH]
+                label = form if isinstance(form, str) else form[0]
+                print(f"{tag} {dtype} drain {key} {label}: kernel {got} plain {want} "
+                      f"batch {batch1}")
+                check(got[2] == got[4] == BATCH, f"{tag} {dtype}: not every frame started and counted")
+                if label != "BP":
+                    check(got == want == batch1, f"{tag} {dtype} {label}: drained totals differ")
+                err = max(err, max(abs(a - b) for a, b in zip(got, want)))
+            st = fresh_pool_state(tb, ch, dtype)
+            remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
+            chunk(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail,
+                  st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining, k=6, cap=ITERS,
+                  minsum_mode=DTYPE_FORMS[dtype][0], message_dtype=dtype)
+            starts = int(st.ctr[4].sum())
+            print(f"{tag} {dtype} quota 5000: starts {starts}, pool entries used "
+                  f"{BATCH - int(st.avail.sum())}")
+            check(starts == 5000 == BATCH - int(st.avail.sum()), f"{tag} {dtype}: quota not exact")
+            errs_out[dtype] = float(err)
+        return errs_out
+
+    for dtype, err in check_form_stream("kernel2", df.bp_stream_chunk_fused,
+                                        df.bp_stream_chunk_fused_plain, df.bp_decode_fused,
+                                        "bench1152", 1).items():
+        err_form[f"k2 {dtype}"] = err
 
     # ---- 5. K3 (fast layered engine, batch) against its plain version
     err3 = compare_batch("K3 wifi1944", dl.bp_decode_layered_fast,
                          dl.bp_decode_layered_fast_plain, tables["wifi1944"],
                          llrs("wifi1944", 3).llr)
 
+    # ---- 5b. K3's bfloat16 and int8 forms (lc2v in the form, the APP float32)
+    # against their plain versions; bf16 BP's APP within one bf16 step
+    for dtype in ("bfloat16", "int8"):
+        err_form[f"k3 {dtype}"] = compare_batch(
+            "K3 wifi1944", dl.bp_decode_layered_fast, dl.bp_decode_layered_fast_plain,
+            tables["wifi1944"], llrs("wifi1944", 3).llr, dtype, tol=2 ** -8)
+
     # ---- 6. K4 (fast layered engine, stream) against its plain version
     err4 = check_stream("K4", dl.bp_stream_chunk_layered_fast,
                         dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 4)
 
+    # ---- 6b. K4's forms: pool drains against the plain chunk and K3's form
+    # on the same frames (a reload starts the APP at the prior in the form's
+    # units, as K3 starts), then a quota
+    for dtype, err in check_form_stream("K4", dl.bp_stream_chunk_layered_fast,
+                                        dl.bp_stream_chunk_layered_fast_plain,
+                                        dl.bp_decode_layered_fast, "wifi1944", 4).items():
+        err_form[f"k4 {dtype}"] = err
+
     # ---- 7. K5 (exact layered schedule) against its plain version
     err5 = compare_batch("K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain,
                          tables["wifi648"], llrs("wifi648", 5).llr)
+
+    # ---- 7a. K5's forms (lv2c, lc2v and the posterior in the form); bf16 BP's
+    # posterior within eight bf16 steps: it is recomputed from every stored
+    # message after each of the 12 layers
+    for dtype in ("bfloat16", "int8"):
+        err_form[f"k5 {dtype}"] = compare_batch(
+            "K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain, tables["wifi648"],
+            llrs("wifi648", 5).llr, dtype, tol=2 ** -4)
 
     # ---- 7b. K6 (BEC peeling, batch) against its plain version: integer
     # algebra, so all four outputs must be equal byte for byte
@@ -416,9 +451,10 @@ def main() -> int:
         check(rows and all(math.isfinite(v) for r in rows for v in r), f"{out} rows")
         return lines[0], rows
 
-    counted = (dl.bp_decode_layered_fast, dl.bp_stream_chunk_layered_fast, dl.bp_decode_layered,
-               db.bec_decode_fused, db.bec_stream_chunk_fused)
-    by_form = (df.bp_decode_fused, df.bp_stream_chunk_fused)  # a count per message form
+    counted = (db.bec_decode_fused, db.bec_stream_chunk_fused)
+    layered_fns = (dl.bp_decode_layered_fast, dl.bp_stream_chunk_layered_fast,
+                   dl.bp_decode_layered)
+    by_form = (df.bp_decode_fused, df.bp_stream_chunk_fused, *layered_fns)  # a count per form
 
     def zero_counts():
         for fn in counted:
@@ -516,6 +552,56 @@ def main() -> int:
           f"{rows_flood[0][4]} FER {rows_flood[0][1]} [{name_power}]")
     check(at15[4] < rows_flood[0][4], "layered avg_iter not below flooding")
 
+    # ---- 9a. the layered slice with bfloat16 and int8 messages: the wifi
+    # 1944 sweep on the fast engine (K4; K3 on a --no-early-term point) with
+    # bf16 BP and int8 BP_OMS, and wifi 648 on the exact schedule (K5) with
+    # bf16 BP and int8 BP_MS at 2.0 dB (frames capped as in 8b)
+    zero_counts()
+    layered_forms = {}  # (code, dtype, cn) -> (provenance line, rows)
+    for dtype, cn in (("bfloat16", "BP"), ("int8", "BP_OMS")):
+        flags = ["--message-dtype", dtype, "--decoding", cn]
+        tag = SUFFIX[dtype]
+        layered_forms["wifi1944", dtype, cn] = run_cli(
+            "wifi1944", f"res_layered{tag}.txt", LAYERED_SWEEP, "--qc-z", "81", *flags, *cap,
+            layered=True)
+        layered_forms["wifi1944 fixed", dtype, cn] = run_cli(
+            "wifi1944", f"res_layered{tag}_fixed.txt", ["2.0", "2.01", "1"], "--qc-z", "81",
+            *flags, *fixed_cap, layered=True)
+    for dtype, cn in (("bfloat16", "BP"), ("int8", "BP_MS")):
+        layered_forms["wifi648", dtype, cn] = run_cli(
+            "wifi648", f"res_layered_648{SUFFIX[dtype]}.txt", ["2.0", "2.01", "1"],
+            "--message-dtype", dtype, "--decoding", cn, "--frame-error-count", "50",
+            "--max-frames", str(4 * BATCH), layered=True)
+    layered_form_launches = read_counts()
+    print(f"layered message-form path launches: {layered_form_launches}")
+    for fn in layered_fns:
+        for dtype in ("bfloat16", "int8"):
+            check(layered_form_launches[fn.__name__ + SUFFIX[dtype]] > 0,
+                  f"the layered message-form sweeps did not run {fn.__name__} {dtype}")
+    for (key, dtype, cn), (head, rows_) in layered_forms.items():
+        schedule, streaming = {"wifi1944": ("layered-fast", "on"),
+                               "wifi1944 fixed": ("layered-fast", "off"),
+                               "wifi648": ("layered", "off")}[key]
+        check(head.startswith(f"# kernel=cuda-fused dtype={dtype} cn={cn} schedule={schedule} "
+                              f"streaming={streaming}"), f"{key} {dtype} provenance line: {head}")
+        check(all(0 < r[4] <= ITERS for r in rows_), f"{key} {dtype} avg_iter out of range")
+        if key == "wifi1944":
+            check(len(rows_) == 4 and rows_[0][1] > rows_[-1][1],
+                  f"FER does not fall across the {dtype} layered sweep")
+        if key == "wifi1944 fixed":
+            check(rows_[0][4] == ITERS, f"fixed {dtype} layered point did not run every iteration")
+    # FER and avg_iter against float32 BP on the same schedule and SNRs
+    for i, row32 in enumerate(rows_l):
+        b16 = layered_forms["wifi1944", "bfloat16", "BP"][1][i]
+        i8 = layered_forms["wifi1944", "int8", "BP_OMS"][1][i]
+        print(f"wifi1944 layered-fast {row32[0]} dB: FER / avg_iter float32 BP {row32[1]:.4e} / "
+              f"{row32[4]:.3f}, bfloat16 BP {b16[1]:.4e} / {b16[4]:.3f}, int8 BP_OMS "
+              f"{i8[1]:.4e} / {i8[4]:.3f} [{name_power}]")
+    for dtype, cn in (("bfloat16", "BP"), ("int8", "BP_MS")):
+        r648 = layered_forms["wifi648", dtype, cn][1][0]
+        print(f"wifi648 layered 2.0 dB: FER / avg_iter float32 BP {rows_648[0][1]:.4e} / "
+              f"{rows_648[0][4]:.3f}, {dtype} {cn} {r648[1]:.4e} / {r648[4]:.3f} [{name_power}]")
+
     # ---- 9b. the BEC slice: the CLI's --channel BEC sweep of the 1152 code,
     # a fixed-iteration point, the 802.11n code with --layer-file --pallas
     # (the peeling runs flooding), and the BEC streaming step
@@ -580,11 +666,23 @@ def main() -> int:
             times[f"k1{SUFFIX[dtype]} {key}"] = (
                 cuda_ms(lambda: df.bp_decode_fused(tb_, llr, ITERS, False, form, dtype), 5),
                 cuda_ms(lambda: df.bp_decode_fused_plain(tb_, llr, ITERS, False, form, dtype), 2))
+    # the message forms of K3 and K5 likewise
+    for dtype, form in (("bfloat16", "BP"), ("int8", "BP_MS")):
+        times[f"K3{SUFFIX[dtype]} wifi1944"] = (
+            cuda_ms(lambda: dl.bp_decode_layered_fast(tb3, llr3, ITERS, False, form, dtype), 5),
+            cuda_ms(lambda: dl.bp_decode_layered_fast_plain(tb3, llr3, ITERS, False, form, dtype),
+                    1))
+        times[f"K5{SUFFIX[dtype]} wifi648"] = (
+            cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, form, dtype), 3),
+            cuda_ms(lambda: dl.bp_decode_layered_plain(tb5, llr5, ITERS, False, form, dtype), 1))
     tb_, llr = tables["bench1152"], llrs("bench1152", 2).llr
     for dtype in SUFFIX:
         ms = cuda_ms(lambda: df.bp_decode_fused(tb_, llr, ITERS, False, "BP_MS", dtype), 5)
-        print(f"time k1 bench1152 BP_MS {dtype} {ITERS} it no-ET B={BATCH}: kernel {ms:.3f} ms "
-              f"[{name_power}]")
+        ms3 = cuda_ms(lambda: dl.bp_decode_layered_fast(tb3, llr3, ITERS, False, "BP_MS", dtype),
+                      5)
+        ms5 = cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, "BP_MS", dtype), 3)
+        print(f"time BP_MS {dtype} {ITERS} it no-ET B={BATCH}, kernel only: k1 bench1152 "
+              f"{ms:.3f} ms, K3 wifi1944 {ms3:.3f} ms, K5 wifi648 {ms5:.3f} ms [{name_power}]")
     for tag, (k_ms, p_ms) in times.items():
         print(f"time {tag} {'BP_MS' if 'int8' in tag else 'BP'} {ITERS} it no-ET B={BATCH}: "
               f"kernel {k_ms:.3f} ms "
@@ -626,11 +724,17 @@ def main() -> int:
         times[tag] = time_chunk(df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
                                 "bench1152", 2, form, dtype)
         passes[tag] = int(box_passes[0])
+        tag = f"K4{SUFFIX[dtype]} wifi1944"
+        times[tag] = time_chunk(dl.bp_stream_chunk_layered_fast,
+                                dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 1, form, dtype)
+        passes[tag] = int(box_passes[0])
     for dtype in SUFFIX:  # min-sum in each form, kernel only, for the forms side by side
         ms = time_chunk(df.bp_stream_chunk_fused, None, "bench1152", 0, "BP_MS", dtype)[0]
-        print(f"time k2 bench1152 BP_MS {dtype} 6 passes from a full pool B={BATCH}: kernel "
-              f"{ms:.3f} ms [{name_power}]")
-    for tag in ("k2 bench1152", "K4 wifi1944", "k2_bf16 bench1152", "k2_int8 bench1152"):
+        ms4 = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP_MS", dtype)[0]
+        print(f"time BP_MS {dtype} 6 passes from a full pool B={BATCH}, kernel only: k2 "
+              f"bench1152 {ms:.3f} ms, K4 wifi1944 {ms4:.3f} ms [{name_power}]")
+    for tag in ("k2 bench1152", "K4 wifi1944", "k2_bf16 bench1152", "k2_int8 bench1152",
+                "K4_bf16 wifi1944", "K4_int8 wifi1944"):
         print(f"time {tag} {'BP_MS' if 'int8' in tag else 'BP'} 6 passes from a full pool "
               f"B={BATCH}: kernel {times[tag][0]:.3f} ms, plain {times[tag][1]:.3f} ms "
               f"({passes[tag]} frame-passes) [{name_power}]")
@@ -688,7 +792,9 @@ def main() -> int:
             ("bench1152", False, (2.0, 2.5), "bfloat16", "BP"),
             ("bench1152", False, (2.0, 2.5), "int8", "BP_OMS"),
             ("wifi1944", False, (1.5, 2.0), "float32", "BP"),
-            ("wifi1944", True, (1.5, 2.0), "float32", "BP")):
+            ("wifi1944", True, (1.5, 2.0), "float32", "BP"),
+            ("wifi1944", True, (1.5, 2.0), "bfloat16", "BP"),
+            ("wifi1944", True, (1.5, 2.0), "int8", "BP_OMS")):
         for snr in snrs:
             res = Simulator(
                 codes[key], DecoderParams(iterations=ITERS, layered=layered, type=form,
@@ -708,7 +814,10 @@ def main() -> int:
                 "bec_decode_fused": bec_launches["bec_decode_fused"],
                 "bec_stream_chunk_fused": bec_launches["bec_stream_chunk_fused"],
                 **{f"{fn.__name__}{SUFFIX[dt]}": form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
-                   for fn in by_form for dt in ("bfloat16", "int8")}}
+                   for fn in by_form[:2] for dt in ("bfloat16", "int8")},
+                **{f"{fn.__name__}{SUFFIX[dt]}":
+                   layered_form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
+                   for fn in layered_fns for dt in ("bfloat16", "int8")}}
     print(f"launches on wifi 1944: kernel 1 (flooding, fixed point) {k1_1944_launches}, "
           f"K6 (BEC point) {k6_1944_launches}")
 
@@ -760,6 +869,23 @@ def main() -> int:
         "bp_stream_chunk_fused_int8": bound(stream_bytes("bench1152", 4, 1),
                                             passes["k2_int8 bench1152"] * dims("bench1152")[1]
                                             * OPS_MS_SLOT),
+        # the layered forms: K3 reads f32 priors and writes the f32 APP in
+        # every form; K4's state holds the f32 APP and lc2v in the form;
+        # K5 writes its posterior in the form
+        "bp_decode_layered_fast_bf16": bound(batch_bytes("wifi1944", 4, 4), BATCH * ITERS
+                                             * dims("wifi1944")[1] * OPS_BP_FAST_SLOT),
+        "bp_decode_layered_fast_int8": bound(batch_bytes("wifi1944", 4, 4), BATCH * ITERS
+                                             * dims("wifi1944")[1] * OPS_MS_FAST_SLOT),
+        "bp_stream_chunk_layered_fast_bf16": bound(
+            stream_bytes("wifi1944", 4, 2), passes["K4_bf16 wifi1944"] * dims("wifi1944")[1]
+            * OPS_BP_FAST_SLOT),
+        "bp_stream_chunk_layered_fast_int8": bound(
+            stream_bytes("wifi1944", 4, 1), passes["K4_int8 wifi1944"] * dims("wifi1944")[1]
+            * OPS_MS_FAST_SLOT),
+        "bp_decode_layered_bf16": bound(batch_bytes("wifi648", 4, 2), BATCH * ITERS * nnz648
+                                        * (3 * 10 + 4 * n_layers648)),
+        "bp_decode_layered_int8": bound(batch_bytes("wifi648", 4, 1), BATCH * ITERS * nnz648
+                                        * (3 * 3 + 4 * n_layers648)),
     }
     # the wifi 1944 rows of kernel 1 (float32, BP) and K6 (BEC)
     for name, b_, t in (
@@ -797,6 +923,15 @@ def main() -> int:
          err_form["k2 bfloat16"], times["k2_bf16 bench1152"]),
         ("bp_stream_chunk_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404",
          err_form["k2 int8"], times["k2_int8 bench1152"]),
+        *[(f"bp_decode_layered_fast{SUFFIX[dt]}", layered_src,
+           "libldpc_tpu/ops/pallas/decode_lanes.py:1153", err_form[f"k3 {dt}"],
+           times[f"K3{SUFFIX[dt]} wifi1944"]) for dt in ("bfloat16", "int8")],
+        *[(f"bp_stream_chunk_layered_fast{SUFFIX[dt]}", layered_src,
+           "libldpc_tpu/ops/pallas/decode_lanes.py:753", err_form[f"k4 {dt}"],
+           times[f"K4{SUFFIX[dt]} wifi1944"]) for dt in ("bfloat16", "int8")],
+        *[(f"bp_decode_layered{SUFFIX[dt]}", layered_src,
+           "libldpc_tpu/ops/pallas/decode_fused.py:544", err_form[f"k5 {dt}"],
+           times[f"K5{SUFFIX[dt]} wifi648"]) for dt in ("bfloat16", "int8")],
     ]
     for name, _, _, _, t in rows_json:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "

@@ -7,9 +7,9 @@ Same flags as the JAX CLI plus ``--device`` (default ``cuda``).
 schedule, ``--qc-z N|auto`` declares (or finds) the code's QC lifting, and
 ``--pallas`` picks between the exact layered schedule and the fast QC
 engine exactly as in the JAX CLI.  ``--message-dtype bfloat16|int8``
-(with ``--quant-scale`` for the int8 lattice) stores the flooding
-decoder's messages in that form when ``--pallas`` is given, as the JAX CLI
-does (without it both run float32); int8 takes a min-sum-family
+(with ``--quant-scale`` for the int8 lattice) stores the decoder's
+messages in that form when ``--pallas`` is given, on every schedule, as the
+JAX CLI does (without it both run float32); int8 takes a min-sum-family
 ``--decoding`` (BP_MS, BP_NMS, BP_OMS).  Unlike the JAX package, int8 runs
 on codes without a block-local (MXU) permutation plan, such as the
 1152-node (3,6) benchmark code: that condition is a TPU transport's.
@@ -82,14 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Choose the layered schedule as the JAX CLI does: with "
                         "--layer-file, a QC code on its natural layers (Z >= 64) "
                         "runs the fast layered engine, otherwise the exact "
-                        "layered schedule; with --message-dtype, flooding "
+                        "layered schedule; with --message-dtype, the decoder "
                         "stores its messages in that dtype.  Flooding and the "
                         "BEC run the same CUDA kernels with or without it.")
     p.add_argument("--message-dtype", default="float32",
                    choices=["float32", "bfloat16", "int8"],
-                   help="Message dtype of the flooding decode kernels, with "
-                        "--pallas (int8: min-sum family only; refused with "
-                        "--layer-file).")
+                   help="Message dtype of the decode kernels (flooding and "
+                        "layered), with --pallas (int8: min-sum family only).")
     p.add_argument("--quant-scale", type=float, default=0.1875,
                    help="int8 message lattice step in LLR units.")
     p.add_argument("--layer-file", default="", help="Decoding-layer file for the layered schedule.")

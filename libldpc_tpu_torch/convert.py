@@ -4,7 +4,10 @@ The system has no weights: a code and its index tables are its parameters, and a
 streaming sweep's state is the per-lane decode state.  These functions take
 that state from the JAX package as NumPy arrays (``np.asarray`` of each
 field) and build the port's counterparts, so both packages can compute from
-identical tables and state.
+identical tables and state: the sorted layout, the edge-major streaming
+state (:func:`from_pstream_state`) and the lane-major one
+(:func:`from_lstream_state`, the fast layered engine's), in every message
+dtype.
 """
 
 from __future__ import annotations
@@ -111,6 +114,70 @@ def from_pstream_state(arrays: Mapping, cn_classes, device="cpu") -> StreamState
         ctr=t("ctr8", np.int32)[:5].contiguous(),
         fresh_llr=t("fresh_llr", np.float32),
         fresh_cw=t("fresh_cw", np.uint8),
+        started=torch.tensor([int(np.asarray(arrays["started"]).sum())], dtype=torch.int64,
+                             device=device),
+    )
+
+
+def lanes_cn_slots(cn_classes, qc_z: int = 0, qc_zq: int = 0) -> np.ndarray:
+    """For each CN-space slot of the sorted layout, the slot of the same
+    edge in the JAX package's lane-major layout (``to_lanes_device``): a
+    class of ``count`` checks of degree ``d`` takes ``d`` rows of ``cp``
+    lanes, position ``j`` of check ``i`` at ``base + j*cp + lane(i)``.  The
+    generic transports pad ``count`` to whole 128-lane blocks (``lane(i) =
+    i``); the qc transport (``qc_z``, ``qc_zq``) gives each circulant of
+    ``Z`` lifts ``Zq`` lanes (``lane(i) = (i // Z) * Zq + i % Z``)."""
+    out = []
+    base = 0
+    for count, d in cn_classes:
+        i = np.arange(count)
+        if qc_z:
+            cp, lane = count // qc_z * qc_zq, i // qc_z * qc_zq + i % qc_z
+        else:
+            cp, lane = -(-count // 128) * 128, i
+        out.append((base + np.arange(d)[None, :] * cp + lane[:, None]).ravel())
+        base += cp * d
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def from_lstream_state(arrays: Mapping, cn_classes, lane_of_vn, qc_z: int = 0, qc_zq: int = 0,
+                       device="cpu") -> StreamState:
+    """The port's :class:`StreamState` from the fields of JAX's lane-major
+    ``LStreamState`` (single device; ``make_streaming_lanes_step``, the
+    stream of the fast layered engine and of the lane-major flooding
+    kernel).  The ``[B, nc_pad]`` planes move to ``[nc, B]`` through
+    ``lane_of_vn`` (the layout's lane per sorted VN label), ``lv2c`` from
+    the lane slots (:func:`lanes_cn_slots`, with the layout's ``qc_z`` and
+    ``qc_zq`` on the qc transport) to the sorted CN-space slots in its
+    message dtype; the ``[B, 128]`` planes give their column 0 and ``ctr``
+    its columns 0-4; ``fresh_lv2c`` is dropped.  On the fast layered
+    engine the ``llr_in`` plane is the APP (in lattice units for int8 once
+    a lane has started) and ``lv2c`` its check messages, as in the port."""
+    lanes = np.asarray(lane_of_vn, dtype=np.int64)
+
+    def nodes(name, dtype):
+        v = np.asarray(arrays[name])[:, lanes].T.astype(dtype)
+        return torch.as_tensor(np.ascontiguousarray(v)).to(device)
+
+    def col(name, cols=0):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(arrays[name])[:, cols].T.astype(np.int32))).to(device)
+
+    lv2c_j = np.asarray(arrays["lv2c"])
+    # every stored value is exact in float32 (bf16 and int8 alike)
+    lv2c = lv2c_j.astype(np.float32)[:, lanes_cn_slots(cn_classes, qc_z, qc_zq)].T
+    return StreamState(
+        llr_in=nodes("llr_in", np.float32),
+        codeword=nodes("codeword", np.uint8),
+        lv2c=torch.as_tensor(np.ascontiguousarray(lv2c)).to(TORCH_DTYPES[str(lv2c_j.dtype)])
+        .to(device),
+        done=col("done"),
+        iters=col("iters"),
+        age=col("age"),
+        avail=col("avail"),
+        ctr=col("ctr", slice(0, 5)),
+        fresh_llr=nodes("fresh_llr", np.float32),
+        fresh_cw=nodes("fresh_cw", np.uint8),
         started=torch.tensor([int(np.asarray(arrays["started"]).sum())], dtype=torch.int64,
                              device=device),
     )

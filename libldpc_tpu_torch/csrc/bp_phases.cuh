@@ -54,12 +54,6 @@ __device__ void vn_phase(const Code& c, const Msg& m, const float* __restrict__ 
   }
 }
 
-__device__ void vn_phase(const Code& c, const float* __restrict__ prior,
-                         float* __restrict__ lv2c, const float* __restrict__ lc2v,
-                         float* __restrict__ post, size_t B, size_t b) {
-  vn_phase(c, F32Msg{}, prior, lv2c, lc2v, post, B, b);
-}
-
 // Sets bad[lane] when one of this warp's checks is unsatisfied by the
 // decisions post <= 0 (of the stored posterior); stops at the first such
 // check, or as soon as another warp has found one for this frame.
@@ -78,11 +72,6 @@ __device__ void syndrome_part(const Code& c, const Msg& m,
       return;
     }
   }
-}
-
-__device__ void syndrome_part(const Code& c, const float* __restrict__ post, size_t B, size_t b,
-                              volatile int* bad) {
-  syndrome_part(c, F32Msg{}, post, B, b, bad);
 }
 
 inline unsigned grid_for(int B) { return (unsigned)((B + LDPC_FRAMES - 1) / LDPC_FRAMES); }

@@ -126,12 +126,15 @@ __device__ __forceinline__ void check_combine(const CnParams& cp, int d, Load lo
 }
 
 // Message storage forms (ops/messages.py MessageForm): T is the stored
-// type; load() widens to float32, store() rounds from float32, prior()
-// takes a raw float32 channel LLR to the decoder's units.
+// type; load() widens to float32, store() rounds from float32, round() is
+// load(store(x)) kept in a register (the fast layered engine's rounding of
+// lv and o, which stay float32), prior() takes a raw float32 channel LLR to
+// the decoder's units.
 struct F32Msg {
   using T = float;
   __device__ __forceinline__ float load(T x) const { return x; }
   __device__ __forceinline__ T store(float x) const { return x; }
+  __device__ __forceinline__ float round(float x) const { return x; }
   __device__ __forceinline__ float prior(float x) const { return x; }
 };
 
@@ -140,6 +143,7 @@ struct Bf16Msg {
   using T = __nv_bfloat16;
   __device__ __forceinline__ float load(T x) const { return __bfloat162float(x); }
   __device__ __forceinline__ T store(float x) const { return __float2bfloat16_rn(x); }
+  __device__ __forceinline__ float round(float x) const { return load(store(x)); }
   __device__ __forceinline__ float prior(float x) const { return x; }
 };
 
@@ -151,8 +155,9 @@ struct Int8Msg {
   using T = int8_t;
   float inv_q;
   __device__ __forceinline__ float load(T x) const { return (float)x; }
-  __device__ __forceinline__ T store(float x) const {
-    return (T)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
+  __device__ __forceinline__ T store(float x) const { return (T)round(x); }
+  __device__ __forceinline__ float round(float x) const {
+    return fminf(fmaxf(rintf(x), -127.0f), 127.0f);
   }
   __device__ __forceinline__ float prior(float x) const { return x * inv_q; }
 };
@@ -168,12 +173,6 @@ __device__ __forceinline__ void check_update(const CnParams& cp, const Msg& m,
   check_combine(
       cp, d, [&](int j) { return m.load(lv2c[(e0 + j) * B + b]); },
       [&](int j, float o) { lc2v[(e0 + j) * B + b] = m.store(o); });
-}
-
-__device__ __forceinline__ void check_update(const CnParams& cp, const float* __restrict__ lv2c,
-                                             float* __restrict__ lc2v, int e0, int d, size_t B,
-                                             size_t b) {
-  check_update(cp, F32Msg{}, lv2c, lc2v, e0, d, B, b);
 }
 
 }  // namespace

@@ -22,9 +22,10 @@
 // Race freedom: the 8 warps of a block split a layer's checks, and the
 // checks of one layer update the APP of their variables concurrently.  That
 // is safe because no layer reaches a variable twice; the host refuses
-// layers that do (KernelTables.layers_disjoint).  A __syncthreads after
-// each layer orders the next layer's reads after this layer's writes.
-// Frames are columns: no two blocks share a frame.
+// layers that do (KernelTables.layers_disjoint).  Each check writes only its
+// own lc2v slots, whatever their width.  A __syncthreads after each layer
+// orders the next layer's reads after this layer's writes.  Frames are
+// columns: no two blocks share a frame.
 //
 // The exact schedule (third kernel) mirrors the XLA layered decoder: per
 // layer, the layer's checks refresh their messages (the CN phase may skip
@@ -34,21 +35,37 @@
 // satisfied after any layer is frozen for the rest of the decode.  An
 // iteration counts for a frame unconverged at its start and at its end.
 //
+// Message forms: each kernel is instantiated for float32, bfloat16 and int8
+// message storage (the TPU kernels' `message_dtype`; traits in
+// cn_forms.cuh), behind one extern "C" entry that takes the dtype code, as
+// in decode_fused.cu.  The fast engine stores lc2v in the form and keeps
+// the APP float32, in decoder units (lattice units for int8: it starts at
+// prior(llr) = llr * float32(1/quant_scale)) and never rounded; lv and o are
+// rounded into the message domain (Msg::round) before and after the
+// combine, as `_qc_engine`'s to_msg does.  The exact schedule stores lv2c,
+// lc2v and the posterior in the form, with the store points of the flooding
+// kernels (bp_phases.cuh), and starts lv2c at store(prior(llr)).
+//
 // Layout, block shape and exactness as in decode_fused.cu: planes are
 // [rows, B] with frames fastest, a block holds 32 frames (one per lane)
 // and 8 warps, the file is built with -fmad=false, and the arithmetic
 // follows the plain PyTorch versions operation for operation
-// (lv = app - st, delta = o - st, app = app + delta; the combine of
-// cn_forms.cuh), so the min-sum family is bit-exact against them.
+// (lv = round(app - st), o = round(postprocess(...)), delta = o - st,
+// app = app + delta; the combine of cn_forms.cuh), so the min-sum family is
+// bit-exact against them.
 //
-// What bounds it: device-memory traffic.  The fast engine reads and writes
-// the APP and lc2v at every slot once per iteration (~16 B per slot and
-// frame, plus the syndrome's APP reads), about what one flooding pass of
-// kernel 1 moves; for the 802.11n n=1944 code at B = 16384 the APP plane is
-// 127 MB and lc2v 456 MB, far past the 50 MB L2.  The exact schedule pays
-// a full VN phase (and a syndrome) per layer: ~n_layers flooding passes per
-// iteration.  This first design keeps messages in HBM planes; holding a
-// frame's APP in shared memory across layers is later work.
+// What bounds it: modelled as device-memory traffic.  The fast engine
+// reads and writes the APP and lc2v at every slot once per iteration
+// (~16 B per slot and frame in float32, plus the syndrome's APP reads),
+// about what one flooding pass of kernel 1 moves; for the 802.11n n=1944
+// code at B = 16384 the APP plane is 127 MB and lc2v 456 MB (228 MB in
+// bfloat16, 114 MB in int8), far past the 50 MB L2.  The exact schedule
+// pays a full VN phase (and a syndrome) per layer: ~n_layers flooding
+// passes per iteration.  Kernel 1 takes the same time with 4-, 2- and
+// 1-byte messages (see decode_fused.cu), so the combine's local arrays and
+// the dependent index loads are the suspects here too.  This first design
+// keeps messages in HBM planes; holding a frame's APP in shared memory
+// across layers is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,34 +84,40 @@ struct Layers {
 // One check of the fast engine for frame b.  Its slots' variables are
 // distinct from those of every other check of the layer (see above), so
 // the read-modify-write of app is this thread's alone within the layer.
-__device__ __forceinline__ void fast_check(const Code& c, const CnParams& cp,
-                                           float* __restrict__ app, float* __restrict__ lc2v,
-                                           int r, size_t B, size_t b) {
+template <class Msg>
+__device__ __forceinline__ void fast_check(const Code& c, const CnParams& cp, const Msg& m,
+                                           float* __restrict__ app,
+                                           typename Msg::T* __restrict__ lc2v, int r, size_t B,
+                                           size_t b) {
   const int e0 = __ldg(c.row_ptr + r);
   const int d = __ldg(c.row_ptr + r + 1) - e0;
   if (d == 0) return;
   check_combine(
       cp, d,
-      [&](int j) { return app[__ldg(c.col_sorted + e0 + j) * B + b] - lc2v[(e0 + j) * B + b]; },
+      [&](int j) {
+        return m.round(app[__ldg(c.col_sorted + e0 + j) * B + b] - m.load(lc2v[(e0 + j) * B + b]));
+      },
       [&](int j, float o) {
         const size_t v = __ldg(c.col_sorted + e0 + j) * B + b;
         const size_t e = (e0 + j) * B + b;
-        const float delta = o - lc2v[e];
+        o = m.round(o);
+        const float delta = o - m.load(lc2v[e]);
         app[v] = app[v] + delta;
-        lc2v[e] = o;
+        lc2v[e] = m.store(o);
       });
 }
 
 // One full layered iteration of the fast engine for frame b (skipped when
 // !run); every thread of the block calls it, for the barriers.
-__device__ void fast_pass(const Code& c, const Layers& L, const CnParams& cp,
-                          float* __restrict__ app, float* __restrict__ lc2v, bool run, size_t B,
-                          size_t b) {
+template <class Msg>
+__device__ void fast_pass(const Code& c, const Layers& L, const CnParams& cp, const Msg& m,
+                          float* __restrict__ app, typename Msg::T* __restrict__ lc2v, bool run,
+                          size_t B, size_t b) {
   for (int l = 0; l < L.nl; ++l) {
     if (run) {
       const int k1 = __ldg(L.ptr + l + 1);
       for (int k = __ldg(L.ptr + l) + threadIdx.y; k < k1; k += blockDim.y)
-        fast_check(c, cp, app, lc2v, __ldg(L.checks + k), B, b);
+        fast_check(c, cp, m, app, lc2v, __ldg(L.checks + k), B, b);
     }
     __syncthreads();  // the next layer reads what this one wrote
   }
@@ -102,20 +125,23 @@ __device__ void fast_pass(const Code& c, const Layers& L, const CnParams& cp,
 
 // Batch decode on the fast engine, all iterations in one launch.  Control
 // state is kept per thread and updated identically by every thread of a
-// frame, as in bp_decode_fused_kernel.
+// frame, as in bp_decode_fused_kernel.  `app` is the output, in decoder
+// units (the wrapper dequantises it).
+template <class Msg>
 __global__ void __launch_bounds__(LDPC_FRAMES * LDPC_WARPS)
-bp_decode_layered_fast_kernel(Code c, Layers L, CnParams cp, const float* __restrict__ llr_in,
-                              float* __restrict__ app, int* __restrict__ iters_out,
-                              int* __restrict__ iscw_out, float* __restrict__ lc2v, int B_,
-                              int iterations, int early_term) {
+bp_decode_layered_fast_kernel(Code c, Layers L, CnParams cp, Msg m,
+                              const float* __restrict__ llr_in, float* __restrict__ app,
+                              int* __restrict__ iters_out, int* __restrict__ iscw_out,
+                              typename Msg::T* __restrict__ lc2v, int B_, int iterations,
+                              int early_term) {
   __shared__ int bad[LDPC_FRAMES];
   const size_t B = B_;
   const size_t b = (size_t)blockIdx.x * LDPC_FRAMES + threadIdx.x;
   const bool valid = b < B;
   const bool lead = threadIdx.y == 0;
   if (valid) {
-    for (int v = threadIdx.y; v < c.nc; v += blockDim.y) app[v * B + b] = llr_in[v * B + b];
-    for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) lc2v[e * B + b] = 0.0f;
+    for (int v = threadIdx.y; v < c.nc; v += blockDim.y) app[v * B + b] = m.prior(llr_in[v * B + b]);
+    for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) lc2v[e * B + b] = m.store(0.0f);
   }
   bool done = !valid;
   int iters = 0, iscw = 0;
@@ -123,10 +149,10 @@ bp_decode_layered_fast_kernel(Code c, Layers L, CnParams cp, const float* __rest
   for (int it = 0; it < iterations; ++it) {
     if (early_term && !__syncthreads_or(!done)) break;
     const bool check = !done && (early_term || it == iterations - 1);
-    fast_pass(c, L, cp, app, lc2v, !done, B, b);
+    fast_pass(c, L, cp, m, app, lc2v, !done, B, b);
     if (lead) bad[threadIdx.x] = 0;  // after the layer barriers: last reads are behind
     __syncthreads();
-    if (check) syndrome_part(c, app, B, b, bad);
+    if (check) syndrome_part(c, F32Msg{}, app, B, b, bad);
     __syncthreads();
     if (check) {
       const bool ok = !bad[threadIdx.x];
@@ -151,13 +177,16 @@ bp_decode_layered_fast_kernel(Code c, Layers L, CnParams cp, const float* __rest
 // an idle lane reloads from the pool under the exact quota (as in
 // bp_stream_chunk_fused_kernel), then a lane in flight runs one full
 // layered iteration and is counted at the pass that finishes it.  The
-// `app` plane is the persistent APP (a reload sets it to the fresh LLRs),
-// `lc2v` the CN-space check messages (0 on start).  Counter rows: 0 bit
-// errors (transmitted bits, decided from the APP), 1 frame errors,
-// 2 frames, 3 iteration sum, 4 starts.
+// `app` plane is the persistent APP in decoder units: a start takes the
+// prior of the LLRs it carries, a reload the prior of its pool entry (the
+// pool stays raw float32 LLRs), as the JAX kernel's `prior_mul` does.
+// `lc2v` holds the CN-space check messages in the form (0 on start).
+// Counter rows: 0 bit errors (transmitted bits, decided from the APP),
+// 1 frame errors, 2 frames, 3 iteration sum, 4 starts.
+template <class Msg>
 __global__ void __launch_bounds__(LDPC_FRAMES * LDPC_WARPS)
-bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, float* __restrict__ app,
-                                    uint8_t* __restrict__ cw, float* __restrict__ lc2v,
+bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, Msg m, float* __restrict__ app,
+                                    uint8_t* __restrict__ cw, typename Msg::T* __restrict__ lc2v,
                                     int* __restrict__ done_p, int* __restrict__ iters_p,
                                     int* __restrict__ age_p, int* __restrict__ avail_p,
                                     int* __restrict__ ctr, const float* __restrict__ fresh_llr,
@@ -181,10 +210,11 @@ bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, float* __rest
   const bool refill_on = *refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
   for (int pass = 0; pass < k; ++pass) {
-    // ---- a lane injected in flight (age 0) starts the engine: APP = its
-    // LLRs as carried, lc2v = 0, and this pass is iteration 1
+    // ---- a lane injected in flight (age 0) starts the engine: APP = the
+    // prior of the LLRs it carries, lc2v = 0, and this pass is iteration 1
     if (!done && age == 0) {
-      for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) lc2v[e * B + b] = 0.0f;
+      for (int v = threadIdx.y; v < c.nc; v += blockDim.y) app[v * B + b] = m.prior(app[v * B + b]);
+      for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) lc2v[e * B + b] = m.store(0.0f);
       age = 1;
     }
     // ---- reload: a ticket against the global quota per idle lane with an
@@ -196,10 +226,10 @@ bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, float* __rest
     __syncthreads();
     if (flag[threadIdx.x]) {
       for (int v = threadIdx.y; v < c.nc; v += blockDim.y) {
-        app[v * B + b] = fresh_llr[v * B + b];
+        app[v * B + b] = m.prior(fresh_llr[v * B + b]);
         cw[v * B + b] = fresh_cw[v * B + b];
       }
-      for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) lc2v[e * B + b] = 0.0f;
+      for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) lc2v[e * B + b] = m.store(0.0f);
       done = 0;
       age = 1;
       iters = 0;
@@ -211,13 +241,13 @@ bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, float* __rest
     // ---- one full layered iteration over the lanes in flight
     const bool run = !done;
     const bool checking = run && age >= 1;
-    fast_pass(c, L, cp, app, lc2v, run, B, b);
+    fast_pass(c, L, cp, m, app, lc2v, run, B, b);
     if (lead) {
       flag[threadIdx.x] = 0;
       berr[threadIdx.x] = 0;
     }
     __syncthreads();
-    if (checking) syndrome_part(c, app, B, b, flag);
+    if (checking) syndrome_part(c, F32Msg{}, app, B, b, flag);
     __syncthreads();
     bool newly = false;
     if (checking) {
@@ -257,12 +287,15 @@ bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, float* __rest
   }
 }
 
-// The exact layered schedule, all iterations in one launch.
+// The exact layered schedule, all iterations in one launch.  `post` is the
+// stored posterior (the output, in the storage type: the wrapper widens it).
+template <class Msg>
 __global__ void __launch_bounds__(LDPC_FRAMES * LDPC_WARPS)
-bp_decode_layered_kernel(Code c, Layers L, CnParams cp, const float* __restrict__ llr_in,
-                         float* __restrict__ llr_out, int* __restrict__ iters_out,
-                         int* __restrict__ iscw_out, float* __restrict__ lv2c,
-                         float* __restrict__ lc2v, int B_, int iterations, int early_term) {
+bp_decode_layered_kernel(Code c, Layers L, CnParams cp, Msg m, const float* __restrict__ llr_in,
+                         typename Msg::T* __restrict__ post, int* __restrict__ iters_out,
+                         int* __restrict__ iscw_out, typename Msg::T* __restrict__ lv2c,
+                         typename Msg::T* __restrict__ lc2v, int B_, int iterations,
+                         int early_term) {
   __shared__ int bad[LDPC_FRAMES];
   const size_t B = B_;
   const size_t b = (size_t)blockIdx.x * LDPC_FRAMES + threadIdx.x;
@@ -270,8 +303,8 @@ bp_decode_layered_kernel(Code c, Layers L, CnParams cp, const float* __restrict_
   const bool lead = threadIdx.y == 0;
   if (valid)
     for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) {
-      lv2c[e * B + b] = llr_in[__ldg(c.col_sorted + e) * B + b];
-      lc2v[e * B + b] = 0.0f;
+      lv2c[e * B + b] = m.store(m.prior(llr_in[__ldg(c.col_sorted + e) * B + b]));
+      lc2v[e * B + b] = m.store(0.0f);
     }
   bool done = !valid;
   int iters = 0, iscw = 0;
@@ -287,14 +320,14 @@ bp_decode_layered_kernel(Code c, Layers L, CnParams cp, const float* __restrict_
           const int r = __ldg(L.checks + k);
           const int e0 = __ldg(c.row_ptr + r);
           const int d = __ldg(c.row_ptr + r + 1) - e0;
-          if (d > 0) check_update(cp, lv2c, lc2v, e0, d, B, b);
+          if (d > 0) check_update(cp, m, lv2c, lc2v, e0, d, B, b);
         }
       }
       __syncthreads();
       if (lead) bad[threadIdx.x] = 0;
-      if (!done) vn_phase(c, llr_in, lv2c, lc2v, llr_out, B, b);
+      if (!done) vn_phase(c, m, llr_in, lv2c, lc2v, post, B, b);
       __syncthreads();
-      if (check) syndrome_part(c, llr_out, B, b, bad);
+      if (check) syndrome_part(c, m, post, B, b, bad);
       __syncthreads();
       if (check) {
         const bool ok = !bad[threadIdx.x];
@@ -314,55 +347,102 @@ bp_decode_layered_kernel(Code c, Layers L, CnParams cp, const float* __restrict_
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each returns the launch's cudaGetLastError() (0 = launched).
-
-int ldpc_bp_decode_layered_fast(const float* llr_in, float* app, int* iters, int* iscw,
-                                float* lc2v, const int* row_ptr, const int* col_sorted,
-                                const int* vn_ptr, const int* perm_c2v, const int* layer_ptr,
-                                const int* layer_checks, int nc, int mc, int nnz, int nl, int B,
-                                int iterations, int early_term, int cn_mode, float scale,
-                                float offset, void* stream) {
-  Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
-  Layers L{layer_ptr, layer_checks, nl};
-  CnParams cp{cn_mode, scale, offset};
-  bp_decode_layered_fast_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
-      c, L, cp, llr_in, app, iters, iscw, lc2v, B, iterations, early_term);
+template <class Msg>
+int launch_fast(const Code& c, const Layers& L, const CnParams& cp, const Msg& m,
+                const float* llr_in, float* app, int* iters, int* iscw, void* lc2v, int B,
+                int iterations, int early_term, cudaStream_t stream) {
+  bp_decode_layered_fast_kernel<Msg><<<grid_for(B), kBlock, 0, stream>>>(
+      c, L, cp, m, llr_in, app, iters, iscw, (typename Msg::T*)lc2v, B, iterations, early_term);
   return (int)cudaGetLastError();
 }
 
-int ldpc_bp_stream_chunk_layered_fast(float* app, uint8_t* cw, float* lc2v, int* done, int* iters,
+template <class Msg>
+int launch_stream(const Code& c, const Layers& L, const CnParams& cp, const Msg& m, float* app,
+                  uint8_t* cw, void* lc2v, int* done, int* iters, int* age, int* avail, int* ctr,
+                  const float* fresh_llr, const uint8_t* fresh_cw, const int* refill,
+                  int* remaining, const int* bit_pos, int nct, int B, int k, int cap,
+                  cudaStream_t stream) {
+  bp_stream_chunk_layered_fast_kernel<Msg><<<grid_for(B), kBlock, 0, stream>>>(
+      c, L, cp, m, app, cw, (typename Msg::T*)lc2v, done, iters, age, avail, ctr, fresh_llr,
+      fresh_cw, refill, remaining, bit_pos, nct, B, k, cap);
+  return (int)cudaGetLastError();
+}
+
+template <class Msg>
+int launch_exact(const Code& c, const Layers& L, const CnParams& cp, const Msg& m,
+                 const float* llr_in, void* post, int* iters, int* iscw, void* lv2c, void* lc2v,
+                 int B, int iterations, int early_term, cudaStream_t stream) {
+  using T = typename Msg::T;
+  bp_decode_layered_kernel<Msg><<<grid_for(B), kBlock, 0, stream>>>(
+      c, L, cp, m, llr_in, (T*)post, iters, iscw, (T*)lv2c, (T*)lc2v, B, iterations, early_term);
+  return (int)cudaGetLastError();
+}
+
+// Message dtype codes (ops/messages.py DTYPE_CODES)
+enum MsgDtype { MSG_F32 = 0, MSG_BF16 = 1, MSG_INT8 = 2 };
+
+}  // namespace
+
+// One instantiation per message form: `launch` is launch_fast, launch_stream
+// or launch_exact, called with the form's traits before its other arguments.
+#define LDPC_BY_DTYPE(launch, ...)                                \
+  switch (msg_dtype) {                                            \
+    case MSG_F32:                                                 \
+      return launch(c, L, cp, F32Msg{}, __VA_ARGS__);             \
+    case MSG_BF16:                                                \
+      return launch(c, L, cp, Bf16Msg{}, __VA_ARGS__);            \
+    case MSG_INT8:                                                \
+      return launch(c, L, cp, Int8Msg{inv_q}, __VA_ARGS__);       \
+  }                                                               \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" {
+
+// Each returns the launch's cudaGetLastError() (0 = launched).  The
+// message planes (lc2v; for the exact schedule also lv2c and the posterior
+// `post`) are of the type of `msg_dtype`; the APP stays float32; `inv_q` is
+// the int8 lattice's prior factor (unused otherwise).
+
+int ldpc_bp_decode_layered_fast(const float* llr_in, float* app, int* iters, int* iscw,
+                                void* lc2v, const int* row_ptr, const int* col_sorted,
+                                const int* vn_ptr, const int* perm_c2v, const int* layer_ptr,
+                                const int* layer_checks, int nc, int mc, int nnz, int nl, int B,
+                                int iterations, int early_term, int cn_mode, float scale,
+                                float offset, int msg_dtype, float inv_q, void* stream) {
+  Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
+  Layers L{layer_ptr, layer_checks, nl};
+  CnParams cp{cn_mode, scale, offset};
+  LDPC_BY_DTYPE(launch_fast, llr_in, app, iters, iscw, lc2v, B, iterations, early_term,
+                (cudaStream_t)stream)
+}
+
+int ldpc_bp_stream_chunk_layered_fast(float* app, uint8_t* cw, void* lc2v, int* done, int* iters,
                                       int* age, int* avail, int* ctr, const float* fresh_llr,
                                       const uint8_t* fresh_cw, const int* refill, int* remaining,
                                       const int* row_ptr, const int* col_sorted, const int* vn_ptr,
                                       const int* perm_c2v, const int* layer_ptr,
                                       const int* layer_checks, const int* bit_pos, int nc, int mc,
                                       int nnz, int nl, int nct, int B, int k, int cap, int cn_mode,
-                                      float scale, float offset, void* stream) {
+                                      float scale, float offset, int msg_dtype, float inv_q,
+                                      void* stream) {
   Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
   Layers L{layer_ptr, layer_checks, nl};
   CnParams cp{cn_mode, scale, offset};
-  bp_stream_chunk_layered_fast_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
-      c, L, cp, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr, fresh_cw, refill,
-      remaining, bit_pos, nct, B, k, cap);
-  return (int)cudaGetLastError();
+  LDPC_BY_DTYPE(launch_stream, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
+                refill, remaining, bit_pos, nct, B, k, cap, (cudaStream_t)stream)
 }
 
-int ldpc_bp_decode_layered(const float* llr_in, float* llr_out, int* iters, int* iscw,
-                           float* lv2c, float* lc2v, const int* row_ptr, const int* col_sorted,
+int ldpc_bp_decode_layered(const float* llr_in, void* post, int* iters, int* iscw, void* lv2c,
+                           void* lc2v, const int* row_ptr, const int* col_sorted,
                            const int* vn_ptr, const int* perm_c2v, const int* layer_ptr,
                            const int* layer_checks, int nc, int mc, int nnz, int nl, int B,
                            int iterations, int early_term, int cn_mode, float scale, float offset,
-                           void* stream) {
+                           int msg_dtype, float inv_q, void* stream) {
   Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
   Layers L{layer_ptr, layer_checks, nl};
   CnParams cp{cn_mode, scale, offset};
-  bp_decode_layered_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
-      c, L, cp, llr_in, llr_out, iters, iscw, lv2c, lc2v, B, iterations, early_term);
-  return (int)cudaGetLastError();
+  LDPC_BY_DTYPE(launch_exact, llr_in, post, iters, iscw, lv2c, lc2v, B, iterations, early_term,
+                (cudaStream_t)stream)
 }
 
 }  // extern "C"

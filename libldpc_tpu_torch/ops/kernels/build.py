@@ -138,6 +138,7 @@ def load() -> ctypes.CDLL:
                 *tables,
                 I, I, I, I, I,  # nc mc nnz nl B
                 I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                I, F,  # msg_dtype inv_q
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered_fast.restype = I
@@ -148,14 +149,16 @@ def load() -> ctypes.CDLL:
                 *tables, P,  # ..., bit_pos
                 I, I, I, I, I, I,  # nc mc nnz nl nct B
                 I, I, I, F, F,  # k cap cn_mode scale offset
+                I, F,  # msg_dtype inv_q
                 P,  # stream
             ]
             lib.ldpc_bp_stream_chunk_layered_fast.restype = I
             lib.ldpc_bp_decode_layered.argtypes = [
-                P, P, P, P, P, P,  # llr_in llr_out iters iscw lv2c lc2v
+                P, P, P, P, P, P,  # llr_in post iters iscw lv2c lc2v
                 *tables,
                 I, I, I, I, I,  # nc mc nnz nl B
                 I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                I, F,  # msg_dtype inv_q
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered.restype = I

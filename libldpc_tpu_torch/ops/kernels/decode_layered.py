@@ -15,10 +15,18 @@
   layer's checks refresh, the whole APP and every extrinsic recompute, and
   a converged frame freezes.
 
+All three take a message storage form (``message_dtype`` float32,
+bfloat16 or int8, and the int8 lattice step ``quant_scale``;
+:mod:`..messages`), as ``bp_decode_lanes``, ``bp_stream_chunk_lanes`` and
+``bp_decode_pallas`` do: each kernel is built in the three forms.  The fast
+engine stores its check messages in the form and keeps its APP in float32
+(in lattice units for int8); the exact schedule stores its messages and
+posterior in the form.  int8 takes the min-sum family only.
+
 Each wrapper takes its plain PyTorch version (same signature) only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-Each keeps a launch count, ``<wrapper>.launches``, raised by one at every
-kernel launch and nowhere else.
+Each keeps a launch count per form, ``<wrapper>.launches[dtype]``, raised
+by one at every kernel launch of that form and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import ctypes
 
 import torch
 
-from ..layered import bp_decode_layered_fast_plain, layered_fast_pass
+from .. import layered
+from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, MessageForm
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
 from .decode_fused import _check, _lib, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args
 from .layout import KernelTables
@@ -53,20 +62,42 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def bp_decode_layered_fast_plain(
+    tables: KernelTables,
+    llr_in: torch.Tensor,
+    iterations: int = 50,
+    early_term: bool = True,
+    minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
+) -> SortedDecodeOutput:
+    """Plain version of :func:`bp_decode_layered_fast`:
+    :func:`..layered.bp_decode_layered_fast_plain` in the message form."""
+    return layered.bp_decode_layered_fast_plain(tables, llr_in, iterations, early_term,
+                                                minsum_mode, MessageForm(message_dtype, quant_scale))
+
+
 def bp_decode_layered_fast(
     tables: KernelTables,
     llr_in: torch.Tensor,  # f32 [nc, B], sorted VN labelling
     iterations: int = 50,
     early_term: bool = True,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> SortedDecodeOutput:
     """The fast layered engine's batch decode, all iterations in one kernel
     launch.  Same boundary as ``bp_decode_lanes(..., layered=True)`` on a
-    layout with natural-QC layers, in float32: ``llr_out`` is the APP,
-    ``hard = llr_out <= 0``, break-before-increment ``iterations`` and
-    ``is_codeword``; without early termination every frame reports the cap
-    and ``is_codeword`` comes from the last iteration; ``iterations == 0``
-    returns all zeros.  Any ``B``: the last block is masked."""
+    layout with natural-QC layers: ``llr_out`` is the APP as LLRs
+    (``app * quant_scale`` on the int8 lattice), ``hard = llr_out <= 0``,
+    break-before-increment ``iterations`` and ``is_codeword``; without early
+    termination every frame reports the cap and ``is_codeword`` comes from
+    the last iteration; ``iterations == 0`` returns all zeros.  The check
+    messages are stored in ``message_dtype``; int8 takes a min-sum-family
+    ``minsum_mode`` only (``ValueError`` otherwise).  Any ``B``: the last
+    block is masked."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
     B = llr_in.shape[1] if llr_in.dim() == 2 else -1
     _check(llr_in, "llr_in", torch.float32, (nc, B), tables.device)
@@ -74,7 +105,8 @@ def bp_decode_layered_fast(
     if iterations == 0:
         return _zero_output(llr_in)
     if llr_in.device.type == "cpu":
-        return bp_decode_layered_fast_plain(tables, llr_in, iterations, early_term, minsum_mode)
+        return bp_decode_layered_fast_plain(tables, llr_in, iterations, early_term, minsum_mode,
+                                            message_dtype, quant_scale)
     _require_cuda(llr_in)
     lib = _lib(tables)
     dev = llr_in.device
@@ -82,44 +114,51 @@ def bp_decode_layered_fast(
     app = torch.empty_like(llr_in)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
-    lc2v = torch.empty((sdc.nnz, B), dtype=torch.float32, device=dev)
-    mode, scale, offset = cn_mode_args(minsum_mode)
+    lc2v = torch.empty((sdc.nnz, B), dtype=form.torch_dtype, device=dev)
+    mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     err = lib.ldpc_bp_decode_layered_fast(
         _p(llr_in), _p(app), _p(iters), _p(iscw), _p(lc2v), *_tables_args(tables),
         nc, sdc.mc, sdc.nnz, tables.n_layers, B, iterations, int(bool(early_term)),
-        mode, scale, offset, _stream(llr_in),
+        mode, scale, offset, form.code, form.inv_q, _stream(llr_in),
     )
     _raise_on(lib, err, "bp_decode_layered_fast")
-    bp_decode_layered_fast.launches += 1
-    return SortedDecodeOutput(llr_out=app, hard=app <= 0, iterations=iters, is_codeword=iscw > 0)
+    bp_decode_layered_fast.launches[form.dtype] += 1
+    llr_out = form.dequant(app)
+    return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
+                              is_codeword=iscw > 0)
 
 
-bp_decode_layered_fast.launches = 0
+bp_decode_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
 
 
 def bp_stream_chunk_layered_fast_plain(
     tables, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
-    refill, remaining, *, k: int, cap: int, minsum_mode=False,
+    refill, remaining, *, k: int, cap: int, minsum_mode=False, message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> None:
     """Plain version of :func:`bp_stream_chunk_layered_fast`, pass for pass
     as ``kernel_stream_layered_qc``: starts are granted in lane order (an
     inclusive scan against ``remaining``)."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode, "int8 streaming")
     sdc = tables.code
     is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=app.device)
     is_tx[sdc.bit_pos.long()] = True
     refill_on = refill != 0
     for _ in range(k):
-        # ---- lanes injected in flight at age 0 start the engine here
+        # ---- lanes injected in flight at age 0 start the engine here, from
+        # the prior of the LLRs they carry
         raw = (done == 0) & (age == 0)
-        lc2v.masked_fill_(raw[None, :], 0.0)
+        app.copy_(torch.where(raw, form.prior(app), app))
+        lc2v.masked_fill_(raw[None, :], 0)
         age += raw.to(torch.int32)
         # ---- reload idle lanes from the pool, within the quota
         eligible = refill_on & (done != 0) & (avail != 0)
         rs = eligible & (torch.cumsum(eligible.to(torch.int32), 0) <= remaining)
         remaining -= rs.sum().to(torch.int32)
-        app.copy_(torch.where(rs, fresh_llr, app))
+        app.copy_(torch.where(rs, form.prior(fresh_llr), app))
         cw.copy_(torch.where(rs, fresh_cw, cw))
-        lc2v.masked_fill_(rs[None, :], 0.0)
+        lc2v.masked_fill_(rs[None, :], 0)
         r = rs.to(torch.int32)
         done.mul_(1 - r)
         age.copy_(torch.where(rs, 1, age))
@@ -128,7 +167,7 @@ def bp_stream_chunk_layered_fast_plain(
         ctr[4] += r
         # ---- one layered iteration over the lanes in flight
         active = done == 0
-        layered_fast_pass(tables, app, lc2v, ~active, minsum_mode)
+        layered.layered_fast_pass(tables, app, lc2v, ~active, minsum_mode, form)
         checking = active & (age >= 1)
         ok = syndrome_ok_from_posterior(sdc, app.index_select(0, sdc.col_sorted))
         iters += (checking & ~ok).to(torch.int32)
@@ -145,15 +184,15 @@ def bp_stream_chunk_layered_fast_plain(
 
 def bp_stream_chunk_layered_fast(
     tables: KernelTables,
-    app: torch.Tensor,  # f32 [nc, B] carried APP posterior
+    app: torch.Tensor,  # f32 [nc, B] carried APP posterior (decoder units)
     cw: torch.Tensor,  # u8 [nc, B] carried true codewords
-    lc2v: torch.Tensor,  # f32 [nnz, B] carried CN-space check messages
+    lc2v: torch.Tensor,  # [nnz, B] carried CN-space check messages, in message_dtype
     done: torch.Tensor,  # i32 [B] lane idle (finished or empty)
     iters: torch.Tensor,  # i32 [B]
     age: torch.Tensor,  # i32 [B] passes since (re)load (0 = injected, not started)
     avail: torch.Tensor,  # i32 [B] pool entry unused
     ctr: torch.Tensor,  # i32 [5, B] counters
-    fresh_llr: torch.Tensor,  # f32 [nc, B] fresh-frame pool
+    fresh_llr: torch.Tensor,  # f32 [nc, B] fresh-frame pool (raw LLRs)
     fresh_cw: torch.Tensor,  # u8 [nc, B]
     refill: torch.Tensor,  # i32 [1]: reloads allowed
     remaining: torch.Tensor,  # i32 [1]: starts left in the quota
@@ -161,28 +200,39 @@ def bp_stream_chunk_layered_fast(
     k: int,
     cap: int,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> None:
     """``k`` self-refilling passes of the fast layered engine per lane,
     updating the state in place.
 
     Per pass and lane: a lane in flight at ``age == 0`` (injected) starts
-    the engine (``lc2v = 0``, ``age = 1``); an idle lane (``done``) with an
-    unused pool entry (``avail``) starts that entry if the quota allows
-    (``remaining`` is decremented per start; APP = the fresh LLRs,
-    ``lc2v = 0``, ``age = 1``); then a lane in flight runs one full layered
-    iteration, checks the syndrome of ``app <= 0``, and finishes on
-    convergence or at ``age >= cap + 1``, adding its transmitted-bit errors
-    (decided from the APP), a frame error, a frame and its iteration count
-    to ``ctr`` rows 0-3 (row 4 counts starts).  On CUDA the quota is one
-    device counter taken with ``atomicSub``: which lanes start differs from
-    the plain version's lane order, the number that start does not."""
+    the engine (APP = the prior of the LLRs it carries, ``lc2v = 0``,
+    ``age = 1``); an idle lane (``done``) with an unused pool entry
+    (``avail``) starts that entry if the quota allows (``remaining`` is
+    decremented per start; APP = the prior of the fresh LLRs, ``lc2v = 0``,
+    ``age = 1``); then a lane in flight runs one full layered iteration,
+    checks the syndrome of ``app <= 0``, and finishes on convergence or at
+    ``age >= cap + 1``, adding its transmitted-bit errors (decided from the
+    APP), a frame error, a frame and its iteration count to ``ctr`` rows
+    0-3 (row 4 counts starts).  On CUDA the quota is one device counter
+    taken with ``atomicSub``: which lanes start differs from the plain
+    version's lane order, the number that start does not.
+
+    ``lc2v`` is stored in ``message_dtype``; the APP is float32 in decoder
+    units (lattice units on the int8 lattice, where the prior is the LLR
+    times ``float32(1 / quant_scale)``, as ``bp_stream_chunk_lanes``
+    scales it), and the pool stays raw float32 LLRs.  int8 takes a
+    min-sum-family ``minsum_mode`` only."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode, "int8 streaming")
     sdc = tables.code
     nc, nnz = sdc.nc, sdc.nnz
     B = app.shape[1] if app.dim() == 2 else -1
     dev = tables.device
     for name, t, dtype, shape in (
         ("app", app, torch.float32, (nc, B)), ("cw", cw, torch.uint8, (nc, B)),
-        ("lc2v", lc2v, torch.float32, (nnz, B)), ("done", done, torch.int32, (B,)),
+        ("lc2v", lc2v, form.torch_dtype, (nnz, B)), ("done", done, torch.int32, (B,)),
         ("iters", iters, torch.int32, (B,)), ("age", age, torch.int32, (B,)),
         ("avail", avail, torch.int32, (B,)), ("ctr", ctr, torch.int32, (5, B)),
         ("fresh_llr", fresh_llr, torch.float32, (nc, B)),
@@ -197,21 +247,22 @@ def bp_stream_chunk_layered_fast(
         return bp_stream_chunk_layered_fast_plain(
             tables, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr,
             fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=minsum_mode,
+            message_dtype=message_dtype, quant_scale=quant_scale,
         )
     _require_cuda(app)
     lib = _lib(tables)
-    mode, scale, offset = cn_mode_args(minsum_mode)
+    mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     err = lib.ldpc_bp_stream_chunk_layered_fast(
         _p(app), _p(cw), _p(lc2v), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
         _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), *_tables_args(tables),
         _p(tables.bit_pos), nc, sdc.mc, nnz, tables.n_layers, sdc.nct, B, k, cap,
-        mode, scale, offset, _stream(app),
+        mode, scale, offset, form.code, form.inv_q, _stream(app),
     )
     _raise_on(lib, err, "bp_stream_chunk_layered_fast")
-    bp_stream_chunk_layered_fast.launches += 1
+    bp_stream_chunk_layered_fast.launches[form.dtype] += 1
 
 
-bp_stream_chunk_layered_fast.launches = 0
+bp_stream_chunk_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
 
 
 def bp_decode_layered_plain(
@@ -220,14 +271,18 @@ def bp_decode_layered_plain(
     iterations: int = 50,
     early_term: bool = True,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> SortedDecodeOutput:
     """Plain version of :func:`bp_decode_layered`: the sorted decoder's
-    exact layered schedule, with ``bp_decode_pallas``'s all-zero output at
-    ``iterations == 0``."""
+    exact layered schedule in the message form, with ``bp_decode_pallas``'s
+    all-zero output at ``iterations == 0``."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode)
     if iterations == 0:
         return _zero_output(llr_in)
     return bp_decode_sorted(tables.code, llr_in, iterations, early_term, minsum_mode,
-                            layered=True)
+                            layered=True, form=form)
 
 
 def bp_decode_layered(
@@ -236,15 +291,22 @@ def bp_decode_layered(
     iterations: int = 50,
     early_term: bool = True,
     minsum_mode=False,
+    message_dtype: str = "float32",
+    quant_scale: float = DEFAULT_QUANT_SCALE,
 ) -> SortedDecodeOutput:
     """The exact layered schedule of a batch, all iterations in one kernel
-    launch.  Same boundary as ``bp_decode_pallas(..., layered=True)`` in
-    float32 (see :func:`..sorted.bp_decode_sorted` for the schedule); a
+    launch.  Same boundary as ``bp_decode_pallas(..., layered=True)`` (see
+    :func:`..sorted.bp_decode_sorted` for the schedule): ``llr_out`` is the
+    stored posterior as float32 LLRs (dequantised on the int8 lattice); a
     frame's iteration counts iff it is unconverged at the start and at the
     end of the full iteration; without early termination every frame
     reports the cap and ``is_codeword`` comes from the last layer's
-    syndrome.  Needs at least two layers (with fewer the schedule is
-    flooding: :func:`.decode_fused.bp_decode_fused`)."""
+    syndrome.  Messages and the posterior are stored in ``message_dtype``;
+    int8 takes a min-sum-family ``minsum_mode`` only.  Needs at least two
+    layers (with fewer the schedule is flooding:
+    :func:`.decode_fused.bp_decode_fused`)."""
+    form = MessageForm(message_dtype, quant_scale)
+    form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
     B = llr_in.shape[1] if llr_in.dim() == 2 else -1
     _check(llr_in, "llr_in", torch.float32, (nc, B), tables.device)
@@ -253,26 +315,29 @@ def bp_decode_layered(
     if iterations == 0:
         return _zero_output(llr_in)
     if llr_in.device.type == "cpu":
-        return bp_decode_layered_plain(tables, llr_in, iterations, early_term, minsum_mode)
+        return bp_decode_layered_plain(tables, llr_in, iterations, early_term, minsum_mode,
+                                       message_dtype, quant_scale)
     _require_cuda(llr_in)
     lib = _lib(tables)
     dev = llr_in.device
     sdc = tables.code
-    llr_out = torch.empty_like(llr_in)
+    msgs = dict(dtype=form.torch_dtype, device=dev)
+    post = torch.empty((nc, B), **msgs)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
-    lv2c = torch.empty((sdc.nnz, B), dtype=torch.float32, device=dev)
-    lc2v = torch.empty((sdc.nnz, B), dtype=torch.float32, device=dev)
-    mode, scale, offset = cn_mode_args(minsum_mode)
+    lv2c = torch.empty((sdc.nnz, B), **msgs)
+    lc2v = torch.empty((sdc.nnz, B), **msgs)
+    mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     err = lib.ldpc_bp_decode_layered(
-        _p(llr_in), _p(llr_out), _p(iters), _p(iscw), _p(lv2c), _p(lc2v), *_tables_args(tables),
+        _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c), _p(lc2v), *_tables_args(tables),
         nc, sdc.mc, sdc.nnz, tables.n_layers, B, iterations, int(bool(early_term)),
-        mode, scale, offset, _stream(llr_in),
+        mode, scale, offset, form.code, form.inv_q, _stream(llr_in),
     )
     _raise_on(lib, err, "bp_decode_layered")
-    bp_decode_layered.launches += 1
+    bp_decode_layered.launches[form.dtype] += 1
+    llr_out = form.dequant(post)
     return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
                               is_codeword=iscw > 0)
 
 
-bp_decode_layered.launches = 0
+bp_decode_layered.launches = dict.fromkeys(DTYPE_CODES, 0)

@@ -21,6 +21,12 @@ through ``row_ptr``/``col_sorted``, the indexed loads the flooding kernels
 use.  Tables are built with NumPy; the decoders are plain PyTorch, the
 reference the CUDA kernels of :mod:`.kernels.decode_layered` are held
 against.
+
+The check messages may be stored in bfloat16 or on the int8 lattice
+(:class:`.messages.MessageForm`, ``_qc_engine``'s ``to_msg``): ``lv`` and
+the postprocessed ``o`` are rounded into the message domain, the APP stays
+float32 (in lattice units for int8, starting at the prior) and is never
+rounded, and the output is the dequantised APP.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from ..models.code import LDPCCode
 from . import cn_ops
+from .messages import FLOAT32, MessageForm
 from .sorted import SortedDecodeOutput, syndrome_ok_from_posterior, syndrome_ok_sorted
 
 if TYPE_CHECKING:
@@ -96,19 +103,23 @@ def layers_touch_variables_once(col_sorted: np.ndarray, groups) -> bool:
 
 
 def layered_fast_pass(tables: "KernelTables", app: torch.Tensor, lc2v: torch.Tensor,
-                      keep: torch.Tensor, minsum_mode) -> None:
-    """One full layered iteration in place over ``app [nc, B]`` and
-    ``lc2v [nnz, B]``; frames with ``keep`` (bool ``[B]``) stay frozen."""
+                      keep: torch.Tensor, minsum_mode, form: MessageForm = FLOAT32) -> None:
+    """One full layered iteration in place over ``app [nc, B]`` (float32,
+    in ``form``'s units) and ``lc2v [nnz, B]`` (stored in ``form``); frames
+    with ``keep`` (bool ``[B]``) stay frozen.  ``minsum_mode`` is given in
+    LLR units."""
     col = tables.code.col_sorted.long()
     keep = keep[None, None, :]
+    mode = form.cn_mode(minsum_mode)
     for layer in tables.layer_slots:
         for slots in layer:  # [count, d] int64
             V = col[slots]
-            st = lc2v[slots]
-            lv = app[V] - st
-            o = cn_ops.cn_postprocess(cn_ops.exclusion(lv, minsum_mode), minsum_mode)
+            stored = lc2v[slots]
+            st = form.load(stored)
+            lv = form.round(app[V] - st)
+            o = form.round(cn_ops.cn_postprocess(cn_ops.exclusion(lv, mode), mode))
             app[V] = torch.where(keep, app[V], app[V] + (o - st))
-            lc2v[slots] = torch.where(keep, st, o)
+            lc2v[slots] = torch.where(keep, stored, form.store(o))
 
 
 def bp_decode_layered_fast_plain(
@@ -117,15 +128,18 @@ def bp_decode_layered_fast_plain(
     iterations: int = 50,
     early_term: bool = True,
     minsum_mode=False,
+    form: MessageForm = FLOAT32,
 ) -> SortedDecodeOutput:
     """The fast layered engine's batch decode, ``kernel_layered_qc``'s
-    semantics: APP starts at the channel LLRs and ``lc2v`` at 0; per
-    iteration, one :func:`layered_fast_pass` over the unconverged frames,
-    then (with early termination) the syndrome of ``app <= 0`` freezes the
-    converged ones, with break-before-increment iteration counts.  Without
-    early termination every frame reports the cap and ``is_codeword`` comes
-    from the last iteration.  ``llr_out`` is the APP; ``iterations == 0``
-    gives all zeros."""
+    semantics: APP starts at ``form.prior`` of the channel LLRs and
+    ``lc2v`` at 0; per iteration, one :func:`layered_fast_pass` over the
+    unconverged frames, then (with early termination) the syndrome of
+    ``app <= 0`` freezes the converged ones, with break-before-increment
+    iteration counts.  Without early termination every frame reports the
+    cap and ``is_codeword`` comes from the last iteration.  ``llr_out`` is
+    the APP as LLRs (``form.dequant``; the APP itself off the lattice),
+    ``hard = llr_out <= 0``; ``iterations == 0`` gives all zeros."""
+    form.check_cn_mode(minsum_mode)
     sdc = tables.code
     B = llr_in.shape[1]
     dev = llr_in.device
@@ -136,22 +150,23 @@ def bp_decode_layered_fast_plain(
             iterations=torch.zeros(B, dtype=torch.int32, device=dev),
             is_codeword=torch.zeros(B, dtype=torch.bool, device=dev),
         )
-    app = llr_in.clone()
-    lc2v = torch.zeros((sdc.nnz, B), dtype=torch.float32, device=dev)
+    app = form.prior(llr_in).clone()
+    lc2v = torch.zeros((sdc.nnz, B), dtype=form.torch_dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
     for _ in range(iterations):
         if early_term and bool(done.all()):
             break
-        layered_fast_pass(tables, app, lc2v, done, minsum_mode)
+        layered_fast_pass(tables, app, lc2v, done, minsum_mode, form)
         if early_term:
             newly = ~done & syndrome_ok_from_posterior(sdc, app.index_select(0, sdc.col_sorted))
             iters += (~done & ~newly).to(torch.int32)
             done |= newly
-    hard = app <= 0
     if early_term:
         is_cw = done
     else:
         iters.fill_(iterations)
-        is_cw = syndrome_ok_sorted(sdc, hard)
-    return SortedDecodeOutput(llr_out=app, hard=hard, iterations=iters, is_codeword=is_cw)
+        is_cw = syndrome_ok_sorted(sdc, app <= 0)
+    llr_out = form.dequant(app)
+    return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
+                              is_codeword=is_cw)

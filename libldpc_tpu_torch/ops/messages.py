@@ -1,9 +1,10 @@
-"""Message storage forms of the flooding decoders: float32, bfloat16, int8.
+"""Message storage forms of the decoders: float32, bfloat16, int8.
 
 The port of the ``message_dtype`` / ``quant_scale`` options of
-``libldpc_tpu/ops/pallas/decode_fused.py`` (``to_store``, ``prior``, the
-lattice OMS offset, the dequantised output).  Arithmetic always runs in
-float32; a form only says how messages and posteriors are *stored*:
+``libldpc_tpu/ops/pallas/decode_fused.py`` and ``decode_lanes.py``
+(``to_store``, ``to_msg``, ``prior``, the lattice OMS offset, the
+dequantised output).  Arithmetic always runs in float32; a form only says
+how messages and posteriors are *stored*:
 
 * ``float32``: as they are;
 * ``bfloat16``: rounded to nearest even (``.to(torch.bfloat16)``);
@@ -22,7 +23,15 @@ CUDA kernels (``csrc/bp_phases.cuh``): ``lc2v = store(postprocess(combine))``
 ``post = store(prior(llr) + (m0 + m1 + ...))`` with the prior in float32;
 ``lv2c = store(f32(post) - f32(lc2v))`` from the *stored* posterior; first
 messages ``store(prior(llr))``; decisions and syndromes from the stored
-posterior's signs (``<= 0``).
+posterior's signs (``<= 0``).  The exact layered schedule has the same
+store points, with a stale layer's checks keeping their stored ``lc2v``.
+
+The fast layered engine (``ops/layered.py``, ``_qc_engine``) keeps its
+APP in float32, in decoder units (lattice units for int8), and never
+rounds it: ``lv = round(app - load(lc2v))``, ``o = round(postprocess(
+combine(lv)))``, ``app += o - load(lc2v)``, ``lc2v = store(o)``, where
+``round`` (``to_msg``) rounds into the message domain and stays float32;
+its output is ``dequant(app)``.
 """
 
 from __future__ import annotations
@@ -110,6 +119,16 @@ class MessageForm:
     def load(x: torch.Tensor) -> torch.Tensor:
         """Stored values -> float32 (lattice values stay in lattice units)."""
         return x.to(torch.float32)
+
+    def round(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 values rounded into the message domain, kept in float32
+        (``load(store(x))``): ``clip(round(x), -127, 127)`` on the lattice,
+        ``f32(bf16(x))`` in bfloat16, ``x`` itself in float32."""
+        if self.dtype == "int8":
+            return torch.clamp(torch.round(x), -127.0, 127.0)
+        if self.dtype == "bfloat16":
+            return x.to(torch.bfloat16).to(torch.float32)
+        return x
 
     def prior(self, llr: torch.Tensor) -> torch.Tensor:
         """Raw float32 channel LLRs -> the decoder's units."""

@@ -257,12 +257,10 @@ def bp_decode_sorted(
 
     ``layered=True`` runs the exact layered schedule when ``sdc`` carries
     more than one layer mask, and flooding otherwise (as the JAX decoder
-    does); the layered schedule has float32 messages only."""
+    does), in the same message form."""
     form.check_cn_mode(minsum_mode)
     if layered and sdc.layer_edge_masks is not None and sdc.layer_edge_masks.shape[0] > 1:
-        if form != FLOAT32:
-            raise ValueError(f"the layered schedule has no {form.dtype} message form")
-        return _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode)
+        return _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode, form)
     B = llr_in.shape[1]
     dev = llr_in.device
     lv2c = init_messages(sdc, llr_in, form)
@@ -295,19 +293,24 @@ def bp_decode_sorted(
     )
 
 
-def _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode):
+def _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode, form):
     """The exact layered schedule of ``_bp_decode_sorted_layered`` in the
     JAX package: per layer, the full CN update masked to the layer's slots,
     the full APP recompute from every check's current message, the
     extrinsics of every slot, and (with early termination) a syndrome
     check that freezes a frame for the rest of the decode.  An iteration
-    counts for a frame unconverged both at its start and at its end."""
+    counts for a frame unconverged both at its start and at its end.  In
+    ``form``, with :func:`bp_pass`'s store points (``kernel_layered``'s):
+    a stale layer's checks keep their stored messages, and ``llr_out`` is
+    the stored posterior dequantised."""
     B = llr_in.shape[1]
     dev = llr_in.device
     masks = sdc.layer_edge_masks[:, :, None]  # [nl, nnz, 1]
-    lv2c = llr_in.index_select(0, sdc.col_sorted)
-    lc2v = torch.zeros((sdc.nnz, B), dtype=llr_in.dtype, device=dev)
-    llr_out = torch.zeros_like(llr_in)
+    mode = form.cn_mode(minsum_mode)
+    prior = form.prior(llr_in)
+    lv2c = init_messages(sdc, llr_in, form)
+    lc2v = torch.zeros((sdc.nnz, B), dtype=form.torch_dtype, device=dev)
+    post = torch.zeros(llr_in.shape, dtype=form.torch_dtype, device=dev)
     hard = torch.zeros_like(llr_in, dtype=torch.bool)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -316,19 +319,22 @@ def _bp_decode_sorted_layered(sdc, llr_in, iterations, early_term, minsum_mode):
             break
         done_start = done
         for mask in masks:
-            lc2v_l = torch.where(mask, cn_update_sorted(sdc, lv2c, minsum_mode), lc2v)
-            llr_out_l = vn_posterior_sorted(sdc, llr_in, lc2v_l.index_select(0, sdc.perm_c2v))
-            g = llr_out_l.index_select(0, sdc.col_sorted)
+            lc2v_l = torch.where(mask, form.store(cn_update_sorted(sdc, form.load(lv2c), mode)),
+                                 lc2v)
+            lc2v_f = form.load(lc2v_l)
+            post_l = form.store(vn_posterior_sorted(sdc, prior, lc2v_f.index_select(0, sdc.perm_c2v)))
+            post_f = form.load(post_l)
+            g = post_f.index_select(0, sdc.col_sorted)
             keep = done[None, :]
-            lv2c = torch.where(keep, lv2c, g - lc2v_l)
+            lv2c = torch.where(keep, lv2c, form.store(g - lc2v_f))
             lc2v = torch.where(keep, lc2v, lc2v_l)
-            llr_out = torch.where(keep, llr_out, llr_out_l)
-            hard = torch.where(keep, hard, llr_out_l <= 0)
+            post = torch.where(keep, post, post_l)
+            hard = torch.where(keep, hard, post_f <= 0)
             if early_term:
                 done = done | syndrome_ok_from_posterior(sdc, g)
         iters += (~done_start & ~done).to(torch.int32)
     return SortedDecodeOutput(
-        llr_out=llr_out,
+        llr_out=form.dequant(post),
         hard=hard,
         iterations=iters,
         is_codeword=syndrome_ok_sorted(sdc, hard),

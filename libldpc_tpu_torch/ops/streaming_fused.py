@@ -16,8 +16,10 @@ pool.
 carried LLRs and the pool stay raw float32 LLRs, and a reload stores each
 slot's prior in the message form (``bp_stream_chunk_pallas``'s
 ``fresh_lv2c``), so a drained chunk equals the batch decode of the same
-frames in every form.  The layered engine and the BEC have float32 and u8
-planes only.
+frames in every form.  The layered engine stores its check messages in the
+form and keeps the APP plane float32 (lattice units for int8: a start or a
+reload takes the prior of the LLRs, as ``bp_stream_chunk_lanes`` does).
+The BEC has u8 planes only.
 
 **BEC state.**  The ``llr_in``, ``lv2c`` and ``fresh_llr`` planes hold u8
 3-state symbols (channel symbols, messages, the pool's symbols) instead of
@@ -121,14 +123,11 @@ def make_streaming_fused_step(
     decodes on the fast layered engine (a pass is one full layered
     iteration) instead of flooding.  ``channel_type="BEC"`` runs the
     peeling chunk (with ``dec.bec_ref_bug_compat``'s stale byte).  Flooding
-    stores its messages in ``dec.message_dtype``; the layered engine has
-    float32 messages only (``ValueError`` otherwise)."""
+    and the layered engine store their messages in ``dec.message_dtype``."""
     bec = channel_type == "BEC"
     if bec and layered:
         raise ValueError("streaming layered decoding has no BEC form")
     message_dtype = "float32" if bec else dec.message_dtype
-    if layered and message_dtype != "float32":
-        raise ValueError(f"streaming layered decoding has no {message_dtype} message form")
     iterations = dec.iterations
     if iterations < 1:
         raise ValueError("streaming decode requires iterations >= 1")
@@ -144,12 +143,11 @@ def make_streaming_fused_step(
     if bec:
         stale = 0 if dec.bec_ref_bug_compat else None
         chunk = functools.partial(bec_stream_chunk_fused, degree1_stale_byte=stale)
-    elif layered:
-        chunk = functools.partial(bp_stream_chunk_layered_fast, minsum_mode=dec.cn_mode)
     else:
         MessageForm(message_dtype, dec.quant_scale).check_cn_mode(dec.cn_mode, "int8 streaming")
-        chunk = functools.partial(bp_stream_chunk_fused, minsum_mode=dec.cn_mode,
-                                  message_dtype=message_dtype, quant_scale=dec.quant_scale)
+        chunk = functools.partial(
+            bp_stream_chunk_layered_fast if layered else bp_stream_chunk_fused,
+            minsum_mode=dec.cn_mode, message_dtype=message_dtype, quant_scale=dec.quant_scale)
 
     def init_fn() -> StreamState:
         return init_state(tables, batch, channel_type, message_dtype)

@@ -7,7 +7,6 @@ Points-parallel and multi-GPU sharding are not ported yet (ROADMAP Queue 1,
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -48,10 +47,10 @@ def _sim_and_count(
     batch: int,
     schedule: str,
 ) -> StepCounters:
-    """Simulate, decode with the schedule's batch kernel (the BEC: the
-    peeling kernel, flooding; flooding in ``dec.message_dtype``), count from
-    its decisions.  Bit errors count the transmitted bits (``bit_pos``)
-    only."""
+    """Simulate, decode with the schedule's batch kernel in
+    ``dec.message_dtype`` (the BEC: the peeling kernel, flooding), count
+    from its decisions.  Bit errors count the transmitted bits
+    (``bit_pos``) only."""
     ch = simulate_channel(tables.code, channel_type, gen, batch, x_value)
     if channel_type == "BEC":
         out = bec_decode_fused(
@@ -59,12 +58,9 @@ def _sim_and_count(
             degree1_stale_byte=0 if dec.bec_ref_bug_compat else None,
         )
     else:
-        decode = _batch_decoder(tables, schedule)
-        if decode is bp_decode_fused:
-            decode = functools.partial(decode, message_dtype=dec.message_dtype,
-                                       quant_scale=dec.quant_scale)
-        out = decode(tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
-                     minsum_mode=dec.cn_mode)
+        out = _batch_decoder(tables, schedule)(
+            tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
+            minsum_mode=dec.cn_mode, message_dtype=dec.message_dtype, quant_scale=dec.quant_scale)
     bit_pos = tables.code.bit_pos
     frame_errs = (
         out.hard.index_select(0, bit_pos).bool() != ch.codeword.index_select(0, bit_pos).bool()

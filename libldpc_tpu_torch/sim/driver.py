@@ -8,8 +8,9 @@ decode kernel.  The schedule (flooding, exact layered, or the fast layered
 engine) is the one the JAX package runs for the same code and flags
 (:func:`select_schedule`); the exact layered schedule is batch-stepped,
 as there.  So is the message dtype (:func:`select_message_dtype`): with
-``--pallas`` flooding stores its messages in bfloat16 or on the int8
-lattice as asked.  The BEC runs the peeling kernel, flooding and batch-stepped
+``--pallas`` every schedule stores its messages in bfloat16 or on the int8
+lattice as asked, widened to float32 where the JAX package widens it.
+The BEC runs the peeling kernel, flooding and batch-stepped
 always, as the JAX package's sweep does (with ``--layer-file`` that
 package runs its sorted peeling decoder, which ignores the layers).  On a
 CUDA device the CUDA kernels run, on the CPU their plain PyTorch versions.
@@ -78,15 +79,23 @@ class _PointCounters:
 #: kernels compile; the CUDA kernels have no such limits.
 FUSED_EDGE_SPACE_LIMIT = 4096
 QC_LANES_EDGE_SPACE_LIMIT = 786432
-#: The smallest of the JAX package's sub-32-bit compile walls is its Clos
-#: lane layout's 65536 padded edge slots; past it that package widens
-#: messages to float32.  The port does not copy the lane layouts that
-#: decide where a code lands, so it refuses a sub-32-bit dtype on a code
-#: that could reach a wall (:func:`select_message_dtype`).
+#: The qc lane layout's sub-32-bit walls: past the first, bfloat16 with the
+#: BP form widens to float32; past the second, every sub-32-bit dtype does
+#: (the JAX package records the widening in its provenance, as the port
+#: does).  On the qc route the port computes the JAX edge space exactly.
+QC_LANES_SUB32_EDGE_SPACE_LIMIT = 196608
+QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT = 294912
+#: The smallest of the JAX package's other sub-32-bit compile walls is its
+#: Clos lane layout's 65536 padded edge slots; past it that package widens
+#: messages to float32.  Off the qc route the port does not copy the lane
+#: layouts that decide where a code lands, so it refuses a sub-32-bit dtype
+#: on a code that could reach a wall (:func:`select_message_dtype`).
 SUB32_EDGE_SPACE_LIMIT = 65536
 SUB32_EDGE_LIMIT = SUB32_EDGE_SPACE_LIMIT // 2
 
-_LAYERED_FORMS = 'ROADMAP Queue 2, "bf16/int8 forms of the layered kernels"'
+#: CN forms other than BP (an unknown ``--decoding`` string decodes as BP)
+_NON_BP_FORMS = ("BP_MS", "BP_NMS", "BP_OMS", "BP_LIN", "BP_TANH", "BP_PHI")
+
 _SUB32_ROUTING = 'ROADMAP Queue 1, "Sub-32-bit routing past the TPU envelopes"'
 
 
@@ -94,16 +103,11 @@ def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams
     """Raise for every setting the port does not cover yet, naming the
     ROADMAP item that will by its title, and for an int8 lattice under a CN
     form outside the min-sum family (``ValueError``, the JAX package's
-    words).  Sub-32-bit messages are refused on the layered schedules
-    (``--layer-file``), with or without ``--pallas``; the BEC ignores the
-    dtype."""
+    words); the BEC ignores the dtype."""
     if dec.message_dtype not in DTYPE_CODES:
         raise ValueError(f"message dtype {dec.message_dtype!r}: expected one of "
                          f"{list(DTYPE_CODES)}")
     if ch.type != "BEC" and dec.message_dtype != "float32":
-        if dec.layered:
-            raise NotImplementedError(
-                f"{dec.message_dtype} messages on the layered schedule: {_LAYERED_FORMS}")
         MessageForm(dec.message_dtype, dec.quant_scale).check_cn_mode(dec.cn_mode)
     if sim.checkpoint_file:
         raise NotImplementedError(
@@ -111,6 +115,25 @@ def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams
     if sim.error_log_file:
         raise NotImplementedError(
             'forensic error log: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
+
+
+def qc_lanes_space(code: LDPCCode, use_pallas: bool, channel_type: str = "AWGN") -> Optional[int]:
+    """The edge space (``n_pad``) of the JAX package's qc lane layout when its
+    ``_select_layout`` puts this code there, else None: with
+    ``use_pallas``, off the BEC, for a QC code with ``Z >= 64`` (the qc
+    transport's 2x lane-inflation cap) whose Beneš-padded edge space passes
+    ``FUSED_EDGE_SPACE_LIMIT``.  The layout gives each circulant
+    ``ceil(Z / 128) * 128`` lanes.  This assumes that the layout builds,
+    which holds for QC codes whose edges are listed row by row in one
+    column order per base row (``expand_qc``, and ``detect_qc`` on files
+    written from such codes)."""
+    if not use_pallas or channel_type == "BEC" or getattr(code, "qc", None) is None:
+        return None
+    Z = int(code.qc[0])
+    benes_pad = 1 << max(1, (max(2, code.nnz) - 1).bit_length())
+    if Z < 64 or benes_pad <= FUSED_EDGE_SPACE_LIMIT:
+        return None
+    return code.nnz // Z * (math.ceil(Z / 128) * 128)
 
 
 def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
@@ -121,54 +144,72 @@ def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
     ``"flooding"`` without ``dec.layered``, and always for the BEC (whose
     peeling decoders in the JAX package ignore the layers, though its
     ``decode_path`` then says ``layered``).  ``"layered-fast"`` (the fast
-    QC engine) where its ``_select_layout`` reaches the lanes qc transport
-    with natural-QC layers: ``use_pallas``, layers that are the code's
-    natural QC schedule (:func:`..ops.layered.natural_qc_layers`),
-    ``Z >= 64`` (the qc transport's 2x lane-inflation cap), a Beneš-padded
-    edge space past ``FUSED_EDGE_SPACE_LIMIT`` and a qc edge space within
-    ``QC_LANES_EDGE_SPACE_LIMIT``.  ``"layered"`` (the exact schedule)
-    otherwise.  This mirrors the JAX routing only so that the same command
-    line gives the same schedule (and FER); it assumes that the qc lanes
-    layout builds, which holds for QC codes whose edges are listed row by
-    row in one column order per base row (``expand_qc``, and ``detect_qc``
-    on files written from such codes)."""
+    QC engine) where its routing reaches the lanes qc transport
+    (:func:`qc_lanes_space`) within ``QC_LANES_EDGE_SPACE_LIMIT``, with
+    layers that are the code's natural QC schedule
+    (:func:`..ops.layered.natural_qc_layers`).  ``"layered"`` (the exact
+    schedule) otherwise.  This mirrors the JAX routing only so that the
+    same command line gives the same schedule (and FER)."""
     if not dec.layered or channel_type == "BEC":
         return "flooding"
-    if use_pallas and natural_qc_layers(code):
-        Z = int(code.qc[0])
-        benes_pad = 1 << max(1, (max(2, code.nnz) - 1).bit_length())
-        qc_pad = code.nnz // Z * (math.ceil(Z / 128) * 128)
-        if Z >= 64 and benes_pad > FUSED_EDGE_SPACE_LIMIT and qc_pad <= QC_LANES_EDGE_SPACE_LIMIT:
-            return "layered-fast"
+    qc = qc_lanes_space(code, use_pallas, channel_type)
+    if qc is not None and qc <= QC_LANES_EDGE_SPACE_LIMIT and natural_qc_layers(code):
+        return "layered-fast"
     return "layered"
+
+
+def qc_widening(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
+                channel_type: str = "AWGN") -> Optional[str]:
+    """Why the JAX package decodes a sub-32-bit ``dec.message_dtype`` in
+    float32 on its qc lane layout (the provenance note), or None: past
+    ``QC_LANES_SUB32_EDGE_SPACE_LIMIT`` for bfloat16 with the BP form, past
+    ``QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT`` for any sub-32-bit dtype, and
+    past ``QC_LANES_EDGE_SPACE_LIMIT``, where it leaves the qc layout for
+    its float32 XLA decoder."""
+    qc = qc_lanes_space(code, use_pallas, channel_type)
+    if qc is None or dec.message_dtype == "float32":
+        return None
+    if qc > QC_LANES_EDGE_SPACE_LIMIT:
+        limit = QC_LANES_EDGE_SPACE_LIMIT
+    elif dec.message_dtype == "bfloat16" and dec.type not in _NON_BP_FORMS:
+        limit = QC_LANES_SUB32_EDGE_SPACE_LIMIT
+    else:
+        limit = QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT
+    if qc <= limit:
+        return None
+    return f"qc n_pad {qc} > {dec.message_dtype} envelope {limit} -> float32"
 
 
 def select_message_dtype(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
                          channel_type: str = "AWGN") -> str:
     """The message dtype the JAX package's ``Simulator`` decodes with (the
-    ``dtype=`` of its ``decode_path``), which the port then runs.
+    ``dtype=`` of its ``decode_path``), which the port then runs, on every
+    schedule.
 
     * ``uint8-3state`` for the BEC, which ignores ``--message-dtype`` (the
       port's peeling kernels move 1-byte 3-state symbols);
-    * ``float32`` without ``use_pallas``: the JAX package's XLA decoder
-      ignores the flag;
-    * otherwise ``dec.message_dtype`` on the flooding routes.  The JAX
-      package widens a sub-32-bit dtype to float32 past its TPU compile
-      walls (the smallest at 65536 padded slots of its lane layouts), and
-      where a code lands depends on lane layouts the port does not copy.
-      Those layouts pad each degree class to 128 nodes (or a circulant to
-      whole 128-lane blocks) and then round to a power of two, so an edge
-      space may grow more than 2x: the port raises (``NotImplementedError``,
-      naming the ROADMAP item) for a code past ``SUB32_EDGE_LIMIT`` (32768)
-      slots, or whose class-padded edge space passes the wall, rather than
-      guess.  wifi 1944 has 6966 slots, the 1152 (3,6) code 3456.
-
-    Sub-32-bit dtypes on the layered schedules are refused before this
-    (:func:`check_supported`)."""
+    * ``float32`` without ``use_pallas``: the JAX package's XLA decoders
+      ignore the flag;
+    * on the JAX package's qc lane layout (:func:`qc_lanes_space`: the fast
+      layered engine, and flooding or the exact schedule on a QC code with
+      ``Z >= 64``), ``dec.message_dtype``, widened to float32 where that
+      package widens it (:func:`qc_widening`);
+    * otherwise ``dec.message_dtype``.  The JAX package widens a sub-32-bit
+      dtype to float32 past its other TPU compile walls (the smallest at
+      65536 padded slots of its Clos lane layout), and where a code lands
+      depends on lane layouts the port does not copy.  Those layouts pad
+      each degree class to 128 nodes and then round to a power of two, so
+      an edge space may grow more than 2x: the port raises
+      (``NotImplementedError``, naming the ROADMAP item) for a code past
+      ``SUB32_EDGE_LIMIT`` (32768) slots, or whose class-padded edge space
+      passes the wall, rather than guess.  wifi 648 has 2376 slots, the
+      1152 (3,6) code 3456."""
     if channel_type == "BEC":
         return "uint8-3state"
     if not use_pallas or dec.message_dtype == "float32":
         return "float32"
+    if qc_lanes_space(code, use_pallas, channel_type) is not None:
+        return "float32" if qc_widening(code, dec, use_pallas, channel_type) else dec.message_dtype
     counts = np.bincount(code.rows, minlength=code.mc), np.bincount(code.cols, minlength=code.nc)
     padded = max(sum(-(-int((deg == d).sum()) // 128) * 128 * int(d) for d in np.unique(deg))
                  for deg in counts)
@@ -216,8 +257,15 @@ class Simulator:
         self.schedule = select_schedule(code, decoder_params, use_pallas, channel_params.type)
         self.message_dtype = select_message_dtype(code, decoder_params, use_pallas,
                                                   channel_params.type)
+        # a widening to float32 is warned about and stamped into the
+        # provenance line, as the JAX package's record_fallback does
+        self.fallback = qc_widening(code, decoder_params, use_pallas, channel_params.type)
+        if self.fallback:
+            warnings.warn(f"{decoder_params.message_dtype} messages widened to float32 "
+                          f"({self.fallback}), as the JAX package widens them", stacklevel=2)
         if channel_params.type != "BEC":
-            # the dtype the sweep runs (float32 where the JAX package ignores the flag)
+            # the dtype the sweep runs (float32 where the JAX package ignores
+            # the flag or widens the dtype)
             decoder_params = dataclasses.replace(decoder_params, message_dtype=self.message_dtype)
         self.dec = decoder_params
         self.tables = kernel_tables(to_sorted_device(
@@ -266,6 +314,8 @@ class Simulator:
         ]
         if bec and self.dec.bec_ref_bug_compat:
             parts.append("bec=ref-bug-compat")
+        if self.fallback:
+            parts.append(f"fallback[{self.fallback}]")
         if self.device.type == "cuda":
             parts.append(f"device={torch.cuda.get_device_name(self.device).replace(' ', '_')}")
         return " ".join(parts)

@@ -150,7 +150,7 @@ def test_exact_layered_wrapper_is_plain_on_cpu(two_layer):
     code, jsdc, tsdc = two_layer
     tables = kernel_tables(tsdc)
     llr = torch.from_numpy(awgn_llrs(code, jsdc.vn_perm, 8, 1.0, seed=4))
-    launches = dl.bp_decode_layered.launches
+    launches = dict(dl.bp_decode_layered.launches)
     got = dl.bp_decode_layered(tables, llr, 10, True, "BP_MS")
     want = tsorted.bp_decode_sorted(tsdc, llr, 10, True, "BP_MS", layered=True)
     assert dl.bp_decode_layered.launches == launches
@@ -184,7 +184,7 @@ def test_fast_engine_matches_golden(wifi1944, form, early_term):
     vperm, vinv = tables.code.vn_perm.numpy(), tables.code.vn_inv.numpy()
     g_llr, g_it, g_cw = layered_qc_golden(code, llr, iterations=8, early_term=early_term,
                                           minsum_mode=form)
-    launches = dl.bp_decode_layered_fast.launches
+    launches = dict(dl.bp_decode_layered_fast.launches)
     out = dl.bp_decode_layered_fast(tables, torch.from_numpy(np.ascontiguousarray(llr[vperm])), 8,
                                     early_term, form)
     assert dl.bp_decode_layered_fast.launches == launches  # CPU: the plain version

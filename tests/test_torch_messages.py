@@ -17,8 +17,10 @@ JAX package, on the CPU, on the same numpy LLRs.
   path, which runs float32: ``--pallas`` needs a TPU there), FER within
   |z| < 3; the ``dtype=`` of the provenance line and
   :func:`select_message_dtype` against the JAX ``Simulator``'s
-  ``decode_path``; the refusals.
+  ``decode_path`` (the layered schedule too); the refusals.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -269,12 +271,17 @@ def _read(path):
     return lines[0], rows[0], np.array(rows[1:], dtype=float)
 
 
-def jax_dtype(code, dec, use_pallas):
+def jax_path(code, dec, use_pallas):
+    """The ``key=value`` fields of the JAX ``Simulator``'s ``decode_path``."""
     sim = JaxSimulator(code, jparams.DecoderParams(**dec),
                        jparams.ChannelParams(seed=1, x_range=(1.0, 1.1, 1.0)),
                        jparams.SimulationParams(batch_size=32, fec=3, max_frames=64),
                        use_pallas=use_pallas, verbose=False)
-    return dict(p.split("=", 1) for p in sim.decode_path.split() if "=" in p)["dtype"]
+    return dict(p.split("=", 1) for p in sim.decode_path.split() if "=" in p)
+
+
+def jax_dtype(code, dec, use_pallas):
+    return jax_path(code, dec, use_pallas)["dtype"]
 
 
 @pytest.mark.parametrize("dtype,form", [("bfloat16", "BP"), ("int8", "BP_OMS")])
@@ -366,10 +373,19 @@ def test_cli_refuses_sub32_past_the_envelope(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_layered_refuses_sub32(files, use_pallas):
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_layered_sub32_follows_jax_decode_path(files, dtype, use_pallas):
+    """``--layer-file`` with a sub-32-bit dtype takes the JAX ``decode_path``'s
+    schedule and dtype (float32 without ``--pallas``) and runs."""
     code, _ = files
-    tcode = code_from_jax(code)
-    tcode.layers = [np.arange(24), np.arange(24, 48)]
-    with pytest.raises(NotImplementedError, match="bf16/int8 forms of the layered kernels"):
-        Simulator(tcode, DecoderParams(layered=True, message_dtype="bfloat16"),
-                  ChannelParams(), SimulationParams(), device="cpu", use_pallas=use_pallas)
+    jcode = dataclasses.replace(code, layers=[np.arange(24), np.arange(24, 48)])
+    dec = dict(iterations=6, type="BP_MS", layered=True, message_dtype=dtype)
+    sim = Simulator(code_from_jax(jcode), DecoderParams(**dec),
+                    ChannelParams(seed=1, x_range=(1.0, 1.1, 1.0)),
+                    SimulationParams(batch_size=32, fec=3, max_frames=64), device="cpu",
+                    verbose=False, use_pallas=use_pallas)
+    port = dict(p.split("=", 1) for p in sim.decode_path.split() if "=" in p)
+    want = jax_path(jcode, dec, use_pallas)
+    assert port["schedule"] == want["schedule"] == "layered"
+    assert port["dtype"] == want["dtype"] == (dtype if use_pallas else "float32")
+    assert sim.start().frames[0] == 64

@@ -113,9 +113,7 @@ CHECKPOINT = '"Checkpoint/resume and the forensic error log"'
 @pytest.mark.parametrize("flags,item", [
     (["--checkpoint", "c.json"], CHECKPOINT), (["--error-log", "e.txt"], CHECKPOINT),
     (["--points-parallel", "2"], '"Multi-GPU"'), (["--multihost"], '"Multi-GPU"'),
-    (["--devices", "2"], '"Multi-GPU"'),
-    (["--message-dtype", "bfloat16", "--layer-file", "{d}/layers.txt"],
-     '"bf16/int8 forms of the layered kernels"'),
+    (["--devices", "2"], '"Multi-GPU"'), (["--log-codewords"], CHECKPOINT),
 ])
 def test_refuses_unported_flags(files, tmp_path, capsys, flags, item):
     _, d = files

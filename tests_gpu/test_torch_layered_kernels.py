@@ -1,9 +1,13 @@
 """The layered CUDA decode kernels against their plain PyTorch versions, on
-the card, on the same inputs: the fast QC engine (batch and streaming) and
-the exact layered schedule.  Min-sum forms are bit-exact (the kernels are
-built with -fmad=false and follow the plain versions' operation order); the
-other forms are held to identical decisions and iteration counts on
->= 99.9% of frames and 1e-4 on their posteriors."""
+the card, on the same inputs, in each message form (float32, bfloat16, the
+int8 lattice; int8 with the min-sum family only): the fast QC engine (batch
+and streaming) and the exact layered schedule.  Min-sum forms are bit-exact
+(the kernels are built with -fmad=false and follow the plain versions'
+operation order); the other forms are held to identical decisions and
+iteration counts on >= 99.9% of frames and, on their posteriors, 1e-4 in
+float32, one bf16 step (2^-8) on the fast engine's float32 APP and eight
+(2^-4) on the exact schedule's bf16 posterior, which is recomputed from
+every stored message after each layer."""
 
 import dataclasses
 
@@ -20,8 +24,12 @@ from libldpc_tpu_torch.sim.driver import ChannelParams, DecoderParams, Simulatio
 
 pytestmark = pytest.mark.cuda
 
-FORMS = ["BP_MS", ("BP_NMS", 0.75, 0.15), ("BP_OMS", 0.75, 0.15), "BP", "BP_PHI", "BP_TANH",
-         "BP_LIN"]
+MINSUM = ["BP_MS", ("BP_NMS", 0.75, 0.15), ("BP_OMS", 0.75, 0.15)]
+FORMS = MINSUM + ["BP", "BP_PHI", "BP_TANH", "BP_LIN"]
+#: (message dtype, CN form): every form in float32 and bfloat16, the
+#: min-sum family on the int8 lattice
+DTYPE_FORMS = ([("float32", f) for f in FORMS] + [("bfloat16", f) for f in FORMS]
+               + [("int8", f) for f in MINSUM])
 
 
 def _qc_code():
@@ -72,51 +80,51 @@ def frames(code, vn_perm, B, snr_db, seed):
     return np.ascontiguousarray(llr[vn_perm]), np.ascontiguousarray(cw[vn_perm])
 
 
-def assert_matches(got, want, form):
+def assert_matches(got, want, form, tol=1e-4):
     same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
-    if isinstance(form, tuple) or form == "BP_MS":
+    if form in MINSUM:
         assert same.all() and torch.equal(got.llr_out, want.llr_out)
         assert torch.equal(got.is_codeword, want.is_codeword)
     else:
         assert same.float().mean() >= 0.999
         torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
-                                   rtol=1e-4, atol=1e-4)
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("B", [300, 64])
 @pytest.mark.parametrize("early_term", [True, False])
-@pytest.mark.parametrize("form", FORMS)
-def test_fast_kernel_matches_plain(tables_of, cuda_device, form, early_term, B):
+@pytest.mark.parametrize("dtype,form", DTYPE_FORMS)
+def test_fast_kernel_matches_plain(tables_of, cuda_device, dtype, form, early_term, B):
     code, tables = tables_of("wifi1944" if B == 300 else "qc1024")
     llr, _ = frames(code, tables.code.vn_perm.cpu(), B, 1.5, seed=9)
     x = torch.from_numpy(llr).to(cuda_device)
-    launches = dl.bp_decode_layered_fast.launches
-    got = dl.bp_decode_layered_fast(tables, x, 12, early_term, form)
-    want = dl.bp_decode_layered_fast_plain(tables, x, 12, early_term, form)
+    launches = dl.bp_decode_layered_fast.launches[dtype]
+    got = dl.bp_decode_layered_fast(tables, x, 12, early_term, form, dtype)
+    want = dl.bp_decode_layered_fast_plain(tables, x, 12, early_term, form, dtype)
     torch.cuda.synchronize()
-    assert dl.bp_decode_layered_fast.launches == launches + 1
-    assert_matches(got, want, form)
+    assert dl.bp_decode_layered_fast.launches[dtype] == launches + 1
+    assert_matches(got, want, form, 1e-4 if dtype == "float32" else 2 ** -8)
 
 
 @pytest.mark.parametrize("B", [300, 64])
 @pytest.mark.parametrize("early_term", [True, False])
-@pytest.mark.parametrize("form", FORMS)
-def test_exact_kernel_matches_plain(tables_of, cuda_device, form, early_term, B):
+@pytest.mark.parametrize("dtype,form", DTYPE_FORMS)
+def test_exact_kernel_matches_plain(tables_of, cuda_device, dtype, form, early_term, B):
     code, tables = tables_of("wifi648" if B == 300 else "two_layer96")
     llr, _ = frames(code, tables.code.vn_perm.cpu(), B, 1.5, seed=9)
     x = torch.from_numpy(llr).to(cuda_device)
-    launches = dl.bp_decode_layered.launches
-    got = dl.bp_decode_layered(tables, x, 12, early_term, form)
-    want = dl.bp_decode_layered_plain(tables, x, 12, early_term, form)
+    launches = dl.bp_decode_layered.launches[dtype]
+    got = dl.bp_decode_layered(tables, x, 12, early_term, form, dtype)
+    want = dl.bp_decode_layered_plain(tables, x, 12, early_term, form, dtype)
     torch.cuda.synchronize()
-    assert dl.bp_decode_layered.launches == launches + 1
-    assert_matches(got, want, form)
+    assert dl.bp_decode_layered.launches[dtype] == launches + 1
+    assert_matches(got, want, form, 1e-4 if dtype == "float32" else 2 ** -4)
 
 
 def test_zero_iterations_launch_nothing(tables_of, cuda_device):
     code, tables = tables_of("wifi648")
     x = torch.ones(code.nc, 5, device=cuda_device)
-    counts = (dl.bp_decode_layered.launches, dl.bp_decode_layered_fast.launches)
+    counts = (dict(dl.bp_decode_layered.launches), dict(dl.bp_decode_layered_fast.launches))
     for fn in (dl.bp_decode_layered, dl.bp_decode_layered_fast):
         assert not fn(tables, x, 0).is_codeword.any()
     assert (dl.bp_decode_layered.launches, dl.bp_decode_layered_fast.launches) == counts
@@ -136,52 +144,71 @@ def test_rejects_bad_input(tables_of, cuda_device):
         dl.bp_decode_layered(flat, x, 5)
 
 
-def _chunk(fn, tables, st, refill, remaining, k, cap, form):
+def _chunk(fn, tables, st, refill, remaining, k, cap, form, dtype="float32"):
     fn(tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
-       st.fresh_llr, st.fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=form)
+       st.fresh_llr, st.fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=form,
+       message_dtype=dtype)
 
 
-@pytest.mark.parametrize("form", ["BP_MS", "BP"])
-def test_stream_kernel_drains_like_plain(tables_of, cuda_device, form):
+@pytest.mark.parametrize("dtype,form", [("float32", "BP_MS"), ("float32", "BP"),
+                                        ("bfloat16", "BP_MS"), ("bfloat16", "BP"),
+                                        ("int8", "BP_MS"), ("int8", ("BP_OMS", 0.75, 0.15))])
+@pytest.mark.parametrize("via_pool", [False, True])
+def test_stream_kernel_drains_like_plain(tables_of, cuda_device, dtype, form, via_pool):
+    """Frames injected (age 0: the engine starts from their prior) or
+    started from a full pool by the kernel's reload; min-sum totals exact,
+    BP's too at this seed."""
     code, tables = tables_of("wifi1944")
     B = 300
     llr, cw = frames(code, tables.code.vn_perm.cpu(), B, 1.0, seed=4)
-    zero = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    refill = torch.full((1,), int(via_pool), dtype=torch.int32, device=cuda_device)
     totals = []
     for fn in (dl.bp_stream_chunk_layered_fast, dl.bp_stream_chunk_layered_fast_plain):
-        st = init_state(tables, B)
-        st.llr_in.copy_(torch.from_numpy(llr))
-        st.codeword.copy_(torch.from_numpy(cw))
-        st.done.zero_()
+        st = init_state(tables, B, message_dtype=dtype)
+        if via_pool:
+            st.fresh_llr.copy_(torch.from_numpy(llr))
+            st.fresh_cw.copy_(torch.from_numpy(cw))
+            st.avail.fill_(1)
+        else:
+            st.llr_in.copy_(torch.from_numpy(llr))
+            st.codeword.copy_(torch.from_numpy(cw))
+            st.done.zero_()
+        remaining = torch.full((1,), B, dtype=torch.int32, device=cuda_device)
         for _ in range(6):
-            _chunk(fn, tables, st, zero, zero.clone(), 5, 12, form)
+            _chunk(fn, tables, st, refill, remaining, 5, 12, form, dtype)
         totals.append(st.ctr.sum(1).tolist())
     assert totals[0] == totals[1] and totals[0][2] == B
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("quota", [0, 48, 299, 1000])
-def test_stream_kernel_quota_exact(tables_of, cuda_device, quota):
+def test_stream_kernel_quota_exact(tables_of, cuda_device, quota, dtype):
     code, tables = tables_of("wifi1944")
     B = 300
     llr, cw = frames(code, tables.code.vn_perm.cpu(), B, 2.0, seed=1)
-    st = init_state(tables, B)
+    st = init_state(tables, B, message_dtype=dtype)
     st.fresh_llr.copy_(torch.from_numpy(llr))
     st.fresh_cw.copy_(torch.from_numpy(cw))
     st.avail.fill_(1)
     remaining = torch.full((1,), quota, dtype=torch.int32, device=cuda_device)
+    launches = dl.bp_stream_chunk_layered_fast.launches[dtype]
     _chunk(dl.bp_stream_chunk_layered_fast, tables, st,
-           torch.ones(1, dtype=torch.int32, device=cuda_device), remaining, 3, 12, "BP_MS")
+           torch.ones(1, dtype=torch.int32, device=cuda_device), remaining, 3, 12, "BP_MS", dtype)
+    assert dl.bp_stream_chunk_layered_fast.launches[dtype] == launches + 1
     assert int(st.ctr[4].sum()) == min(quota, B) == B - int(st.avail.sum())
 
 
+@pytest.mark.parametrize("dtype,form", [("float32", "BP"), ("bfloat16", "BP"),
+                                        ("int8", "BP_OMS")])
 @pytest.mark.parametrize("name,schedule,streaming,kernel", [
     ("wifi1944", "layered-fast", True, "bp_stream_chunk_layered_fast"),
     ("wifi648", "layered", False, "bp_decode_layered"),
 ])
-def test_simulator_on_card(tables_of, cuda_device, tmp_path, name, schedule, streaming, kernel):
+def test_simulator_on_card(tables_of, cuda_device, tmp_path, name, schedule, streaming, kernel,
+                           dtype, form):
     code, _ = tables_of(name)
     sim = Simulator(
-        code, DecoderParams(iterations=10, layered=True),
+        code, DecoderParams(iterations=10, layered=True, type=form, message_dtype=dtype),
         ChannelParams(seed=3, x_range=(1.0, 3.01, 1.0)),
         SimulationParams(batch_size=512, fec=20, max_frames=50000,
                          result_file=str(tmp_path / "r.txt")),
@@ -189,8 +216,9 @@ def test_simulator_on_card(tables_of, cuda_device, tmp_path, name, schedule, str
     )
     assert sim.schedule == schedule and sim._streaming == streaming
     fn = getattr(dl, kernel)
-    launches = fn.launches
+    launches = fn.launches[dtype]
     res = sim.start()
-    assert fn.launches > launches
+    assert fn.launches[dtype] > launches
     assert res.fer[0] > res.fer[-1] and (res.frames > 0).all()
-    assert f"schedule={schedule}" in (tmp_path / "r.txt").read_text().splitlines()[0]
+    assert (tmp_path / "r.txt").read_text().startswith(
+        f"# kernel=cuda-fused dtype={dtype} cn={form} schedule={schedule}")
