@@ -11,11 +11,13 @@ code; the 802.11n layered sweep: wifi 1944 on the fast QC engine, streaming
 and fixed-iteration, and wifi 648 on the exact layered schedule; the BEC
 sweep of the 1152 code and the BEC streaming step; the flooding and the
 layered sweeps with bfloat16 and int8 messages, ``--pallas
---message-dtype``), times kernels
+--message-dtype``; a code with checks of degree 36 through a batch, a
+streaming and the BEC kernels), times kernels
 against plain versions, and prints a ``{"kernels": [...]}`` line (each kernel with
 its launches on its path, its error against the plain version, its time,
-the plain version's, and its bound: the larger of the bytes it must move
-over the HBM rate and its operations over the float32 rate) and, last, an
+the plain version's, its bound: the larger of the bytes it must move
+over the HBM rate and its operations over the float32 rate, and the form
+of the kernel that ran) and, last, an
 ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
@@ -26,6 +28,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -57,13 +60,15 @@ OPS_S = 67e12
 #: backward, exclusion), a BP box-plus ~10 (min, sign, two exp, two log1p,
 #: adds), the VN sum and extrinsic 2, the syndrome 2.  The fast layered
 #: engine adds the APP update (3); the exact layered schedule recomputes
-#: every posterior and syndrome per layer.  The BEC peeling: 4 byte
-#: operations per slot in the check phase, 4 in the variable phase.
+#: every posterior and syndrome per layer.  The BEC peeling: 4 operations
+#: per slot in the check phase, 4 in the variable phase, each of which can
+#: be one 32-bit word operation for 32 frames (the batch kernel's
+#: bit-sliced algebra), so a slot of one frame counts 8 / 32.
 OPS_BP_SLOT = 3 * 10 + 2 + 2
 OPS_MS_SLOT = 3 * 3 + 2 + 2  # a min-sum pair: min, sign, multiply
 OPS_BP_FAST_SLOT = 3 * 10 + 3 + 2
 OPS_MS_FAST_SLOT = 3 * 3 + 3 + 2
-OPS_BEC_SLOT = 8
+OPS_BEC_SLOT = 8 / 32
 
 
 def check(cond, msg: str) -> None:
@@ -148,7 +153,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from libldpc_tpu_torch import cli
     from libldpc_tpu_torch.models import (
-        make_benchmark_code, wifi_code, write_codefile, write_layerfile,
+        make_benchmark_code, make_regular_code, wifi_code, write_codefile, write_layerfile,
     )
     from libldpc_tpu_torch.ops.channel import awgn_channel, bec_channel, make_generator
     from libldpc_tpu_torch.ops.kernels import build
@@ -161,6 +166,11 @@ def main() -> int:
     from libldpc_tpu_torch.sim.driver import (
         ChannelParams, DecoderParams, SimulationParams, Simulator,
     )
+
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        print(f"[{time.perf_counter() - t_start:7.1f} s] {phase}", flush=True)
 
     # ---- 1. environment
     name_power = card()
@@ -185,11 +195,20 @@ def main() -> int:
     print(f"build: {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
     if build.last_build_log:
         print(build.last_build_log)
+        # -Xptxas -v: each kernel's stack frame (local memory per thread)
+        frames_b = [int(n) for n in re.findall(r"(\d+) bytes stack frame", build.last_build_log)]
+        secs = [float(x) for x in re.findall(r"^# ([0-9.]+) s$", build.last_build_log, re.M)]
+        print(f"stack frames: {len(frames_b)} functions, {sum(n == 0 for n in frames_b)} with 0 "
+              f"bytes, largest {max(frames_b)} bytes; slowest nvcc {max(secs):.1f} s of "
+              f"{len(secs)} started together")
 
     codes = {
         "bench1152": make_benchmark_code(1152, 3, 6, seed=0, with_G=True),
         "wifi1944": wifi_code(1944),  # Z = 81, 12 natural layers
         "wifi648": wifi_code(648),  # Z = 27, 12 natural layers
+        # every check of degree 36, past the combine's unrolled limit (no
+        # generator: the all-zero codeword)
+        "regular36": make_regular_code(1152, 3, 36, seed=1),
     }
     tables = {k: kernel_tables(to_sorted_device(c, dev, with_layers=True))
               for k, c in codes.items()}
@@ -197,10 +216,11 @@ def main() -> int:
         print(f"code {k}: nc {t.code.nc} mc {t.code.mc} nnz {t.code.nnz} max_dc {t.max_dc} "
               f"layers {t.n_layers} disjoint {t.layers_disjoint}")
 
-    def llrs(key, point):
+    def llrs(key, point, snr_db=COMPARE_SNR_DB):
         tb_ = tables[key]
-        return awgn_channel(tb_.code, make_generator(dev, 7, point, 0), BATCH, COMPARE_SNR_DB)
+        return awgn_channel(tb_.code, make_generator(dev, 7, point, 0), BATCH, snr_db)
 
+    mark("build and tables done")
     # ---- 3. kernel 1 (flooding batch) against its plain version
     err1 = 0.0
     for key in ("bench1152", "wifi1944"):
@@ -231,9 +251,9 @@ def main() -> int:
 
     refill_on = torch.ones(1, dtype=torch.int32, device=dev)
 
-    def check_stream(tag, kernel, plain, key, point):
+    def check_stream(tag, kernel, plain, key, point, snr_db=COMPARE_SNR_DB):
         tb = tables[key]
-        ch = llrs(key, point)
+        ch = llrs(key, point, snr_db)
         err = 0
         for form in ("BP_MS", "BP"):
             got = drain(kernel, tb, ch.llr, ch.codeword, form)
@@ -325,6 +345,7 @@ def main() -> int:
                                         "bench1152", 1).items():
         err_form[f"k2 {dtype}"] = err
 
+    mark("kernels 1 and 2 held against plain")
     # ---- 5. K3 (fast layered engine, batch) against its plain version
     err3 = compare_batch("K3 wifi1944", dl.bp_decode_layered_fast,
                          dl.bp_decode_layered_fast_plain, tables["wifi1944"],
@@ -340,6 +361,24 @@ def main() -> int:
     # ---- 6. K4 (fast layered engine, stream) against its plain version
     err4 = check_stream("K4", dl.bp_stream_chunk_layered_fast,
                         dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 4)
+
+    # ---- 6a. K4's other forms (the size rule picks one per code: here 16
+    # frames a block with staged tables): 8 frames a block and the HBM-plane
+    # form drain the same frames to the same totals
+    form_of = {(16, True): "tile16+tables", (16, False): "tile16", (8, True): "tile8+tables",
+               (8, False): "tile8", (0, False): "hbm-planes"}
+    k4_form = form_of[dl.stream_form(tables["wifi1944"])]
+    ch4 = llrs("wifi1944", 4)
+    want4 = drain(dl.bp_stream_chunk_layered_fast_plain, tables["wifi1944"], ch4.llr, ch4.codeword,
+                  "BP_MS")
+    for forced in ((16, True), (8, False), (0, False)):
+        dl.STREAM_FORM_OVERRIDE = forced
+        got4 = drain(dl.bp_stream_chunk_layered_fast, tables["wifi1944"], ch4.llr, ch4.codeword,
+                     "BP_MS")
+        dl.STREAM_FORM_OVERRIDE = None
+        print(f"K4 form {form_of[forced]} drain wifi1944 BP_MS: kernel {got4} plain {want4}")
+        check(got4 == want4, f"K4 form {form_of[forced]}: drained totals differ")
+    print(f"K4 form chosen for wifi 1944: {k4_form}")
 
     # ---- 6b. K4's forms: pool drains against the plain chunk and K3's form
     # on the same frames (a reload starts the APP at the prior in the form's
@@ -361,6 +400,7 @@ def main() -> int:
             "K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain, tables["wifi648"],
             llrs("wifi648", 5).llr, dtype, tol=2 ** -4)
 
+    mark("K3, K4 and K5 held against plain")
     # ---- 7b. K6 (BEC peeling, batch) against its plain version: integer
     # algebra, so all four outputs must be equal byte for byte
     def bec_frames(key, point, eps=BEC_EPS):
@@ -381,6 +421,15 @@ def main() -> int:
                       f"equal {same} avg_iter {got.iterations.float().mean().item():.3f} "
                       f"resolved {got.resolved.float().mean().item():.4f}")
                 check(all(same), f"K6 {key} not bit-exact")
+        # the form for a code whose words pass a block's shared memory: the
+        # same words in a device-memory scratch
+        db.FORCE_SCRATCH = True
+        got = db.bec_decode_fused(tables[key], ch.llr, ch.codeword, ITERS, True)
+        db.FORCE_SCRATCH = False
+        want = db.bec_decode_fused_plain(tables[key], ch.llr, ch.codeword, ITERS, True)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)) and
+              db.bec_decode_fused.last_in_shared is False,
+              f"K6 {key} with its words in device memory not bit-exact")
 
     # ---- 7c. K7 (BEC peeling, stream) against its plain version and K6:
     # every frame enters through the pool (a reload starts from the channel
@@ -422,6 +471,28 @@ def main() -> int:
     print(f"K7 quota 5000: starts {starts}, pool entries used {BATCH - int(st.avail.sum())}")
     check(starts == 5000 == BATCH - int(st.avail.sum()), "K7 quota not exact")
 
+    # ---- 7d. a code whose checks have degree 36, past the combine's unrolled
+    # limit (the windowed combine): kernel 1, kernel 2 and K6 against their
+    # plain versions.  Rate 11/12: 6.5 dB and eps 0.04 are in its waterfalls.
+    tb36 = tables["regular36"]
+    check(tb36.max_dc == 36, "the degree-36 code's tables")
+    err36 = compare_batch("kernel1 regular36", df.bp_decode_fused, df.bp_decode_fused_plain, tb36,
+                          llrs("regular36", 6, 6.5).llr)
+    err36 = max(err36, check_stream("kernel2 regular36", df.bp_stream_chunk_fused,
+                                    df.bp_stream_chunk_fused_plain, "regular36", 6, 6.5))
+    ch36 = bec_channel(tb36.code, make_generator(dev, 8, 6, 0), BATCH, 0.04)
+    for et in (True, False):
+        got = db.bec_decode_fused(tb36, ch36.llr, ch36.codeword, ITERS, et)
+        want = db.bec_decode_fused_plain(tb36, ch36.llr, ch36.codeword, ITERS, et)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"K6 regular36 eps 0.04 et={int(et)}: equal {same} avg_iter "
+              f"{got.iterations.float().mean().item():.3f} resolved "
+              f"{got.resolved.float().mean().item():.4f}")
+        check(all(same), "K6 on the degree-36 code not bit-exact")
+    print(f"degree-36 code: largest |kernel - plain| {err36:.3e}")
+
+    mark("K6, K7 and the degree-36 code held against plain")
     # ---- 8. the flooding slice: the CLI sweep of the 1152 code on the card
     WORK.mkdir(parents=True, exist_ok=True)
 
@@ -518,6 +589,7 @@ def main() -> int:
         print(f"bench1152 {x} dB: FER BP float32 {fer32:.4e}, BP_OMS int8 {fer8:.4e} "
               f"[{name_power}]")
 
+    mark("flooding sweeps done")
     # ---- 9. the layered slice: the 802.11n sweep on the card
     zero_counts()
     head_l, rows_l = run_cli("wifi1944", "res_layered.txt", LAYERED_SWEEP, "--qc-z", "81",
@@ -602,6 +674,7 @@ def main() -> int:
         print(f"wifi648 layered 2.0 dB: FER / avg_iter float32 BP {rows_648[0][1]:.4e} / "
               f"{rows_648[0][4]:.3f}, {dtype} {cn} {r648[1]:.4e} / {r648[4]:.3f} [{name_power}]")
 
+    mark("layered sweeps done")
     # ---- 9b. the BEC slice: the CLI's --channel BEC sweep of the 1152 code,
     # a fixed-iteration point, the 802.11n code with --layer-file --pallas
     # (the peeling runs flooding), and the BEC streaming step
@@ -644,6 +717,7 @@ def main() -> int:
     check(all(0 <= r[4] <= ITERS for r in rows_b + rows_bw), "BEC avg_iter out of range")
     check(fixed_b[0][4] == ITERS, "fixed-iteration BEC point did not run every iteration")
 
+    mark("BEC sweeps done")
     # ---- 10. times (CUDA events), kernel against plain
     times = {}
     for key in ("bench1152", "wifi1944"):
@@ -728,6 +802,16 @@ def main() -> int:
         times[tag] = time_chunk(dl.bp_stream_chunk_layered_fast,
                                 dl.bp_stream_chunk_layered_fast_plain, "wifi1944", 1, form, dtype)
         passes[tag] = int(box_passes[0])
+    # K4's other forms on the same inputs, kernel only (the rule's choice is timed above)
+    for forced in ((16, False), (8, True), (8, False), (0, False)):
+        dl.STREAM_FORM_OVERRIDE = forced
+        ms_bp = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP")[0]
+        ms_ms = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP_MS")[0]
+        ms_i8 = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP_MS", "int8")[0]
+        dl.STREAM_FORM_OVERRIDE = None
+        print(f"time K4 form {form_of[forced]} wifi1944 6 passes from a full pool B={BATCH}, kernel "
+              f"only: float32 BP {ms_bp:.3f} ms, float32 BP_MS {ms_ms:.3f} ms, int8 BP_MS "
+              f"{ms_i8:.3f} ms [{name_power}]")
     for dtype in SUFFIX:  # min-sum in each form, kernel only, for the forms side by side
         ms = time_chunk(df.bp_stream_chunk_fused, None, "bench1152", 0, "BP_MS", dtype)[0]
         ms4 = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP_MS", dtype)[0]
@@ -745,8 +829,13 @@ def main() -> int:
         times[f"K6 {key}"] = (
             cuda_ms(lambda: db.bec_decode_fused(tb_, ch.llr, ch.codeword, ITERS, False), 5),
             cuda_ms(lambda: db.bec_decode_fused_plain(tb_, ch.llr, ch.codeword, ITERS, False), 2))
+        db.FORCE_SCRATCH = True
+        scratch_ms = cuda_ms(lambda: db.bec_decode_fused(tb_, ch.llr, ch.codeword, ITERS, False), 5)
+        db.FORCE_SCRATCH = False
+        db.bec_decode_fused(tb_, ch.llr, ch.codeword, 1)  # last_in_shared: the rule's form again
         print(f"time K6 {key} BEC {ITERS} it no-ET B={BATCH}: kernel {times[f'K6 {key}'][0]:.3f} "
-              f"ms, plain {times[f'K6 {key}'][1]:.3f} ms [{name_power}]")
+              f"ms (words in device memory {scratch_ms:.3f} ms), plain "
+              f"{times[f'K6 {key}'][1]:.3f} ms [{name_power}]")
     box7 = {}
     ch7t = bec_frames("bench1152", 3)
 
@@ -785,6 +874,7 @@ def main() -> int:
               f"with ET on one batch {k6_et:.3f} ms of {res.time[0] * BATCH * 1e3:.3f} ms per "
               f"batch [{name_power}]")
 
+    mark("kernel times done")
     # end-to-end sweep rate from the Simulator's own float timing (the
     # results file keeps frame_time to 6 decimals)
     for key, layered, snrs, dtype, form in (
@@ -807,6 +897,7 @@ def main() -> int:
                   f"{snr} dB: {1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, "
                   f"FER {res.fer[0]:.3e}, {int(res.frames[0])} frames) [{name_power}]")
 
+    mark("sweep rates done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],
@@ -898,18 +989,26 @@ def main() -> int:
         print(f"bound {name}: {b_[0]:.4f} ms by {b_[1]}, kernel {t:.3f} ms "
               f"({b_[0] / t:.1%} of the bound) [{name_power}]")
     fused = "libldpc_tpu_torch/csrc/decode_fused.cu"
+    stream_src = "libldpc_tpu_torch/csrc/decode_stream.cu"
     layered_src = "libldpc_tpu_torch/csrc/decode_layered.cu"
+    k4_src = "libldpc_tpu_torch/csrc/layered_stream.cuh"
+    exact_src = "libldpc_tpu_torch/csrc/decode_layered_exact.cu"
     bec_src = "libldpc_tpu_torch/csrc/decode_bec.cu"
+    # the form of each kernel that ran: K4 by its size rule, K6 with its
+    # words in shared memory or in the device-memory scratch
+    forms_run = {"bp_stream_chunk_layered_fast": k4_form,
+                 "bec_decode_fused": "words in shared memory" if db.bec_decode_fused.last_in_shared
+                 else "words in device memory"}
     rows_json = [
         ("bp_decode_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
          times["k1 bench1152"]),
-        ("bp_stream_chunk_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404", err2,
+        ("bp_stream_chunk_fused", stream_src, "libldpc_tpu/ops/pallas/decode_fused.py:404", err2,
          times["k2 bench1152"]),
         ("bp_decode_layered_fast", layered_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1153",
          err3, times["K3 wifi1944"]),
-        ("bp_stream_chunk_layered_fast", layered_src,
+        ("bp_stream_chunk_layered_fast", k4_src,
          "libldpc_tpu/ops/pallas/decode_lanes.py:753", err4, times["K4 wifi1944"]),
-        ("bp_decode_layered", layered_src, "libldpc_tpu/ops/pallas/decode_fused.py:544", err5,
+        ("bp_decode_layered", exact_src, "libldpc_tpu/ops/pallas/decode_fused.py:544", err5,
          times["K5 wifi648"]),
         ("bec_decode_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1235", err6,
          times["K6 bench1152"]),
@@ -919,17 +1018,17 @@ def main() -> int:
          err_form["k1 bfloat16"], times["k1_bf16 bench1152"]),
         ("bp_decode_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617",
          err_form["k1 int8"], times["k1_int8 bench1152"]),
-        ("bp_stream_chunk_fused_bf16", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404",
+        ("bp_stream_chunk_fused_bf16", stream_src, "libldpc_tpu/ops/pallas/decode_fused.py:404",
          err_form["k2 bfloat16"], times["k2_bf16 bench1152"]),
-        ("bp_stream_chunk_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:404",
+        ("bp_stream_chunk_fused_int8", stream_src, "libldpc_tpu/ops/pallas/decode_fused.py:404",
          err_form["k2 int8"], times["k2_int8 bench1152"]),
         *[(f"bp_decode_layered_fast{SUFFIX[dt]}", layered_src,
            "libldpc_tpu/ops/pallas/decode_lanes.py:1153", err_form[f"k3 {dt}"],
            times[f"K3{SUFFIX[dt]} wifi1944"]) for dt in ("bfloat16", "int8")],
-        *[(f"bp_stream_chunk_layered_fast{SUFFIX[dt]}", layered_src,
+        *[(f"bp_stream_chunk_layered_fast{SUFFIX[dt]}", k4_src,
            "libldpc_tpu/ops/pallas/decode_lanes.py:753", err_form[f"k4 {dt}"],
            times[f"K4{SUFFIX[dt]} wifi1944"]) for dt in ("bfloat16", "int8")],
-        *[(f"bp_decode_layered{SUFFIX[dt]}", layered_src,
+        *[(f"bp_decode_layered{SUFFIX[dt]}", exact_src,
            "libldpc_tpu/ops/pallas/decode_fused.py:544", err_form[f"k5 {dt}"],
            times[f"K5{SUFFIX[dt]} wifi648"]) for dt in ("bfloat16", "int8")],
     ]
@@ -941,7 +1040,9 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call decodes an LDPC code
-         "library_ms": None}
+         "library_ms": None,
+         "form": forms_run.get(name.replace("_bf16", "").replace("_int8", ""),
+                               "HBM planes, 32 frames x 8 warps")}
         for name, src, rep, err, t in rows_json
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,6 +25,18 @@ struct Code {
   int nc, mc, nnz;
 };
 
+// CN phase over this warp's checks: lv2c -> lc2v, in the storage form Msg.
+template <int FAM, class Msg>
+__device__ void cn_phase(const Code& c, const CnParams& cp, const Msg& m,
+                         const typename Msg::T* __restrict__ lv2c,
+                         typename Msg::T* __restrict__ lc2v, size_t B, size_t b) {
+  for (int r = threadIdx.y; r < c.mc; r += blockDim.y) {
+    int e0 = __ldg(c.row_ptr + r);
+    int d = __ldg(c.row_ptr + r + 1) - e0;
+    if (d > 0) check_update<FAM>(cp, m, lv2c, lc2v, e0, d, B, b);
+  }
+}
+
 // VN phase over this warp's variables, in the storage form Msg: posterior
 // post = store(prior(llr) + (m0 + m1 + ...)) (the prior in float32, the
 // messages widened from their stored form), extrinsic

@@ -1,0 +1,5 @@
+// The fast layered engine's streaming chunk, tile form at 16 frames a block
+// (layered_stream.cuh has the kernels and what they replace).
+#include "layered_stream.cuh"
+
+LDPC_STREAM_ENTRY(ldpc_bp_stream_chunk_layered_tile16, 16)

@@ -2,7 +2,9 @@
 and a systematic generator solver.
 
 A copy of the parts of :mod:`libldpc_tpu.models.construct` that the port
-uses; with the same seeds they build the same codes, edge for edge.
+uses; with the same seeds they build the same codes, edge for edge, except
+where :func:`make_regular_code`'s duplicate repair would break regularity
+there (see its docstring).
 """
 
 from __future__ import annotations
@@ -19,7 +21,14 @@ from .code import LDPCCode
 def make_regular_code(nc: int, dv: int, dc: int, seed: int = 0, max_tries: int = 100) -> LDPCCode:
     """Random (dv, dc)-regular LDPC code with ``nc`` variable nodes, by the
     configuration model: variable sockets matched to check sockets by a
-    random permutation, with duplicate edges swapped away."""
+    random permutation, with duplicate edges swapped away.
+
+    The swap partners are drawn as the JAX package draws them; where that
+    draw repeats an edge or hits an edge being moved (the swap would then
+    change a check's degree), the offending partners are drawn again among
+    the edges not yet involved, so every check keeps exactly ``dc`` edges.
+    With draws that need no repair the code is the JAX package's, edge for
+    edge."""
     if (nc * dv) % dc != 0:
         raise ValueError(f"nc*dv ({nc * dv}) must be divisible by dc ({dc})")
     mc = nc * dv // dc
@@ -46,6 +55,14 @@ def make_regular_code(nc: int, dv: int, dc: int, seed: int = 0, max_tries: int =
                 seen.add(g)
         move = np.array(move, dtype=np.int64)
         partners = rng.integers(0, nc * dv, size=move.size)
+        # a proper swap needs distinct partners outside `move`
+        taken = np.zeros(nc * dv, dtype=bool)
+        taken[move] = True
+        for i, p in enumerate(partners):
+            if taken[p]:
+                free = np.nonzero(~taken)[0]
+                partners[i] = p = free[rng.integers(0, free.size)]
+            taken[p] = True
         rows[move], rows[partners] = rows[partners].copy(), rows[move].copy()
     raise RuntimeError(
         f"could not construct a simple (dv={dv}, dc={dc}) graph in {max_tries} tries")

@@ -29,6 +29,14 @@ and the node offset of every later class is not advanced; here it keeps
 its channel symbol and the offset advances (the reference's behaviour).
 The counting is integer throughout, so this decoder, the CUDA kernel and
 the JAX decoders agree bit for bit.
+
+The second half of the module is the same algebra bit-sliced, as the CUDA
+batch kernel runs it: a symbol is two bits, ``known`` and ``value`` (0
+where erased), and 32 frames make one int32 word of each
+(:func:`pack_symbols`, :func:`bec_words_pass`, :func:`unpack_symbols`,
+:func:`bec_decode_words`).  Counts become two accumulators, "at least one"
+and "at least two" (``two |= one & x; one |= x``).  It is held against the
+byte version by the tests and is not on any decode path.
 """
 
 from __future__ import annotations
@@ -154,4 +162,162 @@ def bec_decode_sorted(
         hard=torch.where(unresolved, wrong_bits(codeword, degree1_stale_byte), codeword),
         iterations=iters,
         resolved=~unresolved.any(0),
+    )
+
+
+# ---------------------------------------------------------------- bit-sliced
+
+
+def _to_words(bits: torch.Tensor) -> torch.Tensor:
+    """bool ``[rows, B]`` -> int32 ``[rows, ceil(B / 32)]``: bit ``f`` of word
+    ``w`` is frame ``32 w + f``; frames past ``B`` are 0."""
+    rows, B = bits.shape
+    W = (B + 31) // 32
+    padded = torch.zeros((rows, W * 32), dtype=torch.int64, device=bits.device)
+    padded[:, :B] = bits
+    weights = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
+        32, device=bits.device)
+    words = (padded.reshape(rows, W, 32) * weights).sum(2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _from_words(words: torch.Tensor, B: int) -> torch.Tensor:
+    """int32 ``[rows, W]`` -> bool ``[rows, B]`` (inverse of :func:`_to_words`)."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :B].bool()
+
+
+def pack_symbols(symbols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """u8 3-state symbols ``[rows, B]`` -> ``(known, value)`` int32 words
+    ``[rows, ceil(B / 32)]``.  A frame past ``B`` is a known 0."""
+    known = _to_words(symbols != BEC_ERASURE)
+    B = symbols.shape[1]
+    if B % 32:
+        known[:, -1] |= -1 << (B % 32)
+    return known, _to_words(symbols == 1)
+
+
+def unpack_symbols(known: torch.Tensor, value: torch.Tensor, B: int) -> torch.Tensor:
+    """``(known, value)`` words -> u8 symbols ``[rows, B]``."""
+    return torch.where(_from_words(known, B), _from_words(value, B).to(torch.uint8),
+                       BEC_ERASURE).to(torch.uint8)
+
+
+def bec_words_pass(
+    sdc: TorchSortedCode,
+    chk: torch.Tensor,  # i32 [nc, W] the channel knows the bit
+    xi: torch.Tensor,  # i32 [nc, W] true bits
+    mk: torch.Tensor,  # i32 [nnz, W] lv2c known, CN-space slots
+    mv: torch.Tensor,  # i32 [nnz, W] lv2c value (0 where erased)
+    degree1_stale_byte: Optional[int] = None,
+):
+    """One flooding iteration on words: ``(pk, pv, mk_new, mv_new)``, the
+    posterior and the new ``lv2c``, each as (known, value) words."""
+    # ---- check update: known iff no *other* input is erased
+    ck_parts, cv_parts = [], []
+    for e0, e1, count, d in _class_slices(sdc.cn_classes):
+        if d == 0:
+            continue
+        K = mk[e0:e1].reshape(count, d, -1)
+        V = mv[e0:e1].reshape(count, d, -1)
+        if d == 1:
+            ck_parts.append(torch.full_like(K, -1).reshape(count, -1))
+            cv_parts.append(torch.zeros_like(V).reshape(count, -1))
+            continue
+        one = torch.zeros_like(K[:, 0])
+        two = torch.zeros_like(one)
+        parity = torch.zeros_like(one)
+        for j in range(d):
+            two = two | (one & ~K[:, j])
+            one = one | ~K[:, j]
+            parity = parity ^ (V[:, j] & K[:, j])
+        ok = ~one[:, None] | (~two[:, None] & ~K)
+        ck_parts.append(ok.reshape(count * d, -1))
+        cv_parts.append(((parity[:, None] ^ (V & K)) & ok).reshape(count * d, -1))
+    lk = torch.cat(ck_parts, dim=0).index_select(0, sdc.perm_c2v)  # VN-space slots
+    lv = torch.cat(cv_parts, dim=0).index_select(0, sdc.perm_c2v)
+    # ---- variable update
+    vk_parts, vv_parts, pk_parts, pv_parts = [], [], [], []
+    n0 = 0
+    for e0, e1, count, d in _class_slices(sdc.vn_classes):
+        c = chk[n0:n0 + count]
+        x = xi[n0:n0 + count]
+        n0 += count
+        if d == 0:
+            pk_parts.append(c)
+            pv_parts.append(x & c)
+            continue
+        K = lk[e0:e1].reshape(count, d, -1)
+        V = lv[e0:e1].reshape(count, d, -1)
+        if d == 1:
+            pk_parts.append(c | K[:, 0])
+            pv_parts.append((x & c) | (V[:, 0] & ~c))
+            if degree1_stale_byte is None:
+                ok, ov = c, x & c
+            else:
+                ok = torch.full_like(c, -1)
+                ov = (x & c) | (~c if degree1_stale_byte else torch.zeros_like(c))
+            vk_parts.append(ok)
+            vv_parts.append(ov & ok)
+            continue
+        match = K & ~(V ^ x[:, None])
+        one = torch.zeros_like(c)
+        two = torch.zeros_like(c)
+        for j in range(d):
+            two = two | (one & match[:, j])
+            one = one | match[:, j]
+        pk = c | one
+        pk_parts.append(pk)
+        pv_parts.append(x & pk)
+        ok = c[:, None] | two[:, None] | (one[:, None] & ~match)
+        vk_parts.append(ok.reshape(count * d, -1))
+        vv_parts.append((x[:, None] & ok).reshape(count * d, -1))
+    mk_new = torch.empty_like(mk)
+    mv_new = torch.empty_like(mv)
+    mk_new[sdc.perm_c2v.long()] = torch.cat(vk_parts, dim=0)
+    mv_new[sdc.perm_c2v.long()] = torch.cat(vv_parts, dim=0)
+    return torch.cat(pk_parts, dim=0), torch.cat(pv_parts, dim=0), mk_new, mv_new
+
+
+def bec_decode_words(
+    sdc: TorchSortedCode,
+    symbols_in: torch.Tensor,  # u8 [nc, B], sorted VN labelling
+    codeword: torch.Tensor,  # u8 [nc, B], sorted VN labelling
+    iterations: int = 50,
+    early_term: bool = True,
+    degree1_stale_byte: Optional[int] = None,
+) -> BECDecodeOutput:
+    """:func:`bec_decode_sorted` on words: pack, ``iterations`` word passes
+    with a ``live`` word masking every write of a resolved frame, unpack."""
+    B = symbols_in.shape[1]
+    chk, val = pack_symbols(symbols_in)
+    xi = _to_words(codeword != 0)
+    mk = chk.index_select(0, sdc.col_sorted)
+    mv = val.index_select(0, sdc.col_sorted)
+    pk = torch.zeros_like(chk)
+    pv = torch.zeros_like(chk)
+    live = _to_words(torch.ones((1, B), dtype=torch.bool, device=symbols_in.device))[0]
+    iters = torch.zeros(B, dtype=torch.int32, device=symbols_in.device)
+    for _ in range(iterations):
+        if not bool(live.any()):
+            break
+        pk_n, pv_n, mk_n, mv_n = bec_words_pass(sdc, chk, xi, mk, mv, degree1_stale_byte)
+        mk, mv = (mk & ~live) | (mk_n & live), (mv & ~live) | (mv_n & live)
+        pk, pv = (pk & ~live) | (pk_n & live), (pv & ~live) | (pv_n & live)
+        erased = torch.zeros_like(live)
+        for row in ~pk_n:  # OR over the variables
+            erased = erased | row
+        unresolved = erased & live
+        counted = unresolved if early_term else live
+        iters += _from_words(counted[None], B)[0].to(torch.int32)
+        if early_term:
+            live = unresolved
+    sym_out = unpack_symbols(pk, pv, B)
+    unres = sym_out == BEC_ERASURE
+    return BECDecodeOutput(
+        symbols_out=sym_out,
+        hard=torch.where(unres, wrong_bits(codeword, degree1_stale_byte), codeword),
+        iterations=iters,
+        resolved=~unres.any(0),
     )

@@ -1,9 +1,11 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 ``libldpc_tpu_torch/csrc/*.cu`` is compiled at first use into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), under ``build/kernels/`` at the root of the checkout: one
-``nvcc -c`` per source, all started together, then one link.  The file
+library with a plain C interface (no PyTorch headers), under
+``build/kernels/`` at the root of the checkout: one ``nvcc -c`` per source,
+all started together, then one link.  Each kernel has a source file of its
+own (the templates they share are ``*.cuh``), so the build takes as long as
+its slowest kernel.  The file
 name carries a hash of the sources (headers included) and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
 is built when a module is imported.  A missing ``nvcc`` or a failed build
@@ -19,6 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -61,16 +64,25 @@ def library_path() -> pathlib.Path:
 
 
 def _run(cmds: list[list[str]]) -> str:
-    """Run the commands in parallel; their output, or a RuntimeError with
-    the compiler's output of every one that failed."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    failed = [f"nvcc failed ({p.returncode}): {' '.join(c)}\n{o}"
-              for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    """Run the commands in parallel; their output, each after its command
+    and the seconds it took, or a RuntimeError with the compiler's output
+    of every one that failed."""
+    done = [None] * len(cmds)
+
+    def run(i: int) -> None:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmds[i], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        done[i] = (proc.returncode, proc.stdout, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(cmds))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    failed = [f"nvcc failed ({rc}): {' '.join(c)}\n{o}" for c, (rc, o, _) in zip(cmds, done) if rc]
     if failed:
         raise RuntimeError("\n".join(failed))
-    return "".join(f"{' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    return "".join(f"{' '.join(c)}\n# {secs:.1f} s\n{o}" for c, (_, o, secs) in zip(cmds, done))
 
 
 def build() -> pathlib.Path:
@@ -109,8 +121,6 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.ldpc_max_dc.argtypes = []
-            lib.ldpc_max_dc.restype = I
             lib.ldpc_bp_decode_fused.argtypes = [
                 P, P, P, P, P, P,  # llr_in post iters iscw lv2c lc2v
                 P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
@@ -142,17 +152,23 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered_fast.restype = I
-            lib.ldpc_bp_stream_chunk_layered_fast.argtypes = [
-                P, P, P,  # app cw lc2v
-                P, P, P, P, P,  # done iters age avail ctr
-                P, P, P, P,  # fresh_llr fresh_cw refill remaining
-                *tables, P,  # ..., bit_pos
-                I, I, I, I, I, I,  # nc mc nnz nl nct B
-                I, I, I, F, F,  # k cap cn_mode scale offset
-                I, F,  # msg_dtype inv_q
-                P,  # stream
-            ]
-            lib.ldpc_bp_stream_chunk_layered_fast.restype = I
+            # the layered streaming kernel: one entry per form (16 or 8
+            # frames a block on the tile form, the HBM-plane form)
+            for entry in (lib.ldpc_bp_stream_chunk_layered_tile16,
+                          lib.ldpc_bp_stream_chunk_layered_tile8,
+                          lib.ldpc_bp_stream_chunk_layered_hbm):
+                entry.argtypes = [
+                    P, P, P,  # app cw lc2v
+                    P, P, P, P, P,  # done iters age avail ctr
+                    P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                    *tables, P,  # ..., bit_pos
+                    I, I, I, I, I, I, I,  # nc mc nnz nl nlc nct B
+                    I, I, I, F, F,  # k cap cn_mode scale offset
+                    I, F,  # msg_dtype inv_q
+                    I,  # stage
+                    P,  # stream
+                ]
+                entry.restype = I
             lib.ldpc_bp_decode_layered.argtypes = [
                 P, P, P, P, P, P,  # llr_in post iters iscw lv2c lc2v
                 *tables,
@@ -163,7 +179,7 @@ def load() -> ctypes.CDLL:
             ]
             lib.ldpc_bp_decode_layered.restype = I
             lib.ldpc_bec_decode_fused.argtypes = [
-                P, P, P, P, P, P, P, P,  # sym_in cw sym_out hard iters resolved lv2c lc2v
+                P, P, P, P, P, P, P,  # sym_in cw sym_out hard iters resolved scratch (or null)
                 P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
                 I, I, I, I,  # nc mc nnz B
                 I, I, I,  # iterations early_term stale

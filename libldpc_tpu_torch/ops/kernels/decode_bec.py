@@ -9,9 +9,13 @@
   ``bec_mode``): ``k`` self-refilling passes per lane on the chunk the BP
   stream kernel uses (``csrc/stream_chunk.cuh``).
 
-Both run the exact 3-state byte algebra of :mod:`..bec_sorted` (the TPU
+Both run the exact 3-state algebra of :mod:`..bec_sorted` (the TPU
 kernels run it as min-sum over a sign encoding), so they are bit-exact
-against their plain versions.  ``degree1_stale_byte`` (None, or the byte
+against their plain versions.  The batch kernel runs it bit-sliced, 32
+frames to a word (:func:`..bec_sorted.bec_words_pass` is that algebra in
+plain PyTorch), with a block's whole state in shared memory, or in a
+device-memory scratch for a code whose state does not fit
+(:func:`words_in_shared`); the streaming kernel on u8 planes.  ``degree1_stale_byte`` (None, or the byte
 0-1 of the reference's bug-compatible mode) is passed to the kernels as
 ``-1`` or the byte.
 
@@ -31,8 +35,30 @@ import torch
 from ..bec import BECDecodeOutput
 from ..bec_sorted import bec_decode_sorted, bec_pass, wrong_bits
 from ..channel import BEC_ERASURE
-from .decode_fused import _check, _lib, _p, _raise_on, _require_cuda, stream_chunk_plain
+from . import build
+from .decode_fused import _check, _p, _raise_on, _require_cuda, stream_chunk_plain
 from .layout import KernelTables
+
+
+#: Shared memory one block may take on the card (232,448 bytes), less the
+#: kernel's static words.
+SMEM_BLOCK_BYTES = 232448 - 64
+#: Keep the batch kernel's state in the device-memory scratch whatever the
+#: code's size (the card tests do, to run that form on a small code).
+FORCE_SCRATCH = False
+
+
+def words_state_bytes(tables: KernelTables) -> int:
+    """Bytes of state the batch kernel keeps per 32-frame word: channel,
+    codeword and posterior words per variable, a message word pair per slot
+    (``csrc/decode_bec.cu`` ``BecWords``)."""
+    return (4 * tables.code.nc + 2 * tables.code.nnz) * 4
+
+
+def words_in_shared(tables: KernelTables) -> bool:
+    """The batch kernel's size rule: the state of a word lives in shared
+    memory when it fits one block's, else in a device-memory scratch."""
+    return not FORCE_SCRATCH and words_state_bytes(tables) <= SMEM_BLOCK_BYTES
 
 
 def _stale_arg(degree1_stale_byte: Optional[int]) -> int:
@@ -98,28 +124,33 @@ def bec_decode_fused(
         return bec_decode_fused_plain(tables, symbols_in, codeword, iterations, early_term,
                                       degree1_stale_byte)
     _require_cuda(symbols_in)
-    lib = _lib(tables)
+    lib = build.load()
     dev = symbols_in.device
     nnz = tables.code.nnz
     sym_out = torch.empty_like(symbols_in)
     hard = torch.empty_like(symbols_in)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     resolved = torch.empty(B, dtype=torch.int32, device=dev)
-    lv2c = torch.empty((nnz, B), dtype=torch.uint8, device=dev)
-    lc2v = torch.empty((nnz, B), dtype=torch.uint8, device=dev)
+    in_shared = words_in_shared(tables)
+    scratch = None if in_shared else torch.empty(
+        ((B + 31) // 32, words_state_bytes(tables) // 4), dtype=torch.int32, device=dev)
     err = lib.ldpc_bec_decode_fused(
-        _p(symbols_in), _p(codeword), _p(sym_out), _p(hard), _p(iters), _p(resolved), _p(lv2c),
-        _p(lc2v), _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr),
-        _p(tables.perm_c2v), nc, tables.code.mc, nnz, B, iterations, int(bool(early_term)), stale,
+        _p(symbols_in), _p(codeword), _p(sym_out), _p(hard), _p(iters), _p(resolved),
+        None if in_shared else _p(scratch), _p(tables.row_ptr), _p(tables.col_sorted),
+        _p(tables.vn_ptr), _p(tables.perm_c2v), nc, tables.code.mc, nnz, B, iterations,
+        int(bool(early_term)), stale,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on(lib, err, "bec_decode_fused")
     bec_decode_fused.launches += 1
+    bec_decode_fused.last_in_shared = in_shared
     return BECDecodeOutput(symbols_out=sym_out, hard=hard, iterations=iters,
                            resolved=resolved > 0)
 
 
 bec_decode_fused.launches = 0
+#: whether the last launch kept its state in shared memory (:func:`words_in_shared`)
+bec_decode_fused.last_in_shared = None
 
 
 def bec_stream_chunk_fused_plain(
@@ -190,7 +221,7 @@ def bec_stream_chunk_fused(
             remaining, k=k, cap=cap, degree1_stale_byte=degree1_stale_byte,
         )
     _require_cuda(sym)
-    lib = _lib(tables)
+    lib = build.load()
     lc2v = torch.empty((nnz, B), dtype=torch.uint8, device=sym.device)
     post = torch.empty((nc, B), dtype=torch.uint8, device=sym.device)
     err = lib.ldpc_bec_stream_chunk_fused(

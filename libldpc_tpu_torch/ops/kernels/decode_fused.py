@@ -68,16 +68,6 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"the decode kernels take CPU or CUDA tensors, not {t.device}")
 
 
-def _lib(tables: KernelTables):
-    lib = build.load()
-    if tables.max_dc > lib.ldpc_max_dc():
-        raise ValueError(
-            f"largest check degree {tables.max_dc} exceeds the kernels' "
-            f"LDPC_MAX_DC {lib.ldpc_max_dc()}"
-        )
-    return lib
-
-
 def _raise_on(lib, err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} launch failed: {lib.ldpc_error_string(err).decode()}")
@@ -146,7 +136,7 @@ def bp_decode_fused(
         return bp_decode_fused_plain(tables, llr_in, iterations, early_term, minsum_mode,
                                      message_dtype, quant_scale)
     _require_cuda(llr_in)
-    lib = _lib(tables)
+    lib = build.load()
     dev = llr_in.device
     nnz = tables.code.nnz
     msgs = dict(dtype=form.torch_dtype, device=dev)
@@ -307,7 +297,7 @@ def bp_stream_chunk_fused(
             message_dtype=message_dtype, quant_scale=quant_scale,
         )
     _require_cuda(llr)
-    lib = _lib(tables)
+    lib = build.load()
     lc2v = torch.empty((nnz, B), dtype=form.torch_dtype, device=llr.device)
     post = torch.empty((nc, B), dtype=form.torch_dtype, device=llr.device)
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))

@@ -5,10 +5,14 @@
   ``kernel_layered_qc`` (with ``_qc_engine``): a batch decode with a
   persistent APP, each layer updating only its own checks' slots, early
   termination once per full iteration.
-* :func:`bp_stream_chunk_layered_fast` runs its streaming form, the port of
+* :func:`bp_stream_chunk_layered_fast` runs its streaming form
+  (``csrc/layered_stream.cuh``), the port of
   ``kernel_stream_layered_qc``: ``k`` self-refilling passes per lane on the
   fast engine, with the flooding stream kernel's reload, exact start quota
-  and counters.
+  and counters.  The kernel has two forms, chosen by :func:`stream_form`
+  from the code's size: the tile form (a block's APP in shared memory for
+  the whole chunk) and, for a code whose tile does not fit, the HBM-plane
+  form.
 * :func:`bp_decode_layered` runs the exact layered schedule, the port of
   ``decode_fused.py`` ``kernel_layered`` and ``decode_lanes.py``
   ``kernel_layered`` (one function, two TPU layouts): per layer, the
@@ -38,7 +42,8 @@ import torch
 from .. import layered
 from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, MessageForm
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
-from .decode_fused import _check, _lib, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args
+from . import build
+from .decode_fused import _check, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args
 from .layout import KernelTables
 
 
@@ -108,7 +113,7 @@ def bp_decode_layered_fast(
         return bp_decode_layered_fast_plain(tables, llr_in, iterations, early_term, minsum_mode,
                                             message_dtype, quant_scale)
     _require_cuda(llr_in)
-    lib = _lib(tables)
+    lib = build.load()
     dev = llr_in.device
     sdc = tables.code
     app = torch.empty_like(llr_in)
@@ -129,6 +134,49 @@ def bp_decode_layered_fast(
 
 
 bp_decode_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
+
+
+#: Shared memory one block may take on the card (232,448 bytes), less the
+#: kernel's static arrays.
+SMEM_BLOCK_BYTES = 232448 - 256
+#: Shared memory of one SM, less the 1 KB the system keeps per block.
+SMEM_SM_BYTES = 233472
+#: Force a form of the streaming kernel (the card tests do): None follows
+#: :func:`stream_form`; else ``(frames, stage)`` with frames 0 (HBM-plane
+#: form), 8 or 16.
+STREAM_FORM_OVERRIDE = None
+
+
+def stream_tile_bytes(tables: KernelTables, frames: int, stage: bool) -> int:
+    """Dynamic shared memory of the tile form (``csrc/layered_stream.cuh``
+    ``tile_bytes``/``table_bytes``): the APP tile ``[nc, frames]`` float32,
+    the packed decisions ``[nc]`` uint16 padded to 4 bytes and, staged, the
+    int32 tables ``row_ptr``, ``col_sorted``, ``layer_ptr``, ``layer_checks``."""
+    sdc = tables.code
+    n = sdc.nc * frames * 4 + (sdc.nc + 1) // 2 * 4
+    if stage:
+        n += (sdc.mc + 1 + sdc.nnz + tables.n_layers + 1 + tables.layer_checks.shape[0]) * 4
+    return n
+
+
+def stream_form(tables: KernelTables) -> tuple[int, bool]:
+    """``(frames, stage)`` of the streaming kernel for this code, by size
+    alone.  16 frames a block on the tile form when that tile fits a
+    block's shared memory (``nc`` up to ~3500; a block then has its SM to
+    itself), else 8 frames (``nc`` up to ~7000), else ``(0, False)``, the
+    HBM-plane form.  The index tables are staged beside the tile when they
+    fit too (at 8 frames: when two such blocks still fit one SM).  In
+    float32 a block's 16 frames of one slot are a 64-byte segment of the
+    ``lc2v`` plane, 8 frames a 32-byte one, half of what the card's memory
+    moves at a time (``PERF.md`` section 6 has the times of each form)."""
+    if STREAM_FORM_OVERRIDE is not None:
+        return STREAM_FORM_OVERRIDE
+    if stream_tile_bytes(tables, 16, False) <= SMEM_BLOCK_BYTES:
+        return 16, stream_tile_bytes(tables, 16, True) <= SMEM_BLOCK_BYTES
+    if stream_tile_bytes(tables, 8, False) <= SMEM_BLOCK_BYTES:
+        staged = stream_tile_bytes(tables, 8, True)
+        return 8, staged <= SMEM_BLOCK_BYTES and 2 * (staged + 1024) <= SMEM_SM_BYTES
+    return 0, False
 
 
 def bp_stream_chunk_layered_fast_plain(
@@ -217,7 +265,9 @@ def bp_stream_chunk_layered_fast(
     APP), a frame error, a frame and its iteration count to ``ctr`` rows
     0-3 (row 4 counts starts).  On CUDA the quota is one device counter
     taken with ``atomicSub``: which lanes start differs from the plain
-    version's lane order, the number that start does not.
+    version's lane order, the number that start does not.  The kernel's form
+    (a block's APP in shared memory, or every plane in device memory)
+    follows :func:`stream_form`; both compute the same.
 
     ``lc2v`` is stored in ``message_dtype``; the APP is float32 in decoder
     units (lattice units on the int8 lattice, where the prior is the LLR
@@ -250,19 +300,26 @@ def bp_stream_chunk_layered_fast(
             message_dtype=message_dtype, quant_scale=quant_scale,
         )
     _require_cuda(app)
-    lib = _lib(tables)
+    lib = build.load()
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
-    err = lib.ldpc_bp_stream_chunk_layered_fast(
+    frames, stage = stream_form(tables)
+    entry = {16: lib.ldpc_bp_stream_chunk_layered_tile16,
+             8: lib.ldpc_bp_stream_chunk_layered_tile8,
+             0: lib.ldpc_bp_stream_chunk_layered_hbm}[frames]
+    err = entry(
         _p(app), _p(cw), _p(lc2v), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
         _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), *_tables_args(tables),
-        _p(tables.bit_pos), nc, sdc.mc, nnz, tables.n_layers, sdc.nct, B, k, cap,
-        mode, scale, offset, form.code, form.inv_q, _stream(app),
+        _p(tables.bit_pos), nc, sdc.mc, nnz, tables.n_layers, tables.layer_checks.shape[0],
+        sdc.nct, B, k, cap, mode, scale, offset, form.code, form.inv_q, int(stage), _stream(app),
     )
     _raise_on(lib, err, "bp_stream_chunk_layered_fast")
     bp_stream_chunk_layered_fast.launches[form.dtype] += 1
+    bp_stream_chunk_layered_fast.last_form = (frames, stage)
 
 
 bp_stream_chunk_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
+#: ``(frames, stage)`` of the last launch (:func:`stream_form`)
+bp_stream_chunk_layered_fast.last_form = None
 
 
 def bp_decode_layered_plain(
@@ -318,7 +375,7 @@ def bp_decode_layered(
         return bp_decode_layered_plain(tables, llr_in, iterations, early_term, minsum_mode,
                                        message_dtype, quant_scale)
     _require_cuda(llr_in)
-    lib = _lib(tables)
+    lib = build.load()
     dev = llr_in.device
     sdc = tables.code
     msgs = dict(dtype=form.torch_dtype, device=dev)
