@@ -17,7 +17,9 @@ against plain versions, and prints a ``{"kernels": [...]}`` line (each kernel wi
 its launches on its path, its error against the plain version, its time,
 the plain version's, its bound: the larger of the bytes it must move
 over the HBM rate and its operations over the float32 rate, and the form
-of the kernel that ran) and, last, an
+of the kernel that ran; the kernels with a tile form, K2, K4 and K5, are
+held against their plain versions and timed in each form side by side,
+K5 on wifi 648 and wifi 1296) and, last, an
 ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
@@ -110,39 +112,56 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_batch(tag, kernel, plain, tb, llr, dtype=None, tol=1e-4) -> float:
+def in_form(kernel, module, attr: str, forced):
+    """``kernel`` with a form forced for each call: ``module.attr = forced``
+    (a size rule's override), reset to None after the call."""
+    def call(*args, **kwargs):
+        setattr(module, attr, forced)
+        try:
+            return kernel(*args, **kwargs)
+        finally:
+            setattr(module, attr, None)
+
+    return call
+
+
+def compare_batch(tag, kernel, plain, tb, llr, dtype=None, tol=1e-4, also=()) -> float:
     """Hold a batch decode kernel against its plain version: every CN form
     of FORMS (of DTYPE_FORMS[dtype] in a message form), early termination
     on and off.  The min-sum family must be bit-exact; BP must agree in
     decisions and iteration counts on >= 99.9 % of frames and within
-    ``tol`` (relative and absolute) on their posteriors.  Returns the
-    largest absolute posterior difference over agreeing frames."""
+    ``tol`` (relative and absolute) on their posteriors.  ``also``: more
+    ``(label, kernel)`` pairs (other forms of it) held to the same plain
+    outputs.  Returns the largest absolute posterior difference of
+    ``kernel`` over agreeing frames."""
     worst = 0.0
     form_args = () if dtype is None else (dtype,)
     for form in FORMS if dtype is None else DTYPE_FORMS[dtype]:
         for et in (True, False):
-            got = kernel(tb, llr, ITERS, et, form, *form_args)
             want = plain(tb, llr, ITERS, et, form, *form_args)
-            torch.cuda.synchronize()
-            same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
-            diff = (got.llr_out - want.llr_out)[:, same].abs()
-            err = diff.max().item() if diff.numel() else 0.0
-            worst = max(worst, err)
-            label = form if isinstance(form, str) else form[0]
-            print(f"{tag}{'' if dtype is None else ' ' + dtype} {label} et={int(et)}: "
-                  f"frames agreeing "
-                  f"{same.float().mean().item():.6f} max_abs_err {err:.3e} "
-                  f"avg_iter {got.iterations.float().mean().item():.3f} "
-                  f"codewords {got.is_codeword.float().mean().item():.4f}")
-            check(torch.isfinite(got.llr_out).all(), f"{tag} output not finite")
-            if label == "BP":
-                check(same.float().mean().item() >= 0.999, f"{tag} BP decisions disagree")
-                torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
-                                           rtol=tol, atol=tol)
-            else:
-                check(bool(same.all()) and torch.equal(got.llr_out, want.llr_out)
-                      and torch.equal(got.is_codeword, want.is_codeword),
-                      f"{tag} {label} not bit-exact")
+            for name, fn in (("", kernel), *also):
+                got = fn(tb, llr, ITERS, et, form, *form_args)
+                torch.cuda.synchronize()
+                same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
+                diff = (got.llr_out - want.llr_out)[:, same].abs()
+                err = diff.max().item() if diff.numel() else 0.0
+                if not name:
+                    worst = max(worst, err)
+                label = form if isinstance(form, str) else form[0]
+                where = f"{tag}{' ' + name if name else ''}{'' if dtype is None else ' ' + dtype}"
+                print(f"{where} {label} et={int(et)}: frames agreeing "
+                      f"{same.float().mean().item():.6f} max_abs_err {err:.3e} "
+                      f"avg_iter {got.iterations.float().mean().item():.3f} "
+                      f"codewords {got.is_codeword.float().mean().item():.4f}")
+                check(torch.isfinite(got.llr_out).all(), f"{where} output not finite")
+                if label == "BP":
+                    check(same.float().mean().item() >= 0.999, f"{where} BP decisions disagree")
+                    torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
+                                               rtol=tol, atol=tol)
+                else:
+                    check(bool(same.all()) and torch.equal(got.llr_out, want.llr_out)
+                          and torch.equal(got.is_codeword, want.is_codeword),
+                          f"{where} {label} not bit-exact")
     return worst
 
 
@@ -206,6 +225,7 @@ def main() -> int:
         "bench1152": make_benchmark_code(1152, 3, 6, seed=0, with_G=True),
         "wifi1944": wifi_code(1944),  # Z = 81, 12 natural layers
         "wifi648": wifi_code(648),  # Z = 27, 12 natural layers
+        "wifi1296": wifi_code(1296),  # Z = 54: the exact schedule too; K5's forms timed only
         # every check of degree 36, past the combine's unrolled limit (no
         # generator: the all-zero codeword)
         "regular36": make_regular_code(1152, 3, 36, seed=1),
@@ -251,31 +271,46 @@ def main() -> int:
 
     refill_on = torch.ones(1, dtype=torch.int32, device=dev)
 
-    def check_stream(tag, kernel, plain, key, point, snr_db=COMPARE_SNR_DB):
+    def check_stream(tag, kernel, plain, key, point, snr_db=COMPARE_SNR_DB, also=()):
+        """Drains of injected frames (BP_MS exact, BP to the counters'
+        differences) and a quota of 5000, of ``kernel`` and of each
+        ``(label, kernel)`` of ``also`` (its other forms) against one plain
+        drain; the largest total difference of ``kernel``."""
         tb = tables[key]
         ch = llrs(key, point, snr_db)
         err = 0
         for form in ("BP_MS", "BP"):
-            got = drain(kernel, tb, ch.llr, ch.codeword, form)
             want = drain(plain, tb, ch.llr, ch.codeword, form)
-            print(f"{tag} drain {key} {form}: kernel {got} plain {want}")
-            check(got[2] == BATCH, f"{tag}: not every injected frame was counted")
-            if form == "BP_MS":
-                check(got == want, f"{tag}: BP_MS drained totals differ")
-            err = max(err, max(abs(a - b) for a, b in zip(got, want)))
+            for name, fn in ((tag, kernel), *((f"{tag} {n}", f) for n, f in also)):
+                got = drain(fn, tb, ch.llr, ch.codeword, form)
+                print(f"{name} drain {key} {form}: kernel {got} plain {want}")
+                check(got[2] == BATCH, f"{name}: not every injected frame was counted")
+                if form == "BP_MS":
+                    check(got == want, f"{name}: BP_MS drained totals differ")
+                if fn is kernel:
+                    err = max(err, max(abs(a - b) for a, b in zip(got, want)))
         quota = 5000
-        st = fresh_pool_state(tb, ch)
-        remaining = torch.full((1,), quota, dtype=torch.int32, device=dev)
-        kernel(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+        for name, fn in ((tag, kernel), *((f"{tag} {n}", f) for n, f in also)):
+            st = fresh_pool_state(tb, ch)
+            remaining = torch.full((1,), quota, dtype=torch.int32, device=dev)
+            fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
                st.fresh_llr, st.fresh_cw, refill_on, remaining, k=6, cap=ITERS, minsum_mode="BP")
-        starts = int(st.ctr[4].sum())
-        print(f"{tag} quota {quota}: starts {starts}, pool entries used "
-              f"{BATCH - int(st.avail.sum())}")
-        check(starts == quota == BATCH - int(st.avail.sum()), f"{tag}: quota not exact")
+            starts = int(st.ctr[4].sum())
+            print(f"{name} quota {quota}: starts {starts}, pool entries used "
+                  f"{BATCH - int(st.avail.sum())}")
+            check(starts == quota == BATCH - int(st.avail.sum()), f"{name}: quota not exact")
         return err
 
+    # kernel 2's other forms, held to the same plain drains: the HBM-plane
+    # form (the rule's for a code whose tile does not fit) and the tile at 4
+    # frames a block
+    k2_hbm = ("HBM planes", in_form(df.bp_stream_chunk_fused, df, "STREAM_FORM_OVERRIDE",
+                                    (0, False)))
+    k2_tile4 = ("tile 4", in_form(df.bp_stream_chunk_fused, df, "STREAM_FORM_OVERRIDE",
+                                  (4, True)))
     err2 = check_stream("kernel2", df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain,
-                        "bench1152", 1)
+                        "bench1152", 1, also=(k2_hbm, k2_tile4))
+    print(f"kernel2 form chosen for bench1152: {df.stream_form(tables['bench1152'])}")
 
     # ---- 4b. the bfloat16 and int8 forms of kernels 1 and 2 against their
     # plain versions (int8: the min-sum family only).  Kernel 2 drains
@@ -305,44 +340,53 @@ def main() -> int:
                 return st.ctr.sum(1).tolist()
         raise RuntimeError("streams did not drain")
 
-    def check_form_stream(tag, chunk, chunk_plain, batch, key, point):
+    def check_form_stream(tag, chunk, chunk_plain, batch, key, point, also=()):
         """Pool drains of ``chunk`` in each sub-32-bit form against its plain
         version and the batch kernel's form on the same frames (min-sum
-        exact), then a quota of 5000; the largest total difference per form."""
+        exact), then a quota of 5000; ``also``: more ``(label, chunk)``
+        pairs (its other forms) held to the same; the largest total
+        difference of ``chunk`` per form."""
         tb, ch = tables[key], llrs(key, point)
         bp = tb.code.bit_pos.long()
+        chunks = ((tag, chunk), *((f"{tag} {n}", f) for n, f in also))
         errs_out = {}
         for dtype in ("bfloat16", "int8"):
             err = 0
             for form in DTYPE_FORMS[dtype]:
-                got = pool_drain(chunk, tb, ch, form, dtype)
                 want = pool_drain(chunk_plain, tb, ch, form, dtype)
                 out1 = batch(tb, ch.llr, ITERS, True, form, dtype)
                 errs1 = (out1.hard[bp] != ch.codeword[bp].bool()).sum(0)
                 batch1 = [int(errs1.sum()), int((errs1 > 0).sum()), BATCH,
                           int(out1.iterations.sum()), BATCH]
                 label = form if isinstance(form, str) else form[0]
-                print(f"{tag} {dtype} drain {key} {label}: kernel {got} plain {want} "
-                      f"batch {batch1}")
-                check(got[2] == got[4] == BATCH, f"{tag} {dtype}: not every frame started and counted")
-                if label != "BP":
-                    check(got == want == batch1, f"{tag} {dtype} {label}: drained totals differ")
-                err = max(err, max(abs(a - b) for a, b in zip(got, want)))
-            st = fresh_pool_state(tb, ch, dtype)
-            remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
-            chunk(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail,
-                  st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining, k=6, cap=ITERS,
-                  minsum_mode=DTYPE_FORMS[dtype][0], message_dtype=dtype)
-            starts = int(st.ctr[4].sum())
-            print(f"{tag} {dtype} quota 5000: starts {starts}, pool entries used "
-                  f"{BATCH - int(st.avail.sum())}")
-            check(starts == 5000 == BATCH - int(st.avail.sum()), f"{tag} {dtype}: quota not exact")
+                for name, fn in chunks:
+                    got = pool_drain(fn, tb, ch, form, dtype)
+                    print(f"{name} {dtype} drain {key} {label}: kernel {got} plain {want} "
+                          f"batch {batch1}")
+                    check(got[2] == got[4] == BATCH,
+                          f"{name} {dtype}: not every frame started and counted")
+                    if label != "BP":
+                        check(got == want == batch1,
+                              f"{name} {dtype} {label}: drained totals differ")
+                    if fn is chunk:
+                        err = max(err, max(abs(a - b) for a, b in zip(got, want)))
+            for name, fn in chunks:
+                st = fresh_pool_state(tb, ch, dtype)
+                remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
+                fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail,
+                   st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining, k=6, cap=ITERS,
+                   minsum_mode=DTYPE_FORMS[dtype][0], message_dtype=dtype)
+                starts = int(st.ctr[4].sum())
+                print(f"{name} {dtype} quota 5000: starts {starts}, pool entries used "
+                      f"{BATCH - int(st.avail.sum())}")
+                check(starts == 5000 == BATCH - int(st.avail.sum()),
+                      f"{name} {dtype}: quota not exact")
             errs_out[dtype] = float(err)
         return errs_out
 
     for dtype, err in check_form_stream("kernel2", df.bp_stream_chunk_fused,
                                         df.bp_stream_chunk_fused_plain, df.bp_decode_fused,
-                                        "bench1152", 1).items():
+                                        "bench1152", 1, also=(k2_hbm,)).items():
         err_form[f"k2 {dtype}"] = err
 
     mark("kernels 1 and 2 held against plain")
@@ -367,6 +411,13 @@ def main() -> int:
     # form drain the same frames to the same totals
     form_of = {(16, True): "tile16+tables", (16, False): "tile16", (8, True): "tile8+tables",
                (8, False): "tile8", (0, False): "hbm-planes"}
+
+    def form_name(form):
+        """A K2 or K5 form ``(frames, stage)`` as the kernels line names it."""
+        frames_, stage = form
+        if frames_ == 0:
+            return "HBM planes, 32 frames x 8 warps"
+        return f"tile, {frames_} frames a block{', tables staged' if stage else ''}"
     k4_form = form_of[dl.stream_form(tables["wifi1944"])]
     ch4 = llrs("wifi1944", 4)
     want4 = drain(dl.bp_stream_chunk_layered_fast_plain, tables["wifi1944"], ch4.llr, ch4.codeword,
@@ -388,9 +439,13 @@ def main() -> int:
                                         dl.bp_decode_layered_fast, "wifi1944", 4).items():
         err_form[f"k4 {dtype}"] = err
 
-    # ---- 7. K5 (exact layered schedule) against its plain version
+    # ---- 7. K5 (exact layered schedule) against its plain version, in the
+    # rule's form and in the HBM-plane form (the rule's for a code whose
+    # tile does not fit) on the same frames
+    k5_hbm = ("HBM planes", in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", (0, False)))
     err5 = compare_batch("K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain,
-                         tables["wifi648"], llrs("wifi648", 5).llr)
+                         tables["wifi648"], llrs("wifi648", 5).llr, also=(k5_hbm,))
+    print(f"K5 form chosen for wifi 648: {dl.exact_form(tables['wifi648'])}")
 
     # ---- 7a. K5's forms (lv2c, lc2v and the posterior in the form); bf16 BP's
     # posterior within eight bf16 steps: it is recomputed from every stored
@@ -398,7 +453,7 @@ def main() -> int:
     for dtype in ("bfloat16", "int8"):
         err_form[f"k5 {dtype}"] = compare_batch(
             "K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain, tables["wifi648"],
-            llrs("wifi648", 5).llr, dtype, tol=2 ** -4)
+            llrs("wifi648", 5).llr, dtype, tol=2 ** -4, also=(k5_hbm,))
 
     mark("K3, K4 and K5 held against plain")
     # ---- 7b. K6 (BEC peeling, batch) against its plain version: integer
@@ -472,14 +527,16 @@ def main() -> int:
     check(starts == 5000 == BATCH - int(st.avail.sum()), "K7 quota not exact")
 
     # ---- 7d. a code whose checks have degree 36, past the combine's unrolled
-    # limit (the windowed combine): kernel 1, kernel 2 and K6 against their
-    # plain versions.  Rate 11/12: 6.5 dB and eps 0.04 are in its waterfalls.
+    # limit (the windowed combine): kernel 1, kernel 2 (its tile and
+    # HBM-plane forms) and K6 against their plain versions.  Rate 11/12:
+    # 6.5 dB and eps 0.04 are in its waterfalls.
     tb36 = tables["regular36"]
     check(tb36.max_dc == 36, "the degree-36 code's tables")
     err36 = compare_batch("kernel1 regular36", df.bp_decode_fused, df.bp_decode_fused_plain, tb36,
                           llrs("regular36", 6, 6.5).llr)
     err36 = max(err36, check_stream("kernel2 regular36", df.bp_stream_chunk_fused,
-                                    df.bp_stream_chunk_fused_plain, "regular36", 6, 6.5))
+                                    df.bp_stream_chunk_fused_plain, "regular36", 6, 6.5,
+                                    also=(k2_hbm,)))
     ch36 = bec_channel(tb36.code, make_generator(dev, 8, 6, 0), BATCH, 0.04)
     for et in (True, False):
         got = db.bec_decode_fused(tb36, ch36.llr, ch36.codeword, ITERS, et)
@@ -812,6 +869,77 @@ def main() -> int:
         print(f"time K4 form {form_of[forced]} wifi1944 6 passes from a full pool B={BATCH}, kernel "
               f"only: float32 BP {ms_bp:.3f} ms, float32 BP_MS {ms_ms:.3f} ms, int8 BP_MS "
               f"{ms_i8:.3f} ms [{name_power}]")
+    # K2 and K5: the form the size rule picks and the HBM-plane form
+    # (forced), on the same inputs, in turns (HBM, rule, rule, HBM)
+    for dtype, form in (("float32", "BP"), ("bfloat16", "BP"), ("float32", "BP_MS"),
+                        ("bfloat16", "BP_MS"), ("int8", "BP_MS")):
+        for key in ("bench1152", "wifi1944"):
+            ms = {}
+            for forced in ((0, False), None, None, (0, False)):
+                df.STREAM_FORM_OVERRIDE = forced
+                t = time_chunk(df.bp_stream_chunk_fused, None, key, 0, form, dtype)[0]
+                ms[forced] = ms.get(forced, 0.0) + t / 2
+            df.STREAM_FORM_OVERRIDE = None
+            print(f"time K2 {key} {dtype} {form} 6 passes from a full pool B={BATCH}, kernel "
+                  f"only: {form_name(df.stream_form(tables[key], dtype))} {ms[None]:.3f} ms, "
+                  f"HBM planes {ms[(0, False)]:.3f} ms [{name_power}]")
+            check(ms[None] < ms[(0, False)], f"K2 {key} {dtype} {form}: the rule's form is slower")
+        ms = {}
+        for forced in ((0, False), None, None, (0, False)):
+            dl.EXACT_FORM_OVERRIDE = forced
+            t = cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, form, dtype), 2)
+            ms[forced] = ms.get(forced, 0.0) + t / 2
+        dl.EXACT_FORM_OVERRIDE = None
+        print(f"time K5 wifi648 {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only: "
+              f"{form_name(dl.exact_form(tb5, dtype))} {ms[None]:.3f} ms, HBM planes "
+              f"{ms[(0, False)]:.3f} ms [{name_power}]")
+        check(ms[None] < ms[(0, False)], f"K5 wifi648 {dtype} {form}: the rule's form is slower")
+    # every tile form of K2 and K5 that fits, kernel only, on the same inputs
+    # (what the size rules are chosen from)
+    for dtype, form in (("float32", "BP"), ("float32", "BP_MS"), ("bfloat16", "BP"),
+                        ("int8", "BP_MS")):
+        row = []
+        for forced in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False)):
+            if df.stream_tile_bytes(tables["bench1152"], forced[0], dtype,
+                                    forced[1]) > df.SMEM_BLOCK_BYTES:
+                continue
+            df.STREAM_FORM_OVERRIDE = forced
+            t = time_chunk(df.bp_stream_chunk_fused, None, "bench1152", 0, form, dtype)[0]
+            row.append(f"{form_name(forced)} {t:.3f} ms")
+        df.STREAM_FORM_OVERRIDE = None
+        print(f"time K2 tile forms bench1152 {dtype} {form} 6 passes from a full pool "
+              f"B={BATCH}: {'; '.join(row)} [{name_power}]")
+        row = []
+        for forced in ((16, True), (16, False), (8, True), (8, False)):
+            if dl.exact_tile_bytes(tb5, forced[0], dtype, forced[1]) > dl.SMEM_BLOCK_BYTES:
+                continue
+            dl.EXACT_FORM_OVERRIDE = forced
+            t = cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, form, dtype), 2)
+            row.append(f"{form_name(forced)} {t:.3f} ms")
+        dl.EXACT_FORM_OVERRIDE = None
+        print(f"time K5 tile forms wifi648 {dtype} {form} {ITERS} it no-ET B={BATCH}: "
+              f"{'; '.join(row)} [{name_power}]")
+    # K5 on wifi 1296 (Z = 54: the exact schedule, where its rule picks
+    # other tile forms than on wifi 648): every form that fits and the
+    # HBM-plane form, kernel only, on the same inputs
+    tb1296, llr1296 = tables["wifi1296"], llrs("wifi1296", 2).llr
+    for dtype, form in (("float32", "BP"), ("float32", "BP_MS"), ("bfloat16", "BP"),
+                        ("int8", "BP_MS")):
+        row, ms = [], {}
+        for forced in ((16, True), (16, False), (8, True), (8, False), (0, False)):
+            if forced[0] and dl.exact_tile_bytes(tb1296, forced[0], dtype,
+                                                 forced[1]) > dl.SMEM_BLOCK_BYTES:
+                continue
+            dl.EXACT_FORM_OVERRIDE = forced
+            ms[forced] = cuda_ms(
+                lambda: dl.bp_decode_layered(tb1296, llr1296, ITERS, False, form, dtype), 2)
+            row.append(f"{form_name(forced)} {ms[forced]:.3f} ms")
+        dl.EXACT_FORM_OVERRIDE = None
+        rule = dl.exact_form(tb1296, dtype)
+        print(f"time K5 forms wifi1296 {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only "
+              f"(the rule's: {form_name(rule)}; fastest: {form_name(min(ms, key=ms.get))}): "
+              f"{'; '.join(row)} [{name_power}]")
+        check(ms[rule] < ms[(0, False)], f"K5 wifi1296 {dtype} {form}: the rule's form is slower")
     for dtype in SUFFIX:  # min-sum in each form, kernel only, for the forms side by side
         ms = time_chunk(df.bp_stream_chunk_fused, None, "bench1152", 0, "BP_MS", dtype)[0]
         ms4 = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP_MS", dtype)[0]
@@ -884,7 +1012,9 @@ def main() -> int:
             ("wifi1944", False, (1.5, 2.0), "float32", "BP"),
             ("wifi1944", True, (1.5, 2.0), "float32", "BP"),
             ("wifi1944", True, (1.5, 2.0), "bfloat16", "BP"),
-            ("wifi1944", True, (1.5, 2.0), "int8", "BP_OMS")):
+            ("wifi1944", True, (1.5, 2.0), "int8", "BP_OMS"),
+            ("wifi648", True, (2.0,), "float32", "BP"),
+            ("wifi648", True, (2.0,), "int8", "BP_MS")):
         for snr in snrs:
             res = Simulator(
                 codes[key], DecoderParams(iterations=ITERS, layered=layered, type=form,
@@ -893,7 +1023,9 @@ def main() -> int:
                 SimulationParams(batch_size=BATCH, fec=50, max_frames=2_000_000),
                 device=dev, verbose=False, use_pallas=True,
             ).start()
-            print(f"sweep {key} {'layered-fast' if layered else 'flooding'} {form} {dtype} ET SNR "
+            schedule = ("flooding" if not layered else
+                        "layered-exact" if key == "wifi648" else "layered-fast")
+            print(f"sweep {key} {schedule} {form} {dtype} ET SNR "
                   f"{snr} dB: {1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, "
                   f"FER {res.fer[0]:.3e}, {int(res.frames[0])} frames) [{name_power}]")
 
@@ -932,6 +1064,27 @@ def main() -> int:
 
     nc648, nnz648 = dims("wifi648")
     n_layers648 = tables["wifi648"].n_layers
+    # K5 as the schedule needs it: per iteration each layer's checks (the
+    # combine and the extrinsic, 1 operation, per slot), then the posterior
+    # of that layer's own variables (1 operation per slot of each); a
+    # no-ET decode needs one syndrome, at the end.  The count of 4 x n_layers
+    # per slot (a full variable phase and syndrome after every layer) is
+    # what the HBM-plane design does, printed beside it.
+    tb648 = tables["wifi648"]
+    vdeg = tb648.vn_ptr[1:] - tb648.vn_ptr[:-1]
+    layer_var_slots = int(vdeg[tb648.layer_vars.long()].sum())
+
+    def k5_needed(combine):
+        return BATCH * ITERS * (nnz648 * (combine + 1) + layer_var_slots)
+
+    for dt, combine in (("float32", 3 * 10), ("bfloat16", 3 * 10), ("int8", 3 * 3)):
+        full = bound(batch_bytes("wifi648", 4, MSG_BYTES[dt]),
+                     BATCH * ITERS * nnz648 * (combine + 4 * n_layers648))
+        need = bound(batch_bytes("wifi648", 4, MSG_BYTES[dt]), k5_needed(combine))
+        print(f"bound K5 wifi648 {dt}: {need[0]:.4f} ms by {need[1]} as the schedule needs it "
+              f"(layer checks, then the layer's {layer_var_slots} variable slots an iteration), "
+              f"{full[0]:.4f} ms by {full[1]} counting a full variable phase and syndrome after "
+              f"each of {n_layers648} layers [{name_power}]")
     bounds = {
         "bp_decode_fused": bound(batch_bytes("bench1152", 4, 4),
                                  BATCH * ITERS * dims("bench1152")[1] * OPS_BP_SLOT),
@@ -942,8 +1095,7 @@ def main() -> int:
         "bp_stream_chunk_layered_fast": bound(
             stream_bytes("wifi1944", 4), passes["K4 wifi1944"] * dims("wifi1944")[1]
             * OPS_BP_FAST_SLOT),
-        "bp_decode_layered": bound(batch_bytes("wifi648", 4, 4), BATCH * ITERS * nnz648
-                                   * (3 * 10 + 4 * n_layers648)),
+        "bp_decode_layered": bound(batch_bytes("wifi648", 4, 4), k5_needed(3 * 10)),
         "bec_decode_fused": bound(batch_bytes("bench1152", 2, 2),
                                   BATCH * ITERS * dims("bench1152")[1] * OPS_BEC_SLOT),
         "bec_stream_chunk_fused": bound(stream_bytes("bench1152", 1),
@@ -973,10 +1125,8 @@ def main() -> int:
         "bp_stream_chunk_layered_fast_int8": bound(
             stream_bytes("wifi1944", 4, 1), passes["K4_int8 wifi1944"] * dims("wifi1944")[1]
             * OPS_MS_FAST_SLOT),
-        "bp_decode_layered_bf16": bound(batch_bytes("wifi648", 4, 2), BATCH * ITERS * nnz648
-                                        * (3 * 10 + 4 * n_layers648)),
-        "bp_decode_layered_int8": bound(batch_bytes("wifi648", 4, 1), BATCH * ITERS * nnz648
-                                        * (3 * 3 + 4 * n_layers648)),
+        "bp_decode_layered_bf16": bound(batch_bytes("wifi648", 4, 2), k5_needed(3 * 10)),
+        "bp_decode_layered_int8": bound(batch_bytes("wifi648", 4, 1), k5_needed(3 * 3)),
     }
     # the wifi 1944 rows of kernel 1 (float32, BP) and K6 (BEC)
     for name, b_, t in (
@@ -989,27 +1139,38 @@ def main() -> int:
         print(f"bound {name}: {b_[0]:.4f} ms by {b_[1]}, kernel {t:.3f} ms "
               f"({b_[0] / t:.1%} of the bound) [{name_power}]")
     fused = "libldpc_tpu_torch/csrc/decode_fused.cu"
-    stream_src = "libldpc_tpu_torch/csrc/decode_stream.cu"
+    # K2 and K5: the source of the form the size rule picks (the tile's
+    # template, or the HBM-plane kernel)
+    stream_src = {dt: "libldpc_tpu_torch/csrc/flood_stream.cuh"
+                  if df.stream_form(tables["bench1152"], dt)[0] else
+                  "libldpc_tpu_torch/csrc/decode_stream.cu" for dt in SUFFIX}
+    exact_src = {dt: "libldpc_tpu_torch/csrc/layered_exact_tile.cuh"
+                 if dl.exact_form(tb648, dt)[0] else
+                 "libldpc_tpu_torch/csrc/decode_layered_exact.cu" for dt in SUFFIX}
     layered_src = "libldpc_tpu_torch/csrc/decode_layered.cu"
     k4_src = "libldpc_tpu_torch/csrc/layered_stream.cuh"
-    exact_src = "libldpc_tpu_torch/csrc/decode_layered_exact.cu"
     bec_src = "libldpc_tpu_torch/csrc/decode_bec.cu"
     # the form of each kernel that ran: K4 by its size rule, K6 with its
     # words in shared memory or in the device-memory scratch
     forms_run = {"bp_stream_chunk_layered_fast": k4_form,
                  "bec_decode_fused": "words in shared memory" if db.bec_decode_fused.last_in_shared
                  else "words in device memory"}
+    # K2 and K5 by their size rules, per message form, at the timed shapes
+    for dt in SUFFIX:
+        forms_run["bp_stream_chunk_fused" + SUFFIX[dt]] = form_name(
+            df.stream_form(tables["bench1152"], dt))
+        forms_run["bp_decode_layered" + SUFFIX[dt]] = form_name(dl.exact_form(tb648, dt))
     rows_json = [
         ("bp_decode_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
          times["k1 bench1152"]),
-        ("bp_stream_chunk_fused", stream_src, "libldpc_tpu/ops/pallas/decode_fused.py:404", err2,
-         times["k2 bench1152"]),
+        ("bp_stream_chunk_fused", stream_src["float32"],
+         "libldpc_tpu/ops/pallas/decode_fused.py:404", err2, times["k2 bench1152"]),
         ("bp_decode_layered_fast", layered_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1153",
          err3, times["K3 wifi1944"]),
         ("bp_stream_chunk_layered_fast", k4_src,
          "libldpc_tpu/ops/pallas/decode_lanes.py:753", err4, times["K4 wifi1944"]),
-        ("bp_decode_layered", exact_src, "libldpc_tpu/ops/pallas/decode_fused.py:544", err5,
-         times["K5 wifi648"]),
+        ("bp_decode_layered", exact_src["float32"], "libldpc_tpu/ops/pallas/decode_fused.py:544",
+         err5, times["K5 wifi648"]),
         ("bec_decode_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1235", err6,
          times["K6 bench1152"]),
         ("bec_stream_chunk_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
@@ -1018,9 +1179,11 @@ def main() -> int:
          err_form["k1 bfloat16"], times["k1_bf16 bench1152"]),
         ("bp_decode_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617",
          err_form["k1 int8"], times["k1_int8 bench1152"]),
-        ("bp_stream_chunk_fused_bf16", stream_src, "libldpc_tpu/ops/pallas/decode_fused.py:404",
+        ("bp_stream_chunk_fused_bf16", stream_src["bfloat16"],
+         "libldpc_tpu/ops/pallas/decode_fused.py:404",
          err_form["k2 bfloat16"], times["k2_bf16 bench1152"]),
-        ("bp_stream_chunk_fused_int8", stream_src, "libldpc_tpu/ops/pallas/decode_fused.py:404",
+        ("bp_stream_chunk_fused_int8", stream_src["int8"],
+         "libldpc_tpu/ops/pallas/decode_fused.py:404",
          err_form["k2 int8"], times["k2_int8 bench1152"]),
         *[(f"bp_decode_layered_fast{SUFFIX[dt]}", layered_src,
            "libldpc_tpu/ops/pallas/decode_lanes.py:1153", err_form[f"k3 {dt}"],
@@ -1028,7 +1191,7 @@ def main() -> int:
         *[(f"bp_stream_chunk_layered_fast{SUFFIX[dt]}", k4_src,
            "libldpc_tpu/ops/pallas/decode_lanes.py:753", err_form[f"k4 {dt}"],
            times[f"K4{SUFFIX[dt]} wifi1944"]) for dt in ("bfloat16", "int8")],
-        *[(f"bp_decode_layered{SUFFIX[dt]}", exact_src,
+        *[(f"bp_decode_layered{SUFFIX[dt]}", exact_src[dt],
            "libldpc_tpu/ops/pallas/decode_fused.py:544", err_form[f"k5 {dt}"],
            times[f"K5{SUFFIX[dt]} wifi648"]) for dt in ("bfloat16", "int8")],
     ]
@@ -1041,8 +1204,8 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call decodes an LDPC code
          "library_ms": None,
-         "form": forms_run.get(name.replace("_bf16", "").replace("_int8", ""),
-                               "HBM planes, 32 frames x 8 warps")}
+         "form": forms_run.get(name, forms_run.get(name.replace("_bf16", "").replace("_int8", ""),
+                                                   "HBM planes, 32 frames x 8 warps"))}
         for name, src, rep, err, t in rows_json
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -142,6 +142,22 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_stream_chunk_fused.restype = I
+            # its tile form: one entry per frames-a-block, the arguments of
+            # the HBM-plane form without its scratch, plus `stage`
+            for entry in (lib.ldpc_bp_stream_chunk_tile16, lib.ldpc_bp_stream_chunk_tile8,
+                          lib.ldpc_bp_stream_chunk_tile4):
+                entry.argtypes = [
+                    P, P, P,  # llr cw lv2c
+                    P, P, P, P, P,  # done iters age avail ctr
+                    P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                    P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
+                    I, I, I, I, I,  # nc mc nnz nct B
+                    I, I, I, F, F,  # k cap cn_mode scale offset
+                    I, F,  # msg_dtype inv_q
+                    I,  # stage
+                    P,  # stream
+                ]
+                entry.restype = I
             tables = [P, P, P, P, P, P]  # row_ptr col_sorted vn_ptr perm_c2v layer_ptr layer_checks
             lib.ldpc_bp_decode_layered_fast.argtypes = [
                 P, P, P, P, P,  # llr_in app iters iscw lc2v
@@ -178,6 +194,18 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered.restype = I
+            # its tile form, one entry per frames-a-block
+            for entry in (lib.ldpc_bp_decode_layered_tile16, lib.ldpc_bp_decode_layered_tile8):
+                entry.argtypes = [
+                    P, P, P, P,  # llr_in post iters iscw
+                    *tables, P, P,  # ..., layer_var_ptr layer_vars
+                    I, I, I, I, I, I, I,  # nc mc nnz nl nlc nlv B
+                    I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                    I, F,  # msg_dtype inv_q
+                    I,  # stage
+                    P,  # stream
+                ]
+                entry.restype = I
             lib.ldpc_bec_decode_fused.argtypes = [
                 P, P, P, P, P, P, P,  # sym_in cw sym_out hard iters resolved scratch (or null)
                 P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
@@ -197,6 +225,12 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bec_stream_chunk_fused.restype = I
+            # the shared memory of the tile forms of K2 and K5, for the card
+            # tests to hold the size rules' byte counts to
+            lib.ldpc_flood_tile_bytes.argtypes = [I] * 6  # nc mc nnz frames msg stage
+            lib.ldpc_flood_tile_bytes.restype = ctypes.c_longlong
+            lib.ldpc_exact_tile_bytes.argtypes = [I] * 9  # nc mc nnz nl nlc nlv frames msg stage
+            lib.ldpc_exact_tile_bytes.restype = ctypes.c_longlong
             lib.ldpc_error_string.argtypes = [I]
             lib.ldpc_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -7,7 +7,11 @@
 * :func:`bp_stream_chunk_fused` runs its streaming kernel, the port of
   ``kernel_stream`` (``bp_stream_chunk_pallas``): ``k`` self-refilling
   passes per lane with in-kernel reload, an exact global start quota and
-  per-lane counters.
+  per-lane counters.  The kernel has two forms, chosen by
+  :func:`stream_form` from the code's size and the message form: the tile
+  form (``csrc/flood_stream.cuh``: a block's frames keep their messages and
+  posteriors in shared memory for the whole chunk) and, for a code whose
+  tile does not fit, the HBM-plane form (``csrc/decode_stream.cu``).
 
 Both take a message storage form (``message_dtype`` float32, bfloat16 or
 int8, and the int8 lattice step ``quant_scale``; :mod:`..messages`), as
@@ -27,7 +31,7 @@ import ctypes
 
 import torch
 
-from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, MessageForm
+from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, TORCH_DTYPES, MessageForm
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, bp_pass, syndrome_ok_from_posterior
 from . import build
 from .layout import KernelTables
@@ -166,6 +170,114 @@ def bp_decode_fused(
 bp_decode_fused.launches = dict.fromkeys(DTYPE_CODES, 0)
 
 
+#: Shared memory one block may take on the card (232,448 bytes), less the
+#: kernels' static arrays.
+SMEM_BLOCK_BYTES = 232448 - 256
+#: Frames a block of the streaming kernel's tile form may own, largest first.
+STREAM_TILE_FRAMES = (16, 8, 4)
+#: Force a form of the streaming kernel (the card tests and the smoke run's
+#: side-by-side times do): None follows :func:`stream_form`; else
+#: ``(frames, stage)`` with frames 0 (the HBM-plane form), 4, 8 or 16.
+STREAM_FORM_OVERRIDE = None
+
+
+def _align4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def tile_bytes(tables: KernelTables, frames: int, message_dtype: str, table_ints: int) -> int:
+    """Dynamic shared memory of a tile form of K2 or K5 (``csrc/bp_phases.cuh``
+    ``tile_layout_bytes``): ``lc2v [nnz, frames]`` and the posterior
+    ``[nc, frames]`` in the message type, the packed decisions ``[nc]``
+    uint16, then ``table_ints`` int32 entries of staged index tables."""
+    sdc = tables.code
+    msg = TORCH_DTYPES[message_dtype].itemsize
+    return _align4((sdc.nnz + sdc.nc) * frames * msg) + _align4(sdc.nc * 2) + 4 * table_ints
+
+
+def code_table_ints(tables: KernelTables) -> int:
+    """int32 entries of ``row_ptr``, ``col_sorted``, ``vn_ptr`` and ``perm_c2v``."""
+    sdc = tables.code
+    return sdc.mc + 1 + sdc.nnz + sdc.nc + 1 + sdc.nnz
+
+
+def stream_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
+    """Dynamic shared memory of the streaming kernel's tile form
+    (``csrc/flood_stream.cuh`` ``flood_tile_bytes``, exported by the library
+    as ``ldpc_flood_tile_bytes``): the tile and, staged, the code's four
+    tables."""
+    return tile_bytes(tables, frames, message_dtype, code_table_ints(tables) if stage else 0)
+
+
+#: Shared memory of one SM (228 KB), the 1 KB the system keeps per block
+#: included; the L1 and shared memory of one SM (one array of 256 KB); and
+#: the shared-memory capacities, in KB, the CUDA driver may carve from that
+#: array (compute capability 9.0), the rest being the L1 cache.
+SMEM_SM_BYTES = 233472
+L1_SM_BYTES = 256 * 1024
+SMEM_CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
+
+
+def l1_left(sm_bytes: int) -> int:
+    """L1 cache left on an SM whose blocks take ``sm_bytes`` of shared
+    memory in all (1 KB a block included)."""
+    return L1_SM_BYTES - 1024 * next(kb for kb in SMEM_CARVEOUTS_KB + (256,)
+                                     if kb * 1024 >= sm_bytes)
+
+
+def tile_form(bytes_of, frames_choices, blocks_per_sm=lambda frames: 1,
+              tables_in_l1: bool = True) -> tuple[int, bool]:
+    """``(frames, stage)`` of a kernel with tile forms, by size alone.
+
+    The most frames of ``frames_choices`` (largest first) whose tile
+    (``bytes_of(frames, False)``) fits a block's shared memory with its
+    index tables on chip: staged beside it, when the staged tile
+    (``bytes_of(frames, True)``) leaves room for the kernel's
+    ``blocks_per_sm(frames)`` blocks an SM; or unstaged, when the tables
+    fit the L1 cache those blocks' shared memory leaves (:func:`l1_left`;
+    ``tables_in_l1=False`` skips that test).  If no tile keeps its tables
+    on chip, the most frames whose tile fits; else ``(0, False)``, the
+    HBM-plane form.
+
+    At every shape timed on the card it picks the fastest form measured,
+    or one within 0.3 % of it (``PERF.md`` section 6).  On wifi 648, whose
+    34 KB of K5 tables fit the 60 KB of L1 beside a 16-frame tile, 16
+    frames staged; unstaged they still beat 8 staged in bf16 BP (30.8
+    against 39.7 ms).  On wifi 1296, whose 66 KB do not: bf16 BP 8 staged
+    59.8 ms against 72.0 at 16 unstaged; int8 BP_MS (two blocks an SM) 8
+    unstaged 34.6 ms against 42.8 at 16 staged (one block an SM)."""
+    for frames in frames_choices:
+        tile = bytes_of(frames, False)
+        if tile > SMEM_BLOCK_BYTES:
+            continue
+        n = blocks_per_sm(frames)
+        room = SMEM_BLOCK_BYTES if n == 1 else SMEM_SM_BYTES // n - 1024
+        staged = bytes_of(frames, True)
+        if staged <= room:
+            return frames, True
+        if not tables_in_l1:
+            return frames, False
+        blocks = n if tile <= room else 1
+        if staged - tile <= l1_left(blocks * (tile + 1024)):
+            return frames, False
+    for frames in frames_choices:
+        if bytes_of(frames, False) <= SMEM_BLOCK_BYTES:
+            return frames, False
+    return 0, False
+
+
+def stream_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
+    """``(frames, stage)`` of the streaming kernel for this code and message
+    form, by size alone (:func:`tile_form`): for the 1152 (3,6) code 8
+    frames a block in float32, 16 in bfloat16 and int8, all staged; for
+    wifi 1944 4, 8 and 16, staged.  ``PERF.md`` section 6 has the times of
+    every form at those shapes; at any other shape the rule extrapolates."""
+    if STREAM_FORM_OVERRIDE is not None:
+        return STREAM_FORM_OVERRIDE
+    return tile_form(lambda frames, stage: stream_tile_bytes(tables, frames, message_dtype, stage),
+                     STREAM_TILE_FRAMES)
+
+
 def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
                        refill, remaining, k: int, cap: int, decode_pass, converged,
                        bit_errors, reload=None) -> None:
@@ -266,7 +378,9 @@ def bp_stream_chunk_fused(
     transmitted-bit errors, a frame error, a frame and its iteration count
     to ``ctr`` rows 0-3 (row 4 counts starts).  On CUDA the quota is one
     device counter taken with ``atomicSub``: which lanes start differs from
-    the plain version's lane order, the number that start does not.
+    the plain version's lane order, the number that start does not.  The
+    kernel's form (a block's frames on chip for the chunk, or every plane in
+    device memory) follows :func:`stream_form`; both leave the same state.
 
     The messages ``lv2c`` are stored in ``message_dtype`` (a reload stores
     ``store(prior(x))``, as the batch decode starts); the carried LLRs and
@@ -298,18 +412,27 @@ def bp_stream_chunk_fused(
         )
     _require_cuda(llr)
     lib = build.load()
-    lc2v = torch.empty((nnz, B), dtype=form.torch_dtype, device=llr.device)
-    post = torch.empty((nc, B), dtype=form.torch_dtype, device=llr.device)
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
-    err = lib.ldpc_bp_stream_chunk_fused(
-        _p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
-        _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p(lc2v), _p(post),
-        _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
-        _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, mode, scale, offset,
-        form.code, form.inv_q, ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream),
-    )
+    frames, stage = stream_form(tables, form.dtype)
+    state = (_p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+             _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining))
+    code = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
+            _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, mode, scale, offset,
+            form.code, form.inv_q)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream)
+    if frames == 0:
+        lc2v = torch.empty((nnz, B), dtype=form.torch_dtype, device=llr.device)
+        post = torch.empty((nc, B), dtype=form.torch_dtype, device=llr.device)
+        err = lib.ldpc_bp_stream_chunk_fused(*state, _p(lc2v), _p(post), *code, stream)
+    else:
+        entry = {16: lib.ldpc_bp_stream_chunk_tile16, 8: lib.ldpc_bp_stream_chunk_tile8,
+                 4: lib.ldpc_bp_stream_chunk_tile4}[frames]
+        err = entry(*state, *code, int(stage), stream)
     _raise_on(lib, err, "bp_stream_chunk_fused")
     bp_stream_chunk_fused.launches[form.dtype] += 1
+    bp_stream_chunk_fused.last_form = (frames, stage)
 
 
 bp_stream_chunk_fused.launches = dict.fromkeys(DTYPE_CODES, 0)
+#: ``(frames, stage)`` of the last launch (:func:`stream_form`)
+bp_stream_chunk_fused.last_form = None

@@ -16,8 +16,13 @@
 * :func:`bp_decode_layered` runs the exact layered schedule, the port of
   ``decode_fused.py`` ``kernel_layered`` and ``decode_lanes.py``
   ``kernel_layered`` (one function, two TPU layouts): per layer, the
-  layer's checks refresh, the whole APP and every extrinsic recompute, and
-  a converged frame freezes.
+  layer's checks refresh, the posterior and the extrinsics follow, and a
+  converged frame freezes.  The kernel has two forms, chosen by
+  :func:`exact_form` from the code's size and the message form: the tile
+  form (``csrc/layered_exact_tile.cuh``: a block's frames keep their
+  messages and posteriors in shared memory for the whole decode, and after
+  a layer only that layer's variables recompute) and, for a code whose tile
+  does not fit, the HBM-plane form (``csrc/decode_layered_exact.cu``).
 
 All three take a message storage form (``message_dtype`` float32,
 bfloat16 or int8, and the int8 lattice step ``quant_scale``;
@@ -40,10 +45,13 @@ import ctypes
 import torch
 
 from .. import layered
-from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, MessageForm
+from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, TORCH_DTYPES, MessageForm
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
 from . import build
-from .decode_fused import _check, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args
+from .decode_fused import (
+    SMEM_BLOCK_BYTES, _check, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args,
+    code_table_ints, tile_bytes, tile_form,
+)
 from .layout import KernelTables
 
 
@@ -136,11 +144,6 @@ def bp_decode_layered_fast(
 bp_decode_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
 
 
-#: Shared memory one block may take on the card (232,448 bytes), less the
-#: kernel's static arrays.
-SMEM_BLOCK_BYTES = 232448 - 256
-#: Shared memory of one SM, less the 1 KB the system keeps per block.
-SMEM_SM_BYTES = 233472
 #: Force a form of the streaming kernel (the card tests do): None follows
 #: :func:`stream_form`; else ``(frames, stage)`` with frames 0 (HBM-plane
 #: form), 8 or 16.
@@ -161,22 +164,20 @@ def stream_tile_bytes(tables: KernelTables, frames: int, stage: bool) -> int:
 
 def stream_form(tables: KernelTables) -> tuple[int, bool]:
     """``(frames, stage)`` of the streaming kernel for this code, by size
-    alone.  16 frames a block on the tile form when that tile fits a
-    block's shared memory (``nc`` up to ~3500; a block then has its SM to
-    itself), else 8 frames (``nc`` up to ~7000), else ``(0, False)``, the
-    HBM-plane form.  The index tables are staged beside the tile when they
-    fit too (at 8 frames: when two such blocks still fit one SM).  In
-    float32 a block's 16 frames of one slot are a 64-byte segment of the
-    ``lc2v`` plane, 8 frames a 32-byte one, half of what the card's memory
-    moves at a time (``PERF.md`` section 6 has the times of each form)."""
+    alone (:func:`.decode_fused.tile_form` without its test of the tables
+    against the L1, as its forms were timed).  16 frames a block on the tile
+    form when that tile fits a block's shared memory (``nc`` up to ~3500; a
+    block then has its SM to itself), else 8 frames (``nc`` up to ~7000),
+    else ``(0, False)``, the HBM-plane form.  The index tables are staged
+    beside the tile when they fit too (at 8 frames: when two such blocks
+    still fit one SM).  In float32 a block's 16 frames of one slot are a
+    64-byte segment of the ``lc2v`` plane, 8 frames a 32-byte one, half of
+    what the card's memory moves at a time (``PERF.md`` section 6 has the
+    times of each form)."""
     if STREAM_FORM_OVERRIDE is not None:
         return STREAM_FORM_OVERRIDE
-    if stream_tile_bytes(tables, 16, False) <= SMEM_BLOCK_BYTES:
-        return 16, stream_tile_bytes(tables, 16, True) <= SMEM_BLOCK_BYTES
-    if stream_tile_bytes(tables, 8, False) <= SMEM_BLOCK_BYTES:
-        staged = stream_tile_bytes(tables, 8, True)
-        return 8, staged <= SMEM_BLOCK_BYTES and 2 * (staged + 1024) <= SMEM_SM_BYTES
-    return 0, False
+    return tile_form(lambda frames, stage: stream_tile_bytes(tables, frames, stage), (16, 8),
+                     blocks_per_sm=lambda frames: 1 if frames == 16 else 2, tables_in_l1=False)
 
 
 def bp_stream_chunk_layered_fast_plain(
@@ -322,6 +323,40 @@ bp_stream_chunk_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
 bp_stream_chunk_layered_fast.last_form = None
 
 
+#: Frames a block of the exact layered kernel's tile form may own, largest first.
+EXACT_TILE_FRAMES = (16, 8)
+#: Force a form of the exact layered kernel (the card tests and the smoke
+#: run's side-by-side times do): None follows :func:`exact_form`; else
+#: ``(frames, stage)`` with frames 0 (the HBM-plane form), 8 or 16.
+EXACT_FORM_OVERRIDE = None
+
+
+def exact_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
+    """Dynamic shared memory of the exact layered kernel's tile form
+    (``csrc/layered_exact_tile.cuh`` ``exact_tile_bytes``, exported by the
+    library as ``ldpc_exact_tile_bytes``): the tile and, staged, the code's
+    four tables and each layer's checks and variables (CSR)."""
+    ints = (code_table_ints(tables) + 2 * (tables.n_layers + 1) + tables.layer_checks.shape[0]
+            + tables.layer_vars.shape[0])
+    return tile_bytes(tables, frames, message_dtype, ints if stage else 0)
+
+
+def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
+    """``(frames, stage)`` of the exact layered kernel for this code and
+    message form, by size alone (:func:`.decode_fused.tile_form`): for the
+    802.11n n=648 code 16 frames a block, staged, in every form (228,640
+    bytes in float32); for n=1296 8 frames, unstaged in float32 and int8
+    and staged in bfloat16.  ``PERF.md`` section 6 has the times of every
+    form at both; at any other shape the rule extrapolates."""
+    if EXACT_FORM_OVERRIDE is not None:
+        return EXACT_FORM_OVERRIDE
+    # the int8 tiles run two blocks an SM (csrc/layered_exact_tile.cuh
+    # __launch_bounds__), the others one
+    per_sm = 2 if TORCH_DTYPES[message_dtype].itemsize == 1 else 1
+    return tile_form(lambda frames, stage: exact_tile_bytes(tables, frames, message_dtype, stage),
+                     EXACT_TILE_FRAMES, blocks_per_sm=lambda frames: per_sm)
+
+
 def bp_decode_layered_plain(
     tables: KernelTables,
     llr_in: torch.Tensor,
@@ -361,7 +396,9 @@ def bp_decode_layered(
     syndrome.  Messages and the posterior are stored in ``message_dtype``;
     int8 takes a min-sum-family ``minsum_mode`` only.  Needs at least two
     layers (with fewer the schedule is flooding:
-    :func:`.decode_fused.bp_decode_fused`)."""
+    :func:`.decode_fused.bp_decode_fused`).  The kernel's form (a block's
+    frames on chip for the decode, or every plane in device memory)
+    follows :func:`exact_form`; both compute the same."""
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
@@ -382,19 +419,32 @@ def bp_decode_layered(
     post = torch.empty((nc, B), **msgs)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
-    lv2c = torch.empty((sdc.nnz, B), **msgs)
-    lc2v = torch.empty((sdc.nnz, B), **msgs)
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
-    err = lib.ldpc_bp_decode_layered(
-        _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c), _p(lc2v), *_tables_args(tables),
-        nc, sdc.mc, sdc.nnz, tables.n_layers, B, iterations, int(bool(early_term)),
-        mode, scale, offset, form.code, form.inv_q, _stream(llr_in),
-    )
+    run = (iterations, int(bool(early_term)), mode, scale, offset, form.code, form.inv_q)
+    frames, stage = exact_form(tables, form.dtype)
+    if frames == 0:
+        lv2c = torch.empty((sdc.nnz, B), **msgs)
+        lc2v = torch.empty((sdc.nnz, B), **msgs)
+        err = lib.ldpc_bp_decode_layered(
+            _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c), _p(lc2v), *_tables_args(tables),
+            nc, sdc.mc, sdc.nnz, tables.n_layers, B, *run, _stream(llr_in),
+        )
+    else:
+        entry = {16: lib.ldpc_bp_decode_layered_tile16, 8: lib.ldpc_bp_decode_layered_tile8}[frames]
+        err = entry(
+            _p(llr_in), _p(post), _p(iters), _p(iscw), *_tables_args(tables),
+            _p(tables.layer_var_ptr), _p(tables.layer_vars), nc, sdc.mc, sdc.nnz,
+            tables.n_layers, tables.layer_checks.shape[0], tables.layer_vars.shape[0], B, *run,
+            int(stage), _stream(llr_in),
+        )
     _raise_on(lib, err, "bp_decode_layered")
     bp_decode_layered.launches[form.dtype] += 1
+    bp_decode_layered.last_form = (frames, stage)
     llr_out = form.dequant(post)
     return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
                               is_codeword=iscw > 0)
 
 
 bp_decode_layered.launches = dict.fromkeys(DTYPE_CODES, 0)
+#: ``(frames, stage)`` of the last launch (:func:`exact_form`)
+bp_decode_layered.last_form = None

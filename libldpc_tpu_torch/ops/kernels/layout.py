@@ -9,8 +9,9 @@ permutation is therefore an indexed load from these tables; the TPU
 kernels' Beneš, Clos and one-hot transports have no counterpart here.
 
 For the layered schedule the tables add each layer's checks (sorted
-labels, CSR over ``layer_ptr``), built from the sorted code's per-slot
-layer masks by :mod:`..layered`.
+labels, CSR over ``layer_ptr``) and each layer's variables (CSR over
+``layer_var_ptr``), built from the sorted code's per-slot layer masks by
+:mod:`..layered`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ class KernelTables:
     max_dc: int
     layer_ptr: torch.Tensor  # int32 [nl + 1] check range per layer ([0] without layers)
     layer_checks: torch.Tensor  # int32 [sum] sorted check labels, layer by layer
+    layer_var_ptr: torch.Tensor  # int32 [nl + 1] variable range per layer ([0] without layers)
+    layer_vars: torch.Tensor  # int32 [sum] sorted labels of the variables each layer reaches
     #: per layer, its checks' CN-space slots grouped by degree (int64
     #: ``[count, d]`` each): the plain fast engine's gather indices
     layer_slots: tuple
@@ -72,6 +75,8 @@ def kernel_tables(sdc: TorchSortedCode) -> KernelTables:
              else sdc.layer_edge_masks.cpu().numpy())
     layer_ptr, layer_checks = layered.layer_check_lists(row_ptr, masks)
     groups = layered.layer_slot_groups(row_ptr, layer_ptr, layer_checks)
+    col = sdc.col_sorted.cpu().numpy()
+    layer_var_ptr, layer_vars = layered.layer_variable_lists(row_ptr, col, layer_ptr, layer_checks)
     return KernelTables(
         code=sdc,
         row_ptr=dev(row_ptr),
@@ -82,7 +87,8 @@ def kernel_tables(sdc: TorchSortedCode) -> KernelTables:
         max_dc=sdc.max_dc,
         layer_ptr=dev(layer_ptr),
         layer_checks=dev(layer_checks),
+        layer_var_ptr=dev(layer_var_ptr),
+        layer_vars=dev(layer_vars),
         layer_slots=tuple(tuple(dev(g.astype(np.int64)) for g in layer) for layer in groups),
-        layers_disjoint=layered.layers_touch_variables_once(
-            sdc.col_sorted.cpu().numpy(), groups),
+        layers_disjoint=layered.layers_touch_variables_once(col, groups),
     )

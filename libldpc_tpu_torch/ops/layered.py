@@ -76,6 +76,24 @@ def layer_check_lists(row_ptr: np.ndarray, layer_edge_masks: np.ndarray):
     return ptr.astype(np.int32), checks.astype(np.int32)
 
 
+def layer_variable_lists(row_ptr: np.ndarray, col_sorted: np.ndarray, layer_ptr: np.ndarray,
+                         layer_checks: np.ndarray):
+    """``(layer_var_ptr [nl + 1], layer_vars)``: per layer, the sorted labels
+    of the variables its checks reach (the union of ``col_sorted`` over
+    their slots), CSR, int32.  The exact schedule's tile kernel recomputes
+    only these posteriors after a layer; with layers that touch each
+    variable at most once the lists hold at most ``nnz`` labels in all."""
+    lists = []
+    for l in range(layer_ptr.size - 1):
+        checks = layer_checks[layer_ptr[l]:layer_ptr[l + 1]]
+        slots = [np.arange(row_ptr[r], row_ptr[r + 1]) for r in checks]
+        lists.append(np.unique(col_sorted[np.concatenate(slots)]) if slots else
+                     np.zeros(0, np.int64))
+    ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    flat = np.concatenate(lists) if lists else np.zeros(0, np.int64)
+    return ptr.astype(np.int32), flat.astype(np.int32)
+
+
 def layer_slot_groups(row_ptr: np.ndarray, layer_ptr: np.ndarray, layer_checks: np.ndarray):
     """Per layer, its checks grouped by degree: a tuple of ``[count, d]``
     arrays of CN-space slots (the plain engine's gather indices)."""

@@ -7,11 +7,18 @@ It imports ``libldpc_tpu_torch`` from that root, writes the code files
 under ``<root>/build/sweeps/`` and runs, with ``--pallas -i 50
 --batch-size 16384`` and the seeds of the defaults: the 802.11n n=1944
 layered sweep (1.0-2.5 dB) in float32 BP, bfloat16 BP and int8 BP_OMS, the
-n=648 exact layered point at 2.0 dB, the BEC sweep (eps 0.30-0.45) and the
-flooding sweep (1.0-3.0 dB) of the 1152 (3,6) code.  Each results file is
-printed after its run time.  The channel draws come from seeded
-generators, so two commits that decode alike print the same rows (the
-``frame_time`` column aside).
+n=648 exact layered point at 2.0 dB (float32 BP and int8 BP_MS), the BEC
+sweep (eps 0.30-0.45) and the flooding sweep of the 1152 (3,6) code
+(1.0-3.0 dB in float32 BP; 2.0 and 2.5 dB in bfloat16 BP and int8
+BP_OMS).  Each results file is printed after its run time.  The channel
+draws come from seeded generators, so two commits that decode alike print
+the same rows (the ``frame_time`` column aside).
+
+Then the smoke run's end-to-end rates, from the ``Simulator``'s own float
+timing (B = 16384, ET, 50 frame errors): the 1152 code's flooding point at
+2.0 and 2.5 dB (float32 BP) and the n=648 exact layered point at 2.0 dB
+(float32 BP, int8 BP_MS), one ``rate`` line each.  Run it on two trees in
+turns (parent, change, change, parent) to compare their rates in one call.
 """
 
 import pathlib
@@ -22,9 +29,14 @@ import time
 def main() -> int:
     root = pathlib.Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root))
+    import torch
+
     from libldpc_tpu_torch import cli
     from libldpc_tpu_torch.models import (
         make_benchmark_code, wifi_code, write_codefile, write_layerfile,
+    )
+    from libldpc_tpu_torch.sim.driver import (
+        ChannelParams, DecoderParams, SimulationParams, Simulator,
     )
 
     work = root / "build" / "sweeps"
@@ -60,8 +72,27 @@ def main() -> int:
         "--max-frames", str(4 * 16384), layered=True)
     run("bench1152", "res_bec.txt", ["0.30", "0.451", "0.05"], "--channel", "BEC",
         "--frame-error-count", "50", "--max-frames", "2000000")
+    run("wifi648", "res_layered_648_int8.txt", ["2.0", "2.01", "1"], "--message-dtype", "int8",
+        "--decoding", "BP_MS", "--frame-error-count", "50", "--max-frames", str(4 * 16384),
+        layered=True)
     run("bench1152", "res.txt", ["1.0", "3.01", "0.5"], "--frame-error-count", "50",
         "--max-frames", "2000000")
+    for dtype, cn in (("bfloat16", "BP"), ("int8", "BP_OMS")):
+        run("bench1152", f"res_{dtype}.txt", ["2.0", "2.51", "0.5"], "--message-dtype", dtype,
+            "--decoding", cn, *cap)
+    for key, layered, snr, dtype, form in (
+            ("bench1152", False, 2.0, "float32", "BP"), ("bench1152", False, 2.5, "float32", "BP"),
+            ("wifi648", True, 2.0, "float32", "BP"), ("wifi648", True, 2.0, "int8", "BP_MS")):
+        res = Simulator(
+            codes[key], DecoderParams(iterations=50, layered=layered, type=form,
+                                      message_dtype=dtype),
+            ChannelParams(seed=1, x_range=(snr, snr + 0.01, 1.0)),
+            SimulationParams(batch_size=16384, fec=50, max_frames=2_000_000),
+            device=torch.device("cuda"), verbose=False, use_pallas=True,
+        ).start()
+        print(f"rate {key} {'layered' if layered else 'flooding'} {form} {dtype} ET {snr} dB: "
+              f"{1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, FER "
+              f"{res.fer[0]:.3e}, {int(res.frames[0])} frames)", flush=True)
     return 0
 
 
