@@ -17,9 +17,11 @@ against plain versions, and prints a ``{"kernels": [...]}`` line (each kernel wi
 its launches on its path, its error against the plain version, its time,
 the plain version's, its bound: the larger of the bytes it must move
 over the HBM rate and its operations over the float32 rate, and the form
-of the kernel that ran; the kernels with a tile form, K2, K4 and K5, are
-held against their plain versions and timed in each form side by side,
-K5 on wifi 648 and wifi 1296) and, last, an
+of the kernel that ran; the kernels with a tile form, K1 to K5, are held
+against their plain versions and timed in each form side by side, K5 on
+wifi 648 and wifi 1296), the fixed-iteration ``Simulator`` frames/s of the
+1152 flooding and the wifi 1944 layered-fast points in each message form,
+and, last, an
 ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
@@ -241,11 +243,36 @@ def main() -> int:
         return awgn_channel(tb_.code, make_generator(dev, 7, point, 0), BATCH, snr_db)
 
     mark("build and tables done")
-    # ---- 3. kernel 1 (flooding batch) against its plain version
+
+    def form_name(form):
+        """A tile kernel's form ``(frames, stage)`` as the kernels line names it."""
+        frames_, stage = form
+        if frames_ == 0:
+            return "HBM planes, 32 frames x 8 warps"
+        return f"tile, {frames_} frames a block{', tables staged' if stage else ''}"
+
+    def k1_forms(key, dtype="float32"):
+        """Kernel 1's other forms that fit, as ``also`` pairs: every tile
+        size and staging beside the rule's, and the HBM-plane form."""
+        tb, rule = tables[key], df.batch_form(tables[key], dtype)
+        return tuple((form_name(f), in_form(df.bp_decode_fused, df, "BATCH_FORM_OVERRIDE", f))
+                     for f in ((16, True), (16, False), (8, True), (8, False), (4, True),
+                               (4, False), (0, False))
+                     if f != rule and (f[0] == 0 or df.flood_tile_bytes(
+                         tb, f[0], dtype, f[1]) <= df.SMEM_BLOCK_BYTES))
+
+    k3_forms = tuple((form_name(f), in_form(dl.bp_decode_layered_fast, dl, "BATCH_FORM_OVERRIDE",
+                                            f))
+                     for f in ((16, False), (8, True), (8, False), (0, False)))
+    # ---- 3. kernel 1 (flooding batch) against its plain version, in the
+    # size rule's form and, on the same plain outputs, in its other forms
     err1 = 0.0
     for key in ("bench1152", "wifi1944"):
         err1 = max(err1, compare_batch(f"kernel1 {key}", df.bp_decode_fused,
-                                       df.bp_decode_fused_plain, tables[key], llrs(key, 0).llr))
+                                       df.bp_decode_fused_plain, tables[key], llrs(key, 0).llr,
+                                       also=k1_forms(key)))
+        print(f"kernel1 form chosen for {key}: "
+              f"{[form_name(df.batch_form(tables[key], dt)) for dt in SUFFIX]}")
 
     # ---- 4. kernel 2 (flooding stream) against its plain version
     def drain(fn, tb, llr, cw, form):
@@ -321,7 +348,7 @@ def main() -> int:
     for dtype in ("bfloat16", "int8"):
         err_form[f"k1 {dtype}"] = max(
             compare_batch(f"kernel1 {key}", df.bp_decode_fused, df.bp_decode_fused_plain,
-                          tables[key], llrs(key, 0).llr, dtype)
+                          tables[key], llrs(key, 0).llr, dtype, also=k1_forms(key, dtype))
             for key in ("bench1152", "wifi1944"))
 
     def pool_drain(fn, tb, ch, form, dtype):
@@ -390,17 +417,31 @@ def main() -> int:
         err_form[f"k2 {dtype}"] = err
 
     mark("kernels 1 and 2 held against plain")
-    # ---- 5. K3 (fast layered engine, batch) against its plain version
+    # ---- 5. K3 (fast layered engine, batch) against its plain version, in
+    # the size rule's form (16 frames a block, staged) and, on the same plain
+    # outputs, in its other forms
     err3 = compare_batch("K3 wifi1944", dl.bp_decode_layered_fast,
                          dl.bp_decode_layered_fast_plain, tables["wifi1944"],
-                         llrs("wifi1944", 3).llr)
+                         llrs("wifi1944", 3).llr, also=k3_forms)
+    print(f"K3 form chosen for wifi 1944: {form_name(dl.batch_form(tables['wifi1944']))}")
 
     # ---- 5b. K3's bfloat16 and int8 forms (lc2v in the form, the APP float32)
     # against their plain versions; bf16 BP's APP within one bf16 step
     for dtype in ("bfloat16", "int8"):
         err_form[f"k3 {dtype}"] = compare_batch(
             "K3 wifi1944", dl.bp_decode_layered_fast, dl.bp_decode_layered_fast_plain,
-            tables["wifi1944"], llrs("wifi1944", 3).llr, dtype, tol=2 ** -8)
+            tables["wifi1944"], llrs("wifi1944", 3).llr, dtype, tol=2 ** -8, also=k3_forms)
+
+    # ---- 5c. K1 and K3 at a batch that is not a multiple of the frames a
+    # block, in every form, each message form, ET on and off
+    for dtype in SUFFIX:
+        compare_batch("kernel1 bench1152 B=301", df.bp_decode_fused, df.bp_decode_fused_plain,
+                      tables["bench1152"], llrs("bench1152", 9).llr[:, :301].contiguous(), dtype,
+                      also=k1_forms("bench1152", dtype))
+        compare_batch("K3 wifi1944 B=301", dl.bp_decode_layered_fast,
+                      dl.bp_decode_layered_fast_plain, tables["wifi1944"],
+                      llrs("wifi1944", 9).llr[:, :301].contiguous(), dtype,
+                      tol=2 ** -8 if dtype == "bfloat16" else 1e-4, also=k3_forms)
 
     # ---- 6. K4 (fast layered engine, stream) against its plain version
     err4 = check_stream("K4", dl.bp_stream_chunk_layered_fast,
@@ -411,13 +452,6 @@ def main() -> int:
     # form drain the same frames to the same totals
     form_of = {(16, True): "tile16+tables", (16, False): "tile16", (8, True): "tile8+tables",
                (8, False): "tile8", (0, False): "hbm-planes"}
-
-    def form_name(form):
-        """A K2 or K5 form ``(frames, stage)`` as the kernels line names it."""
-        frames_, stage = form
-        if frames_ == 0:
-            return "HBM planes, 32 frames x 8 warps"
-        return f"tile, {frames_} frames a block{', tables staged' if stage else ''}"
     k4_form = form_of[dl.stream_form(tables["wifi1944"])]
     ch4 = llrs("wifi1944", 4)
     want4 = drain(dl.bp_stream_chunk_layered_fast_plain, tables["wifi1944"], ch4.llr, ch4.codeword,
@@ -533,7 +567,7 @@ def main() -> int:
     tb36 = tables["regular36"]
     check(tb36.max_dc == 36, "the degree-36 code's tables")
     err36 = compare_batch("kernel1 regular36", df.bp_decode_fused, df.bp_decode_fused_plain, tb36,
-                          llrs("regular36", 6, 6.5).llr)
+                          llrs("regular36", 6, 6.5).llr, also=k1_forms("regular36"))
     err36 = max(err36, check_stream("kernel2 regular36", df.bp_stream_chunk_fused,
                                     df.bp_stream_chunk_fused_plain, "regular36", 6, 6.5,
                                     also=(k2_hbm,)))
@@ -894,13 +928,40 @@ def main() -> int:
               f"{form_name(dl.exact_form(tb5, dtype))} {ms[None]:.3f} ms, HBM planes "
               f"{ms[(0, False)]:.3f} ms [{name_power}]")
         check(ms[None] < ms[(0, False)], f"K5 wifi648 {dtype} {form}: the rule's form is slower")
+    # K1 and K3: every form that fits, the HBM-plane form first and last, on
+    # the same inputs, in turns (HBM, forms, forms reversed, HBM), kernel only
+    for dtype, form in (("float32", "BP"), ("bfloat16", "BP"), ("float32", "BP_MS"),
+                        ("int8", "BP_MS")):
+        for tag, key, kernel, module, rule, fits in (
+                ("K1", "bench1152", df.bp_decode_fused, df, df.batch_form(tables["bench1152"], dtype),
+                 lambda f: df.flood_tile_bytes(tables["bench1152"], f[0], dtype, f[1])),
+                ("K1", "wifi1944", df.bp_decode_fused, df, df.batch_form(tables["wifi1944"], dtype),
+                 lambda f: df.flood_tile_bytes(tables["wifi1944"], f[0], dtype, f[1])),
+                ("K3", "wifi1944", dl.bp_decode_layered_fast, dl, dl.batch_form(tables["wifi1944"]),
+                 lambda f: dl.fast_tile_bytes(tables["wifi1944"], *f))):
+            tb_, llr = tables[key], llrs(key, 2).llr
+            forms = [(0, False)] + [f for f in ((16, True), (16, False), (8, True), (8, False),
+                                                (4, True), (4, False))
+                                    if not (tag == "K3" and f[0] == 4)
+                                    and fits(f) <= df.SMEM_BLOCK_BYTES]
+            ms = {}
+            for forced in forms + forms[::-1]:
+                module.BATCH_FORM_OVERRIDE = forced
+                t = cuda_ms(lambda: kernel(tb_, llr, ITERS, False, form, dtype), 2)
+                ms[forced] = ms.get(forced, 0.0) + t / 2
+            module.BATCH_FORM_OVERRIDE = None
+            print(f"time {tag} forms {key} {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only "
+                  f"(the rule's: {form_name(rule)}; fastest: {form_name(min(ms, key=ms.get))}): "
+                  f"{'; '.join(f'{form_name(f)} {t:.3f} ms' for f, t in ms.items())} "
+                  f"[{name_power}]")
+            check(ms[rule] < ms[(0, False)], f"{tag} {key} {dtype} {form}: the rule's form is slower")
     # every tile form of K2 and K5 that fits, kernel only, on the same inputs
     # (what the size rules are chosen from)
     for dtype, form in (("float32", "BP"), ("float32", "BP_MS"), ("bfloat16", "BP"),
                         ("int8", "BP_MS")):
         row = []
         for forced in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False)):
-            if df.stream_tile_bytes(tables["bench1152"], forced[0], dtype,
+            if df.flood_tile_bytes(tables["bench1152"], forced[0], dtype,
                                     forced[1]) > df.SMEM_BLOCK_BYTES:
                 continue
             df.STREAM_FORM_OVERRIDE = forced
@@ -1029,6 +1090,25 @@ def main() -> int:
                   f"{snr} dB: {1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, "
                   f"FER {res.fer[0]:.3e}, {int(res.frames[0])} frames) [{name_power}]")
 
+    # the fixed-iteration rate (no ET: K1 and K3) of the 1152 flooding and the
+    # wifi 1944 layered-fast points, from the Simulator's own float timing
+    for key, layered, kernel in (("bench1152", False, df.bp_decode_fused),
+                                 ("wifi1944", True, dl.bp_decode_layered_fast)):
+        for dtype, form in (("float32", "BP"), ("bfloat16", "BP"), ("int8", "BP_OMS")):
+            before = kernel.launches[dtype]
+            res = Simulator(
+                codes[key], DecoderParams(iterations=ITERS, early_term=False, layered=layered,
+                                          type=form, message_dtype=dtype),
+                ChannelParams(seed=1, x_range=(2.0, 2.01, 1.0)),
+                SimulationParams(batch_size=BATCH, fec=10**9, max_frames=8 * BATCH),
+                device=dev, verbose=False, use_pallas=True,
+            ).start()
+            check(kernel.launches[dtype] - before >= 8, f"fixed {key} {dtype}: not on its kernel")
+            print(f"fixed {key} {'layered-fast' if layered else 'flooding'} {form} {dtype} "
+                  f"{ITERS} it no-ET B={BATCH} 2.0 dB: {1.0 / res.time[0]:.0f} frames/s (FER "
+                  f"{res.fer[0]:.3e}, {int(res.frames[0])} frames; form "
+                  f"{form_name(kernel.last_form)}) [{name_power}]")
+
     mark("sweep rates done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
@@ -1085,6 +1165,12 @@ def main() -> int:
               f"(layer checks, then the layer's {layer_var_slots} variable slots an iteration), "
               f"{full[0]:.4f} ms by {full[1]} counting a full variable phase and syndrome after "
               f"each of {n_layers648} layers [{name_power}]")
+    # K3's tile moves lc2v through device memory: read and written at every
+    # iteration, its design floor beside the bound
+    for dt in SUFFIX:
+        floor_ms = 2 * dims("wifi1944")[1] * MSG_BYTES[dt] * BATCH * ITERS / HBM_BYTES_S * 1e3
+        print(f"floor K3 tile wifi1944 {dt}: lc2v read and written every iteration, "
+              f"{floor_ms:.3f} ms at the HBM rate [{name_power}]")
     bounds = {
         "bp_decode_fused": bound(batch_bytes("bench1152", 4, 4),
                                  BATCH * ITERS * dims("bench1152")[1] * OPS_BP_SLOT),
@@ -1138,30 +1224,36 @@ def main() -> int:
              times["K6 wifi1944"][0])):
         print(f"bound {name}: {b_[0]:.4f} ms by {b_[1]}, kernel {t:.3f} ms "
               f"({b_[0] / t:.1%} of the bound) [{name_power}]")
-    fused = "libldpc_tpu_torch/csrc/decode_fused.cu"
-    # K2 and K5: the source of the form the size rule picks (the tile's
-    # template, or the HBM-plane kernel)
+    # K1, K2, K3 and K5: the source of the form the size rule picks (the
+    # tile's template, or the HBM-plane kernel)
+    fused = {dt: "libldpc_tpu_torch/csrc/flood_stream.cuh"
+             if df.batch_form(tables["bench1152"], dt)[0] else
+             "libldpc_tpu_torch/csrc/decode_fused.cu" for dt in SUFFIX}
     stream_src = {dt: "libldpc_tpu_torch/csrc/flood_stream.cuh"
                   if df.stream_form(tables["bench1152"], dt)[0] else
                   "libldpc_tpu_torch/csrc/decode_stream.cu" for dt in SUFFIX}
     exact_src = {dt: "libldpc_tpu_torch/csrc/layered_exact_tile.cuh"
                  if dl.exact_form(tb648, dt)[0] else
                  "libldpc_tpu_torch/csrc/decode_layered_exact.cu" for dt in SUFFIX}
-    layered_src = "libldpc_tpu_torch/csrc/decode_layered.cu"
+    layered_src = ("libldpc_tpu_torch/csrc/layered_stream.cuh"
+                   if dl.batch_form(tables["wifi1944"])[0] else
+                   "libldpc_tpu_torch/csrc/decode_layered.cu")
     k4_src = "libldpc_tpu_torch/csrc/layered_stream.cuh"
     bec_src = "libldpc_tpu_torch/csrc/decode_bec.cu"
     # the form of each kernel that ran: K4 by its size rule, K6 with its
     # words in shared memory or in the device-memory scratch
     forms_run = {"bp_stream_chunk_layered_fast": k4_form,
+                 "bp_decode_layered_fast": form_name(dl.batch_form(tables["wifi1944"])),
                  "bec_decode_fused": "words in shared memory" if db.bec_decode_fused.last_in_shared
                  else "words in device memory"}
-    # K2 and K5 by their size rules, per message form, at the timed shapes
+    # K1, K2 and K5 by their size rules, per message form, at the timed shapes
     for dt in SUFFIX:
+        forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
         forms_run["bp_stream_chunk_fused" + SUFFIX[dt]] = form_name(
             df.stream_form(tables["bench1152"], dt))
         forms_run["bp_decode_layered" + SUFFIX[dt]] = form_name(dl.exact_form(tb648, dt))
     rows_json = [
-        ("bp_decode_fused", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
+        ("bp_decode_fused", fused["float32"], "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
          times["k1 bench1152"]),
         ("bp_stream_chunk_fused", stream_src["float32"],
          "libldpc_tpu/ops/pallas/decode_fused.py:404", err2, times["k2 bench1152"]),
@@ -1175,9 +1267,9 @@ def main() -> int:
          times["K6 bench1152"]),
         ("bec_stream_chunk_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
          times["K7 bench1152"]),
-        ("bp_decode_fused_bf16", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617",
+        ("bp_decode_fused_bf16", fused["bfloat16"], "libldpc_tpu/ops/pallas/decode_fused.py:617",
          err_form["k1 bfloat16"], times["k1_bf16 bench1152"]),
-        ("bp_decode_fused_int8", fused, "libldpc_tpu/ops/pallas/decode_fused.py:617",
+        ("bp_decode_fused_int8", fused["int8"], "libldpc_tpu/ops/pallas/decode_fused.py:617",
          err_form["k1 int8"], times["k1_int8 bench1152"]),
         ("bp_stream_chunk_fused_bf16", stream_src["bfloat16"],
          "libldpc_tpu/ops/pallas/decode_fused.py:404",

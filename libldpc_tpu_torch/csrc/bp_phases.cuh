@@ -91,6 +91,23 @@ __device__ void syndrome_part(const Code& c, const Msg& m,
 inline unsigned grid_for(int B) { return (unsigned)((B + LDPC_FRAMES - 1) / LDPC_FRAMES); }
 const dim3 kBlock(LDPC_FRAMES, LDPC_WARPS);
 
+// Launches `kernel` with `bytes` of dynamic shared memory, its limit raised
+// first, and returns the launch's cudaGetLastError() (0 = launched).  A
+// limit the card refuses (a tile past a block's shared memory) is returned
+// and cleared, so that the next launch's check does not report it as its own.
+template <class... P, class... A>
+int launch_smem(void (*kernel)(P...), unsigned grid, dim3 block, size_t bytes,
+                cudaStream_t stream, A... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kernel<<<grid, block, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // ---- The tile forms (flood_stream.cuh, layered_exact_tile.cuh).  A block
 // owns F <= 16 frames; thread (f, ty), f = threadIdx.x fastest, so a warp
 // holds 32 / F values of ty.  Shared memory holds, in the message type,

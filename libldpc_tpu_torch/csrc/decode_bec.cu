@@ -373,13 +373,10 @@ int ldpc_bec_decode_fused(const uint8_t* sym_in, const uint8_t* cw, uint8_t* sym
         c, sym_in, cw, sym_out, hard, iters, resolved, scratch, B, iterations, early_term, stale);
     return (int)cudaGetLastError();
   }
-  const int bytes = (4 * nc + 2 * nnz) * 4;  // the state of one word (BecWords)
-  const cudaError_t err = cudaFuncSetAttribute(
-      bec_decode_words_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  bec_decode_words_kernel<false><<<grid, LDPC_BEC_THREADS, bytes, st>>>(
-      c, sym_in, cw, sym_out, hard, iters, resolved, nullptr, B, iterations, early_term, stale);
-  return (int)cudaGetLastError();
+  const size_t bytes = (size_t)(4 * nc + 2 * nnz) * 4;  // the state of one word (BecWords)
+  return launch_smem(bec_decode_words_kernel<false>, grid, dim3(LDPC_BEC_THREADS), bytes, st, c,
+                     sym_in, cw, sym_out, hard, iters, resolved, (uint32_t*)nullptr, B,
+                     iterations, early_term, stale);
 }
 
 int ldpc_bec_stream_chunk_fused(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* done, int* iters,

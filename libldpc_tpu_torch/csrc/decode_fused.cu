@@ -1,7 +1,10 @@
-// Flooding BP decode kernels for Hopper (sm_90a).
+// Flooding BP decode kernels for Hopper (sm_90a): the HBM-plane forms.
 //
 // Replaces the TPU kernels of libldpc_tpu/ops/pallas/decode_fused.py:
-//   * bp_decode_fused_kernel      <- `kernel`        (via bp_decode_pallas), this file
+//   * bp_decode_fused_kernel      <- `kernel`        (via bp_decode_pallas), this file;
+//     its tile form, a block's frames on chip for the whole decode, is
+//     flood_stream.cuh (decode_fused_tile*.cu); this form serves a code whose
+//     tile does not fit (ops/kernels/decode_fused.py flood_form)
 //   * bp_stream_chunk_fused_kernel <- `kernel_stream` (via bp_stream_chunk_pallas),
 //     in decode_stream.cu (a file of its own, so the two compile side by
 //     side), on the chunk shared with the BEC stream kernel (stream_chunk.cuh)

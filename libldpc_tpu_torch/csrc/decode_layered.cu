@@ -10,7 +10,10 @@
 //                                      decode_layered_exact.cu (a file of its
 //                                      own, so the two compile side by side)
 // (the fast engine's streaming form, `kernel_stream_layered_qc`, is
-// layered_stream.cuh).
+// layered_stream.cuh, and so is the batch decode's tile form, a block's
+// APP on chip for the whole decode (decode_layered_fast_tile*.cu): the first
+// kernel here is its HBM-plane form, for a code whose tile does not fit;
+// ops/kernels/decode_layered.py fast_form picks).
 //
 // The fast engine (first kernel; its pass is layered_fast.cuh) keeps the
 // node posterior (APP) as state and
@@ -68,9 +71,9 @@
 // take the same time with 4-, 2- and 1-byte messages within 10 %, so what
 // they wait on is each slot's chain of index load, message load and
 // combine.  The combine keeps its values in registers (cn_forms.cuh) and the
-// fast engine reads each slot's index and message once; the batch kernels
-// still keep every plane in HBM (the streaming chunk holds the APP in shared
-// memory, layered_stream.cuh).
+// fast engine reads each slot's index and message once; the kernels here
+// keep every plane in HBM (the tile forms hold the APP in shared memory,
+// layered_stream.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

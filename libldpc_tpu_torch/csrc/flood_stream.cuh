@@ -1,15 +1,20 @@
-// The flooding BP streaming chunk's tile form for Hopper (sm_90a): the
-// kernels of decode_stream_tile*.cu, one source file per frames-a-block.
+// The flooding BP tile for Hopper (sm_90a): the streaming chunk's tile
+// form (decode_stream_tile*.cu) and the batch decode's tile form
+// (decode_fused_tile*.cu), one source file per frames-a-block, on one pass.
 //
-// Replaces, like decode_stream.cu (the HBM-plane form, on
+// Replaces, like decode_stream.cu (the chunk's HBM-plane form, on
 // stream_chunk.cuh), the TPU kernel of
 // libldpc_tpu/ops/pallas/decode_fused.py `kernel_stream` (via
 // bp_stream_chunk_pallas; decode_lanes.py `kernel_stream` is the same
 // function): k self-refilling flooding passes per lane with an exact
-// global start quota and per-lane counters.  The wrapper
-// (ops/kernels/decode_fused.py stream_form) picks the form by size.
+// global start quota and per-lane counters; and, like decode_fused.cu (the
+// batch decode's HBM-plane form), `kernel` (via bp_decode_pallas;
+// decode_lanes.py `kernel` is the same function): the whole decode of a
+// batch, all iterations in one launch.  The wrappers
+// (ops/kernels/decode_fused.py flood_form) pick the form by size.
 //
-// A block owns F frames (4, 8 or 16) for the whole chunk and keeps two
+// A block owns F frames (4, 8 or 16) for the whole chunk (the batch
+// decode: for the whole decode) and keeps two
 // planes of them in shared memory, in the message form: the stored
 // check-to-variable messages lc2v [nnz, F] and the stored posterior
 // post [nc, F].  The variable-to-check message is never stored inside the
@@ -28,6 +33,17 @@
 //   all F frames at once; the bit-error count of a finishing frame reads
 //   the same words.
 //
+// The batch decode (bp_decode_fused_tile_kernel) runs the same pass
+// (flood_tile_pass) over frames that all start at once and never reload:
+// each starts as a reload does, post = store(prior(x)) with lc2v taken as
+// 0 (its first extrinsic is store(prior(x)), the first messages of
+// decode_fused.cu), the prior of each variable phase is read from the
+// input plane, the syndrome is taken when a frame checks (every pass with
+// early termination, the last without), a converged frame keeps that
+// pass's posterior and is not counted (break-before-increment), the block
+// stops once its F frames have converged, and the stored posterior goes to
+// the `post` plane at the end.  No lv2c or lc2v plane exists.
+//
 // The chunk boundary keeps the state of the HBM-plane form: the carried
 // lv2c plane.  A frame in flight at chunk entry (an injected age-0 lane
 // too) runs its first check phase from that plane; a frame reloaded in the
@@ -45,8 +61,8 @@
 // shared-memory loads and a store in the check phase and one load in the
 // variable phase, and BP's box-plus its special-function operations.
 // Built with -fmad=false, in the operation order of the plain chunk
-// (ops/kernels/decode_fused.py bp_stream_chunk_fused_plain): the min-sum
-// family is bit-exact against it.
+// (ops/kernels/decode_fused.py bp_stream_chunk_fused_plain, and the sorted
+// decoder for the batch): the min-sum family is bit-exact against them.
 
 #pragma once
 
@@ -93,6 +109,44 @@ __device__ __forceinline__ void flood_check(const int* col, const CnParams& cp, 
       [&](int j, float o) { q[(e0 + j) * F + f] = m.store(o); });
 }
 
+// One flooding pass of the tile over the frames in flight (`run`): the
+// check phase (lv2c from `src`: the carried plane, the tiles, or the tiles
+// with lc2v taken as 0), then the variable phase, post = store(prior(x) +
+// (m_s0 + m_s1 + ...)) with x = prior(v), and the packed decisions; then,
+// when `syndrome` (the same in every thread of the block), the syndrome of
+// all F frames: bit f of *badmask set when frame f has an unsatisfied
+// check.  Every thread of the block calls it.
+template <int FAM, int F, class Msg, class Prior>
+__device__ __forceinline__ void flood_tile_pass(const TileCode& tc, const CnParams& cp,
+                                                const Msg& m, const Tile<typename Msg::T>& t,
+                                                const typename Msg::T* __restrict__ lv2c, int src,
+                                                bool run, bool syndrome, size_t B, size_t b,
+                                                unsigned* badmask, Prior prior) {
+  constexpr int NTY = flood_rows(F);
+  const int f = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * F + f, nt = F * NTY;
+  if (run)
+    for (int r = ty; r < tc.mc; r += NTY) {
+      const int e0 = tc.row_ptr[r];
+      const int d = tc.row_ptr[r + 1] - e0;
+      if (d > 0) flood_check<FAM, F>(tc.col_sorted, cp, m, t.q, t.post, lv2c, src, e0, d, B, b, f);
+    }
+  if (tid == 0) *badmask = 0;
+  __syncthreads();
+  // ---- variable phase and packed decisions: a warp holds 32 / F values
+  // of ty, so its ballot covers that many variables
+  const int v_rounds = (tc.nc + NTY - 1) / NTY;
+  for (int i = 0; i < v_rounds; ++i) {
+    const int v = i * NTY + ty;
+    tile_variable<F>(tc, m, t, v < tc.nc ? v : -1, run, f, tid, prior);
+  }
+  __syncthreads();
+  if (!syndrome) return;
+  // ---- syndrome of all F frames, one check per thread
+  tile_syndrome(tc, t.hard, tid, nt, badmask);
+  __syncthreads();
+}
+
 // Every thread of a frame keeps the frame's control state in registers and
 // updates it identically; every barrier is reached by the whole block.
 template <class Msg, int FAM, int F>
@@ -127,7 +181,6 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
   bool dirty = false;
   const bool refill_on = *s.refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
-  const int v_rounds = (c.nc + NTY - 1) / NTY;
   for (int p = 0; p < k; ++p) {
     // ---- reload: a ticket against the global quota per idle lane with an
     // unused pool entry; it starts iff the ticket is below the remaining count
@@ -151,33 +204,16 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
     }
     const bool work = !done || (want && *(volatile int*)s.remaining > 0);
     if (!__syncthreads_or(work)) break;  // also orders the reload's tile writes
-    // ---- one flooding pass over the frames in flight
+    // ---- one flooding pass over the frames in flight, then the syndrome
     const bool run = !done;
     const bool checking = run && age >= 1;
+    if (lead) berr[f] = 0;
+    flood_tile_pass<FAM, F>(tc, cp, m, t, s.lv2c, src, run, true, B, b, &badmask,
+                            [&](int v_) { return s.prior[v_ * B + b]; });
     if (run) {
       dirty = true;
-      for (int r = ty; r < c.mc; r += NTY) {
-        const int e0 = tc.row_ptr[r];
-        const int d = tc.row_ptr[r + 1] - e0;
-        if (d > 0)
-          flood_check<FAM, F>(tc.col_sorted, cp, m, t.q, t.post, s.lv2c, src, e0, d, B, b, f);
-      }
       src = LV_TILE;
     }
-    if (tid == 0) badmask = 0;
-    if (lead) berr[f] = 0;
-    __syncthreads();
-    // ---- variable phase and packed decisions: a warp holds 32 / F values
-    // of ty, so its ballot covers that many variables
-    for (int i = 0; i < v_rounds; ++i) {
-      const int v = i * NTY + ty;
-      tile_variable<F>(tc, m, t, v < c.nc ? v : -1, run, f, tid,
-                       [&](int v_) { return s.prior[v_ * B + b]; });
-    }
-    __syncthreads();
-    // ---- syndrome of all F frames, one check per thread
-    tile_syndrome(tc, t.hard, tid, nt, &badmask);
-    __syncthreads();
     bool newly = false;
     if (checking) {
       newly = !((badmask >> f) & 1u);
@@ -221,22 +257,58 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
   }
 }
 
+// The batch decode on the tile (see the file's note): a block owns F frames
+// for the whole decode, all iterations in one launch; every frame starts as
+// a reload does, post = store(prior(x)) with lc2v taken as 0.  `post` is
+// the output, the stored posterior in the message type.
 template <class Msg, int FAM, int F>
-int launch_flood_tile(const Code& c, const CnParams& cp, const Msg& m,
-                      const StreamArgs<float, typename Msg::T>& s, int stage, int B, int k,
-                      int cap, cudaStream_t stream) {
-  const size_t bytes =
-      flood_tile_bytes(c.nc, c.mc, c.nnz, F, (int)sizeof(typename Msg::T), stage != 0);
-  auto kernel = bp_stream_chunk_tile_kernel<Msg, FAM, F>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // not left behind for the next launch's check
-    return (int)err;
+__global__ void __launch_bounds__(F * flood_rows(F), 1)
+bp_decode_fused_tile_kernel(Code c, CnParams cp, Msg m, const float* __restrict__ llr_in,
+                            typename Msg::T* __restrict__ post, int* __restrict__ iters_out,
+                            int* __restrict__ iscw_out, int stage, int B_, int iterations,
+                            int early_term) {
+  using T = typename Msg::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned badmask;  // bit f: frame f has an unsatisfied check
+  constexpr int NTY = flood_rows(F);
+  const Tile<T> t = tile_of<T, F>(smem, c.nc, c.nnz);
+  const int f = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * F + f, nt = F * NTY;
+  const size_t B = B_;
+  const size_t b = (size_t)blockIdx.x * F + f;
+  const bool valid = b < B;
+  int* staged = t.tables;
+  const TileCode tc = tile_code(c, staged, stage, tid, nt);
+  if (valid)
+    for (int v = ty; v < c.nc; v += NTY) t.post[v * F + f] = m.store(m.prior(llr_in[v * B + b]));
+  bool done = !valid;
+  int iters = 0, iscw = 0;
+  __syncthreads();  // the tile and the staged tables before the first pass
+  for (int it = 0; it < iterations; ++it) {
+    // block-level exit once every frame of the block has converged
+    if (early_term && !__syncthreads_or(!done)) break;
+    const bool syndrome = early_term || it == iterations - 1;
+    flood_tile_pass<FAM, F>(tc, cp, m, t, nullptr, it == 0 ? LV_FRESH : LV_TILE, !done, syndrome,
+                            B, b, &badmask, [&](int v) { return llr_in[v * B + b]; });
+    if (syndrome && !done) {
+      const bool ok = !((badmask >> f) & 1u);
+      if (!early_term) {
+        iscw = ok;
+      } else if (ok) {
+        done = true;  // a converged frame keeps this pass's posterior and is not counted
+        iscw = 1;
+      } else {
+        ++iters;
+      }
+    }
   }
-  kernel<<<(unsigned)((B + F - 1) / F), dim3(F, flood_rows(F)), bytes, stream>>>(c, cp, m, s, stage,
-                                                                                  B, k, cap);
-  return (int)cudaGetLastError();
+  if (valid) {
+    for (int v = ty; v < c.nc; v += NTY) post[v * B + b] = t.post[v * F + f];
+    if (ty == 0) {
+      iters_out[b] = early_term ? iters : iterations;
+      iscw_out[b] = iscw;
+    }
+  }
 }
 
 }  // namespace
@@ -263,7 +335,33 @@ int launch_flood_tile(const Code& c, const CnParams& cp, const Msg& m,
       StreamArgs<float, T> s{llr,       cw,       (T*)lv2c, done,    iters,  age,                \
                              avail,     ctr,      fresh_llr, fresh_cw, refill, remaining,        \
                              (T*)nullptr, bit_pos, nct};                                         \
-      return launch_flood_tile<Msg, decltype(fam)::value, FRAMES>(c, cp, m, s, stage, B, k, cap, \
-                                                                 (cudaStream_t)stream);          \
+      return launch_smem(bp_stream_chunk_tile_kernel<Msg, decltype(fam)::value, FRAMES>,         \
+                         (B + FRAMES - 1) / FRAMES, dim3(FRAMES, flood_rows(FRAMES)),            \
+                         flood_tile_bytes(nc, mc, nnz, FRAMES, (int)sizeof(T), stage != 0),      \
+                         (cudaStream_t)stream, c, cp, m, s, stage, B, k, cap);                   \
+    });                                                                                          \
+  }
+
+// The extern "C" entry of the batch decode's tile form at FRAMES frames a
+// block, defined by the form's source file.  The arguments are those of
+// ldpc_bp_decode_fused (decode_fused.cu) without its lv2c and lc2v
+// scratch, plus `stage`: the index tables staged in shared memory.  `post`
+// is of the type of `msg_dtype`.
+#define LDPC_FLOOD_BATCH_ENTRY(NAME, FRAMES)                                                     \
+  extern "C" int NAME(const float* llr_in, void* post, int* iters, int* iscw,                    \
+                      const int* row_ptr, const int* col_sorted, const int* vn_ptr,              \
+                      const int* perm_c2v, int nc, int mc, int nnz, int B, int iterations,       \
+                      int early_term, int cn_mode, float scale, float offset, int msg_dtype,     \
+                      float inv_q, int stage, void* stream) {                                    \
+    Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};                                  \
+    CnParams cp{cn_mode, scale, offset};                                                         \
+    return by_form(msg_dtype, inv_q, cn_mode, [&](auto m, auto fam) {                            \
+      using Msg = decltype(m);                                                                   \
+      using T = typename Msg::T;                                                                 \
+      return launch_smem(bp_decode_fused_tile_kernel<Msg, decltype(fam)::value, FRAMES>,         \
+                         (B + FRAMES - 1) / FRAMES, dim3(FRAMES, flood_rows(FRAMES)),            \
+                         flood_tile_bytes(nc, mc, nnz, FRAMES, (int)sizeof(T), stage != 0),      \
+                         (cudaStream_t)stream, c, cp, m, llr_in, (T*)post, iters, iscw, stage,   \
+                         B, iterations, early_term);                                             \
     });                                                                                          \
   }

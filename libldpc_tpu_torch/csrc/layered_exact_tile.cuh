@@ -181,25 +181,6 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
   }
 }
 
-template <class Msg, int FAM, int F>
-int launch_exact_tile(const Code& c, const Layers& L, const LayerVars& V, int nlc,
-                      const CnParams& cp, const Msg& m, const float* llr_in,
-                      typename Msg::T* out, int* iters, int* iscw, int stage, int B,
-                      int iterations, int early_term, cudaStream_t stream) {
-  const size_t bytes = exact_tile_bytes(c.nc, c.mc, c.nnz, L.nl, nlc, V.nlv, F,
-                                        (int)sizeof(typename Msg::T), stage != 0);
-  auto kernel = bp_decode_layered_tile_kernel<Msg, FAM, F>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // not left behind for the next launch's check
-    return (int)err;
-  }
-  kernel<<<(unsigned)((B + F - 1) / F), dim3(F, exact_rows(F)), bytes, stream>>>(
-      c, L, V, nlc, cp, m, llr_in, out, iters, iscw, stage, B, iterations, early_term);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // The extern "C" entry of one tile form (F frames a block), defined by the
@@ -223,8 +204,11 @@ int launch_exact_tile(const Code& c, const Layers& L, const LayerVars& V, int nl
     return by_form(msg_dtype, inv_q, cn_mode, [&](auto m, auto fam) {                           \
       using Msg = decltype(m);                                                                  \
       using T = typename Msg::T;                                                                \
-      return launch_exact_tile<Msg, decltype(fam)::value, FRAMES>(                              \
-          c, L, V, nlc, cp, m, llr_in, (T*)post, iters, iscw, stage, B, iterations, early_term, \
-          (cudaStream_t)stream);                                                                \
+      return launch_smem(bp_decode_layered_tile_kernel<Msg, decltype(fam)::value, FRAMES>,      \
+                         (B + FRAMES - 1) / FRAMES, dim3(FRAMES, exact_rows(FRAMES)),           \
+                         exact_tile_bytes(nc, mc, nnz, nl, nlc, nlv, FRAMES, (int)sizeof(T),    \
+                                          stage != 0),                                          \
+                         (cudaStream_t)stream, c, L, V, nlc, cp, m, llr_in, (T*)post, iters,    \
+                         iscw, stage, B, iterations, early_term);                               \
     });                                                                                         \
   }

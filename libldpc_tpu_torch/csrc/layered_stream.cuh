@@ -1,9 +1,14 @@
-// The fast layered engine's streaming chunk for Hopper (sm_90a): the
-// kernels of decode_layered_stream*.cu, one source file per form.
+// The fast layered engine on a tile for Hopper (sm_90a): the streaming
+// chunk's kernels (decode_layered_stream*.cu, one source file per form) and
+// the batch decode's tile form (decode_layered_fast_tile*.cu), on one pass.
 //
-// Replaces the TPU kernel of libldpc_tpu/ops/pallas/decode_lanes.py
-// `kernel_stream_layered_qc` (via bp_stream_chunk_lanes(layered=True)):
-// k self-refilling passes per lane on the fast engine.  A lane in flight at
+// Replaces the TPU kernels of libldpc_tpu/ops/pallas/decode_lanes.py
+// `kernel_stream_layered_qc` (via bp_stream_chunk_lanes(layered=True)) and,
+// with decode_layered.cu's HBM-plane form, `kernel_layered_qc` + `_qc_engine`
+// (via bp_decode_lanes(layered=True)).
+//
+// The streaming chunk: k self-refilling passes per lane on the fast engine.
+// A lane in flight at
 // age 0 starts the engine, an idle lane reloads from the pool under the
 // exact quota (one atomicSub against `remaining`, as in stream_chunk.cuh),
 // then a lane in flight runs one full layered iteration and is counted at
@@ -15,8 +20,19 @@
 // bits, decided from the APP), 1 frame errors, 2 frames, 3 iteration sum,
 // 4 starts.
 //
-// Two forms, chosen by the wrapper from the code's size
-// (ops/kernels/decode_layered.py stream_form):
+// The batch decode's tile form (bp_decode_layered_fast_tile_kernel) runs the
+// same pass (layered_tile_pass) over frames that all start at once and never
+// reload: the APP tile starts at prior(llr), the first iteration takes lc2v
+// as 0 (the plane is neither read nor zero-filled), the syndrome is taken
+// when a frame checks (every iteration with early termination, the last
+// without), a converged frame keeps its APP and is not counted
+// (break-before-increment), the block stops once its F frames have
+// converged, and the tile goes to the float32 `app` plane at the end.
+// decode_layered.cu keeps the HBM-plane form, for a code whose tile does not
+// fit (ops/kernels/decode_layered.py fast_form picks by size for both kernels).
+//
+// The chunk has two forms, chosen by the wrapper from the code's size
+// (ops/kernels/decode_layered.py fast_form):
 //
 // * The tile form (bp_stream_chunk_layered_tile_kernel).  A block owns F
 //   frames (8 or 16) and keeps their APP in shared memory for the whole
@@ -44,13 +60,19 @@
 // combine)), app = app + (o - lc2v), lc2v = store(o); the APP is float32
 // and never rounded; race freedom within a layer by layers_disjoint (the
 // host refuses other layers), a block barrier between layers.  Built with
-// -fmad=false; the min-sum family is bit-exact against the plain chunk.
+// -fmad=false; the min-sum family is bit-exact against the plain chunk and
+// the plain batch decode.
 //
 // What bounds it: the tile form moves 2 x nnz x sizeof(message) bytes per
 // frame and pass (55.7 KB in float32 for the 802.11n n=1944 code) and, in
 // BP, 3 box-plus per slot, each two expf and two log1pf: the special-function
-// unit, not device memory, bounds BP.  The HBM-plane form is bound by
-// per-slot instruction count and dependent loads (see decode_layered.cu).
+// unit, not device memory, bounds BP.  That lc2v traffic is the batch tile's
+// design floor: for n=1944, 50 iterations at B = 16384 move 45.6 GB, 13.6 ms
+// at 3.35 TB/s in float32, 6.8 ms in bfloat16 and 3.4 ms in int8, against a
+// bound (each input read once, each output written once, and the operations)
+// of 2.98 ms; a tile that also holds lc2v fits a block only at 8 frames in
+// bfloat16/int8 and 4 in float32.  The HBM-plane form is bound by per-slot
+// instruction count and dependent loads (see decode_layered.cu).
 
 #pragma once
 
@@ -252,6 +274,101 @@ __device__ __forceinline__ void tile_check(const int* col, const CnParams& cp, c
   }
 }
 
+// The index tables a tile reads, in device memory or staged in shared
+// memory (no __restrict__: the block writes a staged table before it
+// reads it).
+struct FastTileCode {
+  const int* row_ptr;
+  const int* col;
+  const int* lptr;  // [nl + 1] range of each layer in lchk
+  const int* lchk;  // the layers' checks
+  int nc, mc, nl;
+};
+
+// The code's and the layers' tables, staged at dst (table_bytes) when `stage`.
+__device__ __forceinline__ FastTileCode fast_tile_code(const Code& c, const Layers& L, int nlc,
+                                                       bool stage, int* dst, int tid, int nt) {
+  if (!stage) return FastTileCode{c.row_ptr, c.col_sorted, L.ptr, L.checks, c.nc, c.mc, L.nl};
+  FastTileCode t{nullptr, nullptr, nullptr, nullptr, c.nc, c.mc, L.nl};
+  t.row_ptr = stage_table(dst, c.row_ptr, c.mc + 1, tid, nt);
+  t.col = stage_table(dst, c.col_sorted, c.nnz, tid, nt);
+  t.lptr = stage_table(dst, L.ptr, L.nl + 1, tid, nt);
+  t.lchk = stage_table(dst, L.checks, nlc, tid, nt);
+  return t;
+}
+
+// One full layered iteration of the tile over the frames in flight (`run`;
+// `fresh`: a frame's first pass since its start, which finds lc2v = 0
+// without reading the plane), then, when `syndrome` (the same in every
+// thread of the block), the decisions app <= 0 packed into `hard` and the
+// syndrome of all F frames: bit f of *badmask set when frame f has an
+// unsatisfied check.  Thread (f, y) runs check y, y + NTY, ... of a layer
+// for frame f and reads its messages once, requesting those of its next
+// check before this one's arithmetic.  Every thread of the block calls it.
+template <class Msg, int FAM, int F>
+__device__ __forceinline__ void layered_tile_pass(const FastTileCode& tc, const CnParams& cp,
+                                                  const Msg& m, float* tile, uint16_t* hard,
+                                                  typename Msg::T* __restrict__ lc2v, bool run,
+                                                  bool fresh, bool syndrome, size_t B, size_t b,
+                                                  unsigned* badmask) {
+  constexpr int NTY = tile_checks(F);
+  const int f = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * F + f, nt = F * NTY;
+  float st[LDPC_UNROLL_DC], st_next[LDPC_UNROLL_DC];
+  int at = -1, e0 = 0, d = 0;  // st holds the messages of layer-list entry `at`
+  for (int l = 0; l < tc.nl; ++l) {
+    if (run) {
+      const int k1 = tc.lptr[l + 1];
+      for (int kk = tc.lptr[l] + ty; kk < k1; kk += NTY) {
+        if (at != kk) {  // not requested ahead: this thread's first check of the pass
+          const int r = tc.lchk[kk];
+          e0 = tc.row_ptr[r];
+          d = tc.row_ptr[r + 1] - e0;
+          if (d <= LDPC_UNROLL_DC) tile_fetch(m, lc2v, e0, d, fresh, B, b, st);
+        }
+        // this thread's next check, in this layer or at the head of the
+        // next one (the same thread wrote its messages in the last pass):
+        // its messages are requested before this check's arithmetic
+        int next = kk + NTY, e0_next = 0, d_next = 0;
+        if (next >= k1) next = (l + 1 < tc.nl && k1 + ty < tc.lptr[l + 2]) ? k1 + ty : -1;
+        if (next >= 0) {
+          const int r = tc.lchk[next];
+          e0_next = tc.row_ptr[r];
+          d_next = tc.row_ptr[r + 1] - e0_next;
+          if (d_next <= LDPC_UNROLL_DC) tile_fetch(m, lc2v, e0_next, d_next, fresh, B, b, st_next);
+        }
+        tile_check<FAM, F>(tc.col, cp, m, tile, lc2v, e0, d, fresh, B, b, f, st);
+        at = next;
+        e0 = e0_next;
+        d = d_next;
+#pragma unroll
+        for (int j = 0; j < LDPC_UNROLL_DC; ++j) st[j] = st_next[j];
+      }
+    }
+    __syncthreads();  // the next layer reads what this one wrote
+  }
+  if (!syndrome) return;
+  // ---- decisions, packed: hard[v] bit f = (app[v] <= 0) of frame f.  A
+  // warp holds 32 / F values of ty, so its ballot covers that many variables.
+  if (tid == 0) *badmask = 0;
+  const int v_rounds = (tc.nc + NTY - 1) / NTY;
+  for (int i = 0; i < v_rounds; ++i) {
+    const int v = i * NTY + ty;
+    const bool bit = v < tc.nc && tile[v * F + f] <= 0.0f;
+    const unsigned word = __ballot_sync(0xffffffffu, bit);
+    if (f == 0 && v < tc.nc) hard[v] = (uint16_t)((word >> (tid & 31)) & ((1u << F) - 1));
+  }
+  __syncthreads();
+  // ---- syndrome of all F frames, one check per thread
+  for (int r = tid; r < tc.mc; r += nt) {
+    const int e1 = tc.row_ptr[r + 1];
+    unsigned p = 0;
+    for (int e = tc.row_ptr[r]; e < e1; ++e) p ^= hard[tc.col[e]];
+    if (p) atomicOr(badmask, p);
+  }
+  __syncthreads();
+}
+
 // Every thread of a frame keeps the frame's control state in registers and
 // updates it identically; every barrier is reached by the whole block.
 template <class Msg, int FAM, int F>
@@ -272,25 +389,8 @@ bp_stream_chunk_layered_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
   const size_t b = (size_t)blockIdx.x * F + f;
   const bool valid = b < B;
   const bool lead = ty == 0;
-  const int* row_ptr = c.row_ptr;
-  const int* col = c.col_sorted;
-  const int* lptr = L.ptr;
-  const int* lchk = L.checks;
-  if (stage) {
-    int* t = (int*)(hard + 2 * ((c.nc + 1) / 2));
-    int* s_row = t;
-    int* s_col = s_row + c.mc + 1;
-    int* s_lptr = s_col + c.nnz;
-    int* s_lchk = s_lptr + L.nl + 1;
-    for (int i = tid; i <= c.mc; i += nt) s_row[i] = __ldg(c.row_ptr + i);
-    for (int i = tid; i < c.nnz; i += nt) s_col[i] = __ldg(c.col_sorted + i);
-    for (int i = tid; i <= L.nl; i += nt) s_lptr[i] = __ldg(L.ptr + i);
-    for (int i = tid; i < nlc; i += nt) s_lchk[i] = __ldg(L.checks + i);
-    row_ptr = s_row;
-    col = s_col;
-    lptr = s_lptr;
-    lchk = s_lchk;
-  }
+  const FastTileCode tc =
+      fast_tile_code(c, L, nlc, stage, (int*)(hard + 2 * ((c.nc + 1) / 2)), tid, nt);
   int done = 1, iters = 0, age = 0, avail = 0;
   if (valid) {
     done = s.done[b];
@@ -305,7 +405,6 @@ bp_stream_chunk_layered_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
     for (int v = ty; v < c.nc; v += NTY) tile[v * F + f] = s.app[v * B + b];
   const bool refill_on = *s.refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
-  const int v_rounds = (c.nc + NTY - 1) / NTY;
   for (int pass = 0; pass < k; ++pass) {
     // ---- a lane injected in flight (age 0) starts the engine: APP = the
     // prior of the LLRs it carries (each thread its own tile entries),
@@ -334,65 +433,15 @@ bp_stream_chunk_layered_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
     }
     const bool work = !done || (want && *(volatile int*)s.remaining > 0);
     if (!__syncthreads_or(work)) break;  // also orders the start writes before the pass
-    // ---- one full layered iteration over the frames in flight
+    // ---- one full layered iteration over the frames in flight, then the
+    // syndrome.  The first pass since a start finds lc2v = 0 without reading
+    // the plane (a start does not write the zeros either: this pass writes
+    // every slot a later pass reads).
     const bool run = !done;
     const bool checking = run && age >= 1;
-    // the first pass since a start finds lc2v = 0 without reading the plane
-    // (a start does not write the zeros either: this pass writes every
-    // slot a later pass reads)
-    const bool fresh = age == 1;
-    float st[LDPC_UNROLL_DC], st_next[LDPC_UNROLL_DC];
-    int at = -1, e0 = 0, d = 0;  // st holds the messages of layer-list entry `at`
-    for (int l = 0; l < L.nl; ++l) {
-      if (run) {
-        const int k1 = lptr[l + 1];
-        for (int kk = lptr[l] + ty; kk < k1; kk += NTY) {
-          if (at != kk) {  // not requested ahead: this thread's first check of the pass
-            const int r = lchk[kk];
-            e0 = row_ptr[r];
-            d = row_ptr[r + 1] - e0;
-            if (d <= LDPC_UNROLL_DC) tile_fetch(m, s.lc2v, e0, d, fresh, B, b, st);
-          }
-          // this thread's next check, in this layer or at the head of the
-          // next one (the same thread wrote its messages in the last pass):
-          // its messages are requested before this check's arithmetic
-          int next = kk + NTY, e0_next = 0, d_next = 0;
-          if (next >= k1) next = (l + 1 < L.nl && k1 + ty < lptr[l + 2]) ? k1 + ty : -1;
-          if (next >= 0) {
-            const int r = lchk[next];
-            e0_next = row_ptr[r];
-            d_next = row_ptr[r + 1] - e0_next;
-            if (d_next <= LDPC_UNROLL_DC) tile_fetch(m, s.lc2v, e0_next, d_next, fresh, B, b, st_next);
-          }
-          tile_check<FAM, F>(col, cp, m, tile, s.lc2v, e0, d, fresh, B, b, f, st);
-          at = next;
-          e0 = e0_next;
-          d = d_next;
-#pragma unroll
-          for (int j = 0; j < LDPC_UNROLL_DC; ++j) st[j] = st_next[j];
-        }
-      }
-      __syncthreads();  // the next layer reads what this one wrote
-    }
-    // ---- decisions, packed: hard[v] bit f = (app[v] <= 0) of frame f.  A
-    // warp holds 32 / F values of ty, so its ballot covers that many variables.
-    if (tid == 0) badmask = 0;
     if (lead) berr[f] = 0;
-    for (int i = 0; i < v_rounds; ++i) {
-      const int v = i * NTY + ty;
-      const bool bit = v < c.nc && tile[v * F + f] <= 0.0f;
-      const unsigned word = __ballot_sync(0xffffffffu, bit);
-      if (f == 0 && v < c.nc) hard[v] = (uint16_t)((word >> (tid & 31)) & ((1u << F) - 1));
-    }
-    __syncthreads();
-    // ---- syndrome of all F frames, one check per thread
-    for (int r = tid; r < c.mc; r += nt) {
-      const int e1 = row_ptr[r + 1];
-      unsigned p = 0;
-      for (int e = row_ptr[r]; e < e1; ++e) p ^= hard[col[e]];
-      if (p) atomicOr(&badmask, p);
-    }
-    __syncthreads();
+    layered_tile_pass<Msg, FAM, F>(tc, cp, m, tile, hard, s.lc2v, run, age == 1, true, B, b,
+                                   &badmask);
     bool newly = false;
     if (checking) {
       newly = !((badmask >> f) & 1u);
@@ -433,19 +482,63 @@ bp_stream_chunk_layered_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
   }
 }
 
+// The batch decode of the fast engine on the tile (see the file's note): a
+// block owns F frames for the whole decode, all iterations in one launch.
+// `lc2v` is the wrapper's uninitialised plane: the first iteration takes it
+// as 0 and writes every slot.  `app` is the output, in decoder units.
 template <class Msg, int FAM, int F>
-int launch_tile(const Code& c, const Layers& L, const CnParams& cp, const Msg& m,
-                const LayeredStream<typename Msg::T>& s, int nlc, int stage, int B, int k, int cap,
-                cudaStream_t stream) {
-  const size_t bytes =
-      tile_bytes(c.nc, F) + (stage ? table_bytes(c.mc, c.nnz, L.nl, nlc) : (size_t)0);
-  auto kernel = bp_stream_chunk_layered_tile_kernel<Msg, FAM, F>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)((B + F - 1) / F), dim3(F, tile_checks(F)), bytes, stream>>>(
-      c, L, cp, m, s, nlc, stage, B, k, cap);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(F * tile_checks(F), F == 8 ? 3 : 1)
+bp_decode_layered_fast_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
+                                   const float* __restrict__ llr_in, float* __restrict__ app,
+                                   int* __restrict__ iters_out, int* __restrict__ iscw_out,
+                                   typename Msg::T* __restrict__ lc2v, int nlc, int stage, int B_,
+                                   int iterations, int early_term) {
+  extern __shared__ float smem[];
+  __shared__ unsigned badmask;  // bit f: frame f has an unsatisfied check
+  float* tile = smem;                                     // [nc, F] the APP
+  uint16_t* hard = (uint16_t*)(tile + (size_t)c.nc * F);  // [nc] bit f: app <= 0
+  const int f = threadIdx.x, ty = threadIdx.y;
+  constexpr int NTY = tile_checks(F);
+  const int tid = ty * F + f, nt = F * NTY;
+  const size_t B = B_;
+  const size_t b = (size_t)blockIdx.x * F + f;
+  const bool valid = b < B;
+  const FastTileCode tc =
+      fast_tile_code(c, L, nlc, stage, (int*)(hard + 2 * ((c.nc + 1) / 2)), tid, nt);
+  if (valid)
+    for (int v = ty; v < c.nc; v += NTY) tile[v * F + f] = m.prior(llr_in[v * B + b]);
+  bool done = !valid;
+  int iters = 0, iscw = 0;
+  __syncthreads();  // the tile and the staged tables before the first pass
+  for (int it = 0; it < iterations; ++it) {
+    // block-level exit once every frame of the block has converged
+    if (early_term && !__syncthreads_or(!done)) break;
+    const bool syndrome = early_term || it == iterations - 1;
+    layered_tile_pass<Msg, FAM, F>(tc, cp, m, tile, hard, lc2v, !done, it == 0, syndrome, B, b,
+                                   &badmask);
+    if (syndrome && !done) {
+      const bool ok = !((badmask >> f) & 1u);
+      if (!early_term) {
+        iscw = ok;
+      } else if (ok) {
+        done = true;  // converged: keeps this APP and is not counted
+        iscw = 1;
+      } else {
+        ++iters;
+      }
+    }
+  }
+  if (valid) {
+    for (int v = ty; v < c.nc; v += NTY) app[v * B + b] = tile[v * F + f];
+    if (ty == 0) {
+      iters_out[b] = early_term ? iters : iterations;
+      iscw_out[b] = iscw;
+    }
+  }
+}
+
+inline size_t fast_tile_bytes(int nc, int mc, int nnz, int nl, int nlc, int frames, bool stage) {
+  return tile_bytes(nc, frames) + (stage ? table_bytes(mc, nnz, nl, nlc) : (size_t)0);
 }
 
 // The launch of the form FRAMES (see LDPC_STREAM_ENTRY).
@@ -458,7 +551,10 @@ int launch_stream(const Code& c, const Layers& L, const CnParams& cp, const Msg&
         <<<grid_for(B), kBlock, 0, stream>>>(c, L, cp, m, s, B, k, cap);
     return (int)cudaGetLastError();
   } else {
-    return launch_tile<Msg, FAM, FRAMES>(c, L, cp, m, s, nlc, stage, B, k, cap, stream);
+    return launch_smem(bp_stream_chunk_layered_tile_kernel<Msg, FAM, FRAMES>,
+                       (B + FRAMES - 1) / FRAMES, dim3(FRAMES, tile_checks(FRAMES)),
+                       fast_tile_bytes(c.nc, c.mc, c.nnz, L.nl, nlc, FRAMES, stage != 0), stream,
+                       c, L, cp, m, s, nlc, stage, B, k, cap);
   }
 }
 
@@ -493,3 +589,27 @@ int launch_stream(const Code& c, const Layers& L, const CnParams& cp, const Msg&
     });                                                                                          \
   }
 
+// The extern "C" entry of the batch decode's tile form at FRAMES (16 or 8)
+// frames a block, defined by the form's source file.  The arguments are
+// those of ldpc_bp_decode_layered_fast (decode_layered.cu), plus `nlc` and
+// `stage`: the index tables staged in shared memory.
+#define LDPC_FAST_BATCH_ENTRY(NAME, FRAMES)                                                      \
+  extern "C" int NAME(const float* llr_in, float* app, int* iters, int* iscw, void* lc2v,        \
+                      const int* row_ptr, const int* col_sorted, const int* vn_ptr,              \
+                      const int* perm_c2v, const int* layer_ptr, const int* layer_checks,        \
+                      int nc, int mc, int nnz, int nl, int nlc, int B, int iterations,           \
+                      int early_term, int cn_mode, float scale, float offset, int msg_dtype,     \
+                      float inv_q, int stage, void* stream) {                                    \
+    Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};                                  \
+    Layers L{layer_ptr, layer_checks, nl};                                                       \
+    CnParams cp{cn_mode, scale, offset};                                                         \
+    return by_form(msg_dtype, inv_q, cn_mode, [&](auto m, auto fam) {                            \
+      using Msg = decltype(m);                                                                   \
+      return launch_smem(                                                                        \
+          bp_decode_layered_fast_tile_kernel<Msg, decltype(fam)::value, FRAMES>,                 \
+          (B + FRAMES - 1) / FRAMES, dim3(FRAMES, tile_checks(FRAMES)),                          \
+          fast_tile_bytes(nc, mc, nnz, nl, nlc, FRAMES, stage != 0), (cudaStream_t)stream, c, L, \
+          cp, m, llr_in, app, iters, iscw, (typename Msg::T*)lc2v, nlc, stage, B, iterations,    \
+          early_term);                                                                           \
+    });                                                                                          \
+  }

@@ -130,6 +130,20 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_decode_fused.restype = I
+            # its tile form: one entry per frames-a-block, the arguments
+            # without the lv2c and lc2v scratch, plus `stage`
+            for entry in (lib.ldpc_bp_decode_fused_tile16, lib.ldpc_bp_decode_fused_tile8,
+                          lib.ldpc_bp_decode_fused_tile4):
+                entry.argtypes = [
+                    P, P, P, P,  # llr_in post iters iscw
+                    P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v
+                    I, I, I, I,  # nc mc nnz B
+                    I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                    I, F,  # msg_dtype inv_q
+                    I,  # stage
+                    P,  # stream
+                ]
+                entry.restype = I
             lib.ldpc_bp_stream_chunk_fused.argtypes = [
                 P, P, P,  # llr cw lv2c
                 P, P, P, P, P,  # done iters age avail ctr
@@ -168,6 +182,19 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered_fast.restype = I
+            # its tile form, one entry per frames-a-block, plus nlc and `stage`
+            for entry in (lib.ldpc_bp_decode_layered_fast_tile16,
+                          lib.ldpc_bp_decode_layered_fast_tile8):
+                entry.argtypes = [
+                    P, P, P, P, P,  # llr_in app iters iscw lc2v
+                    *tables,
+                    I, I, I, I, I, I,  # nc mc nnz nl nlc B
+                    I, I, I, F, F,  # iterations early_term cn_mode scale offset
+                    I, F,  # msg_dtype inv_q
+                    I,  # stage
+                    P,  # stream
+                ]
+                entry.restype = I
             # the layered streaming kernel: one entry per form (16 or 8
             # frames a block on the tile form, the HBM-plane form)
             for entry in (lib.ldpc_bp_stream_chunk_layered_tile16,
@@ -225,10 +252,12 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bec_stream_chunk_fused.restype = I
-            # the shared memory of the tile forms of K2 and K5, for the card
-            # tests to hold the size rules' byte counts to
+            # the shared memory of the tile forms of K1 and K2, K3 and K4, and
+            # K5, for the card tests to hold the size rules' byte counts to
             lib.ldpc_flood_tile_bytes.argtypes = [I] * 6  # nc mc nnz frames msg stage
             lib.ldpc_flood_tile_bytes.restype = ctypes.c_longlong
+            lib.ldpc_fast_tile_bytes.argtypes = [I] * 7  # nc mc nnz nl nlc frames stage
+            lib.ldpc_fast_tile_bytes.restype = ctypes.c_longlong
             lib.ldpc_exact_tile_bytes.argtypes = [I] * 9  # nc mc nnz nl nlc nlv frames msg stage
             lib.ldpc_exact_tile_bytes.restype = ctypes.c_longlong
             lib.ldpc_error_string.argtypes = [I]

@@ -1,17 +1,20 @@
 """The two flooding decode kernels, their wrappers and their plain versions.
 
-* :func:`bp_decode_fused` runs ``csrc/decode_fused.cu``'s batch kernel, the
-  port of ``libldpc_tpu/ops/pallas/decode_fused.py`` ``kernel`` (reached
-  there through ``bp_decode_pallas``): the whole decode of a batch, all
+* :func:`bp_decode_fused` runs the batch kernel, the port of
+  ``libldpc_tpu/ops/pallas/decode_fused.py`` ``kernel`` (reached there
+  through ``bp_decode_pallas``): the whole decode of a batch, all
   iterations in one launch, with per-frame early termination.
 * :func:`bp_stream_chunk_fused` runs its streaming kernel, the port of
   ``kernel_stream`` (``bp_stream_chunk_pallas``): ``k`` self-refilling
   passes per lane with in-kernel reload, an exact global start quota and
-  per-lane counters.  The kernel has two forms, chosen by
-  :func:`stream_form` from the code's size and the message form: the tile
-  form (``csrc/flood_stream.cuh``: a block's frames keep their messages and
-  posteriors in shared memory for the whole chunk) and, for a code whose
-  tile does not fit, the HBM-plane form (``csrc/decode_stream.cu``).
+  per-lane counters.
+
+Each kernel has two forms, chosen by :func:`flood_form` from the code's
+size and the message form: the tile form (``csrc/flood_stream.cuh``, one
+pass for both: a block's frames keep their messages and posteriors in
+shared memory for the whole decode or chunk) and, for a code whose tile
+does not fit, the HBM-plane form (``csrc/decode_fused.cu``,
+``csrc/decode_stream.cu``).
 
 Both take a message storage form (``message_dtype`` float32, bfloat16 or
 int8, and the int8 lattice step ``quant_scale``; :mod:`..messages`), as
@@ -128,7 +131,9 @@ def bp_decode_fused(
     ``iterations == 0`` returns all zeros.  Messages and the posterior are
     stored in ``message_dtype``; int8 takes a min-sum-family
     ``minsum_mode`` only (``ValueError`` otherwise).  Any ``B``: the last
-    block is masked."""
+    block is masked.  The kernel's form (a block's frames on chip for the
+    decode, or every plane in device memory) follows :func:`batch_form`;
+    both compute the same."""
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
@@ -147,17 +152,24 @@ def bp_decode_fused(
     post = torch.empty((nc, B), **msgs)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
-    lv2c = torch.empty((nnz, B), **msgs)
-    lc2v = torch.empty((nnz, B), **msgs)
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
-    err = lib.ldpc_bp_decode_fused(
-        _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c), _p(lc2v),
-        _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
-        nc, tables.code.mc, nnz, B, iterations, int(bool(early_term)), mode, scale, offset,
-        form.code, form.inv_q, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    code = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
+            nc, tables.code.mc, nnz, B, iterations, int(bool(early_term)), mode, scale, offset,
+            form.code, form.inv_q)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    frames, stage = batch_form(tables, form.dtype)
+    if frames == 0:
+        lv2c = torch.empty((nnz, B), **msgs)
+        lc2v = torch.empty((nnz, B), **msgs)
+        err = lib.ldpc_bp_decode_fused(_p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c),
+                                       _p(lc2v), *code, stream)
+    else:
+        entry = {16: lib.ldpc_bp_decode_fused_tile16, 8: lib.ldpc_bp_decode_fused_tile8,
+                 4: lib.ldpc_bp_decode_fused_tile4}[frames]
+        err = entry(_p(llr_in), _p(post), _p(iters), _p(iscw), *code, int(stage), stream)
     _raise_on(lib, err, "bp_decode_fused")
     bp_decode_fused.launches[form.dtype] += 1
+    bp_decode_fused.last_form = (frames, stage)
     llr_out = form.dequant(post)
     return SortedDecodeOutput(
         llr_out=llr_out,
@@ -168,16 +180,20 @@ def bp_decode_fused(
 
 
 bp_decode_fused.launches = dict.fromkeys(DTYPE_CODES, 0)
+#: ``(frames, stage)`` of the last launch (:func:`batch_form`)
+bp_decode_fused.last_form = None
 
 
 #: Shared memory one block may take on the card (232,448 bytes), less the
 #: kernels' static arrays.
 SMEM_BLOCK_BYTES = 232448 - 256
-#: Frames a block of the streaming kernel's tile form may own, largest first.
-STREAM_TILE_FRAMES = (16, 8, 4)
-#: Force a form of the streaming kernel (the card tests and the smoke run's
-#: side-by-side times do): None follows :func:`stream_form`; else
+#: Frames a block of the flooding kernels' tile forms may own, largest first.
+FLOOD_TILE_FRAMES = (16, 8, 4)
+#: Force a form of the batch kernel (:func:`batch_form`) or of the streaming
+#: kernel (:func:`stream_form`) (the card tests and the smoke run's
+#: side-by-side times do): None follows :func:`flood_form`; else
 #: ``(frames, stage)`` with frames 0 (the HBM-plane form), 4, 8 or 16.
+BATCH_FORM_OVERRIDE = None
 STREAM_FORM_OVERRIDE = None
 
 
@@ -186,7 +202,7 @@ def _align4(n: int) -> int:
 
 
 def tile_bytes(tables: KernelTables, frames: int, message_dtype: str, table_ints: int) -> int:
-    """Dynamic shared memory of a tile form of K2 or K5 (``csrc/bp_phases.cuh``
+    """Dynamic shared memory of a tile form of K1, K2 or K5 (``csrc/bp_phases.cuh``
     ``tile_layout_bytes``): ``lc2v [nnz, frames]`` and the posterior
     ``[nc, frames]`` in the message type, the packed decisions ``[nc]``
     uint16, then ``table_ints`` int32 entries of staged index tables."""
@@ -201,11 +217,11 @@ def code_table_ints(tables: KernelTables) -> int:
     return sdc.mc + 1 + sdc.nnz + sdc.nc + 1 + sdc.nnz
 
 
-def stream_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
-    """Dynamic shared memory of the streaming kernel's tile form
-    (``csrc/flood_stream.cuh`` ``flood_tile_bytes``, exported by the library
-    as ``ldpc_flood_tile_bytes``): the tile and, staged, the code's four
-    tables."""
+def flood_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
+    """Dynamic shared memory of a tile form of the batch or the streaming
+    kernel (``csrc/flood_stream.cuh`` ``flood_tile_bytes``, exported by the
+    library as ``ldpc_flood_tile_bytes``): the tile and, staged, the code's
+    four tables."""
     return tile_bytes(tables, frames, message_dtype, code_table_ints(tables) if stage else 0)
 
 
@@ -266,16 +282,30 @@ def tile_form(bytes_of, frames_choices, blocks_per_sm=lambda frames: 1,
     return 0, False
 
 
+def flood_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
+    """``(frames, stage)`` of the flooding kernels' tile forms (the batch
+    decode and the streaming chunk share the layout and the pass) for this
+    code and message form, by size alone (:func:`tile_form`): for the 1152
+    (3,6) code 8 frames a block in float32, 16 in bfloat16 and int8, all
+    staged; for wifi 1944 4, 8 and 16, staged.  ``PERF.md`` section 6 has
+    the times of every form at those shapes; at any other shape the rule
+    extrapolates."""
+    return tile_form(lambda frames, stage: flood_tile_bytes(tables, frames, message_dtype, stage),
+                     FLOOD_TILE_FRAMES)
+
+
+def batch_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
+    """``(frames, stage)`` of the batch kernel: :data:`BATCH_FORM_OVERRIDE`,
+    else :func:`flood_form`."""
+    return BATCH_FORM_OVERRIDE if BATCH_FORM_OVERRIDE is not None else flood_form(
+        tables, message_dtype)
+
+
 def stream_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
-    """``(frames, stage)`` of the streaming kernel for this code and message
-    form, by size alone (:func:`tile_form`): for the 1152 (3,6) code 8
-    frames a block in float32, 16 in bfloat16 and int8, all staged; for
-    wifi 1944 4, 8 and 16, staged.  ``PERF.md`` section 6 has the times of
-    every form at those shapes; at any other shape the rule extrapolates."""
-    if STREAM_FORM_OVERRIDE is not None:
-        return STREAM_FORM_OVERRIDE
-    return tile_form(lambda frames, stage: stream_tile_bytes(tables, frames, message_dtype, stage),
-                     STREAM_TILE_FRAMES)
+    """``(frames, stage)`` of the streaming kernel: :data:`STREAM_FORM_OVERRIDE`,
+    else :func:`flood_form`."""
+    return STREAM_FORM_OVERRIDE if STREAM_FORM_OVERRIDE is not None else flood_form(
+        tables, message_dtype)
 
 
 def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,

@@ -1,18 +1,19 @@
 """The three layered decode kernels, their wrappers and their plain versions.
 
-* :func:`bp_decode_layered_fast` runs ``csrc/decode_layered.cu``'s fast
-  engine, the port of ``libldpc_tpu/ops/pallas/decode_lanes.py``
-  ``kernel_layered_qc`` (with ``_qc_engine``): a batch decode with a
-  persistent APP, each layer updating only its own checks' slots, early
-  termination once per full iteration.
-* :func:`bp_stream_chunk_layered_fast` runs its streaming form
-  (``csrc/layered_stream.cuh``), the port of
+* :func:`bp_decode_layered_fast` runs the fast engine's batch decode, the
+  port of ``libldpc_tpu/ops/pallas/decode_lanes.py`` ``kernel_layered_qc``
+  (with ``_qc_engine``): a persistent APP, each layer updating only its own
+  checks' slots, early termination once per full iteration.
+* :func:`bp_stream_chunk_layered_fast` runs its streaming form, the port of
   ``kernel_stream_layered_qc``: ``k`` self-refilling passes per lane on the
   fast engine, with the flooding stream kernel's reload, exact start quota
-  and counters.  The kernel has two forms, chosen by :func:`stream_form`
-  from the code's size: the tile form (a block's APP in shared memory for
-  the whole chunk) and, for a code whose tile does not fit, the HBM-plane
-  form.
+  and counters.
+
+  Both kernels have two forms, chosen by :func:`fast_form` from the code's
+  size: the tile form (``csrc/layered_stream.cuh``, one pass for both: a
+  block's APP in shared memory for the whole decode or chunk) and, for a
+  code whose tile does not fit, the HBM-plane form
+  (``csrc/decode_layered.cu``, ``layered_stream.cuh``).
 * :func:`bp_decode_layered` runs the exact layered schedule, the port of
   ``decode_fused.py`` ``kernel_layered`` and ``decode_lanes.py``
   ``kernel_layered`` (one function, two TPU layouts): per layer, the
@@ -108,7 +109,9 @@ def bp_decode_layered_fast(
     the last iteration; ``iterations == 0`` returns all zeros.  The check
     messages are stored in ``message_dtype``; int8 takes a min-sum-family
     ``minsum_mode`` only (``ValueError`` otherwise).  Any ``B``: the last
-    block is masked."""
+    block is masked.  The kernel's form (a block's APP on chip for the
+    decode, or every plane in device memory) follows :func:`batch_form`;
+    both compute the same."""
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
@@ -129,32 +132,44 @@ def bp_decode_layered_fast(
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
     lc2v = torch.empty((sdc.nnz, B), dtype=form.torch_dtype, device=dev)
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
-    err = lib.ldpc_bp_decode_layered_fast(
-        _p(llr_in), _p(app), _p(iters), _p(iscw), _p(lc2v), *_tables_args(tables),
-        nc, sdc.mc, sdc.nnz, tables.n_layers, B, iterations, int(bool(early_term)),
-        mode, scale, offset, form.code, form.inv_q, _stream(llr_in),
-    )
+    run = (iterations, int(bool(early_term)), mode, scale, offset, form.code, form.inv_q)
+    head = (_p(llr_in), _p(app), _p(iters), _p(iscw), _p(lc2v), *_tables_args(tables), nc,
+            sdc.mc, sdc.nnz, tables.n_layers)
+    frames, stage = batch_form(tables)
+    if frames == 0:
+        err = lib.ldpc_bp_decode_layered_fast(*head, B, *run, _stream(llr_in))
+    else:
+        entry = {16: lib.ldpc_bp_decode_layered_fast_tile16,
+                 8: lib.ldpc_bp_decode_layered_fast_tile8}[frames]
+        err = entry(*head, tables.layer_checks.shape[0], B, *run, int(stage), _stream(llr_in))
     _raise_on(lib, err, "bp_decode_layered_fast")
     bp_decode_layered_fast.launches[form.dtype] += 1
+    bp_decode_layered_fast.last_form = (frames, stage)
     llr_out = form.dequant(app)
     return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
                               is_codeword=iscw > 0)
 
 
 bp_decode_layered_fast.launches = dict.fromkeys(DTYPE_CODES, 0)
+#: ``(frames, stage)`` of the last launch (:func:`batch_form`)
+bp_decode_layered_fast.last_form = None
 
 
-#: Force a form of the streaming kernel (the card tests do): None follows
-#: :func:`stream_form`; else ``(frames, stage)`` with frames 0 (HBM-plane
-#: form), 8 or 16.
+#: Force a form of the batch kernel (:func:`batch_form`) or of the streaming
+#: kernel (:func:`stream_form`) (the card tests and the smoke run's
+#: side-by-side times do): None follows :func:`fast_form`; else
+#: ``(frames, stage)`` with frames 0 (HBM-plane form), 8 or 16.
+BATCH_FORM_OVERRIDE = None
 STREAM_FORM_OVERRIDE = None
 
 
-def stream_tile_bytes(tables: KernelTables, frames: int, stage: bool) -> int:
-    """Dynamic shared memory of the tile form (``csrc/layered_stream.cuh``
-    ``tile_bytes``/``table_bytes``): the APP tile ``[nc, frames]`` float32,
-    the packed decisions ``[nc]`` uint16 padded to 4 bytes and, staged, the
-    int32 tables ``row_ptr``, ``col_sorted``, ``layer_ptr``, ``layer_checks``."""
+def fast_tile_bytes(tables: KernelTables, frames: int, stage: bool) -> int:
+    """Dynamic shared memory of a tile form of the batch or the streaming
+    kernel (``csrc/layered_stream.cuh`` ``fast_tile_bytes``, exported by the
+    library as ``ldpc_fast_tile_bytes``): the APP tile ``[nc, frames]``
+    float32, the packed decisions ``[nc]`` uint16 padded to 4 bytes and,
+    staged, the int32 tables ``row_ptr``, ``col_sorted``, ``layer_ptr``,
+    ``layer_checks``."""
     sdc = tables.code
     n = sdc.nc * frames * 4 + (sdc.nc + 1) // 2 * 4
     if stage:
@@ -162,22 +177,34 @@ def stream_tile_bytes(tables: KernelTables, frames: int, stage: bool) -> int:
     return n
 
 
-def stream_form(tables: KernelTables) -> tuple[int, bool]:
-    """``(frames, stage)`` of the streaming kernel for this code, by size
-    alone (:func:`.decode_fused.tile_form` without its test of the tables
-    against the L1, as its forms were timed).  16 frames a block on the tile
-    form when that tile fits a block's shared memory (``nc`` up to ~3500; a
-    block then has its SM to itself), else 8 frames (``nc`` up to ~7000),
+def fast_form(tables: KernelTables) -> tuple[int, bool]:
+    """``(frames, stage)`` of the fast engine's tile forms (the batch decode
+    and the streaming chunk share the tile and the pass) for this code, by
+    size alone (:func:`.decode_fused.tile_form` without its test of the
+    tables against the L1, as the chunk's forms were timed).  16 frames a
+    block on the tile form when that tile fits a block's shared memory
+    (``nc`` up to ~3500; a block then has its SM to itself), else 8 frames
+    (``nc`` up to ~7000),
     else ``(0, False)``, the HBM-plane form.  The index tables are staged
     beside the tile when they fit too (at 8 frames: when two such blocks
     still fit one SM).  In float32 a block's 16 frames of one slot are a
     64-byte segment of the ``lc2v`` plane, 8 frames a 32-byte one, half of
     what the card's memory moves at a time (``PERF.md`` section 6 has the
     times of each form)."""
-    if STREAM_FORM_OVERRIDE is not None:
-        return STREAM_FORM_OVERRIDE
-    return tile_form(lambda frames, stage: stream_tile_bytes(tables, frames, stage), (16, 8),
+    return tile_form(lambda frames, stage: fast_tile_bytes(tables, frames, stage), (16, 8),
                      blocks_per_sm=lambda frames: 1 if frames == 16 else 2, tables_in_l1=False)
+
+
+def batch_form(tables: KernelTables) -> tuple[int, bool]:
+    """``(frames, stage)`` of the batch kernel: :data:`BATCH_FORM_OVERRIDE`,
+    else :func:`fast_form`."""
+    return BATCH_FORM_OVERRIDE if BATCH_FORM_OVERRIDE is not None else fast_form(tables)
+
+
+def stream_form(tables: KernelTables) -> tuple[int, bool]:
+    """``(frames, stage)`` of the streaming kernel: :data:`STREAM_FORM_OVERRIDE`,
+    else :func:`fast_form`."""
+    return STREAM_FORM_OVERRIDE if STREAM_FORM_OVERRIDE is not None else fast_form(tables)
 
 
 def bp_stream_chunk_layered_fast_plain(

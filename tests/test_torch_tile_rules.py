@@ -87,18 +87,18 @@ def test_stream_form_rule(smoke_codes, name):
     tables = smoke_codes[name]
     assert [df.stream_form(tables, dt) for dt in DTYPES] == K2_RULE[name]
     for dt, (frames, stage) in zip(DTYPES, K2_RULE[name]):
-        assert df.stream_tile_bytes(tables, frames, dt, stage) <= df.SMEM_BLOCK_BYTES
+        assert df.flood_tile_bytes(tables, frames, dt, stage) <= df.SMEM_BLOCK_BYTES
         if frames < 16:  # the next size up does not fit
-            assert df.stream_tile_bytes(tables, 2 * frames, dt, False) > df.SMEM_BLOCK_BYTES
+            assert df.flood_tile_bytes(tables, 2 * frames, dt, False) > df.SMEM_BLOCK_BYTES
 
 
 def test_stream_tile_bytes_layout(smoke_codes):
     """``flood_tile_bytes`` + ``flood_table_bytes`` of the 1152 (3,6) code:
     lc2v and posterior tiles, uint16 decisions, four int32 tables."""
     t = smoke_codes["bench1152"]
-    assert df.stream_tile_bytes(t, 8, "float32", False) == (3456 + 1152) * 8 * 4 + 1152 * 2
-    assert df.stream_tile_bytes(t, 8, "float32", True) == 184328
-    assert df.stream_tile_bytes(t, 16, "int8", True) == 110600
+    assert df.flood_tile_bytes(t, 8, "float32", False) == (3456 + 1152) * 8 * 4 + 1152 * 2
+    assert df.flood_tile_bytes(t, 8, "float32", True) == 184328
+    assert df.flood_tile_bytes(t, 16, "int8", True) == 110600
 
 
 @pytest.mark.parametrize("name", list(K5_RULE))
@@ -139,10 +139,10 @@ def test_l1_left():
 def k4_rule_as_before(tables):
     """K4's size rule as written before it went through ``tile_form``."""
     fits = dl.SMEM_BLOCK_BYTES
-    if dl.stream_tile_bytes(tables, 16, False) <= fits:
-        return 16, dl.stream_tile_bytes(tables, 16, True) <= fits
-    if dl.stream_tile_bytes(tables, 8, False) <= fits:
-        staged = dl.stream_tile_bytes(tables, 8, True)
+    if dl.fast_tile_bytes(tables, 16, False) <= fits:
+        return 16, dl.fast_tile_bytes(tables, 16, True) <= fits
+    if dl.fast_tile_bytes(tables, 8, False) <= fits:
+        staged = dl.fast_tile_bytes(tables, 8, True)
         return 8, staged <= fits and 2 * (staged + 1024) <= df.SMEM_SM_BYTES
     return 0, False
 
@@ -173,7 +173,7 @@ def test_too_large_for_any_tile_keeps_the_hbm_planes():
     for dt in DTYPES:
         assert df.stream_form(tables, dt) == (0, False)
         assert dl.exact_form(tables, dt) == (0, False)
-        assert df.stream_tile_bytes(tables, 4, dt, False) > df.SMEM_BLOCK_BYTES
+        assert df.flood_tile_bytes(tables, 4, dt, False) > df.SMEM_BLOCK_BYTES
 
 
 def test_overrides_take_precedence(smoke_codes):

@@ -8,22 +8,30 @@ under ``<root>/build/sweeps/`` and runs, with ``--pallas -i 50
 --batch-size 16384`` and the seeds of the defaults: the 802.11n n=1944
 layered sweep (1.0-2.5 dB) in float32 BP, bfloat16 BP and int8 BP_OMS, the
 n=648 exact layered point at 2.0 dB (float32 BP and int8 BP_MS), the BEC
-sweep (eps 0.30-0.45) and the flooding sweep of the 1152 (3,6) code
+sweep (eps 0.30-0.45), the flooding sweep of the 1152 (3,6) code
 (1.0-3.0 dB in float32 BP; 2.0 and 2.5 dB in bfloat16 BP and int8
-BP_OMS).  Each results file is printed after its run time.  The channel
+BP_OMS), and the fixed-iteration points (``--no-early-term``, 2.0 dB) of
+the 1152 code's flooding decode and the n=1944 layered decode, each in
+float32 BP, bfloat16 BP and int8 BP_OMS.  Each results file is printed
+after its run time.  The channel
 draws come from seeded generators, so two commits that decode alike print
 the same rows (the ``frame_time`` column aside).
 
 Then the smoke run's end-to-end rates, from the ``Simulator``'s own float
 timing (B = 16384, ET, 50 frame errors): the 1152 code's flooding point at
 2.0 and 2.5 dB (float32 BP) and the n=648 exact layered point at 2.0 dB
-(float32 BP, int8 BP_MS), one ``rate`` line each.  Run it on two trees in
+(float32 BP, int8 BP_MS), one ``rate`` line each; then the fixed-iteration
+rates (no ET, 8 batches) of the 1152 flooding point and the n=1944
+layered-fast point at 2.0 dB in each message form.  Run it on two trees in
 turns (parent, change, change, parent) to compare their rates in one call.
 """
 
 import pathlib
 import sys
 import time
+
+#: (message dtype, CN form) of the fixed-iteration points
+FIXED_FORMS = (("float32", "BP"), ("bfloat16", "BP"), ("int8", "BP_OMS"))
 
 
 def main() -> int:
@@ -80,6 +88,12 @@ def main() -> int:
     for dtype, cn in (("bfloat16", "BP"), ("int8", "BP_OMS")):
         run("bench1152", f"res_{dtype}.txt", ["2.0", "2.51", "0.5"], "--message-dtype", dtype,
             "--decoding", cn, *cap)
+    fixed = ["--no-early-term", "--frame-error-count", "50", "--max-frames", str(4 * 16384)]
+    for dtype, cn in FIXED_FORMS:
+        flags = ["--message-dtype", dtype, "--decoding", cn, *fixed]
+        run("bench1152", f"res_fixed_{dtype}.txt", ["2.0", "2.01", "1"], *flags)
+        run("wifi1944", f"res_layered_fixed_{dtype}.txt", ["2.0", "2.01", "1"], "--qc-z", "81",
+            *flags, layered=True)
     for key, layered, snr, dtype, form in (
             ("bench1152", False, 2.0, "float32", "BP"), ("bench1152", False, 2.5, "float32", "BP"),
             ("wifi648", True, 2.0, "float32", "BP"), ("wifi648", True, 2.0, "int8", "BP_MS")):
@@ -93,6 +107,18 @@ def main() -> int:
         print(f"rate {key} {'layered' if layered else 'flooding'} {form} {dtype} ET {snr} dB: "
               f"{1.0 / res.time[0]:.0f} frames/s (avg_iter {res.avg_iter[0]:.3f}, FER "
               f"{res.fer[0]:.3e}, {int(res.frames[0])} frames)", flush=True)
+    for key, layered in (("bench1152", False), ("wifi1944", True)):
+        for dtype, form in FIXED_FORMS:
+            res = Simulator(
+                codes[key], DecoderParams(iterations=50, early_term=False, layered=layered,
+                                          type=form, message_dtype=dtype),
+                ChannelParams(seed=1, x_range=(2.0, 2.01, 1.0)),
+                SimulationParams(batch_size=16384, fec=10**9, max_frames=8 * 16384),
+                device=torch.device("cuda"), verbose=False, use_pallas=True,
+            ).start()
+            print(f"rate {key} {'layered-fast' if layered else 'flooding'} {form} {dtype} fixed "
+                  f"50 it 2.0 dB: {1.0 / res.time[0]:.0f} frames/s (FER {res.fer[0]:.3e}, "
+                  f"{int(res.frames[0])} frames)", flush=True)
     return 0
 
 

@@ -323,7 +323,7 @@ def test_stream_form_rule(tables_of):
     tables; a code of 8190 variables keeps the HBM-plane form."""
     _, wifi = tables_of("wifi1944")
     assert dl.stream_form(wifi) == (16, True)
-    assert dl.stream_tile_bytes(wifi, 16, False) == 1944 * 16 * 4 + 972 * 4
+    assert dl.fast_tile_bytes(wifi, 16, False) == 1944 * 16 * 4 + 972 * 4
 
 
 # -------------------------------------------------- K6 / K7: the BEC kernels

@@ -95,7 +95,7 @@ def force():
 
 def k2_fits(tables, forced, dtype):
     frames, stage = forced
-    return frames == 0 or df.stream_tile_bytes(tables, frames, dtype, stage) <= df.SMEM_BLOCK_BYTES
+    return frames == 0 or df.flood_tile_bytes(tables, frames, dtype, stage) <= df.SMEM_BLOCK_BYTES
 
 
 def k5_fits(tables, forced, dtype):
@@ -296,7 +296,7 @@ def test_tile_bytes_match_the_kernels(tables_of, name):
         msg = TORCH_DTYPES[dtype].itemsize
         for frames_ in (16, 8, 4):
             for stage in (True, False):
-                assert df.stream_tile_bytes(t, frames_, dtype, stage) == lib.ldpc_flood_tile_bytes(
+                assert df.flood_tile_bytes(t, frames_, dtype, stage) == lib.ldpc_flood_tile_bytes(
                     c.nc, c.mc, c.nnz, frames_, msg, int(stage))
                 assert dl.exact_tile_bytes(t, frames_, dtype, stage) == lib.ldpc_exact_tile_bytes(
                     c.nc, c.mc, c.nnz, t.n_layers, t.layer_checks.shape[0], t.layer_vars.shape[0],
