@@ -520,9 +520,11 @@ def main() -> int:
               db.bec_decode_fused.last_in_shared is False,
               f"K6 {key} with its words in device memory not bit-exact")
 
-    # ---- 7c. K7 (BEC peeling, stream) against its plain version and K6:
-    # every frame enters through the pool (a reload starts from the channel
-    # symbols, as the batch decode does), then the lanes drain
+    # ---- 7c. K7 (BEC peeling, stream) in each form (the size rule's words
+    # in shared memory, and the byte planes forced) against its plain
+    # version and K6: every frame enters through the pool (a reload starts
+    # from the channel symbols, as the batch decode does), then the lanes
+    # drain; the state after a chunk from mid-stream; the quota
     def bec_drain(fn, tb, ch):
         st = init_state(tb, BATCH, "BEC")
         st.fresh_llr.copy_(ch.llr)
@@ -538,27 +540,81 @@ def main() -> int:
                 return st.ctr.sum(1).tolist()
         raise RuntimeError("BEC streams did not drain")
 
+    k7_planes = ("llr_in", "codeword", "lv2c", "done", "iters", "age", "avail", "ctr")
+
+    def k7_chunk_state(key, stale):
+        """One chunk of 6 passes from mid-stream (a plain chunk of 3 passes
+        with half the lanes started, the consumed pool entries refreshed),
+        kernel against plain; the largest |difference| over the carried
+        planes and counters."""
+        tb = tables[key]
+        ch, ch2 = bec_frames(key, 4), bec_frames(key, 5)
+        st = init_state(tb, BATCH, "BEC")
+        st.fresh_llr.copy_(ch.llr)
+        st.fresh_cw.copy_(ch.codeword)
+        st.avail.fill_(1)
+        half = torch.full((1,), BATCH // 2, dtype=torch.int32, device=dev)
+        db.bec_stream_chunk_fused_plain(
+            tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+            st.fresh_llr, st.fresh_cw, refill_on, half, k=3, cap=ITERS, degree1_stale_byte=stale)
+        st.fresh_llr.copy_(torch.where(st.avail == 0, ch2.llr, st.fresh_llr))
+        st.fresh_cw.copy_(torch.where(st.avail == 0, ch2.codeword, st.fresh_cw))
+        st.avail.fill_(1)
+        out = []
+        for fn in (db.bec_stream_chunk_fused, db.bec_stream_chunk_fused_plain):
+            s_ = init_state(tb, BATCH, "BEC")
+            for n in k7_planes + ("fresh_llr", "fresh_cw"):
+                getattr(s_, n).copy_(getattr(st, n))
+            fn(tb, s_.llr_in, s_.codeword, s_.lv2c, s_.done, s_.iters, s_.age, s_.avail, s_.ctr,
+               s_.fresh_llr, s_.fresh_cw, refill_on,
+               torch.full((1,), BATCH, dtype=torch.int32, device=dev), k=6, cap=ITERS,
+               degree1_stale_byte=stale)
+            out.append(s_)
+        torch.cuda.synchronize()
+        same = [torch.equal(getattr(out[0], n), getattr(out[1], n)) for n in k7_planes]
+        print(f"K7 {db.bec_stream_chunk_fused.last_form} {key} chunk from mid-stream, "
+              f"compat={int(stale is not None)}: equal {same}, frames finished "
+              f"{int(out[1].ctr[2].sum())}, started {int(out[1].ctr[4].sum())}")
+        check(all(same), f"K7 {key} state after a chunk not bit-exact")
+        return max(float((getattr(out[0], n).int() - getattr(out[1], n).int()).abs().max())
+                   for n in k7_planes)
+
     tb7, ch7 = tables["bench1152"], bec_frames("bench1152", 1)
-    got7 = bec_drain(db.bec_stream_chunk_fused, tb7, ch7)
     want7 = bec_drain(db.bec_stream_chunk_fused_plain, tb7, ch7)
     out6 = db.bec_decode_fused(tb7, ch7.llr, ch7.codeword, ITERS, True)
     bp7 = tb7.code.bit_pos.long()
     errs6 = (out6.hard[bp7] != ch7.codeword[bp7]).sum(0)
     batch7 = [int(errs6.sum()), int((errs6 > 0).sum()), BATCH, int(out6.iterations.sum()), BATCH]
-    print(f"K7 drain bench1152 eps {BEC_EPS}: kernel {got7} plain {want7} K6 batch {batch7}")
-    check(got7 == want7 == batch7, "K7 drained totals differ from its plain version or K6")
-    err7 = float(max(abs(a - b) for a, b in zip(got7, want7)))
-    st = init_state(tb7, BATCH, "BEC")
-    st.fresh_llr.copy_(ch7.llr)
-    st.fresh_cw.copy_(ch7.codeword)
-    st.avail.fill_(1)
-    remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
-    db.bec_stream_chunk_fused(tb7, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
-                              st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_on, remaining,
-                              k=6, cap=ITERS)
-    starts = int(st.ctr[4].sum())
-    print(f"K7 quota 5000: starts {starts}, pool entries used {BATCH - int(st.avail.sum())}")
-    check(starts == 5000 == BATCH - int(st.avail.sum()), "K7 quota not exact")
+    check(want7 == batch7, "K7's plain version drains unlike K6")
+    check(db.bec_stream_form(tb7) == db.bec_stream_form(tables["wifi1944"]) == "words",
+          "K7's size rule: words for the 1152 code and wifi 1944")
+    err7 = 0.0  # largest |kernel - plain| over drained totals and carried state
+    for form in ("words", "bytes"):
+        db.FORCE_BYTES = form == "bytes"
+        try:
+            got7 = bec_drain(db.bec_stream_chunk_fused, tb7, ch7)
+            print(f"K7 {form} drain bench1152 eps {BEC_EPS}: kernel {got7} plain {want7} K6 "
+                  f"batch {batch7}")
+            check(db.bec_stream_chunk_fused.last_form == form, f"K7 ran {form}")
+            check(got7 == want7, f"K7 {form} drained totals differ from its plain version or K6")
+            err7 = max([err7] + [float(abs(a - b)) for a, b in zip(got7, want7)])
+            for key in ("bench1152", "wifi1944"):
+                for stale in (None, 0):
+                    err7 = max(err7, k7_chunk_state(key, stale))
+            st = init_state(tb7, BATCH, "BEC")
+            st.fresh_llr.copy_(ch7.llr)
+            st.fresh_cw.copy_(ch7.codeword)
+            st.avail.fill_(1)
+            remaining = torch.full((1,), 5000, dtype=torch.int32, device=dev)
+            db.bec_stream_chunk_fused(tb7, st.llr_in, st.codeword, st.lv2c, st.done, st.iters,
+                                      st.age, st.avail, st.ctr, st.fresh_llr, st.fresh_cw,
+                                      refill_on, remaining, k=6, cap=ITERS)
+            starts = int(st.ctr[4].sum())
+            print(f"K7 {form} quota 5000: starts {starts}, pool entries used "
+                  f"{BATCH - int(st.avail.sum())}")
+            check(starts == 5000 == BATCH - int(st.avail.sum()), f"K7 {form} quota not exact")
+        finally:
+            db.FORCE_BYTES = False
 
     # ---- 7d. a code whose checks have degree 36, past the combine's unrolled
     # limit (the windowed combine): kernel 1, kernel 2 (its tile and
@@ -792,7 +848,10 @@ def main() -> int:
         if s_frames >= 4 * BATCH and vals[4] == 0:
             break
     bec_launches = read_counts()
-    print(f"BEC path launches: {bec_launches}")
+    print(f"BEC path launches: {bec_launches} (K7 in its {db.bec_stream_chunk_fused.last_form} "
+          f"form)")
+    check(db.bec_stream_chunk_fused.last_form == db.bec_stream_form(tables["bench1152"]),
+          "the BEC streaming step ran K7 in another form than its size rule's")
     print(f"BEC streaming step eps {BEC_EPS}: {s_frames} frames, FER {s_fec / s_frames:.4e}, "
           f"avg_iter {s_iter / s_frames:.3f}")
     check(bec_launches["bec_decode_fused"] > 0, "the BEC sweep did not run K6")
@@ -1025,29 +1084,67 @@ def main() -> int:
         print(f"time K6 {key} BEC {ITERS} it no-ET B={BATCH}: kernel {times[f'K6 {key}'][0]:.3f} "
               f"ms (words in device memory {scratch_ms:.3f} ms), plain "
               f"{times[f'K6 {key}'][1]:.3f} ms [{name_power}]")
+    # K7, 6 passes from a full pool, in each form; the plain version on the
+    # 1152 code (the kernels line's row) and once on wifi 1944
     box7 = {}
-    ch7t = bec_frames("bench1152", 3)
 
-    def reset7():
-        st_ = init_state(tb7, BATCH, "BEC")
-        st_.fresh_llr.copy_(ch7t.llr)
-        st_.fresh_cw.copy_(ch7t.codeword)
+    def reset7(key):
+        ch_ = box7.setdefault(("ch", key), bec_frames(key, 3))
+        st_ = init_state(tables[key], BATCH, "BEC")
+        st_.fresh_llr.copy_(ch_.llr)
+        st_.fresh_cw.copy_(ch_.codeword)
         st_.avail.fill_(1)
         box7["st"] = st_
         box7["rem"] = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
 
-    def run7(fn):
+    def run7(fn, key, k=6):
         st_ = box7["st"]
-        fn(tb7, st_.llr_in, st_.codeword, st_.lv2c, st_.done, st_.iters, st_.age, st_.avail,
-           st_.ctr, st_.fresh_llr, st_.fresh_cw, refill_on, box7["rem"], k=6, cap=ITERS)
+        fn(tables[key], st_.llr_in, st_.codeword, st_.lv2c, st_.done, st_.iters, st_.age,
+           st_.avail, st_.ctr, st_.fresh_llr, st_.fresh_cw, refill_on, box7["rem"], k=k,
+           cap=ITERS)
 
-    k7_ms = cuda_ms(lambda: run7(db.bec_stream_chunk_fused), 5, reset7)
-    passes["K7 bench1152"] = int(box7["st"].age.sum()) - int(box7["st"].ctr[4].sum())
-    times["K7 bench1152"] = (k7_ms, cuda_ms(lambda: run7(db.bec_stream_chunk_fused_plain), 2,
-                                            reset7))
-    print(f"time K7 bench1152 BEC 6 passes from a full pool B={BATCH}: kernel "
-          f"{times['K7 bench1152'][0]:.3f} ms, plain {times['K7 bench1152'][1]:.3f} ms "
-          f"({passes['K7 bench1152']} frame-passes) [{name_power}]")
+    k7_forms = {}
+    for key in ("bench1152", "wifi1944"):
+        for form in ("words", "bytes"):
+            db.FORCE_BYTES = form == "bytes"
+            try:
+                # k = 1 and 12 beside the timed 6: a chunk's fixed cost and its cost a pass
+                by_k = {k: cuda_ms(lambda: run7(db.bec_stream_chunk_fused, key, k), 5,
+                                   lambda: reset7(key)) for k in (1, 12, 6)}
+                check(db.bec_stream_chunk_fused.last_form == form, f"K7 {key} timed {form}")
+            finally:
+                db.FORCE_BYTES = False
+            k7_forms[key, form] = by_k[6]
+            print(f"time K7 {form} {key} BEC from a full pool B={BATCH}: k=1 {by_k[1]:.3f} ms, "
+                  f"k=6 {by_k[6]:.3f} ms, k=12 {by_k[12]:.3f} ms [{name_power}]")
+        passes[f"K7 {key}"] = int(box7["st"].age.sum()) - int(box7["st"].ctr[4].sum())
+        rule = db.bec_stream_form(tables[key])
+        times[f"K7 {key}"] = (k7_forms[key, rule], cuda_ms(
+            lambda: run7(db.bec_stream_chunk_fused_plain, key), 2 if key == "bench1152" else 1,
+            lambda: reset7(key)))
+        print(f"time K7 {key} BEC 6 passes from a full pool B={BATCH}: words in shared memory "
+              f"{k7_forms[key, 'words']:.3f} ms, byte planes {k7_forms[key, 'bytes']:.3f} ms "
+              f"(the rule's: {rule}), plain {times[f'K7 {key}'][1]:.3f} ms "
+              f"({passes[f'K7 {key}']} frame-passes) [{name_power}]")
+
+    def bec_stream_rate(eps, steps=8):
+        """Frames/s of the BEC streaming step (50 iterations, chunks of 6
+        passes, a channel batch each) on the host clock over ``steps``
+        super-steps, after two warm ones."""
+        sinit_, sstep_ = make_streaming_fused_step(tables["bench1152"], "BEC",
+                                                   DecoderParams(iterations=ITERS), BATCH)
+        st_ = sinit_()
+        for step in range(2):
+            st_, _ = sstep_(st_, make_generator(dev, 11, int(eps * 100), step), eps, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames_ = torch.zeros((), dtype=torch.int64, device=dev)
+        for step in range(2, 2 + steps):
+            st_, acc_ = sstep_(st_, make_generator(dev, 11, int(eps * 100), step), eps, True)
+            frames_ += acc_.frames
+        n = int(frames_)  # synchronises
+        return n / (time.perf_counter() - t0), n
+
     for eps in (0.35, 0.40):
         res = Simulator(
             codes["bench1152"], DecoderParams(iterations=ITERS),
@@ -1062,6 +1159,16 @@ def main() -> int:
               f"{res.avg_iter[0]:.3f}, FER {res.fer[0]:.3e}, {int(res.frames[0])} frames); K6 "
               f"with ET on one batch {k6_et:.3f} ms of {res.time[0] * BATCH * 1e3:.3f} ms per "
               f"batch [{name_power}]")
+        rates = []
+        for form in ("words", "bytes"):
+            db.FORCE_BYTES = form == "bytes"
+            try:
+                rates.append(bec_stream_rate(eps))
+            finally:
+                db.FORCE_BYTES = False
+        print(f"stream bench1152 BEC ET eps {eps}: {rates[0][0]:.0f} frames/s with K7's words, "
+              f"{rates[1][0]:.0f} with its byte planes ({rates[0][1]} and {rates[1][1]} frames "
+              f"in 8 super-steps), batch-stepped {1.0 / res.time[0]:.0f} [{name_power}]")
 
     mark("kernel times done")
     # end-to-end sweep rate from the Simulator's own float timing (the
@@ -1214,14 +1321,19 @@ def main() -> int:
         "bp_decode_layered_bf16": bound(batch_bytes("wifi648", 4, 2), k5_needed(3 * 10)),
         "bp_decode_layered_int8": bound(batch_bytes("wifi648", 4, 1), k5_needed(3 * 3)),
     }
-    # the wifi 1944 rows of kernel 1 (float32, BP) and K6 (BEC)
+    # the wifi 1944 rows of kernel 1 (float32, BP), K6 and K7 (BEC); K7's
+    # two forms on both codes
+    k7_bound = {key: bound(stream_bytes(key, 1), passes[f"K7 {key}"] * dims(key)[1]
+                           * OPS_BEC_SLOT) for key in ("bench1152", "wifi1944")}
     for name, b_, t in (
             ("k1 wifi1944", bound(batch_bytes("wifi1944", 4, 4),
                                   BATCH * ITERS * dims("wifi1944")[1] * OPS_BP_SLOT),
              times["k1 wifi1944"][0]),
             ("K6 wifi1944", bound(batch_bytes("wifi1944", 2, 2),
                                   BATCH * ITERS * dims("wifi1944")[1] * OPS_BEC_SLOT),
-             times["K6 wifi1944"][0])):
+             times["K6 wifi1944"][0]),
+            *[(f"K7 {form} {key}", k7_bound[key], k7_forms[key, form])
+              for key in ("bench1152", "wifi1944") for form in ("words", "bytes")]):
         print(f"bound {name}: {b_[0]:.4f} ms by {b_[1]}, kernel {t:.3f} ms "
               f"({b_[0] / t:.1%} of the bound) [{name_power}]")
     # K1, K2, K3 and K5: the source of the form the size rule picks (the
@@ -1240,12 +1352,16 @@ def main() -> int:
                    "libldpc_tpu_torch/csrc/decode_layered.cu")
     k4_src = "libldpc_tpu_torch/csrc/layered_stream.cuh"
     bec_src = "libldpc_tpu_torch/csrc/decode_bec.cu"
+    k7_src = ("libldpc_tpu_torch/csrc/bec_stream_words.cuh"
+              if db.bec_stream_form(tb7) == "words" else bec_src)
     # the form of each kernel that ran: K4 by its size rule, K6 with its
     # words in shared memory or in the device-memory scratch
     forms_run = {"bp_stream_chunk_layered_fast": k4_form,
                  "bp_decode_layered_fast": form_name(dl.batch_form(tables["wifi1944"])),
                  "bec_decode_fused": "words in shared memory" if db.bec_decode_fused.last_in_shared
-                 else "words in device memory"}
+                 else "words in device memory",
+                 "bec_stream_chunk_fused": "words in shared memory"
+                 if db.bec_stream_form(tb7) == "words" else "HBM planes, 32 frames x 8 warps"}
     # K1, K2 and K5 by their size rules, per message form, at the timed shapes
     for dt in SUFFIX:
         forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
@@ -1265,7 +1381,7 @@ def main() -> int:
          err5, times["K5 wifi648"]),
         ("bec_decode_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1235", err6,
          times["K6 bench1152"]),
-        ("bec_stream_chunk_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
+        ("bec_stream_chunk_fused", k7_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
          times["K7 bench1152"]),
         ("bp_decode_fused_bf16", fused["bfloat16"], "libldpc_tpu/ops/pallas/decode_fused.py:617",
          err_form["k1 bfloat16"], times["k1_bf16 bench1152"]),

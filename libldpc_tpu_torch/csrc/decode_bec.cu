@@ -4,9 +4,14 @@
 // libldpc_tpu/ops/pallas/decode_lanes.py:
 //   * bec_decode_words_kernel       <- `kernel` with bec_mode (via bec_decode_lanes,
 //                                      convergence predicate `resolved`)
-//   * bec_stream_chunk_fused_kernel <- `kernel_stream` with bec_mode (via
-//                                      bp_stream_chunk_lanes), on the chunk shared
-//                                      with the BP stream kernel (stream_chunk.cuh)
+//   * bec_stream_words_kernel       <- `kernel_stream` with bec_mode (via
+//     (bec_stream_words.cuh)           bp_stream_chunk_lanes, convergence `resolved`
+//                                      at :714, errors the unresolved transmitted
+//                                      bits at :729): the word form
+//   * bec_stream_chunk_fused_kernel <- the same, on byte planes: the chunk shared
+//                                      with the BP stream kernel's HBM-plane form
+//                                      (stream_chunk.cuh), for a code whose words
+//                                      do not fit a block's shared memory
 // They compute what bec_decode_sorted computes (libldpc_tpu_torch/ops/
 // bec_sorted.py): flooding peeling over the 3-state alphabet {0, 1, E = 2}.
 //
@@ -50,18 +55,26 @@
 // keeps the same words in a device-memory scratch, one row per block (the
 // wrapper's size rule chooses, ops/kernels/decode_bec.py).
 //
-// The streaming kernel keeps the byte algebra on [rows, B] u8 planes, 32
-// frames (one per lane) x 8 warps per block, each phase split over the
-// warps, index tables through __ldg (broadcast loads).
+// The streaming kernel runs the same words (bec_stream_words.cuh): a
+// block's word lives in shared memory for the whole chunk, packed from the
+// carried [rows, B] u8 planes at entry and unpacked at exit, with the
+// reload, the start quota and the counters of stream_chunk.cuh on words.
+// For a code whose words pass a block's shared memory it keeps the byte
+// algebra on [rows, B] u8 planes (stream_chunk.cuh: 32 frames, one per
+// lane, x 8 warps per block, each phase split over the warps, index tables
+// through __ldg); the wrapper's size rule chooses (ops/kernels/decode_bec.py
+// bec_stream_form).
 //
-// What bounds it: the batch kernel's bytes in and out (sym_in and cw read,
+// What bounds them: the batch kernel's bytes in and out (sym_in and cw read,
 // sym_out and hard written, once) are 4 nc B bytes, 75 MB at B = 16384 for
 // the 1152 code; its work is ~40 word operations per slot and iteration for
 // 32 frames, served from shared memory, so the instruction count and the three
-// block barriers per iteration set its time, not device memory.  The
-// streaming kernel makes one byte load per slot, frame and phase: as many
-// instructions as the float kernels for a quarter of the bytes; it is bound
-// by its instruction count and dependent loads, not by traffic.
+// block barriers per iteration set its time, not device memory.  The word
+// chunk moves its state once a chunk and adds a barrier a pass for the
+// control step, two for a reload and one for a count of finishing frames'
+// errors.  The byte chunk makes one byte load per slot, frame and
+// phase: as many instructions as the float kernels for a quarter of the
+// bytes; it is bound by its instruction count and dependent loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -152,6 +165,19 @@ struct BecWords {
   uint32_t* mk;   // [nnz] message known
   uint32_t* mv;   // [nnz] message value (0 where erased)
 };
+
+// The words of one 32-frame word's state, laid out from `base`
+// (4 nc + 2 nnz words).
+__device__ __forceinline__ BecWords bec_words_at(uint32_t* base, const Code& c) {
+  BecWords w;
+  w.chk = base;
+  w.xi = w.chk + c.nc;
+  w.pk = w.xi + c.nc;
+  w.pv = w.pk + c.nc;
+  w.mk = w.pv + c.nc;
+  w.mv = w.mk + c.nnz;
+  return w;
+}
 
 __device__ __forceinline__ uint32_t keep(uint32_t old, uint32_t val, uint32_t live) {
   return (old & ~live) | (val & live);
@@ -248,13 +274,7 @@ bec_decode_words_kernel(Code c, const uint8_t* __restrict__ sym_in,
   __shared__ uint32_t live_s, erased_s;
   uint32_t* base =
       GLOBAL ? scratch + (size_t)blockIdx.x * (4 * (size_t)c.nc + 2 * (size_t)c.nnz) : bec_smem;
-  BecWords w;
-  w.chk = base;
-  w.xi = w.chk + c.nc;
-  w.pk = w.xi + c.nc;
-  w.pv = w.pk + c.nc;
-  w.mk = w.pv + c.nc;
-  w.mv = w.mk + c.nnz;
+  const BecWords w = bec_words_at(base, c);
   const size_t B = B_;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t b = (size_t)blockIdx.x * 32 + lane;
@@ -322,7 +342,13 @@ bec_decode_words_kernel(Code c, const uint8_t* __restrict__ sym_in,
   }
 }
 
-// The BEC pass of the streaming chunk: peeling CN and VN phases; the VN
+}  // namespace
+
+#include "bec_stream_words.cuh"
+
+namespace {
+
+// The BEC pass of the byte chunk: peeling CN and VN phases; the VN
 // phase marks unresolved frames, so there is no separate check.  A bit is
 // wrong where its posterior is E (and, in the bug-compatible mode, whose
 // constant decision 1 differs from the true bit).
@@ -379,6 +405,23 @@ int ldpc_bec_decode_fused(const uint8_t* sym_in, const uint8_t* cw, uint8_t* sym
                      iterations, early_term, stale);
 }
 
+// The word form: a block's 32 frames as words in shared memory for the chunk.
+int ldpc_bec_stream_chunk_words(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* done, int* iters,
+                                int* age, int* avail, int* ctr, const uint8_t* fresh_sym,
+                                const uint8_t* fresh_cw, const int* refill, int* remaining,
+                                const int* row_ptr, const int* col_sorted, const int* vn_ptr,
+                                const int* perm_c2v, const int* bit_pos, int nc, int mc, int nnz,
+                                int nct, int B, int k, int cap, int stale, void* stream) {
+  Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
+  StreamArgs<uint8_t, uint8_t> s{sym,    cw,        lv2c,      done, iters,   age,
+                                 avail,  ctr,       fresh_sym, fresh_cw, refill, remaining,
+                                 nullptr, bit_pos,  nct};
+  const size_t bytes = (size_t)(4 * nc + 2 * nnz) * 4;  // the state of one word (BecWords)
+  return launch_smem(bec_stream_words_kernel, grid_for(B), dim3(LDPC_BEC_THREADS), bytes,
+                     (cudaStream_t)stream, c, s, B, k, cap, stale);
+}
+
+// The byte form: [rows, B] u8 planes, `lc2v` and `post` scratch planes.
 int ldpc_bec_stream_chunk_fused(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* done, int* iters,
                                 int* age, int* avail, int* ctr, const uint8_t* fresh_sym,
                                 const uint8_t* fresh_cw, const int* refill, int* remaining,

@@ -35,8 +35,10 @@ batch kernel runs it: a symbol is two bits, ``known`` and ``value`` (0
 where erased), and 32 frames make one int32 word of each
 (:func:`pack_symbols`, :func:`bec_words_pass`, :func:`unpack_symbols`,
 :func:`bec_decode_words`).  Counts become two accumulators, "at least one"
-and "at least two" (``two |= one & x; one |= x``).  It is held against the
-byte version by the tests and is not on any decode path.
+and "at least two" (``two |= one & x; one |= x``).
+:func:`bec_stream_chunk_words` is the streaming chunk the CUDA kernel's
+word form runs, on the same words.  Both are held against the byte
+versions by the tests and are on no decode path.
 """
 
 from __future__ import annotations
@@ -321,3 +323,102 @@ def bec_decode_words(
         iterations=iters,
         resolved=~unres.any(0),
     )
+
+
+def _keep(old: torch.Tensor, val: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``val`` in the frames of ``mask``, ``old`` elsewhere (words)."""
+    return (old & ~mask) | (val & mask)
+
+
+def transpose32(x: torch.Tensor) -> torch.Tensor:
+    """The warp transposition of ``csrc/bec_stream_words.cuh``
+    ``transpose32``: int64 words in ``[0, 2**32)``, ``[..., 32, W]`` with
+    lane ``i`` (axis -2) holding row ``i`` of a 32 x 32 bit matrix, to lane
+    ``i`` holding column ``i``, in the kernel's five block swaps."""
+    lane = torch.arange(32, device=x.device)
+    m, j = 0x0000FFFF, 16
+    while j:
+        other = x.index_select(x.dim() - 2, lane ^ j)
+        high = ((lane & j) != 0)[:, None]
+        x = torch.where(high, (x & ~m) | ((other >> j) & m), (x & m) | ((other & m) << j))
+        j >>= 1
+        m ^= m << j
+    return x
+
+
+def count_frame_bits(words: torch.Tensor, B: int) -> torch.Tensor:
+    """int32 ``[rows, W]`` -> int32 ``[B]``: each frame's set bits over the
+    rows, counted as the kernel counts them: 32 rows at a time transposed
+    (:func:`transpose32`), then a population count per lane."""
+    rows, W = words.shape
+    x = torch.zeros((-(-rows // 32) * 32, W), dtype=torch.int64, device=words.device)
+    x[:rows] = words.to(torch.int64) & 0xFFFFFFFF
+    cols = transpose32(x.reshape(-1, 32, W))
+    bits = (cols[..., None] >> torch.arange(32, device=words.device)) & 1
+    return bits.sum((0, 3)).t().reshape(-1)[:B].to(torch.int32)
+
+
+def bec_stream_chunk_words(
+    sdc: TorchSortedCode, sym, cw, lv2c, done, iters, age, avail, ctr, fresh_sym, fresh_cw,
+    refill, remaining, *, k: int, cap: int, degree1_stale_byte: Optional[int] = None,
+) -> None:
+    """The BEC streaming chunk as the CUDA kernel's word form runs it, in
+    place on the state of ``kernels.decode_bec.bec_stream_chunk_fused``:
+    pack the carried symbols, codewords and messages into words; per pass,
+    grant starts in lane order against ``remaining``, pack the pool's rows
+    under the grant mask (their messages the channel symbol at each slot),
+    run :func:`bec_words_pass` on the frames in flight (``live``), and count
+    the finishing frames' transmitted-bit errors (:func:`count_frame_bits`);
+    unpack the messages of the frames that ran.  It leaves the state the
+    byte chunk (``bec_stream_chunk_fused_plain``) leaves."""
+    B = sym.shape[1]
+    E = BEC_ERASURE
+    chk, xi = _to_words(sym != E), _to_words(cw != 0)
+    mk, mv = _to_words(lv2c != E), _to_words(lv2c == 1)
+    pk, pv = torch.zeros_like(chk), torch.zeros_like(chk)
+    pool_k, pool_v = _to_words(fresh_sym != E), _to_words(fresh_sym == 1)
+    pool_x = _to_words(fresh_cw != 0)
+    ran = torch.zeros_like(chk[0])
+    refill_on = bool(refill[0] != 0)
+    for _ in range(k):
+        # ---- reload, in lane order within the quota
+        want = refill_on & (done != 0) & (avail != 0)
+        grant = want & (torch.cumsum(want.to(torch.int32), 0) <= remaining)
+        remaining -= grant.sum(dtype=torch.int32)
+        sym.copy_(torch.where(grant, fresh_sym, sym))
+        cw.copy_(torch.where(grant, fresh_cw, cw))
+        g = grant.to(torch.int32)
+        done.mul_(1 - g)
+        age.copy_(torch.where(grant, 1, age))
+        iters.mul_(1 - g)
+        avail.sub_(g)
+        ctr[4] += g
+        run = done == 0
+        if not bool(run.any()):
+            break  # nothing runs and nothing may start
+        R, live = _to_words(grant[None])[0], _to_words(run[None])[0]
+        ran |= live
+        chk, xi, pv = _keep(chk, pool_k, R), _keep(xi, pool_x, R), _keep(pv, pool_v, R)
+        mk = _keep(mk, chk.index_select(0, sdc.col_sorted), R)
+        mv = _keep(mv, pv.index_select(0, sdc.col_sorted), R)
+        # ---- one pass of the frames in flight
+        pk_n, pv_n, mk_n, mv_n = bec_words_pass(sdc, chk, xi, mk, mv, degree1_stale_byte)
+        mk, mv = _keep(mk, mk_n, live), _keep(mv, mv_n, live)
+        pk, pv = _keep(pk, pk_n, live), _keep(pv, pv_n, live)
+        checking = run & (age >= 1)
+        newly = checking & ~_from_words(~pk_n, B).any(0)
+        iters += (checking & ~newly).to(torch.int32)
+        age += run.to(torch.int32)
+        finish = run & (newly | (age >= cap + 1))
+        if bool(finish.any()):
+            bad = ~pk.index_select(0, sdc.bit_pos)
+            if degree1_stale_byte is not None:
+                bad &= ~xi.index_select(0, sdc.bit_pos)
+            be = count_frame_bits(bad, B)
+            f = finish.to(torch.int32)
+            ctr[0] += f * be
+            ctr[1] += f * (be > 0).to(torch.int32)
+            ctr[2] += f
+            ctr[3] += f * iters
+            done.add_(f)
+    lv2c.copy_(torch.where(_from_words(ran[None], B)[0], unpack_symbols(mk, mv, B), lv2c))

@@ -252,6 +252,16 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bec_stream_chunk_fused.restype = I
+            lib.ldpc_bec_stream_chunk_words.argtypes = [
+                P, P, P,  # sym cw lv2c
+                P, P, P, P, P,  # done iters age avail ctr
+                P, P, P, P,  # fresh_sym fresh_cw refill remaining
+                P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
+                I, I, I, I, I,  # nc mc nnz nct B
+                I, I, I,  # k cap stale
+                P,  # stream
+            ]
+            lib.ldpc_bec_stream_chunk_words.restype = I
             # the shared memory of the tile forms of K1 and K2, K3 and K4, and
             # K5, for the card tests to hold the size rules' byte counts to
             lib.ldpc_flood_tile_bytes.argtypes = [I] * 6  # nc mc nnz frames msg stage

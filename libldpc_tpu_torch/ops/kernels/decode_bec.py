@@ -6,18 +6,23 @@
   decode of a batch in one launch, with per-frame early termination.
 * :func:`bec_stream_chunk_fused` runs its streaming kernel, the port of
   ``kernel_stream`` in its BEC form (``bp_stream_chunk_lanes`` with
-  ``bec_mode``): ``k`` self-refilling passes per lane on the chunk the BP
-  stream kernel uses (``csrc/stream_chunk.cuh``).
+  ``bec_mode``): ``k`` self-refilling passes per lane.
 
 Both run the exact 3-state algebra of :mod:`..bec_sorted` (the TPU
 kernels run it as min-sum over a sign encoding), so they are bit-exact
-against their plain versions.  The batch kernel runs it bit-sliced, 32
-frames to a word (:func:`..bec_sorted.bec_words_pass` is that algebra in
-plain PyTorch), with a block's whole state in shared memory, or in a
-device-memory scratch for a code whose state does not fit
-(:func:`words_in_shared`); the streaming kernel on u8 planes.  ``degree1_stale_byte`` (None, or the byte
-0-1 of the reference's bug-compatible mode) is passed to the kernels as
-``-1`` or the byte.
+against their plain versions.  Both run it bit-sliced, 32 frames to a
+word (:func:`..bec_sorted.bec_words_pass` is that algebra in plain
+PyTorch).  The batch kernel keeps a block's whole state in shared memory,
+or in a device-memory scratch for a code whose state does not fit
+(:func:`words_in_shared`).  The streaming kernel's word form
+(``csrc/bec_stream_words.cuh``; :func:`..bec_sorted.bec_stream_chunk_words`
+models it) packs a block's 32 frames from the carried u8 planes into words
+in shared memory for the whole chunk and unpacks them at exit; for a code
+whose words do not fit it runs its byte form, on u8 planes in device
+memory, on the chunk the BP stream kernel's HBM-plane form uses
+(``csrc/stream_chunk.cuh``).  :func:`bec_stream_form` chooses, by size
+only.  ``degree1_stale_byte`` (None, or the byte 0-1 of the reference's
+bug-compatible mode) is passed to the kernels as ``-1`` or the byte.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  Each keeps a launch count,
@@ -36,21 +41,24 @@ from ..bec import BECDecodeOutput
 from ..bec_sorted import bec_decode_sorted, bec_pass, wrong_bits
 from ..channel import BEC_ERASURE
 from . import build
-from .decode_fused import _check, _p, _raise_on, _require_cuda, stream_chunk_plain
+from .decode_fused import (
+    SMEM_BLOCK_BYTES, _check, _p, _raise_on, _require_cuda, stream_chunk_plain,
+)
 from .layout import KernelTables
 
 
-#: Shared memory one block may take on the card (232,448 bytes), less the
-#: kernel's static words.
-SMEM_BLOCK_BYTES = 232448 - 64
 #: Keep the batch kernel's state in the device-memory scratch whatever the
 #: code's size (the card tests do, to run that form on a small code).
 FORCE_SCRATCH = False
+#: Run the streaming kernel's byte form whatever the code's size (the card
+#: tests and the smoke run do, to hold and time both forms).
+FORCE_BYTES = False
 
 
 def words_state_bytes(tables: KernelTables) -> int:
-    """Bytes of state the batch kernel keeps per 32-frame word: channel,
-    codeword and posterior words per variable, a message word pair per slot
+    """Bytes of state the word kernels (the batch kernel and the streaming
+    kernel's word form) keep per 32-frame word: channel, codeword and
+    posterior words per variable, a message word pair per slot
     (``csrc/decode_bec.cu`` ``BecWords``)."""
     return (4 * tables.code.nc + 2 * tables.code.nnz) * 4
 
@@ -59,6 +67,14 @@ def words_in_shared(tables: KernelTables) -> bool:
     """The batch kernel's size rule: the state of a word lives in shared
     memory when it fits one block's, else in a device-memory scratch."""
     return not FORCE_SCRATCH and words_state_bytes(tables) <= SMEM_BLOCK_BYTES
+
+
+def bec_stream_form(tables: KernelTables) -> str:
+    """The streaming kernel's size rule: ``"words"`` (a block's 32 frames
+    as words in shared memory for the chunk) when a word's state fits one
+    block's shared memory, else ``"bytes"`` (u8 planes in device memory)."""
+    fits = words_state_bytes(tables) <= SMEM_BLOCK_BYTES
+    return "words" if fits and not FORCE_BYTES else "bytes"
 
 
 def _stale_arg(degree1_stale_byte: Optional[int]) -> int:
@@ -196,8 +212,10 @@ def bec_stream_chunk_fused(
     :func:`.decode_fused.bp_stream_chunk_fused`; a lane finishes when its
     frame is resolved or at ``age >= cap + 1``.  The pool holds symbols,
     not LLRs.  On CUDA the quota is one device counter taken with
-    ``atomicSub``: which lanes start differs from the plain version's lane
-    order, the number that start does not."""
+    ``atomicSub`` (once a word in the word form, granted in lane order
+    within the word): which lanes start differs from the plain version's
+    lane order, the number that start does not.  The form is
+    :func:`bec_stream_form`'s; the word form allocates nothing."""
     sdc = tables.code
     nc, nnz = sdc.nc, sdc.nnz
     B = sym.shape[1] if sym.dim() == 2 else -1
@@ -222,17 +240,23 @@ def bec_stream_chunk_fused(
         )
     _require_cuda(sym)
     lib = build.load()
-    lc2v = torch.empty((nnz, B), dtype=torch.uint8, device=sym.device)
-    post = torch.empty((nc, B), dtype=torch.uint8, device=sym.device)
-    err = lib.ldpc_bec_stream_chunk_fused(
-        _p(sym), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
-        _p(fresh_sym), _p(fresh_cw), _p(refill), _p(remaining), _p(lc2v), _p(post),
-        _p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
-        _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, stale,
-        ctypes.c_void_p(torch.cuda.current_stream(sym.device).cuda_stream),
-    )
+    state = (_p(sym), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+             _p(fresh_sym), _p(fresh_cw), _p(refill), _p(remaining))
+    tabs = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
+            _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, stale,
+            ctypes.c_void_p(torch.cuda.current_stream(sym.device).cuda_stream))
+    form = bec_stream_form(tables)
+    if form == "words":
+        err = lib.ldpc_bec_stream_chunk_words(*state, *tabs)
+    else:
+        lc2v = torch.empty((nnz, B), dtype=torch.uint8, device=sym.device)
+        post = torch.empty((nc, B), dtype=torch.uint8, device=sym.device)
+        err = lib.ldpc_bec_stream_chunk_fused(*state, _p(lc2v), _p(post), *tabs)
     _raise_on(lib, err, "bec_stream_chunk_fused")
     bec_stream_chunk_fused.launches += 1
+    bec_stream_chunk_fused.last_form = form
 
 
 bec_stream_chunk_fused.launches = 0
+#: the form of the last launch, ``"words"`` or ``"bytes"`` (:func:`bec_stream_form`)
+bec_stream_chunk_fused.last_form = None

@@ -22,8 +22,12 @@ timing (B = 16384, ET, 50 frame errors): the 1152 code's flooding point at
 2.0 and 2.5 dB (float32 BP) and the n=648 exact layered point at 2.0 dB
 (float32 BP, int8 BP_MS), one ``rate`` line each; then the fixed-iteration
 rates (no ET, 8 batches) of the 1152 flooding point and the n=1944
-layered-fast point at 2.0 dB in each message form.  Run it on two trees in
-turns (parent, change, change, parent) to compare their rates in one call.
+layered-fast point at 2.0 dB in each message form; last, the 1152 code over
+the BEC at erasure rates 0.35 and 0.40: the batch-stepped ``Simulator``'s
+frames/s (ET, 20 batches) and the streaming step's
+(``make_streaming_fused_step(tables, "BEC")``, 50 iterations, host clock
+over 8 super-steps after 2 warm ones).  Run it on two trees in turns
+(parent, change, change, parent) to compare their rates in one call.
 """
 
 import pathlib
@@ -43,6 +47,10 @@ def main() -> int:
     from libldpc_tpu_torch.models import (
         make_benchmark_code, wifi_code, write_codefile, write_layerfile,
     )
+    from libldpc_tpu_torch.ops.channel import make_generator
+    from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+    from libldpc_tpu_torch.ops.sorted import to_sorted_device
+    from libldpc_tpu_torch.ops.streaming_fused import make_streaming_fused_step
     from libldpc_tpu_torch.sim.driver import (
         ChannelParams, DecoderParams, SimulationParams, Simulator,
     )
@@ -119,6 +127,30 @@ def main() -> int:
             print(f"rate {key} {'layered-fast' if layered else 'flooding'} {form} {dtype} fixed "
                   f"50 it 2.0 dB: {1.0 / res.time[0]:.0f} frames/s (FER {res.fer[0]:.3e}, "
                   f"{int(res.frames[0])} frames)", flush=True)
+    dev = torch.device("cuda")
+    tables = kernel_tables(to_sorted_device(codes["bench1152"], dev))
+    for eps in (0.35, 0.40):
+        res = Simulator(
+            codes["bench1152"], DecoderParams(iterations=50),
+            ChannelParams(seed=1, x_range=(eps, eps + 0.001, 1.0), type="BEC"),
+            SimulationParams(batch_size=16384, fec=10**9, max_frames=20 * 16384),
+            device=dev, verbose=False, use_pallas=True,
+        ).start()
+        print(f"rate bench1152 BEC batch-stepped ET eps {eps}: {1.0 / res.time[0]:.0f} frames/s "
+              f"(avg_iter {res.avg_iter[0]:.3f}, FER {res.fer[0]:.3e})", flush=True)
+        init_fn, step_fn = make_streaming_fused_step(tables, "BEC", DecoderParams(iterations=50),
+                                                     16384)
+        st = init_fn()
+        frames = torch.zeros((), dtype=torch.int64, device=dev)
+        for step in range(10):
+            if step == 2:
+                torch.cuda.synchronize()
+                t0, frames = time.perf_counter(), frames.zero_()
+            st, acc = step_fn(st, make_generator(dev, 11, int(eps * 100), step), eps, True)
+            frames += acc.frames
+        n = int(frames)
+        print(f"rate bench1152 BEC streaming ET eps {eps}: {n / (time.perf_counter() - t0):.0f} "
+              f"frames/s ({n} frames in 8 super-steps)", flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Device times of the flooding and fast layered kernels (K1-K4) from any
-checkout of the port, for comparing two commits on one card in one call.
+"""Device times of the flooding and fast layered kernels (K1-K4) and of the
+BEC streaming kernel (K7) from any checkout of the port, for comparing two
+commits on one card in one call.
 
     python3 tests_gpu/kernel_times.py <root of a checkout>
 
@@ -8,9 +9,12 @@ events at B = 16384, each kernel in the form its size rule picks: K1 on the
 1152 (3,6) code and K3 on the 802.11n n=1944 code, 50 iterations without
 early termination; K2 (1152) and K4 (n=1944), 6 passes from a full pool;
 each in float32 BP, bfloat16 BP and int8 BP_MS, at 1.5 dB (the inputs of
-``chip_smoke.py`` phase 10).  One ``time`` line per kernel and form, with
-the card's name and power limit.  Run it on two trees in turns (parent,
-change, change, parent).
+``chip_smoke.py`` phase 10); K7 on both codes, 6 passes from a full pool
+at erasure rate 0.40, in its word form and its byte form
+(``decode_bec.FORCE_BYTES``), or in the byte form alone on a tree that has
+no word form.  One ``time`` line per kernel and form, with the card's name
+and power limit.  Run it on two trees in turns (parent, change, change,
+parent).
 """
 
 import pathlib
@@ -44,7 +48,8 @@ def main() -> int:
     import torch
 
     from libldpc_tpu_torch.models import make_benchmark_code, wifi_code
-    from libldpc_tpu_torch.ops.channel import awgn_channel, make_generator
+    from libldpc_tpu_torch.ops.channel import awgn_channel, bec_channel, make_generator
+    from libldpc_tpu_torch.ops.kernels import decode_bec as db
     from libldpc_tpu_torch.ops.kernels import decode_fused as df
     from libldpc_tpu_torch.ops.kernels import decode_layered as dl
     from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
@@ -88,6 +93,37 @@ def main() -> int:
                 ("K4", "wifi1944", chunk_ms(dl.bp_stream_chunk_layered_fast, "wifi1944", form,
                                             dtype))):
             print(f"time {tag} {key} {dtype} {form} B={BATCH}: {ms:.3f} ms [{card}]", flush=True)
+
+    def k7_ms(key, ch_bec):
+        tb, box = tables[key], {}
+
+        def reset():
+            st = init_state(tb, BATCH, "BEC")
+            st.fresh_llr.copy_(ch_bec.llr)
+            st.fresh_cw.copy_(ch_bec.codeword)
+            st.avail.fill_(1)
+            box["st"], box["rem"] = st, torch.full((1,), BATCH, dtype=torch.int32, device=dev)
+
+        def run():
+            st = box["st"]
+            db.bec_stream_chunk_fused(
+                tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+                st.fresh_llr, st.fresh_cw, torch.ones(1, dtype=torch.int32, device=dev),
+                box["rem"], k=6, cap=ITERS)
+
+        return cuda_ms(torch, run, 5, reset)
+
+    word_form = hasattr(db, "FORCE_BYTES")
+    for key, tb in tables.items():
+        ch_bec = bec_channel(tb.code, make_generator(dev, 8, 3, 0), BATCH, 0.40)
+        for form in ("words", "bytes") if word_form else ("bytes",):
+            if word_form:
+                db.FORCE_BYTES = form == "bytes"
+            ms = k7_ms(key, ch_bec)
+            if word_form:
+                db.FORCE_BYTES = False
+            print(f"time K7 {key} {form} BEC eps 0.40 6 passes B={BATCH}: {ms:.3f} ms [{card}]",
+                  flush=True)
     return 0
 
 
