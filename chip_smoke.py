@@ -21,7 +21,11 @@ of the kernel that ran; the kernels with a tile form, K1 to K5, are held
 against their plain versions and timed in each form side by side, K5 on
 wifi 648 and wifi 1296), the fixed-iteration ``Simulator`` frames/s of the
 1152 flooding and the wifi 1944 layered-fast points in each message form,
-and, last, an
+the checkpoint / error-log / ``LDPC`` slice (phase 11: sweeps stopped and
+resumed against the uninterrupted ones on K2 and K4, a streaming point
+resumed mid-point, the forensic error log on K1, K3 and K6, ``LDPC.decode``
+on K1, K3 and K5 against the plain versions, the threaded simulation, the
+CLI with ``--checkpoint --resume --error-log --log-codewords``), and, last, an
 ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -165,6 +170,212 @@ def compare_batch(tag, kernel, plain, tb, llr, dtype=None, tol=1e-4, also=()) ->
                           and torch.equal(got.is_codeword, want.is_codeword),
                           f"{where} {label} not bit-exact")
     return worst
+
+
+def run_resume_log_api(dev, codes, name_power, zero_counts, read_counts) -> dict:
+    """Phase 11, the checkpoint / error-log / ``LDPC`` slice at B = 16384:
+    a sweep stopped after its first point and resumed against the same
+    sweep uninterrupted (K2 on the 1152 code, K4 on wifi 1944), a streaming
+    point resumed mid-point from a hand-written checkpoint with
+    ``max_frames`` binding, the forensic error log on K1, K3 and K6 (lines
+    against the counts), ``LDPC.decode`` on K1, K3 and K5 against the plain
+    versions, the threaded ``LDPC.simulate``, and the CLI with every new
+    flag.  Prints each sweep's frames/s beside the same sweep without the
+    new flags.  Returns the launches of this path's run, read before the
+    ``LDPC.decode`` timings, which launch the kernels again."""
+    import numpy as np
+
+    from libldpc_tpu_torch import LDPC, cli
+    from libldpc_tpu_torch.models import write_codefile
+    from libldpc_tpu_torch.ops.channel import awgn_channel, make_generator
+    from libldpc_tpu_torch.ops.kernels import decode_fused as df
+    from libldpc_tpu_torch.ops.kernels import decode_layered as dl
+    from libldpc_tpu_torch.sim.driver import (
+        ChannelParams, DecoderParams, SimulationParams, Simulator,
+    )
+    from libldpc_tpu_torch.sim.results import SimResults
+
+    work = WORK / "slice11"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+
+    def sim(key, x_range, *, layered=False, channel="AWGN", dec=None, **simp):
+        return Simulator(
+            codes[key], DecoderParams(iterations=ITERS, layered=layered, **(dec or {})),
+            ChannelParams(seed=1, x_range=x_range, type=channel),
+            SimulationParams(batch_size=BATCH, **{"fec": 50, "max_frames": 2_000_000, **simp}),
+            device=dev, verbose=False, use_pallas=True)
+
+    def rows(res):  # each point's row, frame_time aside
+        return np.stack([res.x_values, res.fer, res.ber, res.avg_iter, res.fec, res.frames], 1)
+
+    def rates(res, unit="dB"):
+        return ", ".join(f"{x} {unit} {1.0 / t:.0f}" for x, t in zip(res.x_values, res.time))
+
+    zero_counts()
+    # -- resume at a point boundary: K2 (1152 flooding), K4 (wifi 1944
+    # layered-fast), at points that 50 frame errors end: where max_frames
+    # ends a streaming point, the quota's atomic grants decide which frames
+    # start last, so no two runs count the same frames
+    for key, x_range, layered in (("bench1152", (2.0, 2.51, 0.5), False),
+                                  ("wifi1944", (1.25, 1.51, 0.25), True)):
+        plain = sim(key, x_range, layered=layered).start()
+        ckpt = str(work / f"{key}_ckpt.json")
+        whole = sim(key, x_range, layered=layered, checkpoint_file=ckpt).start()
+        check((whole.fec >= 50).all(), f"{key}: a point ended by max_frames")
+        os.remove(ckpt)
+        stopped = sim(key, x_range, layered=layered, checkpoint_file=ckpt)
+        first = stopped.start(stop_flag=lambda: stopped.results.fec[0] >= 50)
+        check(first.frames[0] > 0 and first.frames[1] == 0, f"{key}: the stop did not follow point 0")
+        resumed = sim(key, x_range, layered=layered, checkpoint_file=ckpt).start(resume=True)
+        check(np.array_equal(rows(resumed), rows(whole)), f"{key}: resumed rows differ")
+        check(np.array_equal(rows(plain), rows(whole)), f"{key}: the checkpoint changed the rows")
+        print(f"resume {key} {'layered-fast' if layered else 'flooding'} BP: resumed rows equal the "
+              f"uninterrupted sweep's ({[int(f) for f in whole.frames]} frames); frames/s plain "
+              f"[{rates(plain)}], with --checkpoint [{rates(whole)}] [{name_power}]")
+
+    # -- resume mid-point: a hand-written checkpoint, frames not a multiple of B
+    for key, snr, layered in (("bench1152", 2.5, False), ("wifi1944", 2.0, True)):
+        max_frames, counted = 6 * BATCH + 1001, 3 * BATCH + 777
+        ckpt = work / f"{key}_mid.json"
+        mid = sim(key, (snr, snr + 0.01, 1.0), layered=layered, fec=10**9, max_frames=max_frames,
+                  checkpoint_file=str(ckpt))
+        check("streaming=on" in mid.decode_path, f"{key} mid-point: not streaming")
+        ckpt.write_text(json.dumps({
+            "x_vals": [snr], "point": 0, "counters": [0, 0, counted, counted * 5, 0.5, 4],
+            "seed": 1, "channel": "AWGN", "config": mid._checkpoint_config(),
+            "results": json.loads(SimResults.empty(1, [snr]).to_json())}))
+        res = mid.start(resume=True)
+        check(int(res.frames[0]) == max_frames, f"{key} mid-point resume counted "
+              f"{int(res.frames[0])} frames, not {max_frames}")
+        print(f"resume {key} mid-point at {counted} frames: {int(res.frames[0])} frames counted, "
+              f"max_frames {max_frames}")
+
+    # -- the forensic error log: K1 (flooding), K3 (layered-fast), K6 (BEC)
+    idx = r"[\d,]*(?:,\.\.\.\(\d+ total\))?"  # indices, cut at 64
+    line = re.compile(rf"x=(\S+) frame=(\d+) bit_errors=(\d+) is_codeword=([01]) dE=([\d.]+) "
+                      rf"dH=(\d+) syndrome_weight=(\d+) failed_bits={idx} failed_checks={idx} "
+                      r"decided_cw=([0-9a-f]+) true_cw=([0-9a-f]+)$")
+    for key, x_range, layered, channel in (("bench1152", (2.0, 2.01, 1.0), False, "AWGN"),
+                                           ("wifi1944", (1.5, 1.51, 1.0), True, "AWGN"),
+                                           ("bench1152", (0.40, 0.401, 1.0), False, "BEC")):
+        log = work / f"{key}_{channel}_errors.txt"
+        plain_sim = sim(key, x_range, layered=layered, channel=channel)
+        plain = plain_sim.start()
+        logged = sim(key, x_range, layered=layered, channel=channel, error_log_file=str(log),
+                     error_log_codewords=True)
+        check(channel == "BEC" or "fallback[forensic error log" in logged.decode_path,
+              "error-log provenance")
+        res = logged.start()
+        lines = log.read_text().splitlines()
+        check(len(lines) == int(res.fec[0]) > 0, f"{key} {channel}: {len(lines)} log lines for "
+              f"{int(res.fec[0])} frame errors")
+        nc = codes[key].nc
+        for ln in lines:
+            m = line.match(ln)
+            check(m is not None, f"log line does not parse: {ln[:200]}")
+            be, iscw, dE, dH, sw = (int(m[3]), int(m[4]), float(m[5]), int(m[6]), int(m[7]))
+            check(dH >= be >= 1 and abs(dE - 2 * math.sqrt(be)) < 5e-4 and iscw == (sw == 0),
+                  f"log line fields: {ln[:200]}")
+            d, t = (np.unpackbits(np.frombuffer(bytes.fromhex(h), np.uint8))[:nc]
+                    for h in (m[8], m[9]))
+            check(int((d != t).sum()) == dH, "log codewords do not give dH")
+        unit = "eps" if channel == "BEC" else "dB"
+        print(f"error log {key} {channel} {'layered-fast' if layered else 'flooding'}: "
+              f"{len(lines)} lines = frame errors; frames/s without the log {rates(plain, unit)} "
+              f"(streaming {plain_sim.decode_path.split(' streaming=')[1].split()[0]}), with it "
+              f"{rates(res, unit)} (batch-stepped) [{name_power}]")
+
+    # -- LDPC.decode: K1 and K3 at B = 16384, K5 on wifi 648
+    timings: list = []  # run once the path's counts are read
+
+    def api_case(key, layered, use_pallas, dtype, form, kernel, plain, batch=BATCH,
+                 iters=ITERS, snr=COMPARE_SNR_DB):
+        ldpc = LDPC(code=codes[key], device=dev)
+        schedule, _ = ldpc._route(DecoderParams(type=form, layered=layered, message_dtype=dtype),
+                                  use_pallas)
+        tb = ldpc._tables_for(schedule)
+        tx = tb.code.bit_pos
+        ch = awgn_channel(tb.code, make_generator(dev, 11, 0, 0), batch, snr)
+        llr = ch.llr.index_select(0, tx).T.contiguous().cpu().numpy()  # [B, nct], file order
+        kw = dict(iters=iters, dec_type=form, usePallas=use_pallas, messageDtype=dtype,
+                  layered=layered)
+        before = kernel.launches[dtype]
+        out, it = ldpc.decode(llr, **kw)
+        check(kernel.launches[dtype] == before + 1, f"LDPC.decode {key}: not one {kernel.__name__}")
+        full = torch.zeros_like(ch.llr)
+        full[tx] = torch.from_numpy(llr).to(dev).T
+        want = plain(tb, full, iters, True, form, dtype)
+        w_out = want.llr_out.index_select(0, tx).T.cpu().numpy()
+        w_it = want.iterations.cpu().numpy()
+        same = ((out <= 0) == (w_out <= 0)).all(1) & (it == w_it)
+        if form == "BP":
+            check(same.mean() >= 0.999, f"LDPC.decode {key} BP: decisions disagree")
+            err = float(np.abs(out - w_out)[same].max())
+            np.testing.assert_allclose(out[same], w_out[same], rtol=1e-4, atol=1e-4)
+        else:
+            check(np.array_equal(out, w_out) and np.array_equal(it, w_it),
+                  f"LDPC.decode {key} {dtype} {form} not bit-exact")
+            err = 0.0
+        where = f"LDPC.decode {key} {kernel.__name__} {dtype} {form} {iters} it B={batch}"
+        print(f"{where}: frames agreeing {same.mean():.6f}, max_abs_err {err:.3e}")
+
+        def time_it():  # after the counts are read: these launches are not the path's
+            api_ms = cuda_ms(lambda: ldpc.decode(llr, **kw), 3)
+            direct_ms = cuda_ms(lambda: kernel(tb, full, iters, True, form, dtype), 3)
+            # the host copies alone: the LLRs in, a posterior plane of the same size out
+            in_ms = cuda_ms(lambda: torch.from_numpy(llr).to(dev), 3)
+            out_ms = cuda_ms(lambda: full.cpu(), 3)
+            print(f"{where}: {api_ms:.3f} ms a call, the kernel alone {direct_ms:.3f} ms on the "
+                  f"same LLRs: the API's own {api_ms - direct_ms:.3f} ms, of which host copies "
+                  f"in {in_ms:.3f} ms and out {out_ms:.3f} ms [{name_power}]")
+        timings.append(time_it)
+
+    api_case("bench1152", False, False, "float32", "BP_MS", df.bp_decode_fused,
+             df.bp_decode_fused_plain)
+    api_case("bench1152", False, True, "int8", "BP_MS", df.bp_decode_fused,
+             df.bp_decode_fused_plain)
+    api_case("wifi1944", True, True, "float32", "BP", dl.bp_decode_layered_fast,
+             dl.bp_decode_layered_fast_plain)
+    api_case("wifi648", True, False, "float32", "BP_MS", dl.bp_decode_layered,
+             dl.bp_decode_layered_plain, batch=4096, iters=20)
+
+    # -- the threaded simulation, polled and stopped
+    ldpc = LDPC(code=codes["bench1152"], device=dev)
+    ldpc.simulate(snr=[1.0, 3.01, 0.5], fec=10**9, batchSize=BATCH, iterations=ITERS,
+                  maxFrames=10**12)
+    t0 = time.perf_counter()
+    while not len(ldpc.get_results().get("frames", ())) and time.perf_counter() - t0 < 120:
+        time.sleep(0.05)
+    ldpc.stop_simulation()
+    got = ldpc.get_results()
+    check(ldpc._sim_thread is None and len(got["frames"]) == 1 and got["frames"][0] > 0
+          and np.isfinite(got["fer"]).all(), "threaded simulate")
+    print(f"LDPC.simulate threaded: stopped after {int(got['frames'][0])} frames at 1.0 dB, "
+          f"FER {got['fer'][0]:.4e}, avg_iter {got['avg_iter'][0]:.3f}")
+
+    # -- the CLI with every new flag, twice (the second resumes the finished sweep)
+    code = codes["bench1152"]
+    write_codefile(str(work / "h.txt"), code.rows, code.cols, code.nc, code.mc)
+    r, c = code.G.nonzero()
+    (work / "g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r, c)))
+    argv = [str(work / "h.txt"), str(work / "res.txt"), "2.0", "2.51", "0.5", "-G",
+            str(work / "g.txt"), "-i", str(ITERS), "--batch-size", str(BATCH),
+            "--frame-error-count", "20", "--checkpoint", str(work / "c.json"), "--resume",
+            "--error-log", str(work / "e.txt"), "--log-codewords", "--device", str(dev)]
+    for _ in range(2):
+        check(cli.main(argv) == 0, "CLI with --checkpoint --resume --error-log --log-codewords")
+    n_log = len((work / "e.txt").read_text().splitlines())
+    state = json.loads((work / "c.json").read_text())
+    check(state["point"] == 2 and n_log == sum(state["results"]["fec"]),
+          "CLI checkpoint / error log")
+    print(f"CLI --checkpoint --resume --error-log --log-codewords: {n_log} log lines, "
+          f"checkpoint at point {state['point']}")
+    counts = read_counts()
+    for time_it in timings:
+        time_it()
+    return counts
 
 
 def main() -> int:
@@ -1217,6 +1428,14 @@ def main() -> int:
                   f"{form_name(kernel.last_form)}) [{name_power}]")
 
     mark("sweep rates done")
+    # ---- 11. the checkpoint / error-log / LDPC slice: its own path, counted
+    slice_launches = run_resume_log_api(dev, codes, name_power, zero_counts, read_counts)
+    print(f"checkpoint / error-log / LDPC path launches: {slice_launches}")
+    for name in ("bp_decode_fused", "bp_stream_chunk_fused", "bp_decode_layered_fast",
+                 "bp_stream_chunk_layered_fast", "bp_decode_layered", "bec_decode_fused",
+                 "bp_decode_fused_int8"):
+        check(slice_launches[name] > 0, f"the checkpoint / error-log / LDPC path did not run {name}")
+    mark("checkpoint, error log and LDPC done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],

@@ -6,6 +6,12 @@ on the CPU, through the plain PyTorch version beside each kernel.  It
 imports nothing of the JAX package: its host layer (code models, file
 formats, parameters) is its own copy (:mod:`.models`, :mod:`.utils.params`).  Kernels are built with
 ``nvcc`` at first use (:mod:`.ops.kernels.build`), never at import.
+
+``from libldpc_tpu_torch import LDPC`` gives the pyLDPC-style class
+(:mod:`.api`): encode, decode on the kernels, threaded simulation.
 """
 
+from .api import LDPC
+
+__all__ = ["LDPC"]
 __version__ = "0.1.0"

@@ -13,8 +13,15 @@ JAX CLI does (without it both run float32); int8 takes a min-sum-family
 ``--decoding`` (BP_MS, BP_NMS, BP_OMS).  Unlike the JAX package, int8 runs
 on codes without a block-local (MXU) permutation plan, such as the
 1152-node (3,6) benchmark code: that condition is a TPU transport's.
-Flags for what the port does not cover yet are refused with an error
-naming the ROADMAP item by its title; none is silently ignored.
+``--checkpoint FILE`` writes the sweep's checkpoint after every absorbed
+batch and at every point boundary, and ``--resume`` continues from it (a
+checkpoint of another experiment is ignored with a warning).
+``--error-log FILE`` appends a forensic line per errored frame
+(``--log-codewords`` adds both words in hex) and turns streaming off, as
+in the JAX CLI; with ``--results-dir`` both files go into that directory.
+``--points-parallel``, ``--multihost`` and ``--devices`` above 1 are
+refused with an error naming the ROADMAP item by its title; no flag is
+silently ignored.
 
 Usage::
 
@@ -27,15 +34,10 @@ import argparse
 import os
 import sys
 
-_CHECKPOINT = 'ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"'
 _MULTI_GPU = 'ROADMAP Queue 1, "Multi-GPU"'
 
 #: flag -> (value it must keep, ROADMAP item that ports it)
 _NOT_PORTED = {
-    "checkpoint": ("", _CHECKPOINT),
-    "resume": (False, _CHECKPOINT),
-    "error_log": ("", _CHECKPOINT),
-    "log_codewords": (False, _CHECKPOINT),
     "points_parallel": (1, _MULTI_GPU),
     "multihost": (False, _MULTI_GPU),
 }
@@ -103,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Also dump the decided and true codewords per errored frame.")
     p.add_argument("--results-dir", default="",
                    help="Provision a per-run results directory (created, must not "
-                        "already exist) and place the output file inside it.")
+                        "already exist) and place the output, checkpoint and "
+                        "error-log files inside it.")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA decode kernels, cpu "
                         "their plain PyTorch versions. (Default: cuda)")
@@ -145,6 +148,10 @@ def main(argv=None) -> int:
             return 1
         os.makedirs(args.results_dir)
         args.output_file = os.path.join(args.results_dir, os.path.basename(args.output_file))
+        if args.checkpoint:
+            args.checkpoint = os.path.join(args.results_dir, os.path.basename(args.checkpoint))
+        if args.error_log:
+            args.error_log = os.path.join(args.results_dir, os.path.basename(args.error_log))
 
     from .models import LDPCCode, detect_qc
     from .sim.driver import Simulator
@@ -181,6 +188,9 @@ def main(argv=None) -> int:
                 max_frames=int(args.max_frames),
                 fec=args.frame_error_count,
                 result_file=args.output_file,
+                checkpoint_file=args.checkpoint or None,
+                error_log_file=args.error_log or None,
+                error_log_codewords=args.log_codewords,
             ),
             device=args.device,
             use_pallas=args.pallas,
@@ -201,8 +211,9 @@ def main(argv=None) -> int:
           f"Result file: {args.output_file}\nDecode path: {sim.decode_path}")
     print(bar)
     try:
-        sim.start()
+        sim.start(resume=args.resume)
     except KeyboardInterrupt:
+        # the checkpoint on disk is the last one written
         print("\ninterrupted — partial results written", file=sys.stderr)
         return 130
     return 0

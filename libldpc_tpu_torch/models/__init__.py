@@ -18,9 +18,11 @@ from .construct import (
 )
 from .io import (
     format_result_row,
+    parse_alist,
     parse_codefile,
     parse_genfile,
     parse_layerfile,
+    write_alist,
     write_codefile,
     write_layerfile,
     write_results_file,
@@ -29,7 +31,7 @@ from .standards import wifi_code
 
 __all__ = [
     "LDPCCode", "detect_qc", "expand_qc", "format_result_row", "make_benchmark_code",
-    "make_qc_benchmark_code", "make_regular_code", "parse_codefile", "parse_genfile",
+    "make_qc_benchmark_code", "make_regular_code", "parse_alist", "parse_codefile", "parse_genfile",
     "parse_layerfile", "qc_natural_layers", "systematic_generator", "wifi_code",
-    "write_codefile", "write_layerfile", "write_results_file",
+    "write_alist", "write_codefile", "write_layerfile", "write_results_file",
 ]

@@ -15,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import io
+from . import gf2, io
 
 
 @dataclasses.dataclass
@@ -49,6 +49,20 @@ class LDPCCode:
             G=io.parse_genfile(gen_file, nc=parsed.nc) if gen_file else None,
             layers=io.parse_layerfile(layer_file) if layer_file else None,
         )
+
+    @classmethod
+    def from_alist(cls, path: str) -> "LDPCCode":
+        """Load H from an alist file (:func:`.io.parse_alist`)."""
+        parsed = io.parse_alist(path)
+        return cls(rows=parsed.rows, cols=parsed.cols, nc=parsed.nc, mc=parsed.mc)
+
+    def save(self, path: str, headered: bool = True) -> None:
+        """Write H in the reference's codefile format."""
+        io.write_codefile(path, self.rows, self.cols, self.nc, self.mc,
+                          puncture=self.puncture, shorten=self.shorten, headered=headered)
+
+    def save_alist(self, path: str) -> None:
+        io.write_alist(path, self.rows, self.cols, self.nc, self.mc)
 
     @classmethod
     def from_dense(cls, H: np.ndarray, **kwargs) -> "LDPCCode":
@@ -92,6 +106,21 @@ class LDPCCode:
         H = np.zeros((self.mc, self.nc), dtype=np.uint8)
         H[self.rows, self.cols] ^= 1
         return H
+
+    def rank(self) -> int:
+        """GF(2) rank of H."""
+        return gf2.rank(self.H_dense)
+
+    def encode(self, info_word: np.ndarray) -> np.ndarray:
+        """The full codeword ``u @ G`` (length ``nc``) of an info word of
+        G's row count."""
+        if self.G is None:
+            raise RuntimeError("No generator matrix provided for encoding")
+        return gf2.vec_mat(info_word, self.G).astype(np.uint8)
+
+    def syndrome(self, word: np.ndarray) -> np.ndarray:
+        """``H @ v`` over GF(2), length ``mc``."""
+        return gf2.mat_vec(self.H_dense, word).astype(np.uint8)
 
     @property
     def rate(self) -> float:

@@ -8,6 +8,9 @@ uses, plus :func:`write_layerfile`:
   ``nc:/mc:/nnz:`` counts are taken (both dialects of the reference);
 * **generator file**: ``row col`` pairs of G;
 * **layerfile**: ``nl:`` and per layer ``cn[i]: <count>`` and its checks;
+* **alist** (MacKay's interchange format, not the reference's): ``n m``,
+  ``max_dv max_dc``, the column and row degrees, then each column's and
+  each row's 1-based lists, 0-padded;
 * **results file**: ``snr fer ber frames avg_iter frame_time`` rows,
   rewritten whole on every update.
 
@@ -168,6 +171,56 @@ def write_codefile(
             f.write(f"shorten [{shorten.size}]: " + " ".join(map(str, shorten)) + "\n")
         for r, c in zip(rows, cols):
             f.write(f"{r} {c}\n")
+
+
+def parse_alist(path: str) -> ParsedCode:
+    """Parse an alist file; edges come out sorted by (row, column).  Only
+    the column lists are read: the row lists repeat them."""
+    with open(path) as f:
+        tokens = f.read().split()
+    it = iter(tokens)
+    n, m, max_dv = int(next(it)), int(next(it)), int(next(it))
+    next(it)  # max_dc
+    col_deg = [int(next(it)) for _ in range(n)]
+    for _ in range(m):
+        next(it)  # row degrees
+    rows_list: list[int] = []
+    cols_list: list[int] = []
+    for v in range(n):
+        for _ in range(max_dv):
+            r = int(next(it))
+            if r > 0:  # 0 entries are padding
+                rows_list.append(r - 1)
+                cols_list.append(v)
+    if len(cols_list) != sum(col_deg):
+        raise ValueError(f"{path}: alist degree lists inconsistent")
+    order = np.lexsort((np.asarray(cols_list), np.asarray(rows_list)))
+    return ParsedCode(
+        rows=np.asarray(rows_list, dtype=np.int32)[order],
+        cols=np.asarray(cols_list, dtype=np.int32)[order],
+        nc=n,
+        mc=m,
+        puncture=np.zeros(0, np.int32),
+        shorten=np.zeros(0, np.int32),
+    )
+
+
+def write_alist(path: str, rows: np.ndarray, cols: np.ndarray, nc: int, mc: int) -> None:
+    """Write H in alist format."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    col_lists = [sorted(rows[cols == v].tolist()) for v in range(nc)]
+    row_lists = [sorted(cols[rows == r].tolist()) for r in range(mc)]
+    max_dv = max((len(x) for x in col_lists), default=0)
+    max_dc = max((len(x) for x in row_lists), default=0)
+    with open(path, "w") as f:
+        f.write(f"{nc} {mc}\n{max_dv} {max_dc}\n")
+        f.write(" ".join(str(len(x)) for x in col_lists) + "\n")
+        f.write(" ".join(str(len(x)) for x in row_lists) + "\n")
+        for lists, width in ((col_lists, max_dv), (row_lists, max_dc)):
+            for lst in lists:
+                padded = [v + 1 for v in lst] + [0] * (width - len(lst))
+                f.write(" ".join(map(str, padded)) + "\n")
 
 
 def write_results_file(

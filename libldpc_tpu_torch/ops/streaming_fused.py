@@ -149,8 +149,13 @@ def make_streaming_fused_step(
             bp_stream_chunk_layered_fast if layered else bp_stream_chunk_fused,
             minsum_mode=dec.cn_mode, message_dtype=message_dtype, quant_scale=dec.quant_scale)
 
-    def init_fn() -> StreamState:
-        return init_state(tables, batch, channel_type, message_dtype)
+    def init_fn(started_offset: int = 0) -> StreamState:
+        """Empty streams; ``started_offset`` frames count as started
+        already, so a point resumed after ``started_offset`` counted frames
+        starts exactly ``max_frames - started_offset`` more."""
+        st = init_state(tables, batch, channel_type, message_dtype)
+        st.started.fill_(min(int(started_offset), _INT32_SAFE))
+        return st
 
     def step_fn(st: StreamState, gen: torch.Generator, x_value: float, refill: bool):
         refill_t = refill_flag[bool(refill)]

@@ -27,7 +27,21 @@ class StepCounters(NamedTuple):
     iter_sum: torch.Tensor  # sum of per-frame iterations
 
 
-def _batch_decoder(tables: KernelTables, schedule: str):
+class ForensicStepCounters(NamedTuple):
+    """:class:`StepCounters` plus the per-frame planes of the forensic error
+    log, in sorted VN labels; made only when asked for, so the ordinary
+    batch step carries no extra plane."""
+
+    bit_errors: torch.Tensor
+    frame_errors: torch.Tensor
+    frames: torch.Tensor
+    iter_sum: torch.Tensor
+    frame_bit_errors: torch.Tensor  # int64 [B] wrong transmitted bits per frame
+    hard: torch.Tensor  # u8 [nc, B] decided bits
+    codeword: torch.Tensor  # u8 [nc, B] true codeword
+
+
+def batch_decoder(tables: KernelTables, schedule: str):
     """The batch kernel of a schedule (``"flooding"``, ``"layered"`` or
     ``"layered-fast"``).  The exact layered schedule with fewer than two
     layers is flooding, as in the JAX decoders."""
@@ -46,11 +60,13 @@ def _sim_and_count(
     dec,
     batch: int,
     schedule: str,
-) -> StepCounters:
+    forensics: bool = False,
+):
     """Simulate, decode with the schedule's batch kernel in
     ``dec.message_dtype`` (the BEC: the peeling kernel, flooding), count
     from its decisions.  Bit errors count the transmitted bits
-    (``bit_pos``) only."""
+    (``bit_pos``) only.  ``forensics`` returns
+    :class:`ForensicStepCounters`, else :class:`StepCounters`."""
     ch = simulate_channel(tables.code, channel_type, gen, batch, x_value)
     if channel_type == "BEC":
         out = bec_decode_fused(
@@ -58,27 +74,33 @@ def _sim_and_count(
             degree1_stale_byte=0 if dec.bec_ref_bug_compat else None,
         )
     else:
-        out = _batch_decoder(tables, schedule)(
+        out = batch_decoder(tables, schedule)(
             tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
             minsum_mode=dec.cn_mode, message_dtype=dec.message_dtype, quant_scale=dec.quant_scale)
     bit_pos = tables.code.bit_pos
     frame_errs = (
         out.hard.index_select(0, bit_pos).bool() != ch.codeword.index_select(0, bit_pos).bool()
     ).sum(0)
-    return StepCounters(
+    base = StepCounters(
         bit_errors=frame_errs.sum(),
         frame_errors=(frame_errs > 0).sum(),
         frames=torch.full((), batch, dtype=torch.int64, device=ch.codeword.device),
         iter_sum=out.iterations.sum(dtype=torch.int64),
     )
+    if forensics:
+        return ForensicStepCounters(*base, frame_bit_errors=frame_errs,
+                                    hard=out.hard.to(torch.uint8), codeword=ch.codeword)
+    return base
 
 
 def make_sim_step(
-    tables: KernelTables, channel_type: str, dec, batch: int, schedule: str
+    tables: KernelTables, channel_type: str, dec, batch: int, schedule: str,
+    forensics: bool = False,
 ) -> Callable[[torch.Generator, float], StepCounters]:
-    """``step(gen, x_value) -> StepCounters`` on ``tables``' device."""
+    """``step(gen, x_value) -> StepCounters`` on ``tables``' device
+    (:class:`ForensicStepCounters` with ``forensics``)."""
 
     def step(gen: torch.Generator, x_value: float) -> StepCounters:
-        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch, schedule)
+        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch, schedule, forensics)
 
     return step

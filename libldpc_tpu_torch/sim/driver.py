@@ -19,15 +19,21 @@ Kept from the JAX driver: the sweep values (float accumulation, max
 exclusive, reversed for BSC), the warm-up batch outside the frame clock,
 the lookahead batch pipeline, the streaming window / absorb / drain loop
 and its stall guard, the live console row, the results file rewritten on
-every new frame error with the decode-path provenance line, and the BER
-divided by ``frames * nc``.  Checkpoint/resume, the forensic error log,
-points-parallel and multi-device sweeps are not ported yet (ROADMAP).
+every new frame error with the decode-path provenance line, the BER
+divided by ``frames * nc``, the checkpoint (written atomically after every
+absorb and at every point boundary, stamped with the experiment's
+identity; ``start(resume=True)`` continues from it) and the forensic error
+log (a line per errored frame; it turns streaming off, as there).
+Points-parallel and multi-device sweeps are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 import math
+import os
 import sys
 import time
 import warnings
@@ -72,6 +78,15 @@ class _PointCounters:
     elapsed_s: float = 0.0
     next_batch: int = 0
 
+    def as_list(self) -> list:
+        return [self.bit_errors, self.frame_errors, self.frames, self.iter_sum, self.elapsed_s,
+                self.next_batch]
+
+    @classmethod
+    def from_list(cls, vals) -> "_PointCounters":
+        return cls(int(vals[0]), int(vals[1]), int(vals[2]), int(vals[3]), float(vals[4]),
+                   int(vals[5]))
+
 
 #: Routing constants of the JAX package's driver (``libldpc_tpu/sim/driver.py``),
 #: mirrored here only so that one command line selects the same schedule in
@@ -99,22 +114,15 @@ _NON_BP_FORMS = ("BP_MS", "BP_NMS", "BP_OMS", "BP_LIN", "BP_TANH", "BP_PHI")
 _SUB32_ROUTING = 'ROADMAP Queue 1, "Sub-32-bit routing past the TPU envelopes"'
 
 
-def check_supported(dec: DecoderParams, ch: ChannelParams, sim: SimulationParams) -> None:
-    """Raise for every setting the port does not cover yet, naming the
-    ROADMAP item that will by its title, and for an int8 lattice under a CN
-    form outside the min-sum family (``ValueError``, the JAX package's
-    words); the BEC ignores the dtype."""
+def check_supported(dec: DecoderParams, ch: ChannelParams) -> None:
+    """Raise for a message dtype the port does not know, and for an int8
+    lattice under a CN form outside the min-sum family (``ValueError``, the
+    JAX package's words); the BEC ignores the dtype."""
     if dec.message_dtype not in DTYPE_CODES:
         raise ValueError(f"message dtype {dec.message_dtype!r}: expected one of "
                          f"{list(DTYPE_CODES)}")
     if ch.type != "BEC" and dec.message_dtype != "float32":
         MessageForm(dec.message_dtype, dec.quant_scale).check_cn_mode(dec.cn_mode)
-    if sim.checkpoint_file:
-        raise NotImplementedError(
-            'checkpoint/resume: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
-    if sim.error_log_file:
-        raise NotImplementedError(
-            'forensic error log: ROADMAP Queue 1, "Checkpoint/resume and the forensic error log"')
 
 
 def qc_lanes_space(code: LDPCCode, use_pallas: bool, channel_type: str = "AWGN") -> Optional[int]:
@@ -220,6 +228,22 @@ def select_message_dtype(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
     return dec.message_dtype
 
 
+def route(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
+          channel_type: str = "AWGN") -> tuple[str, str, Optional[str]]:
+    """``(schedule, message dtype, fallback)`` of a decode of ``code`` with
+    these flags: :func:`select_schedule`, :func:`select_message_dtype` and
+    :func:`qc_widening`.  A widening to float32 is warned about, as the JAX
+    package's ``record_fallback`` does; the caller stamps ``fallback`` into
+    its provenance.  The sweep and ``LDPC.decode`` both route here."""
+    schedule = select_schedule(code, dec, use_pallas, channel_type)
+    dtype = select_message_dtype(code, dec, use_pallas, channel_type)
+    fallback = qc_widening(code, dec, use_pallas, channel_type)
+    if fallback:
+        warnings.warn(f"{dec.message_dtype} messages widened to float32 ({fallback}), "
+                      "as the JAX package widens them", stacklevel=3)
+    return schedule, dtype, fallback
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device`` for ``device``; a CUDA device without a GPU raises."""
     dev = torch.device(device)
@@ -245,7 +269,8 @@ class Simulator:
         verbose: bool = True,
         use_pallas: bool = False,
     ):
-        check_supported(decoder_params, channel_params, simulation_params)
+        check_supported(decoder_params, channel_params)
+        self._asked_dec = decoder_params  # the checkpoint's identity
         self.device = resolve_device(device)
         self.code = code
         self.ch = channel_params
@@ -253,16 +278,9 @@ class Simulator:
         self.verbose = verbose
         # use_pallas (the JAX CLI's --pallas) chooses the layered schedule and
         # honours --message-dtype, as it does in the JAX package; the CUDA
-        # kernels run either way
-        self.schedule = select_schedule(code, decoder_params, use_pallas, channel_params.type)
-        self.message_dtype = select_message_dtype(code, decoder_params, use_pallas,
-                                                  channel_params.type)
-        # a widening to float32 is warned about and stamped into the
-        # provenance line, as the JAX package's record_fallback does
-        self.fallback = qc_widening(code, decoder_params, use_pallas, channel_params.type)
-        if self.fallback:
-            warnings.warn(f"{decoder_params.message_dtype} messages widened to float32 "
-                          f"({self.fallback}), as the JAX package widens them", stacklevel=2)
+        # kernels run either way.  A widening is stamped into the provenance.
+        self.schedule, self.message_dtype, self.fallback = route(
+            code, decoder_params, use_pallas, channel_params.type)
         if channel_params.type != "BEC":
             # the dtype the sweep runs (float32 where the JAX package ignores
             # the flag or widens the dtype)
@@ -270,16 +288,28 @@ class Simulator:
         self.dec = decoder_params
         self.tables = kernel_tables(to_sorted_device(
             code, self.device, with_layers=self.schedule != "flooding"))
+        # the forensic log reports bits in the code's own labelling
+        self._vn_inv = self.tables.code.vn_inv.cpu().numpy()  # original -> sorted label
         batch = simulation_params.batch_size
         # the exact layered schedule and the BEC stay batch-stepped, as in
         # the JAX package
-        self._streaming = (
+        stream_eligible = (
             simulation_params.streaming
             and decoder_params.early_term
             and decoder_params.iterations >= 1
             and self.schedule != "layered"
             and channel_params.type != "BEC"
         )
+        # the error log needs a whole batch's decisions, which the streams
+        # do not surface: batch stepping instead, warned and stamped into
+        # the provenance line as the JAX package does
+        self._forensic_fallback = bool(stream_eligible and simulation_params.error_log_file)
+        if self._forensic_fallback:
+            warnings.warn(
+                "forensic error logging (error_log_file) needs whole-batch per-frame decisions, "
+                "which the streaming compaction pools don't surface; the streaming ET fast path "
+                "is disabled for this sweep (batch stepping instead)", stacklevel=2)
+        self._streaming = stream_eligible and not self._forensic_fallback
         if self._streaming:
             self._stream_init, self._stream_step = make_streaming_fused_step(
                 self.tables,
@@ -293,7 +323,8 @@ class Simulator:
             self._step = None
         else:
             self._step = make_sim_step(
-                self.tables, channel_params.type, decoder_params, batch, self.schedule)
+                self.tables, channel_params.type, decoder_params, batch, self.schedule,
+                forensics=bool(simulation_params.error_log_file))
         self.results: Optional[SimResults] = None
         self.decode_path = self._describe_decode_path()
 
@@ -316,6 +347,8 @@ class Simulator:
             parts.append("bec=ref-bug-compat")
         if self.fallback:
             parts.append(f"fallback[{self.fallback}]")
+        if self._forensic_fallback:
+            parts.append("fallback[forensic error log -> streaming ET disabled (batch stepping)]")
         if self.device.type == "cuda":
             parts.append(f"device={torch.cuda.get_device_name(self.device).replace(' ', '_')}")
         return " ".join(parts)
@@ -325,32 +358,42 @@ class Simulator:
 
     # ------------------------------------------------------------------ API
 
-    def start(self, stop_flag: Optional[Callable[[], bool]] = None) -> SimResults:
-        """Run the sweep; ``stop_flag`` is polled between batches."""
+    def start(self, stop_flag: Optional[Callable[[], bool]] = None,
+              resume: bool = False) -> SimResults:
+        """Run the sweep; ``stop_flag`` is polled between batches.  With
+        ``resume`` and a checkpoint of the same experiment on disk, the
+        finished points are kept and the interrupted one continues from its
+        counters (its clock from their ``elapsed_s``)."""
         x_vals = self.ch.sweep_values()
         results = SimResults.empty(len(x_vals), x_vals)
+        start_point, counters = 0, _PointCounters()
+        if resume:
+            loaded = self._load_checkpoint(x_vals)
+            if loaded is not None:
+                results, start_point, counters = loaded
         self.results = results
         xval_name = "SNR" if self.ch.type == "AWGN" else "EPS"
         if self.verbose:
             print(_CONSOLE_HEADER.format(xval=xval_name))
-        result_rows = [""] * len(x_vals)
+        result_rows = [self._row(results, i) if results.frames[i] > 0 else ""
+                       for i in range(len(x_vals))]
 
-        if x_vals:
+        if start_point < len(x_vals):
             # build the kernels and warm the device outside the frame clock;
             # the warm-up batch is discarded
+            x0 = x_vals[start_point]
             if self._streaming:
                 _, wacc = self._stream_step(
-                    self._stream_init(), self._gen(_WARMUP_BATCH, 0), x_vals[0], False
-                )
+                    self._stream_init(), self._gen(_WARMUP_BATCH, 0), x0, False)
                 int(wacc.frames)
             else:
-                int(self._step(self._gen(_WARMUP_BATCH, 0), x_vals[0]).frames)
+                int(self._step(self._gen(_WARMUP_BATCH, 0), x0).frames)
 
         def should_stop() -> bool:
             return stop_flag is not None and bool(stop_flag())
 
-        for i in range(len(x_vals)):
-            c = _PointCounters()
+        for i in range(start_point, len(x_vals)):
+            c = counters if i == start_point else _PointCounters()
             if self._streaming:
                 self._run_point_streaming(i, x_vals, c, results, result_rows, should_stop)
             else:
@@ -359,6 +402,8 @@ class Simulator:
                 sys.stdout.write("\n")
             if should_stop():
                 break
+            # point finished: the checkpoint names the next point at batch 0
+            self._save_checkpoint(x_vals, results, i + 1, _PointCounters())
         return results
 
     # ------------------------------------------------------------- internals
@@ -384,7 +429,8 @@ class Simulator:
         depth = max(1, self.sim.pipeline_depth)
         inflight: list = []
         last_print_fec = -1
-        t_point = time.perf_counter()
+        # rebased, so a resumed point continues its accumulated time
+        t_point = time.perf_counter() - c.elapsed_s
 
         def can_dispatch() -> bool:
             # never launch a batch whose frames could not be counted
@@ -412,6 +458,12 @@ class Simulator:
                 last_print_fec = c.frame_errors
                 result_rows[i] = self._row(results, i)
                 self._emit(results, i, x_vals[i], result_rows)
+            if self.sim.error_log_file and counts[0]:
+                # the planes are read only for a batch with a bit error
+                self._log_error_frames(out.frame_bit_errors.cpu().numpy(),
+                                       out.hard.cpu().numpy(), out.codeword.cpu().numpy(),
+                                       x_vals[i], c.frames)
+            self._save_checkpoint(x_vals, results, i, c)
             # printing and file IO are not charged to the frame clock
             t_point += time.perf_counter() - t_io
 
@@ -423,16 +475,17 @@ class Simulator:
         flight, so every started frame is counted.  Counters are absorbed
         ``window`` super-steps behind dispatch (the window slow-starts at 1
         and doubles up to ``max(4, pipeline_depth)``), with one host read per
-        absorb."""
+        absorb.  A resumed point's streams count its frames as started, so
+        the start quota stays exact."""
         x = float(x_vals[i])
-        state = self._stream_init()
+        state = self._stream_init(started_offset=c.frames)
         pending: list = []
         last_print_fec = -1
         n_active_last: Optional[int] = None
         depth = max(4, self.sim.pipeline_depth)
         window = 1
         stall_rounds = 0
-        t_point = time.perf_counter()
+        t_point = time.perf_counter() - c.elapsed_s
 
         while True:
             can_refill = (
@@ -461,6 +514,7 @@ class Simulator:
                 last_print_fec = c.frame_errors
                 result_rows[i] = self._row(results, i)
                 self._emit(results, i, x, result_rows)
+            self._save_checkpoint(x_vals, results, i, c)
             t_point += time.perf_counter() - t_io
             # quota-exhaustion guard: refill requested, nothing in flight and
             # no progress means the start quota is spent; treat max_frames as
@@ -477,6 +531,126 @@ class Simulator:
                 stall_rounds = 0
             if can_refill:
                 window = min(depth, window * 2)
+
+    # ---------------------------------------------------------- checkpoint
+
+    def _checkpoint_config(self) -> dict:
+        """The experiment's identity, stored with every checkpoint: the
+        decoder configuration as asked for, the batch size (which fixes the
+        random streams) and the decode path.  ``fec`` and ``max_frames``
+        are left out: raising them extends a sweep without changing what
+        was counted."""
+        return {
+            "dec": dataclasses.asdict(self._asked_dec),
+            "batch_size": self.sim.batch_size,
+            "decode_path": self.decode_path,
+        }
+
+    def _check_checkpoint_config(self, state: dict) -> bool:
+        """True when the checkpoint was written by this experiment; warns
+        and returns False otherwise, so the sweep starts fresh instead of
+        merging the statistics of two experiments."""
+        stored, cur = state.get("config"), self._checkpoint_config()
+        if stored == cur:
+            return True
+        if stored is None:
+            warnings.warn("checkpoint predates config stamping (no experiment identity "
+                          "recorded); refusing to resume — starting fresh")
+        else:
+            diffs = sorted(k for k in set(stored) | set(cur) if stored.get(k) != cur.get(k))
+            warnings.warn("checkpoint was written by a different experiment configuration "
+                          f"(mismatched: {', '.join(diffs)}); refusing to resume — "
+                          "starting fresh")
+        return False
+
+    def _save_checkpoint(self, x_vals, results: SimResults, point: int,
+                         c: _PointCounters) -> None:
+        """Write the checkpoint atomically (a temporary file, then
+        ``os.replace``), so an interrupted write leaves the previous one."""
+        if not self.sim.checkpoint_file:
+            return
+        state = {
+            "x_vals": list(map(float, x_vals)),
+            "point": point,
+            "counters": c.as_list(),
+            "seed": self.ch.seed,
+            "channel": self.ch.type,
+            "config": self._checkpoint_config(),
+            "results": json.loads(results.to_json()),
+        }
+        tmp = self.sim.checkpoint_file + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, self.sim.checkpoint_file)
+
+    def _load_checkpoint(self, x_vals):
+        """``(results, point, counters)`` from the checkpoint, or None when
+        there is none or it belongs to another sweep (other values, seed or
+        channel) or experiment."""
+        path = self.sim.checkpoint_file
+        if not path or not os.path.exists(path):
+            return None
+        with open(path) as f:
+            state = json.load(f)
+        if (state.get("x_vals") != list(map(float, x_vals))
+                or state.get("seed") != self.ch.seed
+                or state.get("channel") != self.ch.type):
+            return None
+        if not self._check_checkpoint_config(state):
+            return None
+        results = SimResults.from_json(json.dumps(state["results"]))
+        return results, state["point"], _PointCounters.from_list(state["counters"])
+
+    # ------------------------------------------------------- forensic log
+
+    def _log_error_frames(self, frame_bit_errors: np.ndarray, hard: np.ndarray,
+                          codeword: np.ndarray, x: float, frames: int) -> None:
+        """Append a line per errored frame of a batch to the error log:
+        its bit errors (transmitted bits), whether the decision is a
+        codeword, the distances between decision and truth (``dE`` for
+        BPSK, ``dH`` over all nc bits), the syndrome weight, and the failed
+        bits and checks (cut at 64), in the code's original labelling; with
+        ``error_log_codewords`` both words, hex-packed MSB-first.
+        ``hard``/``codeword`` are u8 ``[nc, B]`` in sorted labels;
+        ``frames`` counts the frames through this batch."""
+        bad = np.nonzero(frame_bit_errors > 0)[0]
+        if bad.size == 0:
+            return
+        hard_o = hard[:, bad][self._vn_inv]  # errored frames, original labels
+        cw_o = codeword[:, bad][self._vn_inv]
+        # H @ words over GF(2) as one float32 product: exact, since a
+        # check's sum is at most its degree
+        synd = (self._H_f32 @ hard_o.astype(np.float32)).astype(np.int64) % 2
+
+        def trunc(idx):
+            s = ",".join(map(str, idx[:64]))
+            return s + (f",...({idx.size} total)" if idx.size > 64 else "")
+
+        def hexpack(col):
+            return np.packbits(col.astype(np.uint8)).tobytes().hex()
+
+        first = frames - len(frame_bit_errors)
+        with open(self.sim.error_log_file, "a") as f:
+            for j, b in enumerate(bad):
+                errs = int(frame_bit_errors[b])
+                wrong = np.nonzero(hard_o[:, j] != cw_o[:, j])[0]
+                failed_checks = np.nonzero(synd[:, j])[0]
+                dE = 2.0 * float(np.sqrt(errs))  # BPSK: dE^2 = 4 * bit errors
+                line = (
+                    f"x={x:g} frame={first + int(b)} bit_errors={errs}"
+                    f" is_codeword={int(failed_checks.size == 0)}"
+                    f" dE={dE:.3f} dH={wrong.size}"
+                    f" syndrome_weight={failed_checks.size}"
+                    f" failed_bits={trunc(wrong)}"
+                    f" failed_checks={trunc(failed_checks)}"
+                )
+                if self.sim.error_log_codewords:
+                    line += f" decided_cw={hexpack(hard_o[:, j])} true_cw={hexpack(cw_o[:, j])}"
+                f.write(line + "\n")
+
+    @functools.cached_property
+    def _H_f32(self) -> np.ndarray:
+        return self.code.H_dense.astype(np.float32)
 
     def _row(self, results: SimResults, i: int) -> str:
         return format_result_row(

@@ -4,6 +4,7 @@ ported rather than imported: that package's ``__init__`` loads jax)."""
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 
@@ -52,3 +53,31 @@ class SimResults:
         self.time[i] = elapsed_s / frames
         self.fec[i] = frame_errors
         self.frames[i] = frames
+
+    def as_dict(self, trim: bool = True) -> dict:
+        """Results as a dict of arrays; ``trim`` keeps the leading points
+        with frames > 0, as ``LDPC.get_results`` returns them."""
+        n = int((self.frames > 0).sum()) if trim else len(self.frames)
+        return {
+            "x": self.x_values[:n],
+            "fer": self.fer[:n],
+            "ber": self.ber[:n],
+            "avg_iter": self.avg_iter[:n],
+            "time": self.time[:n],
+            "fec": self.fec[:n],
+            "frames": self.frames[:n],
+        }
+
+    def to_json(self) -> str:
+        """Every field as a JSON list (``json`` writes floats with ``repr``,
+        so :meth:`from_json` gives them back exactly)."""
+        return json.dumps({f.name: getattr(self, f.name).tolist() for f in dataclasses.fields(self)})
+
+    @classmethod
+    def from_json(cls, text: str) -> "SimResults":
+        d = json.loads(text)
+        ints = ("fec", "frames")
+        return cls(**{
+            f.name: np.asarray(d[f.name], dtype=np.int64 if f.name in ints else np.float64)
+            for f in dataclasses.fields(cls)
+        })

@@ -2,10 +2,8 @@
 
 A copy of :mod:`libldpc_tpu.utils.params` with the same fields and
 defaults (the reference's ``decoder_param``, ``channel_param`` and
-``simulation_param``).  Fields for what the port does not run yet
-(``message_dtype`` other than float32, ``checkpoint_file``,
-``error_log_file``) are kept so that one configuration means the same in
-both packages; the driver refuses them.
+``simulation_param``), so that one configuration means the same in both
+packages.
 """
 
 from __future__ import annotations
@@ -83,7 +81,9 @@ class ChannelParams:
 @dataclasses.dataclass(frozen=True)
 class SimulationParams:
     """Sweep configuration: ``batch_size`` frames per device step, the
-    stopping rule ``fec``/``max_frames``, the results file, the lookahead
+    stopping rule ``fec``/``max_frames``, the results file, the forensic
+    error log (``error_log_codewords`` adds both words to each line; a log
+    turns streaming off), the checkpoint file, the lookahead
     ``pipeline_depth``, and the streaming switch and chunk length."""
 
     batch_size: int = 1024

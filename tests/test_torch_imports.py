@@ -14,6 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "libldpc_tpu_torch",
+    "libldpc_tpu_torch.api",
     "libldpc_tpu_torch.cli",
     "libldpc_tpu_torch.convert",
     "libldpc_tpu_torch.models",

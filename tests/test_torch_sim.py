@@ -5,6 +5,8 @@ so the sweeps are held to the same rows and columns and to FER agreement
 within |z| < 3 per point (a two-proportion z-test; both runs are seeded,
 so the test is deterministic)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -107,18 +109,53 @@ def test_cuda_device_without_gpu_raises(files, tmp_path):
         cli.main([str(d / "h.txt"), str(tmp_path / "r.txt")] + SWEEP + ["--device", "cuda"])
 
 
+def test_results_dir_holds_every_file(files, tmp_path):
+    _, d = files
+    rdir = tmp_path / "run1"
+    argv = [str(d / "h.txt"), "r.txt"] + SWEEP + ["-G", str(d / "g.txt")] + COMMON + [
+        "--device", "cpu", "--results-dir", str(rdir), "--checkpoint", "c.json",
+        "--error-log", "e.txt"]
+    assert cli.main(argv) == 0
+    assert sorted(p.name for p in rdir.iterdir()) == ["c.json", "e.txt", "r.txt"]
+    assert cli.main(argv) == 1  # refuses to reuse the directory
+
+
 CHECKPOINT = '"Checkpoint/resume and the forensic error log"'
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--checkpoint", "c.json"], CHECKPOINT), (["--error-log", "e.txt"], CHECKPOINT),
+    (["--checkpoint", "{t}/c.json", "--resume"], CHECKPOINT),
+    (["--error-log", "{t}/e.txt"], CHECKPOINT),
     (["--points-parallel", "2"], '"Multi-GPU"'), (["--multihost"], '"Multi-GPU"'),
-    (["--devices", "2"], '"Multi-GPU"'), (["--log-codewords"], CHECKPOINT),
+    (["--devices", "2"], '"Multi-GPU"'), (["--error-log", "{t}/e.txt", "--log-codewords"], CHECKPOINT),
 ])
 def test_refuses_unported_flags(files, tmp_path, capsys, flags, item):
+    """The multi-GPU flags are refused before any file is written; the
+    flags of the checkpoint and error-log item, refused until that item was
+    ported, run and write their files."""
     _, d = files
-    flags = [f.format(d=d) for f in flags]
+    flags = [f.format(d=d, t=tmp_path) for f in flags]
     argv = [str(d / "h.txt"), str(tmp_path / "r.txt")] + SWEEP + flags + ["--device", "cpu"]
-    assert cli.main(argv) == 2
-    assert item in capsys.readouterr().err
-    assert not (tmp_path / "r.txt").exists()
+    if item != CHECKPOINT:
+        assert cli.main(argv) == 2
+        assert item in capsys.readouterr().err
+        assert not (tmp_path / "r.txt").exists()
+        return
+    argv += ["-G", str(d / "g.txt")] + COMMON
+    assert cli.main(argv) == 0
+    comment, _, rows = _read(tmp_path / "r.txt")
+    assert rows.shape == (3, 6)
+    if "--checkpoint" in flags:
+        state = json.loads((tmp_path / "c.json").read_text())
+        assert state["point"] == 3 and state["results"]["frames"] == rows[:, 3].tolist()
+        assert "streaming=on" in comment[0]
+        # resuming the finished sweep runs nothing and keeps its rows
+        (tmp_path / "r.txt").unlink()
+        assert cli.main(argv) == 0 and not (tmp_path / "r.txt").exists()
+        assert json.loads((tmp_path / "c.json").read_text()) == state
+        return
+    assert comment[0].endswith("fallback[forensic error log -> streaming ET disabled "
+                               "(batch stepping)]")
+    lines = (tmp_path / "e.txt").read_text().splitlines()
+    assert len(lines) == round(float((rows[:, 1] * rows[:, 3]).sum())) > 0
+    assert all(("decided_cw=" in ln) == ("--log-codewords" in flags) for ln in lines)
