@@ -25,8 +25,15 @@ the checkpoint / error-log / ``LDPC`` slice (phase 11: sweeps stopped and
 resumed against the uninterrupted ones on K2 and K4, a streaming point
 resumed mid-point, the forensic error log on K1, K3 and K6, ``LDPC.decode``
 on K1, K3 and K5 against the plain versions, the threaded simulation, the
-CLI with ``--checkpoint --resume --error-log --log-codewords``), and, last, an
-``{"ok": true, ...}`` line.  Any failure raises and exits
+CLI with ``--checkpoint --resume --error-log --log-codewords``), the
+modulation slice (phase 12: the ``sim_cuda`` command line with 4-ASK on the
+1152 code on K2 and, with ``-layer``, 8-ASK on wifi 1944 on K5,
+``LDPC.simulate`` with 16-ASK on wifi 1944 on K4, each in its waterfall;
+M = 2 against BPSK on the same draws; a modulated error log whose ``dE`` is
+recomputed on the host; the bfloat16 sweep of a (3,6) code of 49152 edges
+that the port once refused, and K2's bfloat16 form there against its plain
+chunk on the same frames; K5 on wifi 1944 against its plain version,
+timed), and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
 """
@@ -59,6 +66,11 @@ SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
 MSG_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 BEC_EPS = 0.40  # inside the 1152 code's BEC waterfall (BP threshold ~0.429)
 BEC_SWEEP = ["0.30", "0.451", "0.05"]  # 0.45 .. 0.30, run reversed
+#: phase 12: Gray labels, and the SNRs of each constellation's waterfall
+GRAY_LABELS = {4: [0, 1, 3, 2], 8: [0, 1, 3, 2, 6, 7, 5, 4], 16: [i ^ (i >> 1) for i in range(16)]}
+MOD_SNRS = {4: (7.25, 7.5, 7.75), 8: (10.75, 11.0, 11.25)}  # the 1152 code, wifi 1944 (-layer)
+MOD_SNR_RANGE_16 = (15.0, 15.51, 0.25)  # wifi 1944, LDPC.simulate
+BIG_SWEEP = ["1.3", "1.41", "0.1"]  # the (3,6) code of 16384 variables
 #: The card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s,
 #: and float32 operations/s outside the tensor cores, against which the
 #: byte and integer operations of the decoders are counted too.
@@ -378,6 +390,280 @@ def run_resume_log_api(dev, codes, name_power, zero_counts, read_counts) -> dict
     return counts
 
 
+def pool_drain(fn, tb, ch, form, dtype):
+    """A pool of ``BATCH`` frames (``ch``) drained to the end by the stream
+    chunk ``fn`` in message form ``dtype``; the summed counters (bit
+    errors, frame errors, frames, iterations, starts)."""
+    from libldpc_tpu_torch.ops.streaming_fused import init_state
+
+    dev = ch.llr.device
+    st = init_state(tb, BATCH, message_dtype=dtype)
+    st.fresh_llr.copy_(ch.llr)
+    st.fresh_cw.copy_(ch.codeword)
+    st.avail.fill_(1)
+    refill = torch.ones(1, dtype=torch.int32, device=dev)
+    remaining = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
+    for _ in range(ITERS):
+        fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+           st.fresh_llr, st.fresh_cw, refill, remaining, k=6, cap=ITERS, minsum_mode=form,
+           message_dtype=dtype)
+        refill.zero_()
+        if int((st.done == 0).sum()) == 0:
+            return st.ctr.sum(1).tolist()
+    raise RuntimeError("streams did not drain")
+
+
+def check_big_bf16_drains(tb, ch, df) -> None:
+    """Pools of ``BATCH`` frames drained to the end by K2's bfloat16 form
+    and by its plain chunk, and decoded by K1's bfloat16 form, in every CN
+    form: the summed counters equal under the min-sum family, and under BP
+    within what 0.1 % of the frames can change (``compare_batch``'s rule
+    for BP): frame errors by ``ceil(BATCH / 1000)``, iterations by ``ITERS``
+    times that, bit errors by ``nc`` times that."""
+    bp = tb.code.bit_pos.long()
+    frames_ = math.ceil(BATCH / 1000)
+    for form in DTYPE_FORMS["bfloat16"]:
+        label = form if isinstance(form, str) else form[0]
+        got = pool_drain(df.bp_stream_chunk_fused, tb, ch, form, "bfloat16")
+        want = pool_drain(df.bp_stream_chunk_fused_plain, tb, ch, form, "bfloat16")
+        out1 = df.bp_decode_fused(tb, ch.llr, ITERS, True, form, "bfloat16")
+        errs1 = (out1.hard[bp] != ch.codeword[bp].bool()).sum(0)
+        batch1 = [int(errs1.sum()), int((errs1 > 0).sum()), BATCH, int(out1.iterations.sum()),
+                  BATCH]
+        print(f"kernel2 bfloat16 drain (3,6) n=16384 {label}: kernel {got} plain {want} "
+              f"batch {batch1}")
+        check(got[2] == got[4] == want[2] == want[4] == BATCH,
+              f"K2 bf16 n=16384 {label}: not every frame started and counted")
+        if label == "BP":
+            room = (frames_ * tb.code.nc, frames_, 0, frames_ * ITERS, 0)
+            check(all(abs(a - b) <= r for a, b, r in zip(got, want, room)),
+                  f"K2 bf16 n=16384 BP: counters {got} against plain {want}, beyond {room}")
+        else:
+            check(got == want == batch1, f"K2 bf16 n=16384 {label}: drained totals differ")
+
+
+def run_modulation_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> dict:
+    """Phase 12, the modulation slice and the widened sub-32-bit routing at
+    B = 16384: the ``sim_cuda`` command line (simfile + mapfile) with 4-ASK
+    on the 1152 code (K2) and, with ``-layer``, 8-ASK on wifi 1944 (the
+    exact schedule, K5), and ``LDPC.simulate`` with 16-ASK on wifi 1944
+    (the fast layered engine, K4), counted; then M = 2 with labels
+    ``[1, 0]`` against the BPSK sweep of the same seed, a modulated
+    ``--error-log`` point whose ``dE`` is recomputed on the host, and the
+    bfloat16 ``--pallas`` sweep of a (3,6) code of 49152 edges, which the
+    port once refused, against the dtype of the mirrored routing, and K2's
+bfloat16 form that it runs against the plain chunk at its shape.  Last,
+    K5 on wifi 1944 against its plain version, timed.  Returns the
+    launches of the three runs and K5's wifi 1944 row."""
+    import numpy as np
+
+    from libldpc_tpu_torch import LDPC, cli, sim_cuda
+    from libldpc_tpu_torch.models import make_benchmark_code, write_codefile, write_layerfile
+    from libldpc_tpu_torch.ops import modulation as mod
+    from libldpc_tpu_torch.ops.channel import awgn_channel, make_generator
+    from libldpc_tpu_torch.ops.kernels import decode_fused as df
+    from libldpc_tpu_torch.ops.kernels import decode_layered as dl
+    from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+    from libldpc_tpu_torch.ops.sorted import to_sorted_device
+    from libldpc_tpu_torch.sim.driver import (
+        ChannelParams, DecoderParams, SimulationParams, Simulator, tpu_layout,
+    )
+
+    work = WORK / "slice12"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+
+    def mapper(key, M):  # consecutive transmitted bits per symbol, the code's own labels
+        code = codes[key]
+        bits = int(math.log2(M))
+        return code.bit_pos[mod.default_bit_mapper(bits, code.nct // bits)]
+
+    def files(key, M, layers=False):
+        code = codes[key]
+        write_codefile(str(work / f"{key}.txt"), code.rows, code.cols, code.nc, code.mc)
+        r, c = code.G.nonzero()
+        (work / f"{key}_g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r, c)))
+        (work / f"{key}_map{M}.txt").write_text(", ".join(map(str, mapper(key, M).ravel())))
+        argv = ["-code", str(work / f"{key}.txt"), "-G", str(work / f"{key}_g.txt"),
+                "-map", str(work / f"{key}_map{M}.txt"), "-threads", str(BATCH), "-seed", "1",
+                "-device", str(dev)]
+        if layers:
+            write_layerfile(str(work / f"{key}_layers.txt"), code.layers)
+            argv += ["-layer", str(work / f"{key}_layers.txt")]
+        return argv
+
+    def simfile(M, snrs, out, max_frames):
+        path = work / f"sim_{out}"
+        path.write_text(f"name: {work / out}\nM: {M}\nbits: {int(math.log2(M))}\n"
+                        f"labels: {' '.join(map(str, GRAY_LABELS[M]))}\n"
+                        f"snrs: {' '.join(map(str, snrs))}\nmax frames: {max_frames}\n"
+                        f"min fec: 50\nbp iter: {ITERS}\nearly term: 1\n")
+        return ["-sim", str(path)]
+
+    def read_rows(out):
+        lines = (work / out).read_text().splitlines()
+        rows_ = [[float(v) for v in ln.split()] for ln in lines[2:]]
+        check(rows_ and all(math.isfinite(v) for r in rows_ for v in r), f"{out} rows")
+        return lines[0], rows_
+
+    def in_waterfall(tag, rows_):
+        fers = [r[1] for r in rows_]
+        check(fers == sorted(fers, reverse=True), f"{tag}: FER does not fall across the sweep")
+        check(any(1e-3 <= f <= 1e-1 for f in fers), f"{tag}: no point with FER in [1e-3, 1e-1]")
+        check(all(0 < r[4] <= ITERS for r in rows_), f"{tag}: avg_iter out of range")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    check(sim_cuda.main(files("bench1152", 4) + simfile(4, MOD_SNRS[4], "res_4ask.txt",
+                                                         2_000_000)) == 0, "sim_cuda 4-ASK")
+    t4 = time.perf_counter() - t0
+    check(sim_cuda.main(files("wifi1944", 8, layers=True)
+                        + simfile(8, MOD_SNRS[8], "res_8ask.txt", 1_000_000)) == 0,
+          "sim_cuda 8-ASK -layer")
+    ldpc = LDPC(code=codes["wifi1944"], device=dev)
+    ldpc.simulate(blocking=True, snr=list(MOD_SNR_RANGE_16), fec=50, batchSize=BATCH,
+                  iterations=ITERS, maxFrames=2_000_000, seed=1, usePallas=True, layered=True,
+                  modulation=(mod.Constellation.mask(16, GRAY_LABELS[16]), mapper("wifi1944", 16)),
+                  resultFile=str(work / "res_16ask.txt"))
+    counts = read_counts()
+    print(f"modulation path launches: {counts}")
+    for name, what in (("bp_stream_chunk_fused", "K2 (4-ASK sim_cuda)"),
+                       ("bp_decode_layered", "K5 (8-ASK sim_cuda -layer)"),
+                       ("bp_stream_chunk_layered_fast", "K4 (16-ASK LDPC.simulate)")):
+        check(counts[name] > 0, f"the modulation path did not run {what}")
+    for out, M, key, path in (("res_4ask.txt", 4, "bench1152", "schedule=flooding streaming=on"),
+                              ("res_8ask.txt", 8, "wifi1944", "schedule=layered streaming=off"),
+                              ("res_16ask.txt", 16, "wifi1944",
+                               "schedule=layered-fast streaming=on")):
+        head, rows_ = read_rows(out)
+        check(head.startswith(f"# kernel=cuda-fused dtype=float32 cn=BP {path}"),
+              f"{M}-ASK provenance: {head}")
+        in_waterfall(f"{M}-ASK {key}", rows_)
+        for r in rows_:
+            print(f"{M}-ASK {key} {path.split()[0]} {r[0]} dB: FER {r[1]:.4e} BER {r[2]:.4e} "
+                  f"frames {int(r[3])} avg_iter {r[4]:.3f} [{name_power}]")
+    print(f"sim_cuda 4-ASK sweep: {t4:.1f} s of host time, warm-up included")
+
+    # -- M = 2, labels [1, 0] against BPSK: the same draws, the same quota
+    zero_counts()
+    code = codes["bench1152"]
+    quota = 40 * BATCH + 123
+
+    def sweep(modulation, x_values=(2.0, 2.5)):
+        return Simulator(code, DecoderParams(iterations=ITERS),
+                         ChannelParams(seed=3, x_values=x_values),
+                         SimulationParams(batch_size=BATCH, fec=10**9, max_frames=quota),
+                         device=dev, verbose=False, use_pallas=True,
+                         modulation=modulation).start()
+
+    bpsk = sweep(None)
+    m2 = sweep((mod.Constellation.mask(2, labels=[1, 0]), code.bit_pos.reshape(1, -1)))
+    check((bpsk.frames == quota).all() and (m2.frames == quota).all(), "M = 2: frame counts")
+    for i, (x, f1, f2, n) in enumerate(zip(bpsk.x_values, bpsk.fer, m2.fer, bpsk.frames)):
+        p = (f1 + f2) / 2
+        z = (f1 - f2) / math.sqrt(p * (1 - p) * 2 / n) if 0 < p < 1 else 0.0
+        check(abs(z) < 3, f"M = 2 at {x} dB: FER {f2} against BPSK {f1}, z {z:.2f}")
+        print(f"M = 2 [1, 0] against BPSK, 1152 at {x} dB: {int(n)} frames each, FER {f2:.6e} / "
+              f"{f1:.6e} (z {z:.3f}), BER {m2.ber[i]:.6e} / {bpsk.ber[i]:.6e}, avg_iter "
+              f"{m2.avg_iter[i]:.6f} / {bpsk.avg_iter[i]:.6f}, frames/s {1.0 / m2.time[i]:.0f} / "
+              f"{1.0 / bpsk.time[i]:.0f} [{name_power}]")
+    differ = [k for k in ("fer", "ber", "avg_iter", "frames")
+              if not np.array_equal(getattr(bpsk, k), getattr(m2, k))]
+    print("M = 2 [1, 0] against BPSK: rows "
+          + (f"not equal in {', '.join(differ)}" if differ else "equal"))
+    # 4-ASK at 7.5 dB, where avg_iter is close to BPSK's at 2.0 dB, the same quota
+    ask4 = sweep((mod.Constellation.mask(4, GRAY_LABELS[4]), mapper("bench1152", 4)), (7.5,))
+    print(f"4-ASK 1152 at 7.5 dB, {int(ask4.frames[0])} frames: FER {ask4.fer[0]:.4e}, avg_iter "
+          f"{ask4.avg_iter[0]:.4f}, {1.0 / ask4.time[0]:.0f} frames/s = "
+          f"{bpsk.time[0] / ask4.time[0]:.3f}x BPSK at 2.0 dB (avg_iter {bpsk.avg_iter[0]:.4f}) "
+          f"[{name_power}]")
+
+    # -- a modulated --error-log point, dE recomputed on the host
+    log = work / "errors_4ask.txt"
+    m4 = (mod.Constellation.mask(4, GRAY_LABELS[4]), mapper("bench1152", 4))
+    res = Simulator(code, DecoderParams(iterations=ITERS),
+                    ChannelParams(seed=4, x_values=(MOD_SNRS[4][0],)),
+                    SimulationParams(batch_size=BATCH, fec=50, max_frames=2_000_000,
+                                     error_log_file=str(log), error_log_codewords=True),
+                    device=dev, verbose=False, use_pallas=True, modulation=m4).start()
+    lines = log.read_text().splitlines()
+    check(len(lines) == int(res.fec[0]) > 0, "modulated error log: a line per frame error")
+    cstl, mp = m4
+    weights = (1 << np.arange(1, -1, -1))[:, None]
+
+    def points(hexword):
+        word = np.unpackbits(np.frombuffer(bytes.fromhex(hexword), np.uint8))[:code.nc]
+        return cstl.points[cstl.labels_rev[(word[mp].astype(np.int64) * weights).sum(0)]]
+
+    for ln in lines:
+        fields = dict(kv.split("=", 1) for kv in ln.split() if "=" in kv)
+        d = points(fields["decided_cw"]) - points(fields["true_cw"])
+        host = f"{math.sqrt(float((d * d).sum())):.3f}"
+        check(fields["dE"] == host, f"modulated error log: dE {fields['dE']}, the host's {host}")
+    print(f"modulated error log, 1152 4-ASK {MOD_SNRS[4][0]} dB: {len(lines)} lines, every dE "
+          f"equal to the host's recomputation from the logged words")
+
+    # -- the formerly refused bfloat16 sweep: n = 16384, 49152 edges
+    big = make_benchmark_code(16384, 3, 6, seed=0)
+    write_codefile(str(work / "big.txt"), big.rows, big.cols, big.nc, big.mc)
+    want = tpu_layout(big, DecoderParams(message_dtype="bfloat16"), True)
+    check(want == ("clos", "bfloat16", ()), f"routing of the 49152-edge code: {want}")
+    argv = [str(work / "big.txt"), str(work / "res_big_bf16.txt"), *BIG_SWEEP, "-i", str(ITERS),
+            "--batch-size", str(BATCH), "--frame-error-count", "50", "--max-frames", "1000000",
+            "--pallas", "--message-dtype", "bfloat16", "--device", str(dev)]
+    check(cli.main(argv) == 0, "the bfloat16 sweep of the 49152-edge code")
+    big_form = df.bp_stream_chunk_fused.last_form  # the sweep's, its last K2 launch
+    head, rows_ = read_rows("res_big_bf16.txt")
+    check(f"dtype={want[1]} " in head and "fallback" not in head, f"49152-edge provenance: {head}")
+    for r in rows_:
+        print(f"bf16 (3,6) n=16384 {r[0]} dB: FER {r[1]:.4e} frames {int(r[3])} avg_iter "
+              f"{r[4]:.3f} frames/s {1.0 / r[5]:.0f} [{name_power}]")
+    extra = read_counts()
+    print(f"M = 2 / error-log / bfloat16 path launches: {extra}")
+    check(extra["bp_stream_chunk_fused_bf16"] > 0, "the 49152-edge sweep did not run K2 bf16")
+    check(extra["bp_decode_fused"] > 0, "the modulated error log did not run K1")
+
+    # -- K2's bfloat16 form on the 49152-edge code at B = 16384 against its
+    # plain chunk (and K1's form) on the same frames: pool drains, the form
+    # the sweep ran
+    tb_big = kernel_tables(to_sorted_device(big, dev))
+    rule = df.stream_form(tb_big, "bfloat16")
+    print(f"K2 bf16 form on the 49152-edge code: the sweep ran {big_form}, the size rule says "
+          f"{rule}")
+    check(big_form == rule, "the 49152-edge sweep did not run the size rule's K2 form")
+    check_big_bf16_drains(tb_big, awgn_channel(tb_big.code, make_generator(dev, 7, 12, 0), BATCH,
+                                                float(BIG_SWEEP[0])), df)
+    check(df.bp_stream_chunk_fused.last_form == rule, "the drains did not run the rule's K2 form")
+
+    # -- K5 on wifi 1944 against its plain version, then timed (phase 10's manner)
+    tb = tables["wifi1944"]
+    ch = awgn_channel(tb.code, make_generator(dev, 7, 8, 0), BATCH, COMPARE_SNR_DB)
+    err = plain_ms = 0.0
+    for form, et in (("BP_MS", True), ("BP", False)):
+        got = dl.bp_decode_layered(tb, ch.llr, ITERS, et, form)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want_ = dl.bp_decode_layered_plain(tb, ch.llr, ITERS, et, form)
+        end.record()
+        torch.cuda.synchronize()
+        same_ = (got.hard == want_.hard).all(0) & (got.iterations == want_.iterations)
+        if form == "BP":
+            plain_ms = start.elapsed_time(end)
+            check(same_.float().mean().item() >= 0.999, "K5 wifi1944 BP: decisions disagree")
+            torch.testing.assert_close(got.llr_out[:, same_], want_.llr_out[:, same_], rtol=1e-4,
+                                       atol=1e-4)
+            err = (got.llr_out - want_.llr_out)[:, same_].abs().max().item()
+        else:
+            check(bool(same_.all()) and torch.equal(got.llr_out, want_.llr_out),
+                  "K5 wifi1944 BP_MS not bit-exact")
+        print(f"K5 wifi1944 {form} et={int(et)}: frames agreeing {same_.float().mean().item():.6f}"
+              f" (form {dl.exact_form(tb)})")
+    ms = cuda_ms(lambda: dl.bp_decode_layered(tb, ch.llr, ITERS, False, "BP"), 3)
+    return counts, {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    "form": dl.exact_form(tb)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -561,22 +847,6 @@ def main() -> int:
             compare_batch(f"kernel1 {key}", df.bp_decode_fused, df.bp_decode_fused_plain,
                           tables[key], llrs(key, 0).llr, dtype, also=k1_forms(key, dtype))
             for key in ("bench1152", "wifi1944"))
-
-    def pool_drain(fn, tb, ch, form, dtype):
-        st = init_state(tb, BATCH, message_dtype=dtype)
-        st.fresh_llr.copy_(ch.llr)
-        st.fresh_cw.copy_(ch.codeword)
-        st.avail.fill_(1)
-        refill = torch.ones(1, dtype=torch.int32, device=dev)
-        remaining = torch.full((1,), BATCH, dtype=torch.int32, device=dev)
-        for _ in range(ITERS):
-            fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
-               st.fresh_llr, st.fresh_cw, refill, remaining, k=6, cap=ITERS, minsum_mode=form,
-               message_dtype=dtype)
-            refill.zero_()
-            if int((st.done == 0).sum()) == 0:
-                return st.ctr.sum(1).tolist()
-        raise RuntimeError("streams did not drain")
 
     def check_form_stream(tag, chunk, chunk_plain, batch, key, point, also=()):
         """Pool drains of ``chunk`` in each sub-32-bit form against its plain
@@ -1436,6 +1706,10 @@ def main() -> int:
                  "bp_decode_fused_int8"):
         check(slice_launches[name] > 0, f"the checkpoint / error-log / LDPC path did not run {name}")
     mark("checkpoint, error log and LDPC done")
+    # ---- 12. the modulation slice and the widened routing: its own path, counted
+    mod_launches, k5_1944 = run_modulation_slice(dev, codes, tables, name_power, zero_counts,
+                                                 read_counts)
+    mark("modulation slice done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],
@@ -1491,6 +1765,17 @@ def main() -> int:
               f"(layer checks, then the layer's {layer_var_slots} variable slots an iteration), "
               f"{full[0]:.4f} ms by {full[1]} counting a full variable phase and syndrome after "
               f"each of {n_layers648} layers [{name_power}]")
+    # K5 on wifi 1944 (phase 12's -layer sweep), counted as the schedule needs it
+    tb1944 = tables["wifi1944"]
+    vdeg1944 = tb1944.vn_ptr[1:] - tb1944.vn_ptr[:-1]
+    slots1944 = int(vdeg1944[tb1944.layer_vars.long()].sum())
+    b5 = bound(batch_bytes("wifi1944", 4, 4),
+               BATCH * ITERS * (dims("wifi1944")[1] * (3 * 10 + 1) + slots1944))
+    print(f"time K5 wifi1944 BP {ITERS} it no-ET B={BATCH}: kernel {k5_1944['ms']:.3f} ms, plain "
+          f"{k5_1944['plain_ms']:.3f} ms, max_abs_err {k5_1944['max_abs_err']:.3e}, form "
+          f"{form_name(k5_1944['form'])}; bound {b5[0]:.4f} ms by {b5[1]} "
+          f"({b5[0] / k5_1944['ms']:.1%} of the bound); launches on the modulation path "
+          f"{mod_launches['bp_decode_layered']} [{name_power}]")
     # K3's tile moves lc2v through device memory: read and written at every
     # iteration, its design floor beside the bound
     for dt in SUFFIX:

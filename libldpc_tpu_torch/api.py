@@ -48,7 +48,6 @@ _SIM_DEFAULTS = {
 }
 
 _MULTI_GPU = 'ROADMAP Queue 1, "Multi-GPU"'
-_MODULATION = 'ROADMAP Queue 1, "Modulation"'
 
 
 class LDPC:
@@ -181,18 +180,18 @@ class LDPC:
         Keyword names and defaults follow the JAX class: ``earlyTerm,
         iterations, decoding, seed, snr=[MIN, MAX, STEP], channel,
         maxFrames, fec, batchSize, resultFile, checkpointFile, usePallas,
-        messageDtype, layered, errorLogFile, quantScale`` (``threads`` is
-        accepted and ignored).  ``mesh``, ``pointsParallel > 1`` and
-        ``modulation`` raise ``NotImplementedError``: they are not ported
-        yet."""
+        messageDtype, layered, modulation, errorLogFile, quantScale``
+        (``threads`` is accepted and ignored); ``modulation`` is a
+        ``(Constellation, bit_mapper)`` pair for M-ASK over AWGN, the mapper
+        ``[bits, n_sym]`` in the code's own bit labels.  ``mesh`` and
+        ``pointsParallel > 1`` raise ``NotImplementedError``: they are not
+        ported yet."""
         kwargs.pop("threads", None)
         p = {**self.sim_params, **kwargs}
         if not p["snr"]:
             raise ValueError("snr=[MIN, MAX, STEP] is required")
         if p["mesh"] is not None or int(p["pointsParallel"] or 0) > 1:
             raise NotImplementedError(f"mesh / pointsParallel: not ported yet ({_MULTI_GPU})")
-        if p["modulation"] is not None:
-            raise NotImplementedError(f"modulation: not ported yet ({_MODULATION})")
         self.sim_params = p
         sim = Simulator(
             self.code,
@@ -215,6 +214,7 @@ class LDPC:
             ),
             device=self.device,
             use_pallas=p["usePallas"],
+            modulation=p["modulation"],
             verbose=False,
         )
         self._simulator = sim

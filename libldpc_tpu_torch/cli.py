@@ -9,7 +9,9 @@ schedule, ``--qc-z N|auto`` declares (or finds) the code's QC lifting, and
 engine exactly as in the JAX CLI.  ``--message-dtype bfloat16|int8``
 (with ``--quant-scale`` for the int8 lattice) stores the decoder's
 messages in that form when ``--pallas`` is given, on every schedule, as the
-JAX CLI does (without it both run float32); int8 takes a min-sum-family
+JAX CLI does (without it both run float32; past the JAX package's TPU
+layout walls both run float32, with its ``fallback[...]`` note); int8
+takes a min-sum-family
 ``--decoding`` (BP_MS, BP_NMS, BP_OMS).  Unlike the JAX package, int8 runs
 on codes without a block-local (MXU) permutation plan, such as the
 1152-node (3,6) benchmark code: that condition is a TPU transport's.

@@ -250,3 +250,141 @@ def make_benchmark_code(nc: int, dv: int = 3, dc: int = 6, seed: int = 0,
             code.G = G
             return code
     raise RuntimeError("failed to construct benchmark code with generator")
+
+
+def make_peg_code(nc: int, dv, mc: Optional[int] = None, rate: Optional[float] = None,
+                  seed: int = 0) -> LDPCCode:
+    """Progressive edge-growth (PEG) construction (Hu, Eleftheriou, Arnold).
+
+    Each variable's k-th edge goes to a lowest-degree check that the
+    current graph cannot reach from the variable (no new cycle), or, when
+    every check is reachable, to a lowest-degree check at the greatest BFS
+    distance (the longest new cycle); ties are broken by
+    ``np.random.default_rng(seed)``, drawn as the JAX package draws them, so
+    the same arguments give the same H.  ``dv`` is an int (regular) or a
+    length-``nc`` degree sequence, taken in nondecreasing order; give the
+    check count as ``mc`` or as the design ``rate`` (``1 - mc/nc``).  One BFS
+    per edge: O(E^2)."""
+    if (mc is None) == (rate is None):
+        raise ValueError("give exactly one of mc or rate")
+    if mc is None:
+        mc = int(round(nc * (1.0 - rate)))
+    if np.ndim(dv) == 0:
+        degs = np.full(nc, int(dv), np.int64)
+    else:
+        degs = np.asarray(dv, np.int64)
+        if degs.shape != (nc,):
+            raise ValueError(f"dv sequence must have length {nc}")
+    if (degs < 1).any() or (degs > mc).any():
+        raise ValueError("variable degrees must be in [1, mc]")
+    rng = np.random.default_rng(seed)
+    vn_adj: list = [[] for _ in range(nc)]  # checks per variable
+    cn_adj: list = [[] for _ in range(mc)]  # variables per check
+    cn_deg = np.zeros(mc, np.int64)
+
+    def lowest_degree_pick(mask):
+        cand = np.nonzero(mask)[0]
+        d = cn_deg[cand]
+        cand = cand[d == d.min()]
+        return int(cand[rng.integers(cand.size)])
+
+    def neighbours(adj, nodes):
+        lists = [adj[n] for n in nodes]
+        return np.unique(np.concatenate(lists)) if lists else np.empty(0, np.int64)
+
+    for v in np.argsort(degs, kind="stable"):
+        for k in range(degs[v]):
+            if k == 0:
+                c = lowest_degree_pick(np.ones(mc, bool))
+            else:
+                # BFS from v by check levels, until the coverage stops
+                # growing (any check left unreached closes no cycle) or is
+                # total (the last level's checks close the longest cycle)
+                seen_c = np.zeros(mc, bool)
+                seen_v = np.zeros(nc, bool)
+                seen_v[v] = True
+                frontier = np.asarray(vn_adj[v], np.int64)
+                seen_c[frontier] = True
+                while True:
+                    vs = neighbours(cn_adj, frontier)
+                    vs = vs[~seen_v[vs]]
+                    seen_v[vs] = True
+                    cs = neighbours(vn_adj, vs)
+                    cs = cs[~seen_c[cs]]
+                    if cs.size == 0:
+                        break
+                    prev = seen_c.copy()
+                    seen_c[cs] = True
+                    if seen_c.all():
+                        seen_c = prev
+                        break
+                    frontier = cs
+                c = lowest_degree_pick(~seen_c)
+            vn_adj[v].append(c)
+            cn_adj[c].append(v)
+            cn_deg[c] += 1
+    rows = np.concatenate([np.full(len(cn_adj[c]), c, np.int64) for c in range(mc)])
+    cols = np.concatenate([np.asarray(cn_adj[c], np.int64) for c in range(mc)])
+    order = np.lexsort((cols, rows))
+    return LDPCCode(rows=rows[order].astype(np.int32), cols=cols[order].astype(np.int32),
+                    nc=nc, mc=mc)
+
+
+def count_4cycles(code: LDPCCode) -> int:
+    """Number of length-4 cycles of the Tanner graph: over the check pairs
+    that share ``s >= 2`` variables, the sum of ``C(s, 2)``.  Each variable
+    of degree d gives its C(d, 2) check pairs one shared variable; O(sum of
+    dv^2) on the edge list."""
+    rows = code.rows.astype(np.int64)
+    cols = code.cols.astype(np.int64)
+    order = np.argsort(cols, kind="stable")
+    r_sorted, c_sorted = rows[order], cols[order]
+    starts = np.searchsorted(c_sorted, np.arange(code.nc))
+    ends = np.searchsorted(c_sorted, np.arange(code.nc), side="right")
+    pair_a, pair_b = [], []
+    for s, e in zip(starts, ends):
+        d = e - s
+        if d < 2:
+            continue
+        chks = np.sort(r_sorted[s:e])
+        ia, ib = np.triu_indices(d, k=1)
+        pair_a.append(chks[ia])
+        pair_b.append(chks[ib])
+    if not pair_a:
+        return 0
+    keys = np.concatenate(pair_a) * np.int64(code.mc) + np.concatenate(pair_b)
+    _, shared = np.unique(keys, return_counts=True)
+    return int((shared * (shared - 1) // 2).sum())
+
+
+def girth(code: LDPCCode, cap: int = 16) -> int:
+    """Length of the Tanner graph's shortest cycle, by a BFS from every
+    check that never walks back along its arrival edge; ``cap`` when no
+    cycle is shorter than ``cap``.  O(V E): for small and medium codes."""
+    n_nodes = code.nc + code.mc  # variables, then checks
+    adj: list = [[] for _ in range(n_nodes)]
+    for e, (r, c) in enumerate(zip(code.rows, code.cols)):
+        adj[int(c)].append((e, code.nc + int(r)))
+        adj[code.nc + int(r)].append((e, int(c)))
+    best = cap
+    for s in range(code.nc, n_nodes):
+        dist = np.full(n_nodes, -1, np.int64)
+        via = np.full(n_nodes, -1, np.int64)
+        dist[s] = 0
+        queue = [s]
+        while queue:
+            nxt = []
+            for u in queue:
+                if 2 * dist[u] + 1 >= best:
+                    continue
+                for e, w in adj[u]:
+                    if e == via[u]:
+                        continue
+                    if dist[w] < 0:
+                        dist[w] = dist[u] + 1
+                        via[w] = e
+                        nxt.append(w)
+                    else:
+                        best = min(best, int(dist[u] + dist[w] + 1))
+            queue = nxt
+    return int(best)

@@ -8,6 +8,8 @@ uses, plus :func:`write_layerfile`:
   ``nc:/mc:/nnz:`` counts are taken (both dialects of the reference);
 * **generator file**: ``row col`` pairs of G;
 * **layerfile**: ``nl:`` and per layer ``cn[i]: <count>`` and its checks;
+* **simfile** and **mapfile** (the reference's GPU simulator): the
+  sweep and its M-ASK constellation, and the bit-to-symbol map;
 * **alist** (MacKay's interchange format, not the reference's): ``n m``,
   ``max_dv max_dc``, the column and row degrees, then each column's and
   each row's 1-based lists, 0-padded;
@@ -145,6 +147,55 @@ def write_layerfile(path: str, layers) -> None:
         lines.extend(str(int(c)) for c in layer)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+@dataclasses.dataclass
+class SimFile:
+    """The simulation file of the reference's GPU simulator: results file
+    name, constellation size M, bits per symbol, point labels, SNRs, max
+    frames, min frame errors, BP iterations, early termination."""
+
+    name: str
+    M: int
+    bits: int
+    labels: np.ndarray
+    snrs: np.ndarray
+    max_frames: int
+    min_fec: int
+    bp_iter: int
+    early_term: bool
+
+
+def parse_simfile(path: str) -> SimFile:
+    """Parse a simulation file: nine non-empty ``key: value`` lines in the
+    order of :class:`SimFile`'s fields, lists comma- or space-separated."""
+    with open(path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+
+    def value(i: int) -> str:
+        return lines[i].partition(":")[2].strip()
+
+    M = int(value(1))
+    labels = np.array([int(t) for t in value(3).replace(",", " ").split()], dtype=np.int32)
+    if labels.size != M:
+        raise ValueError(f"{path}: number of constellation labels ({labels.size}) != M ({M})")
+    return SimFile(
+        name=value(0), M=M, bits=int(value(2)), labels=labels,
+        snrs=np.array([float(t) for t in value(4).replace(",", " ").split()]),
+        max_frames=int(value(5)), min_fec=int(value(6)), bp_iter=int(value(7)),
+        early_term=bool(int(value(8))),
+    )
+
+
+def parse_mapfile(path: str, bits: int, n_sym: int) -> np.ndarray:
+    """Parse a bit-to-symbol map: ``bits * n_sym`` codeword-bit indices,
+    comma- or space-separated, row-major ``[bits, n_sym]`` (entries past
+    them are ignored)."""
+    with open(path) as f:
+        vals = [int(t) for t in f.read().replace(",", " ").split()]
+    if len(vals) < bits * n_sym:
+        raise ValueError(f"{path}: expected {bits * n_sym} mapping entries, got {len(vals)}")
+    return np.array(vals[: bits * n_sym], dtype=np.int32).reshape(bits, n_sym)
 
 
 def write_codefile(

@@ -1,8 +1,9 @@
-"""On-device channel simulation: encode -> BPSK -> noise -> LLRs (the
-BEC: encode -> erase -> 3-state symbols).
+"""On-device channel simulation: encode -> BPSK -> noise -> LLRs (with a
+constellation: encode -> M-ASK -> noise -> bitwise LLRs; the BEC: encode
+-> erase -> 3-state symbols).
 
-The port of :mod:`libldpc_tpu.ops.channel` for the AWGN, BSC and BEC
-channels, node-major ``[nc, B]`` in the sorted VN labelling.  Random
+The port of :mod:`libldpc_tpu.ops.channel` for the AWGN (BPSK or M-ASK),
+BSC and BEC channels, node-major ``[nc, B]`` in the sorted VN labelling.  Random
 numbers come from an explicit ``torch.Generator`` on the channel's device
 (one per sweep point and batch, see :func:`make_generator`); they are not
 jax's threefry draws, so channels agree with the JAX package in
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.params import SHORTEN_LLR
+from . import modulation as mod
 from .sorted import TorchSortedCode
 
 #: The erasure symbol of the BEC's 3-state alphabet {0, 1, ERASURE}.
@@ -71,6 +73,28 @@ def awgn_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, snr_db:
     return ChannelOutput(llr=_place(sdc, 2.0 * y / float(sigma2), SHORTEN_LLR), codeword=c)
 
 
+def modulated_awgn_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int,
+                           snr_db: float, cstl: mod.Constellation,
+                           bit_mapper: torch.Tensor) -> ChannelOutput:
+    """M-ASK over AWGN: the codeword's bits packed into labels through
+    ``bit_mapper`` (``[bits, n_sym]`` sorted codeword positions), the
+    points plus one ``randn`` draw ``[n_sym, B]`` scaled by ``sigma``, then
+    the bitwise LLRs scattered back to their positions.  The draws come
+    from ``gen`` in :func:`awgn_channel`'s order, so M = 2 with labels
+    ``[1, 0]`` and the transmitted bits as the mapper gives its LLRs to
+    rounding.  Shortened bits get ``SHORTEN_LLR``; a punctured bit that no
+    mapper entry names stays 0."""
+    c = encode_batch(sdc, gen, batch)
+    x = mod.modulate(cstl, mod.map_bits_to_symbols(cstl, bit_mapper, c))
+    sigma2 = np.float32(10.0 ** (-float(snr_db) / 10.0))
+    noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+    y = x + noise * float(np.sqrt(sigma2))
+    llr = mod.demap_llrs_to_codeword(mod.bitwise_llrs(cstl, y, sigma2), bit_mapper, sdc.nc)
+    if sdc.shorten.shape[0]:
+        llr[sdc.shorten.long()] = SHORTEN_LLR
+    return ChannelOutput(llr=llr, codeword=c)
+
+
 def bsc_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon: float) -> ChannelOutput:
     """Binary symmetric channel: flip with probability ``epsilon``,
     ``LLR = ±log((1-eps)/eps)``; shortened bits get ``+delta``."""
@@ -104,12 +128,13 @@ def simulate_channel(
     x_value: float,
     modulation=None,
 ) -> ChannelOutput:
-    """Dispatch on the reference's channel-type strings."""
-    if modulation is not None:
-        raise NotImplementedError(
-            'higher-order modulation is not ported yet (ROADMAP Queue 1, "Modulation")'
-        )
+    """Dispatch on the reference's channel-type strings; ``modulation``,
+    ``(Constellation, bit_mapper)`` with the mapper in sorted labels on the
+    code's device, turns AWGN into :func:`modulated_awgn_channel` (the
+    other channels ignore it, as in the JAX package)."""
     if channel_type == "AWGN":
+        if modulation is not None:
+            return modulated_awgn_channel(sdc, gen, batch, x_value, *modulation)
         return awgn_channel(sdc, gen, batch, x_value)
     if channel_type == "BSC":
         return bsc_channel(sdc, gen, batch, x_value)

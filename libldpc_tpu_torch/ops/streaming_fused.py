@@ -115,6 +115,7 @@ def make_streaming_fused_step(
     chunk_iters: int = 0,
     max_frames: int = int(10e9),
     layered: bool = False,
+    modulation=None,
 ):
     """Build ``(init_fn, step_fn)``.  ``step_fn(state, gen, x_value,
     refill) -> (state, StreamDeltas)`` runs one super-step of about one
@@ -123,7 +124,9 @@ def make_streaming_fused_step(
     decodes on the fast layered engine (a pass is one full layered
     iteration) instead of flooding.  ``channel_type="BEC"`` runs the
     peeling chunk (with ``dec.bec_ref_bug_compat``'s stale byte).  Flooding
-    and the layered engine store their messages in ``dec.message_dtype``."""
+    and the layered engine store their messages in ``dec.message_dtype``.
+    ``modulation`` (``(Constellation, bit_mapper)``, the mapper in sorted
+    labels) draws the pool's AWGN batches through the constellation."""
     bec = channel_type == "BEC"
     if bec and layered:
         raise ValueError("streaming layered decoding has no BEC form")
@@ -164,7 +167,7 @@ def make_streaming_fused_step(
             # refresh the consumed pool entries once the watermark is met
             used = batch - st.avail.sum()
             do_gen = (refill_t > 0) & (used >= gen_watermark)
-            ch = simulate_channel(sdc, channel_type, gen, batch, x_value)
+            ch = simulate_channel(sdc, channel_type, gen, batch, x_value, modulation)
             take = do_gen & (st.avail == 0)
             st.fresh_llr.copy_(torch.where(take, ch.llr, st.fresh_llr))
             st.fresh_cw.copy_(torch.where(take, ch.codeword, st.fresh_cw))

@@ -61,13 +61,14 @@ def _sim_and_count(
     batch: int,
     schedule: str,
     forensics: bool = False,
+    modulation=None,
 ):
-    """Simulate, decode with the schedule's batch kernel in
+    """Simulate (through ``modulation``'s constellation when given), decode with the schedule's batch kernel in
     ``dec.message_dtype`` (the BEC: the peeling kernel, flooding), count
     from its decisions.  Bit errors count the transmitted bits
     (``bit_pos``) only.  ``forensics`` returns
     :class:`ForensicStepCounters`, else :class:`StepCounters`."""
-    ch = simulate_channel(tables.code, channel_type, gen, batch, x_value)
+    ch = simulate_channel(tables.code, channel_type, gen, batch, x_value, modulation)
     if channel_type == "BEC":
         out = bec_decode_fused(
             tables, ch.llr, ch.codeword, iterations=dec.iterations, early_term=dec.early_term,
@@ -95,12 +96,14 @@ def _sim_and_count(
 
 def make_sim_step(
     tables: KernelTables, channel_type: str, dec, batch: int, schedule: str,
-    forensics: bool = False,
+    forensics: bool = False, modulation=None,
 ) -> Callable[[torch.Generator, float], StepCounters]:
     """``step(gen, x_value) -> StepCounters`` on ``tables``' device
-    (:class:`ForensicStepCounters` with ``forensics``)."""
+    (:class:`ForensicStepCounters` with ``forensics``); ``modulation`` as
+    :func:`~..ops.channel.simulate_channel` takes it."""
 
     def step(gen: torch.Generator, x_value: float) -> StepCounters:
-        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch, schedule, forensics)
+        return _sim_and_count(tables, gen, x_value, channel_type, dec, batch, schedule, forensics,
+                              modulation)
 
     return step

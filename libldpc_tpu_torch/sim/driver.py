@@ -6,8 +6,8 @@ host between batches.  With early termination on (the default) the point
 runs on a streaming kernel; otherwise each batch is one launch of a batch
 decode kernel.  The schedule (flooding, exact layered, or the fast layered
 engine) is the one the JAX package runs for the same code and flags
-(:func:`select_schedule`); the exact layered schedule is batch-stepped,
-as there.  So is the message dtype (:func:`select_message_dtype`): with
+(:func:`route`); the exact layered schedule is batch-stepped, as
+there.  So is the message dtype (:func:`route` too): with
 ``--pallas`` every schedule stores its messages in bfloat16 or on the int8
 lattice as asked, widened to float32 where the JAX package widens it.
 The BEC runs the peeling kernel, flooding and batch-stepped
@@ -23,7 +23,10 @@ every new frame error with the decode-path provenance line, the BER
 divided by ``frames * nc``, the checkpoint (written atomically after every
 absorb and at every point boundary, stamped with the experiment's
 identity; ``start(resume=True)`` continues from it) and the forensic error
-log (a line per errored frame; it turns streaming off, as there).
+log (a line per errored frame; it turns streaming off, as there).  With
+``modulation=(Constellation, bit_mapper)`` the AWGN channel is M-ASK with
+bitwise LLRs (the reference GPU stack's simfile/mapfile sweep,
+:mod:`.gpu_compat`); the kernels take its LLRs as they are.
 Points-parallel and multi-device sweeps are not ported yet (ROADMAP).
 """
 
@@ -31,8 +34,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import json
-import math
 import os
 import sys
 import time
@@ -47,11 +50,13 @@ from ..models.io import format_result_row, write_results_file
 from ..ops.channel import make_generator
 from ..ops.kernels.layout import kernel_tables
 from ..ops.layered import natural_qc_layers
+from ..ops import modulation as mod
 from ..ops.messages import DTYPE_CODES, MessageForm
 from ..ops.sorted import to_sorted_device
 from ..ops.streaming_fused import make_streaming_fused_step
 from ..parallel.mesh import make_sim_step
 from ..utils.params import ChannelParams, DecoderParams, SimulationParams
+from . import tpu_layouts
 from .results import SimResults
 
 _CONSOLE_HEADER = (
@@ -89,29 +94,24 @@ class _PointCounters:
 
 
 #: Routing constants of the JAX package's driver (``libldpc_tpu/sim/driver.py``),
-#: mirrored here only so that one command line selects the same schedule in
-#: both packages (:func:`select_schedule`).  There they bound what its TPU
-#: kernels compile; the CUDA kernels have no such limits.
-FUSED_EDGE_SPACE_LIMIT = 4096
-QC_LANES_EDGE_SPACE_LIMIT = 786432
+#: mirrored here only so that one command line selects the same schedule and
+#: message dtype in both packages (:func:`tpu_layout`).  There they bound
+#: what its TPU kernels compile; the CUDA kernels have no such limits.
+#: Tests lower them, in both packages, to reach every branch.
+FUSED_EDGE_SPACE_LIMIT = 4096  # the edge-major layout's Beneš n_pad
+LANES_EDGE_SPACE_LIMIT = 131072  # the generic lane layout's n_pad
+QC_LANES_EDGE_SPACE_LIMIT = 786432  # the qc lane layout's n_pad
 #: The qc lane layout's sub-32-bit walls: past the first, bfloat16 with the
-#: BP form widens to float32; past the second, every sub-32-bit dtype does
-#: (the JAX package records the widening in its provenance, as the port
-#: does).  On the qc route the port computes the JAX edge space exactly.
+#: BP form widens to float32; past the second, every sub-32-bit dtype does.
 QC_LANES_SUB32_EDGE_SPACE_LIMIT = 196608
 QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT = 294912
-#: The smallest of the JAX package's other sub-32-bit compile walls is its
-#: Clos lane layout's 65536 padded edge slots; past it that package widens
-#: messages to float32.  Off the qc route the port does not copy the lane
-#: layouts that decide where a code lands, so it refuses a sub-32-bit dtype
-#: on a code that could reach a wall (:func:`select_message_dtype`).
-SUB32_EDGE_SPACE_LIMIT = 65536
-SUB32_EDGE_LIMIT = SUB32_EDGE_SPACE_LIMIT // 2
+#: The Clos lane layout's walls (bfloat16 and int8 off the qc layout): its
+#: class-padded fill, and its n_pad, a literal 65536 in the JAX driver.
+CLOS_LANES_FILL_LIMIT = 65536
+CLOS_LANES_N_PAD_LIMIT = 65536
 
 #: CN forms other than BP (an unknown ``--decoding`` string decodes as BP)
 _NON_BP_FORMS = ("BP_MS", "BP_NMS", "BP_OMS", "BP_LIN", "BP_TANH", "BP_PHI")
-
-_SUB32_ROUTING = 'ROADMAP Queue 1, "Sub-32-bit routing past the TPU envelopes"'
 
 
 def check_supported(dec: DecoderParams, ch: ChannelParams) -> None:
@@ -125,123 +125,90 @@ def check_supported(dec: DecoderParams, ch: ChannelParams) -> None:
         MessageForm(dec.message_dtype, dec.quant_scale).check_cn_mode(dec.cn_mode)
 
 
-def qc_lanes_space(code: LDPCCode, use_pallas: bool, channel_type: str = "AWGN") -> Optional[int]:
-    """The edge space (``n_pad``) of the JAX package's qc lane layout when its
-    ``_select_layout`` puts this code there, else None: with
-    ``use_pallas``, off the BEC, for a QC code with ``Z >= 64`` (the qc
-    transport's 2x lane-inflation cap) whose Beneš-padded edge space passes
-    ``FUSED_EDGE_SPACE_LIMIT``.  The layout gives each circulant
-    ``ceil(Z / 128) * 128`` lanes.  This assumes that the layout builds,
-    which holds for QC codes whose edges are listed row by row in one
-    column order per base row (``expand_qc``, and ``detect_qc`` on files
-    written from such codes)."""
-    if not use_pallas or channel_type == "BEC" or getattr(code, "qc", None) is None:
-        return None
-    Z = int(code.qc[0])
-    benes_pad = 1 << max(1, (max(2, code.nnz) - 1).bit_length())
-    if Z < 64 or benes_pad <= FUSED_EDGE_SPACE_LIMIT:
-        return None
-    return code.nnz // Z * (math.ceil(Z / 128) * 128)
+def tpu_layout(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
+               channel_type: str = "AWGN") -> tuple[str, str, tuple[str, ...]]:
+    """``(layout, dtype, fallbacks)``: where the JAX package's
+    ``_select_layout`` puts this code, the ``dtype=`` of its
+    ``decode_path`` and the reasons it stamps as ``fallback[...]``.
 
-
-def select_schedule(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
-                    channel_type: str = "AWGN") -> str:
-    """The schedule the JAX package's ``Simulator`` decodes with for this
-    code and these flags (the ``schedule=`` of its ``decode_path``).
-
-    ``"flooding"`` without ``dec.layered``, and always for the BEC (whose
-    peeling decoders in the JAX package ignore the layers, though its
-    ``decode_path`` then says ``layered``).  ``"layered-fast"`` (the fast
-    QC engine) where its routing reaches the lanes qc transport
-    (:func:`qc_lanes_space`) within ``QC_LANES_EDGE_SPACE_LIMIT``, with
-    layers that are the code's natural QC schedule
-    (:func:`..ops.layered.natural_qc_layers`).  ``"layered"`` (the exact
-    schedule) otherwise.  This mirrors the JAX routing only so that the
-    same command line gives the same schedule (and FER)."""
-    if not dec.layered or channel_type == "BEC":
-        return "flooding"
-    qc = qc_lanes_space(code, use_pallas, channel_type)
-    if qc is not None and qc <= QC_LANES_EDGE_SPACE_LIMIT and natural_qc_layers(code):
-        return "layered-fast"
-    return "layered"
-
-
-def qc_widening(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
-                channel_type: str = "AWGN") -> Optional[str]:
-    """Why the JAX package decodes a sub-32-bit ``dec.message_dtype`` in
-    float32 on its qc lane layout (the provenance note), or None: past
-    ``QC_LANES_SUB32_EDGE_SPACE_LIMIT`` for bfloat16 with the BP form, past
-    ``QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT`` for any sub-32-bit dtype, and
-    past ``QC_LANES_EDGE_SPACE_LIMIT``, where it leaves the qc layout for
-    its float32 XLA decoder."""
-    qc = qc_lanes_space(code, use_pallas, channel_type)
-    if qc is None or dec.message_dtype == "float32":
-        return None
-    if qc > QC_LANES_EDGE_SPACE_LIMIT:
-        limit = QC_LANES_EDGE_SPACE_LIMIT
-    elif dec.message_dtype == "bfloat16" and dec.type not in _NON_BP_FORMS:
-        limit = QC_LANES_SUB32_EDGE_SPACE_LIMIT
-    else:
-        limit = QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT
-    if qc <= limit:
-        return None
-    return f"qc n_pad {qc} > {dec.message_dtype} envelope {limit} -> float32"
-
-
-def select_message_dtype(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
-                         channel_type: str = "AWGN") -> str:
-    """The message dtype the JAX package's ``Simulator`` decodes with (the
-    ``dtype=`` of its ``decode_path``), which the port then runs, on every
-    schedule.
-
-    * ``uint8-3state`` for the BEC, which ignores ``--message-dtype`` (the
-      port's peeling kernels move 1-byte 3-state symbols);
-    * ``float32`` without ``use_pallas``: the JAX package's XLA decoders
-      ignore the flag;
-    * on the JAX package's qc lane layout (:func:`qc_lanes_space`: the fast
-      layered engine, and flooding or the exact schedule on a QC code with
-      ``Z >= 64``), ``dec.message_dtype``, widened to float32 where that
-      package widens it (:func:`qc_widening`);
-    * otherwise ``dec.message_dtype``.  The JAX package widens a sub-32-bit
-      dtype to float32 past its other TPU compile walls (the smallest at
-      65536 padded slots of its Clos lane layout), and where a code lands
-      depends on lane layouts the port does not copy.  Those layouts pad
-      each degree class to 128 nodes and then round to a power of two, so
-      an edge space may grow more than 2x: the port raises
-      (``NotImplementedError``, naming the ROADMAP item) for a code past
-      ``SUB32_EDGE_LIMIT`` (32768) slots, or whose class-padded edge space
-      passes the wall, rather than guess.  wifi 648 has 2376 slots, the
-      1152 (3,6) code 3456."""
+    The layout is ``"bec"`` for the BEC (the port's peeling kernels move
+    1-byte 3-state symbols and stamp no reroute), ``"xla"`` without
+    ``use_pallas`` (float32) and where the JAX package drops to its XLA
+    decoder, else ``"fused"`` (edge-major: a Beneš n_pad within
+    ``FUSED_EDGE_SPACE_LIMIT``, or a one-hot MXU plan on a code without QC
+    ``Z >= 64``), ``"qc"``, ``"clos"`` (bfloat16, int8) or ``"benes"``
+    (float32) lanes.  Past their walls the qc lanes widen a sub-32-bit
+    dtype to float32, the Clos lanes drop to float32 Beneš lanes, the lanes
+    past their n_pad go to the XLA decoder, and so does a fixed-iteration
+    job on Beneš lanes (:mod:`.tpu_layouts` sizes each).  The port decodes
+    in that dtype on its own kernels."""
     if channel_type == "BEC":
-        return "uint8-3state"
-    if not use_pallas or dec.message_dtype == "float32":
-        return "float32"
-    if qc_lanes_space(code, use_pallas, channel_type) is not None:
-        return "float32" if qc_widening(code, dec, use_pallas, channel_type) else dec.message_dtype
-    counts = np.bincount(code.rows, minlength=code.mc), np.bincount(code.cols, minlength=code.nc)
-    padded = max(sum(-(-int((deg == d).sum()) // 128) * 128 * int(d) for d in np.unique(deg))
-                 for deg in counts)
-    if code.nnz > SUB32_EDGE_LIMIT or padded > SUB32_EDGE_SPACE_LIMIT:
-        raise NotImplementedError(
-            f"{dec.message_dtype} messages on a code of {code.nnz} edges "
-            f"({padded} class-padded slots): {_SUB32_ROUTING}")
-    return dec.message_dtype
+        return "bec", "uint8-3state", ()
+    if not use_pallas:
+        return "xla", "float32", ()
+    dtype, reasons = dec.message_dtype, []
+    Z = int(code.qc[0]) if code.qc is not None else 0
+    if (tpu_layouts.benes_size(code.nnz) <= FUSED_EDGE_SPACE_LIMIT
+            or (Z < 64 and tpu_layouts.has_mxu_plan(code))):
+        return "fused", dtype, ()
+    qc_pad = tpu_layouts.qc_lanes_pad(code)
+    if qc_pad is not None:
+        layout, n_pad, limit = "qc", qc_pad, QC_LANES_EDGE_SPACE_LIMIT
+    else:
+        layout = "clos" if dtype in ("bfloat16", "int8") else "benes"
+        fill, n_pad = tpu_layouts.lanes_space(code)
+        limit = LANES_EDGE_SPACE_LIMIT
+    bp_form = dec.type not in _NON_BP_FORMS
+    if n_pad > limit:
+        return "xla", "float32", (f"lanes n_pad {n_pad} > envelope {limit} -> xla sorted decoder",)
+    if layout == "qc" and (
+            (n_pad > QC_LANES_SUB32_EDGE_SPACE_LIMIT and dtype == "bfloat16" and bp_form)
+            or (n_pad > QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT and dtype in ("bfloat16", "int8"))):
+        lim = (QC_LANES_SUB32_EDGE_SPACE_LIMIT if dtype == "bfloat16" and bp_form
+               else QC_LANES_SUB32_WIDE_EDGE_SPACE_LIMIT)
+        reasons.append(f"qc n_pad {n_pad} > {dtype} envelope {lim} -> f32 qc lanes")
+        dtype = "float32"
+    elif layout == "clos" and (fill > CLOS_LANES_FILL_LIMIT or n_pad > CLOS_LANES_N_PAD_LIMIT):
+        what = f"fill {fill}" if fill > CLOS_LANES_FILL_LIMIT else f"n_pad {n_pad}"
+        reasons.append(f"clos {what} > envelope -> f32/benes lanes")
+        layout, dtype = "benes", "float32"
+    if layout == "benes" and not dec.early_term:
+        reasons.append("fixed-iteration f32/benes lanes measured slower than xla "
+                       "-> xla sorted decoder")
+        return "xla", "float32", tuple(reasons)
+    return layout, dtype, tuple(reasons)
 
 
 def route(code: LDPCCode, dec: DecoderParams, use_pallas: bool,
-          channel_type: str = "AWGN") -> tuple[str, str, Optional[str]]:
-    """``(schedule, message dtype, fallback)`` of a decode of ``code`` with
-    these flags: :func:`select_schedule`, :func:`select_message_dtype` and
-    :func:`qc_widening`.  A widening to float32 is warned about, as the JAX
-    package's ``record_fallback`` does; the caller stamps ``fallback`` into
-    its provenance.  The sweep and ``LDPC.decode`` both route here."""
-    schedule = select_schedule(code, dec, use_pallas, channel_type)
-    dtype = select_message_dtype(code, dec, use_pallas, channel_type)
-    fallback = qc_widening(code, dec, use_pallas, channel_type)
-    if fallback:
-        warnings.warn(f"{dec.message_dtype} messages widened to float32 ({fallback}), "
-                      "as the JAX package widens them", stacklevel=3)
-    return schedule, dtype, fallback
+          channel_type: str = "AWGN") -> tuple[str, str, tuple[str, ...]]:
+    """``(schedule, message dtype, fallbacks)`` of a decode of ``code``
+    with these flags, as the JAX package's ``Simulator`` decodes it (the
+    ``schedule=``, ``dtype=`` and ``fallback[...]`` of its ``decode_path``).
+
+    The schedule is ``"flooding"`` without ``dec.layered``, and always for
+    the BEC (whose peeling decoders in the JAX package ignore the layers,
+    though its ``decode_path`` then says ``layered``); ``"layered-fast"``
+    (the fast QC engine) where :func:`tpu_layout` reaches the qc lanes,
+    with layers that are the code's natural QC schedule
+    (:func:`..ops.layered.natural_qc_layers`); ``"layered"`` (the exact
+    schedule) otherwise.  The dtype and the fallbacks are
+    :func:`tpu_layout`'s: ``uint8-3state`` for the BEC, float32 without
+    ``use_pallas`` or where the JAX package widens or reroutes, else
+    ``dec.message_dtype``.  A reroute is warned about, as the JAX package's
+    ``record_fallback`` does; the caller stamps each reason into its
+    provenance.  The sweep and ``LDPC.decode`` both route here."""
+    layout, dtype, fallbacks = tpu_layout(code, dec, use_pallas, channel_type)
+    if not dec.layered or channel_type == "BEC":
+        schedule = "flooding"
+    elif layout == "qc" and natural_qc_layers(code):
+        schedule = "layered-fast"
+    else:
+        schedule = "layered"
+    for reason in fallbacks:
+        warnings.warn(f"{dec.message_dtype} messages routed as the JAX package routes them: "
+                      f"{reason}" + (" (widened to float32)" if dtype != dec.message_dtype
+                                     else ""), stacklevel=3)
+    return schedule, dtype, fallbacks
 
 
 def resolve_device(device) -> torch.device:
@@ -268,6 +235,7 @@ class Simulator:
         device="cuda",
         verbose: bool = True,
         use_pallas: bool = False,
+        modulation=None,
     ):
         check_supported(decoder_params, channel_params)
         self._asked_dec = decoder_params  # the checkpoint's identity
@@ -290,6 +258,7 @@ class Simulator:
             code, self.device, with_layers=self.schedule != "flooding"))
         # the forensic log reports bits in the code's own labelling
         self._vn_inv = self.tables.code.vn_inv.cpu().numpy()  # original -> sorted label
+        self._modulation, mod_for_step = self._relabel_modulation(modulation)
         batch = simulation_params.batch_size
         # the exact layered schedule and the BEC stay batch-stepped, as in
         # the JAX package
@@ -319,14 +288,34 @@ class Simulator:
                 chunk_iters=simulation_params.streaming_chunk,
                 max_frames=simulation_params.max_frames,
                 layered=self.schedule == "layered-fast",
+                modulation=mod_for_step,
             )
             self._step = None
         else:
             self._step = make_sim_step(
                 self.tables, channel_params.type, decoder_params, batch, self.schedule,
-                forensics=bool(simulation_params.error_log_file))
+                forensics=bool(simulation_params.error_log_file), modulation=mod_for_step)
         self.results: Optional[SimResults] = None
         self.decode_path = self._describe_decode_path()
+
+    def _relabel_modulation(self, modulation):
+        """``(host, device)`` forms of ``modulation``, ``(Constellation,
+        bit_mapper)`` with the mapper ``[bits, n_sym]`` in the code's own
+        labels: the mapper relabelled to sorted labels, as an int64 array
+        (the forensic ``dE``) and on the device (the channel); ``(None,
+        None)`` without one.  Only AWGN takes a constellation, and the
+        mapper must cover the ``nct`` transmitted bits."""
+        if modulation is None:
+            return None, None
+        if self.ch.type != "AWGN":
+            raise ValueError("modulation requires the AWGN channel")
+        cstl, mapper = modulation
+        mapper = np.asarray(mapper, dtype=np.int64)
+        if mapper.size != self.code.nct:
+            raise ValueError(f"bit mapper covers {mapper.size} bits, expected "
+                             f"nct={self.code.nct}")
+        mapper = self._vn_inv[mapper]
+        return (cstl, mapper), (cstl, torch.as_tensor(mapper, device=self.device))
 
     def _describe_decode_path(self) -> str:
         """One-line provenance of the decode path, written above the results
@@ -345,8 +334,7 @@ class Simulator:
         ]
         if bec and self.dec.bec_ref_bug_compat:
             parts.append("bec=ref-bug-compat")
-        if self.fallback:
-            parts.append(f"fallback[{self.fallback}]")
+        parts += [f"fallback[{reason}]" for reason in self.fallback]
         if self._forensic_fallback:
             parts.append("fallback[forensic error log -> streaming ET disabled (batch stepping)]")
         if self.device.type == "cuda":
@@ -537,14 +525,21 @@ class Simulator:
     def _checkpoint_config(self) -> dict:
         """The experiment's identity, stored with every checkpoint: the
         decoder configuration as asked for, the batch size (which fixes the
-        random streams) and the decode path.  ``fec`` and ``max_frames``
-        are left out: raising them extends a sweep without changing what
-        was counted."""
-        return {
+        random streams), the decode path and, with a constellation, its M,
+        labels and the SHA-256 of the (relabelled) mapper (the JAX package leaves the
+        modulation out, so it resumes a BPSK checkpoint under 4-ASK).
+        ``fec`` and ``max_frames`` are left out: raising them extends a
+        sweep without changing what was counted."""
+        config = {
             "dec": dataclasses.asdict(self._asked_dec),
             "batch_size": self.sim.batch_size,
             "decode_path": self.decode_path,
         }
+        if self._modulation is not None:
+            cstl, mapper = self._modulation
+            config["modulation"] = {"M": int(cstl.M), "labels": [int(v) for v in cstl.labels],
+                                    "mapper_sha256": hashlib.sha256(mapper.tobytes()).hexdigest()}
+        return config
 
     def _check_checkpoint_config(self, state: dict) -> bool:
         """True when the checkpoint was written by this experiment; warns
@@ -607,20 +602,19 @@ class Simulator:
                           codeword: np.ndarray, x: float, frames: int) -> None:
         """Append a line per errored frame of a batch to the error log:
         its bit errors (transmitted bits), whether the decision is a
-        codeword, the distances between decision and truth (``dE`` for
-        BPSK, ``dH`` over all nc bits), the syndrome weight, and the failed
-        bits and checks (cut at 64), in the code's original labelling; with
-        ``error_log_codewords`` both words, hex-packed MSB-first.
-        ``hard``/``codeword`` are u8 ``[nc, B]`` in sorted labels;
-        ``frames`` counts the frames through this batch."""
+        codeword, the distances between decision and truth (``dE`` through
+        the constellation, :meth:`_forensic_dE`; ``dH`` over all nc bits),
+        the syndrome weight, and the failed bits and checks (cut at 64), in
+        the code's original labelling; with ``error_log_codewords`` both
+        words, hex-packed MSB-first.  ``hard``/``codeword`` are u8
+        ``[nc, B]`` in sorted labels; ``frames`` counts the frames through
+        this batch."""
         bad = np.nonzero(frame_bit_errors > 0)[0]
         if bad.size == 0:
             return
         hard_o = hard[:, bad][self._vn_inv]  # errored frames, original labels
         cw_o = codeword[:, bad][self._vn_inv]
-        # H @ words over GF(2) as one float32 product: exact, since a
-        # check's sum is at most its degree
-        synd = (self._H_f32 @ hard_o.astype(np.float32)).astype(np.int64) % 2
+        synd = self._syndromes(hard_o)
 
         def trunc(idx):
             s = ",".join(map(str, idx[:64]))
@@ -630,16 +624,16 @@ class Simulator:
             return np.packbits(col.astype(np.uint8)).tobytes().hex()
 
         first = frames - len(frame_bit_errors)
+        dEs = self._forensic_dE(hard[:, bad], codeword[:, bad], frame_bit_errors[bad])
         with open(self.sim.error_log_file, "a") as f:
             for j, b in enumerate(bad):
                 errs = int(frame_bit_errors[b])
                 wrong = np.nonzero(hard_o[:, j] != cw_o[:, j])[0]
                 failed_checks = np.nonzero(synd[:, j])[0]
-                dE = 2.0 * float(np.sqrt(errs))  # BPSK: dE^2 = 4 * bit errors
                 line = (
                     f"x={x:g} frame={first + int(b)} bit_errors={errs}"
                     f" is_codeword={int(failed_checks.size == 0)}"
-                    f" dE={dE:.3f} dH={wrong.size}"
+                    f" dE={dEs[j]:.3f} dH={wrong.size}"
                     f" syndrome_weight={failed_checks.size}"
                     f" failed_bits={trunc(wrong)}"
                     f" failed_checks={trunc(failed_checks)}"
@@ -648,9 +642,45 @@ class Simulator:
                     line += f" decided_cw={hexpack(hard_o[:, j])} true_cw={hexpack(cw_o[:, j])}"
                 f.write(line + "\n")
 
+    def _syndromes(self, words: np.ndarray) -> np.ndarray:
+        """``H @ words`` over GF(2) (u8 ``[mc, n]`` of u8 ``[nc, n]`` words
+        in original labels): each check's XOR over its edges, from the edge
+        list, so nothing of size ``mc * nc`` is built."""
+        cols, row_ids, starts = self._edges_by_row
+        synd = np.zeros((self.code.mc, words.shape[1]), dtype=np.uint8)
+        if cols.size:
+            synd[row_ids] = np.bitwise_xor.reduceat(words[cols].astype(np.uint8), starts, axis=0)
+        return synd
+
     @functools.cached_property
-    def _H_f32(self) -> np.ndarray:
-        return self.code.H_dense.astype(np.float32)
+    def _edges_by_row(self):
+        """``(cols, row ids, starts)``: the edges sorted by check, each
+        nonempty check's id and its first edge."""
+        order = np.argsort(self.code.rows, kind="stable")
+        rows = self.code.rows[order]
+        starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]]) if rows.size else rows
+        return self.code.cols[order].astype(np.int64), rows[starts], starts
+
+    def _forensic_dE(self, hard: np.ndarray, codeword: np.ndarray,
+                     tx_errs: np.ndarray) -> np.ndarray:
+        """Euclidean distance between the modulated decision and the
+        modulated truth of each errored frame (u8 ``[nc, n]`` columns in
+        sorted labels, their transmitted bit errors ``[n]``): ``2 sqrt(bit
+        errors)`` for BPSK; with a constellation, each word mapped to its
+        points (:func:`..ops.modulation.map_bits_to_symbols`), float64 as
+        the constellation holds them."""
+        if self._modulation is None:
+            return 2.0 * np.sqrt(tx_errs.astype(np.float64))  # BPSK: dE^2 = 4 * bit errors
+        cstl, mapper = self._modulation  # mapper [bits, n_sym], sorted labels
+
+        def points(words):
+            idx = mod.map_bits_to_symbols(cstl, torch.from_numpy(mapper),
+                                          torch.from_numpy(np.ascontiguousarray(words)))
+            return cstl.points[idx.numpy()]
+
+        d = points(hard) - points(codeword)
+        # each frame's squares summed along a contiguous row, as over one word
+        return np.sqrt(np.ascontiguousarray((d * d).T).sum(axis=1))
 
     def _row(self, results: SimResults, i: int) -> str:
         return format_result_row(

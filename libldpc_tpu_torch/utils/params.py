@@ -13,6 +13,9 @@ from typing import Optional, Sequence
 
 #: LLR magnitude that pins a known (shortened) bit, the reference's 99999.9.
 SHORTEN_LLR = 99999.9
+#: The clamp of the M-ASK bitwise LLRs (:func:`..ops.modulation.bitwise_llrs`).
+MAX_LLR = 9999.9
+MIN_LLR = -9999.9
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,7 @@ from libldpc_tpu_torch import LDPC
 from libldpc_tpu_torch.convert import code_from_jax
 from libldpc_tpu_torch.models import gf2
 from libldpc_tpu_torch.models.code import LDPCCode
+from libldpc_tpu_torch.ops.modulation import Constellation, default_bit_mapper
 from libldpc_tpu_torch.sim import driver
 from libldpc_tpu_torch.sim.driver import Simulator
 from libldpc_tpu_torch.utils.params import ChannelParams, DecoderParams, SimulationParams
@@ -260,10 +261,26 @@ def test_stop_simulation_freezes_results(bench96):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), '"Multi-GPU"'), (dict(pointsParallel=2), '"Multi-GPU"'),
-    (dict(modulation=(None, None)), '"Modulation"'),
+    (dict(modulation="4-ASK Gray"), '"Modulation"'),
 ])
 def test_simulate_refuses_what_is_not_ported(bench96, kw, item):
+    """Multi-GPU is refused; a modulation, once refused ("Modulation"), now
+    runs the sweep the ``Simulator`` runs with the same constellation."""
     _, code = bench96
+    if item == '"Modulation"':
+        cstl = Constellation.mask(4, labels=[0, 1, 3, 2])
+        mapping = (cstl, code.bit_pos[default_bit_mapper(2, code.nct // 2)])
+        ldpc = LDPC(code=code, device="cpu")
+        ldpc.simulate(blocking=True, snr=[6.0, 8.01, 2.0], fec=5, batchSize=32, iterations=8,
+                      maxFrames=1024, seed=4, modulation=mapping)
+        ref = Simulator(code, DecoderParams(iterations=8),
+                        ChannelParams(seed=4, x_range=(6.0, 8.01, 2.0)),
+                        SimulationParams(batch_size=32, fec=5, max_frames=1024), device="cpu",
+                        verbose=False, modulation=mapping).start().as_dict(trim=True)
+        got = ldpc.get_results()
+        for k in ("x", "fer", "ber", "avg_iter", "fec", "frames"):
+            np.testing.assert_array_equal(got[k], ref[k])
+        return
     with pytest.raises(NotImplementedError, match=item):
         LDPC(code=code, device="cpu").simulate(snr=[1.0, 2.0, 1.0], **kw)
 

@@ -32,7 +32,7 @@ from libldpc_tpu_torch.ops.kernels import decode_bec as db
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 from libldpc_tpu_torch.ops.streaming_fused import init_state, make_streaming_fused_step
-from libldpc_tpu_torch.sim.driver import Simulator, select_schedule
+from libldpc_tpu_torch.sim.driver import Simulator, route
 from libldpc_tpu_torch.utils.params import ChannelParams, DecoderParams, SimulationParams
 
 torch.set_num_threads(2)
@@ -390,7 +390,7 @@ def test_routing_matches_jax_decode_path(layered, use_pallas, compat):
     assert jpath["schedule"] == ("layered" if layered else "flooding")
     assert tpath["schedule"] == "flooding" and tpath["kernel"] == "torch-plain"
     assert ("bec" in tpath) == compat
-    assert select_schedule(tcode, DecoderParams(**common), use_pallas, "BEC") == "flooding"
+    assert route(tcode, DecoderParams(**common), use_pallas, "BEC")[0] == "flooding"
     assert tsim.tables.n_layers == 0  # no layer tables are built for the peeling
 
 

@@ -11,6 +11,7 @@ import torch
 from libldpc_tpu.utils.params import SHORTEN_LLR
 from libldpc_tpu_torch.models import make_benchmark_code
 from libldpc_tpu_torch.ops import channel
+from libldpc_tpu_torch.ops.modulation import Constellation
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 
 torch.set_num_threads(2)
@@ -77,8 +78,18 @@ def test_draws_follow_the_key(sdc):
 
 
 def test_not_ported_channels_raise(sdc):
-    gen = channel.make_generator("cpu", 0)
-    with pytest.raises(NotImplementedError, match='Queue 1, "Modulation"'):
-        channel.simulate_channel(sdc, "AWGN", gen, 4, 1.0, modulation=object())
+    """A constellation, once refused, turns AWGN into the M-ASK channel and
+    leaves the BSC as it is (as in the JAX package); an unknown channel
+    still raises."""
+    cstl = Constellation.mask(4, labels=[0, 1, 3, 2])
+    tx = sdc.bit_pos.long()
+    mapper = tx[: tx.numel() // 2 * 2].reshape(-1, 2).T.contiguous()
+    out = channel.simulate_channel(sdc, "AWGN", channel.make_generator("cpu", 0), 4, 1.0,
+                                   modulation=(cstl, mapper))
+    assert out.llr.shape == (sdc.nc, 4) and torch.isfinite(out.llr).all()
+    assert (out.llr[tx] != 0).all()
+    bsc = [channel.simulate_channel(sdc, "BSC", channel.make_generator("cpu", 0), 4, 0.1, **kw)
+           for kw in ({}, dict(modulation=(cstl, mapper)))]
+    assert torch.equal(bsc[0].llr, bsc[1].llr)
     with pytest.raises(ValueError, match="No channel"):
-        channel.simulate_channel(sdc, "FOO", gen, 4, 1.0)
+        channel.simulate_channel(sdc, "FOO", channel.make_generator("cpu", 0), 4, 1.0)

@@ -33,12 +33,16 @@ MODULES = [
     "libldpc_tpu_torch.ops.kernels.decode_layered",
     "libldpc_tpu_torch.ops.kernels.layout",
     "libldpc_tpu_torch.ops.layered",
+    "libldpc_tpu_torch.ops.modulation",
     "libldpc_tpu_torch.ops.sorted",
     "libldpc_tpu_torch.ops.streaming",
     "libldpc_tpu_torch.ops.streaming_fused",
     "libldpc_tpu_torch.parallel.mesh",
     "libldpc_tpu_torch.sim.driver",
+    "libldpc_tpu_torch.sim.gpu_compat",
     "libldpc_tpu_torch.sim.results",
+    "libldpc_tpu_torch.sim.tpu_layouts",
+    "libldpc_tpu_torch.sim_cuda",
     "libldpc_tpu_torch.utils.params",
 ]
 

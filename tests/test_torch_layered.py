@@ -38,7 +38,7 @@ from libldpc_tpu_torch.ops import layered
 from libldpc_tpu_torch.ops import sorted as tsorted
 from libldpc_tpu_torch.ops.kernels import decode_layered as dl
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
-from libldpc_tpu_torch.sim.driver import Simulator, select_schedule
+from libldpc_tpu_torch.sim.driver import Simulator, route
 
 from test_torch_sorted import MINSUM, TRANSCENDENTAL, awgn_llrs, compare, jax_fields
 
@@ -259,5 +259,5 @@ def test_schedule_matches_jax_decode_path(name, use_pallas):
                         device="cpu", verbose=False, use_pallas=use_pallas)
         port = [p for p in sim.decode_path.split() if p.split("=")[0] in ("schedule", "streaming")]
         assert port == _jax_decode_path(code, dec, use_pallas)
-        assert sim.schedule == select_schedule(tcode, dec, use_pallas)
-    assert select_schedule(tcode, DecoderParams(), use_pallas) == "flooding"
+        assert sim.schedule == route(tcode, dec, use_pallas)[0]
+    assert route(tcode, DecoderParams(), use_pallas)[0] == "flooding"

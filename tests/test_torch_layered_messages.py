@@ -397,7 +397,7 @@ def test_layered_routing_matches_jax_decode_path(name, use_pallas):
         sim, port, want = _paths(code, dec, use_pallas)
         assert port == want, (dtype, form)
         assert port["dtype"] == (dtype if use_pallas else "float32")
-        assert sim.message_dtype == port["dtype"] and sim.fallback is None
+        assert sim.message_dtype == port["dtype"] and not sim.fallback
 
 
 @pytest.mark.parametrize("layered_", [True, False])

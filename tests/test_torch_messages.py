@@ -16,11 +16,12 @@ JAX package, on the CPU, on the same numpy LLRs.
 * The CLI with ``--pallas --device cpu`` against the JAX CLI (its XLA
   path, which runs float32: ``--pallas`` needs a TPU there), FER within
   |z| < 3; the ``dtype=`` of the provenance line and
-  :func:`select_message_dtype` against the JAX ``Simulator``'s
+  :func:`route`'s dtype against the JAX ``Simulator``'s
   ``decode_path`` (the layered schedule too); the refusals.
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -36,6 +37,8 @@ from libldpc_tpu.ops.pallas.decode_lanes import bp_decode_lanes
 from libldpc_tpu.ops.pallas.lanes_layout import to_lanes_device
 from libldpc_tpu.ops.pallas.layout import to_pallas_device
 from libldpc_tpu.ops.streaming_pallas import _edge_prior_pool, make_streaming_pallas_step
+from libldpc_tpu.models.code import LDPCCode as JaxCode
+from libldpc_tpu.sim import driver as jax_driver
 from libldpc_tpu.sim.driver import Simulator as JaxSimulator
 from libldpc_tpu.utils import params as jparams
 from libldpc_tpu_torch import cli, convert
@@ -46,8 +49,9 @@ from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
 from libldpc_tpu_torch.ops.messages import MessageForm
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 from libldpc_tpu_torch.ops.streaming_fused import init_state, make_streaming_fused_step
+from libldpc_tpu_torch.sim import driver, tpu_layouts
 from libldpc_tpu_torch.sim.driver import (
-    ChannelParams, DecoderParams, SimulationParams, Simulator, select_message_dtype,
+    ChannelParams, DecoderParams, SimulationParams, Simulator, route,
 )
 
 import test_pallas
@@ -315,9 +319,9 @@ def test_message_dtype_routing_matches_jax(name, dtype, use_pallas):
              else wifi_code(int(name[4:]), with_G=False))
     dec = dict(iterations=8, type="BP_MS", message_dtype=dtype)
     tdec = DecoderParams(**dec)
-    got = select_message_dtype(code_from_jax(jcode), tdec, use_pallas)
+    got = route(code_from_jax(jcode), tdec, use_pallas)[1]
     assert got == jax_dtype(jcode, dec, use_pallas) == (dtype if use_pallas else "float32")
-    assert select_message_dtype(code_from_jax(jcode), tdec, use_pallas, "BEC") == "uint8-3state"
+    assert route(code_from_jax(jcode), tdec, use_pallas, "BEC")[1] == "uint8-3state"
 
 
 def test_int8_refuses_non_minsum_like_jax(setup):
@@ -345,31 +349,66 @@ def test_cli_refuses_int8_bp(files, tmp_path, capsys):
     assert not (tmp_path / "r.txt").exists()
 
 
-def test_cli_refuses_sub32_past_the_envelope(tmp_path, capsys):
-    """A code past 32768 edge slots, and one under it whose degree classes
-    pad (to 128 nodes each) past 65536 slots, are refused with a sub-32-bit
-    dtype and decode in float32."""
+def test_cli_refuses_sub32_past_the_envelope(tmp_path, monkeypatch):
+    """Past the sizes the port once refused, a sub-32-bit dtype routes as
+    the JAX package routes it.  A code of one check of each degree 1..8
+    (36 edges, whose degree classes pad to 4608 lane slots) with the
+    edge-major wall lowered to 16 slots in both packages goes to the Clos
+    lanes: it keeps its dtype there, and past a Clos fill wall lowered to
+    4096 it widens to float32 Beneš lanes (float32 XLA at fixed
+    iterations), with the JAX package's dtype and ``fallback[...]`` notes.
+    A (3,6) code of 36000 edges keeps bfloat16 on the Clos lanes, and its
+    CLI sweep runs in it."""
     rng = np.random.default_rng(0)
     nc, mc = 12000, 6000
     big = LDPCCode(rows=np.repeat(np.arange(mc), 6).astype(np.int32),
                    cols=rng.permutation(np.repeat(np.arange(nc), 3)).astype(np.int32),
                    nc=nc, mc=mc)
-    degs = np.arange(1, 33)  # one check of each degree 1 .. 32: 528 edges
-    padded = LDPCCode(rows=np.repeat(np.arange(32), degs).astype(np.int32),
-                      cols=np.concatenate([np.arange(d) for d in degs]).astype(np.int32),
-                      nc=32, mc=32)
-    for code in (big, padded):
+    degs = np.arange(1, 9)
+    rows = np.repeat(np.arange(8), degs).astype(np.int32)
+    cols = np.concatenate([np.arange(d) for d in degs]).astype(np.int32)
+    padded = LDPCCode(rows=rows, cols=cols, nc=8, mc=8)
+    jcode = JaxCode(rows=rows, cols=cols, nc=8, mc=8)
+    assert tpu_layouts.lanes_space(padded) == (4608, 8192)
+    for mod in (driver, jax_driver):
+        monkeypatch.setattr(mod, "FUSED_EDGE_SPACE_LIMIT", 16)
+    for fill_limit in (65536, 4096):
+        for mod in (driver, jax_driver):
+            monkeypatch.setattr(mod, "CLOS_LANES_FILL_LIMIT", fill_limit)
         for dtype in ("bfloat16", "int8"):
-            dec = DecoderParams(type="BP_MS", message_dtype=dtype)
-            with pytest.raises(NotImplementedError, match="Sub-32-bit routing"):
-                select_message_dtype(code, dec, True)
-            assert select_message_dtype(code, dec, False) == "float32"
+            for et in (True, False):
+                dec = dict(iterations=4, type="BP_MS", message_dtype=dtype, early_term=et)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    want = JaxSimulator(jcode, jparams.DecoderParams(**dec),
+                                        jparams.ChannelParams(seed=1, x_range=(1.0, 1.1, 1.0)),
+                                        jparams.SimulationParams(batch_size=32, fec=3,
+                                                                 max_frames=64),
+                                        use_pallas=True, verbose=False).decode_path
+                    got = Simulator(padded, DecoderParams(**dec),
+                                    ChannelParams(seed=1, x_range=(1.0, 1.1, 1.0)),
+                                    SimulationParams(batch_size=32, fec=3, max_frames=64),
+                                    device="cpu", verbose=False, use_pallas=True)
+                jfields = dict(p.split("=", 1) for p in want.split() if "=" in p)
+                assert got.message_dtype == jfields["dtype"]
+                assert got.decode_path.split(" fallback[")[1:] == want.split(" fallback[")[1:]
+                assert got.message_dtype == (dtype if fill_limit == 65536 else "float32")
+                assert ("clos fill 4608 > envelope" in got.decode_path) == (fill_limit == 4096)
+                assert route(padded, DecoderParams(**dec), False)[1] == "float32"
+    monkeypatch.setattr(driver, "FUSED_EDGE_SPACE_LIMIT", 4096)
+    monkeypatch.setattr(driver, "CLOS_LANES_FILL_LIMIT", 65536)
+    assert tpu_layouts.lanes_space(big) == (36096, 65536)
+    for dtype in ("bfloat16", "int8"):
+        assert driver.tpu_layout(big, DecoderParams(type="BP_MS", message_dtype=dtype),
+                                 True) == ("clos", dtype, ())
     write_codefile(str(tmp_path / "h.txt"), big.rows, big.cols, nc, mc)
     argv = [str(tmp_path / "h.txt"), str(tmp_path / "r.txt"), "1.0", "1.1", "1.0", "--pallas",
-            "--message-dtype", "bfloat16", "--device", "cpu"]
-    assert cli.main(argv) == 2
-    assert "Sub-32-bit routing past the TPU envelopes" in capsys.readouterr().err
-    assert not (tmp_path / "r.txt").exists()
+            "--message-dtype", "bfloat16", "--device", "cpu", "-i", "2", "--batch-size", "16",
+            "--max-frames", "16"]
+    assert cli.main(argv) == 0
+    comment = (tmp_path / "r.txt").read_text().splitlines()[0]
+    assert comment.startswith("# kernel=torch-plain dtype=bfloat16 cn=BP schedule=flooding")
+    assert "fallback" not in comment
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
