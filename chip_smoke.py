@@ -12,11 +12,16 @@ and fixed-iteration, and wifi 648 on the exact layered schedule; the BEC
 sweep of the 1152 code and the BEC streaming step; the flooding and the
 layered sweeps with bfloat16 and int8 messages, ``--pallas
 --message-dtype``; a code with checks of degree 36 through a batch, a
-streaming and the BEC kernels), times kernels
+streaming and the BEC kernels), holds K8, the streaming pool's refill,
+against its plain version for BPSK, 4-ASK, BSC and the BEC (phase 7e) and
+the streaming chunks K2, K4 and K7 under a binding quota, their starts
+granted in lane order, against their plain chunks (phase 7f: the grants'
+cost, and the streaming step repeating under a binding quota), times kernels
 against plain versions, and prints a ``{"kernels": [...]}`` line (each kernel with
 its launches on its path, its error against the plain version, its time,
 the plain version's, its bound: the larger of the bytes it must move
-over the HBM rate and its operations over the float32 rate, and the form
+over the HBM rate and its operations over the float32 rate
+(``libldpc_tpu_torch/utils/roofline.py``), and the form
 of the kernel that ran; the kernels with a tile form, K1 to K5, are held
 against their plain versions and timed in each form side by side, K5 on
 wifi 648 and wifi 1296), the fixed-iteration ``Simulator`` frames/s of the
@@ -77,25 +82,6 @@ GRAY_LABELS = {4: [0, 1, 3, 2], 8: [0, 1, 3, 2, 6, 7, 5, 4], 16: [i ^ (i >> 1) f
 MOD_SNRS = {4: (7.25, 7.5, 7.75), 8: (10.75, 11.0, 11.25)}  # the 1152 code, wifi 1944 (-layer)
 MOD_SNR_RANGE_16 = (15.0, 15.51, 0.25)  # wifi 1944, LDPC.simulate
 BIG_SWEEP = ["1.3", "1.41", "0.1"]  # the (3,6) code of 16384 variables
-#: The card's published peaks (H100 SXM, NVIDIA's data sheet): HBM bytes/s,
-#: and float32 operations/s outside the tensor cores, against which the
-#: byte and integer operations of the decoders are counted too.
-HBM_BYTES_S = 3.35e12
-OPS_S = 67e12
-#: Operations per CN-space slot and iteration, counted from the kernels:
-#: the check combine makes ~3 pairwise operations per slot (forward,
-#: backward, exclusion), a BP box-plus ~10 (min, sign, two exp, two log1p,
-#: adds), the VN sum and extrinsic 2, the syndrome 2.  The fast layered
-#: engine adds the APP update (3); the exact layered schedule recomputes
-#: every posterior and syndrome per layer.  The BEC peeling: 4 operations
-#: per slot in the check phase, 4 in the variable phase, each of which can
-#: be one 32-bit word operation for 32 frames (the batch kernel's
-#: bit-sliced algebra), so a slot of one frame counts 8 / 32.
-OPS_BP_SLOT = 3 * 10 + 2 + 2
-OPS_MS_SLOT = 3 * 3 + 2 + 2  # a min-sum pair: min, sign, multiply
-OPS_BP_FAST_SLOT = 3 * 10 + 3 + 2
-OPS_MS_FAST_SLOT = 3 * 3 + 3 + 2
-OPS_BEC_SLOT = 8 / 32
 
 
 def check(cond, msg: str) -> None:
@@ -132,12 +118,6 @@ def cuda_ms(fn, reps: int, setup=None, warm: bool = True) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time the card could take (ms) and what sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def in_form(kernel, module, attr: str, forced):
@@ -1023,6 +1003,287 @@ def run_tuning(dev, tables, name_power) -> None:
           f"B = {BATCH}): max_abs_err {err:.3e}")
 
 
+#: phase 7e: K8 draws once 3/4 of the pool is used (12,288 of 16,384
+#: entries); the used entries of its checks and times, and its channels
+POOL_USED = 13000
+POOL_CHANNELS = (("BPSK", "AWGN", 2.0), ("4-ASK", "AWGN", 7.5), ("BSC", "BSC", 0.05),
+                 ("BEC", "BEC", BEC_EPS))
+#: phase 7f: a chunk's quota that every idle lane's start fits in its first
+#: pass and that binds in a later one
+BINDING = BATCH // 2 + 1000
+
+
+def pool_case(tb, kind, channel_type, x_value):
+    """K8's tables for one channel on ``tb`` (4-ASK: Gray labels, the
+    transmitted bits mapped consecutively) and a pool of ``BATCH`` entries
+    with ``POOL_USED`` of them used, its values sentinels."""
+    from libldpc_tpu_torch.ops import modulation as mod
+    from libldpc_tpu_torch.ops.kernels import pool_refill as pr
+
+    sdc, dev = tb.code, tb.device
+    modulation = None
+    if kind == "4-ASK":
+        modulation = (mod.Constellation.mask(4, GRAY_LABELS[4]),
+                      sdc.bit_pos[: sdc.nct // 2 * 2].reshape(-1, 2).T.contiguous())
+    g = torch.Generator(device="cpu").manual_seed(3)
+    avail = torch.ones(BATCH, dtype=torch.int32)
+    avail[torch.randperm(BATCH, generator=g)[:POOL_USED]] = 0
+    vals = torch.uint8 if channel_type == "BEC" else torch.float32
+    state = dict(avail=avail.to(dev),
+                 fresh=torch.full((sdc.nc, BATCH), 1 if channel_type == "BEC" else 123.0,
+                                  dtype=vals, device=dev),
+                 fresh_cw=torch.full((sdc.nc, BATCH), 7, dtype=torch.uint8, device=dev),
+                 ctr=torch.zeros((5, BATCH), dtype=torch.int32, device=dev),
+                 started=torch.zeros(1, dtype=torch.int64, device=dev),
+                 remaining=torch.zeros(1, dtype=torch.int32, device=dev))
+    return pr.pool_tables(sdc, channel_type, modulation), modulation, state
+
+
+def run_pool_refill(dev, tables, name_power) -> dict:
+    """Phase 7e: K8 (the streaming pool's refill) against its plain version
+    on the 1152 code and wifi 1944, for BPSK, 4-ASK, BSC and the BEC: the
+    entries taken, ``avail`` after, the untouched entries and ``remaining``
+    equal; every drawn codeword with ``H c = 0``; the plain formulas on
+    K8's codewords and its drawn normals or uniforms (its debug plane) equal
+    to K8's values (4-ASK within 1e-5 relative); the drawn entries' mean
+    signed LLR, flip or erasure share within 5 standard errors of the plain
+    refill's.  Then K8 and the plain refill timed on the 1152 code, BPSK,
+    from the same pool.  Returns K8's largest error, times and bound."""
+    from libldpc_tpu_torch.ops import channel
+    from libldpc_tpu_torch.ops.kernels import pool_refill as pr
+    from libldpc_tpu_torch.utils.roofline import bound
+
+    refill_on = torch.ones(1, dtype=torch.int32, device=dev)
+
+    def refill(fn, pt, st, x, seed, debug=None):
+        kw = {} if debug is None else {"debug": debug}
+        fn(pt, channel.make_generator(dev, 5, seed), x, refill_on, st["avail"], st["fresh"],
+           st["fresh_cw"], st["ctr"], st["started"], 10**9, st["remaining"], **kw)
+
+    err = 0.0
+    for key in ("bench1152", "wifi1944"):
+        tb = tables[key]
+        row_ptr = tb.row_ptr.long()
+        rows = torch.repeat_interleave(torch.arange(tb.code.mc, device=dev),
+                                       row_ptr[1:] - row_ptr[:-1])
+        for kind, channel_type, x in POOL_CHANNELS:
+            pt, modulation, s0 = pool_case(tb, kind, channel_type, x)
+            taken = s0["avail"] == 0
+            k8 = {n: t.clone() for n, t in s0.items()}
+            plain = {n: t.clone() for n, t in s0.items()}
+            debug = torch.full((pt.item_src.shape[0], BATCH), float("nan"), device=dev)
+            refill(pr.pool_refill, pt, k8, x, 1, debug)
+            refill(pr.pool_refill_plain, pt, plain, x, 1)
+            torch.cuda.synchronize()
+            check(torch.equal(k8["avail"], plain["avail"]) and bool((k8["avail"] == 1).all()),
+                  f"K8 {key} {kind}: avail after")
+            check(torch.equal(k8["remaining"], plain["remaining"]), f"K8 {key} {kind}: remaining")
+            for name in ("fresh", "fresh_cw"):
+                check(torch.equal(k8[name][:, ~taken], s0[name][:, ~taken]),
+                      f"K8 {key} {kind}: an untouched entry moved")
+                check(not bool((k8[name][:, taken] == s0[name][:, taken]).all(0).any()),
+                      f"K8 {key} {kind}: a used entry was not drawn")
+            cw = k8["fresh_cw"][:, taken]
+            par = torch.zeros((tb.code.mc, cw.shape[1]), dtype=torch.int32, device=dev)
+            par.index_add_(0, rows, cw.index_select(0, tb.col_sorted.long()).to(torch.int32))
+            check(bool((cw <= 1).all()) and bool(((par % 2) == 0).all()),
+                  f"K8 {key} {kind}: a drawn codeword with H c != 0")
+            want = channel.channel_values(tb.code, channel_type, cw, debug[:, taken], x,
+                                          modulation)
+            got = k8["fresh"][:, taken]
+            if kind == "4-ASK":
+                rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+                check(rel <= 1e-5, f"K8 {key} 4-ASK: relative error {rel:.2e}")
+                err = max(err, float((got - want).abs().max()))
+            else:
+                check(torch.equal(got, want), f"K8 {key} {kind}: values differ from the plain "
+                                              f"formulas on its draws")
+            tx = tb.code.bit_pos.long()
+            stats = []
+            for st in (k8, plain):
+                v, c = st["fresh"][tx][:, taken].double(), st["fresh_cw"][tx][:, taken].double()
+                stats.append((v == 2).double() if channel_type == "BEC" else
+                             ((v < 0).double() != c).double() if channel_type == "BSC" else
+                             v * (1 - 2 * c))
+            a, b = (t.flatten() for t in stats)
+            z = float((a.mean() - b.mean()).abs() / (a.var() / a.numel() + b.var() / b.numel()).sqrt())
+            print(f"K8 {key} {kind} ({channel_type} {x}): {int(taken.sum())} entries drawn, equal "
+                  f"to plain where it must be; values from its draws exact; drawn statistic "
+                  f"{float(a.mean()):.5f} against plain {float(b.mean()):.5f} (z {z:.2f})")
+            check(z < 5, f"K8 {key} {kind}: pool statistics differ from the plain refill's")
+    # times: K8 and the plain refill (a channel batch and the merge) from the
+    # same pool, BPSK on the 1152 code
+    tb = tables["bench1152"]
+    pt, _, s0 = pool_case(tb, "BPSK", "AWGN", 2.0)
+    box = {}
+
+    def reset():
+        box["st"] = {n: t.clone() for n, t in s0.items()}
+
+    ms = cuda_ms(lambda: refill(pr.pool_refill, pt, box["st"], 2.0, 7), 20, reset)
+    plain_ms = cuda_ms(lambda: refill(pr.pool_refill_plain, pt, box["st"], 2.0, 7), 20, reset)
+    nc = tb.code.nc
+    taken = POOL_USED
+    # written once: each drawn entry's values (float32) and codeword (u8);
+    # read once: avail (and ctr's starts row), written once: avail
+    nbytes = taken * nc * 5 + BATCH * 4 * 3
+    ops = taken * nc * 2 * pt.kw  # the encode: an AND and an XOR per generator word
+    b = bound(nbytes, ops)
+    print(f"time K8 bench1152 BPSK, {taken} of {BATCH} entries drawn: kernel {ms:.4f} ms, plain "
+          f"(channel batch and merge) {plain_ms:.4f} ms; bound {b[0]:.4f} ms by {b[1]} "
+          f"({b[0] / ms:.1%} of the bound) [{name_power}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b}
+
+
+def run_ordered_grants(dev, tables, name_power) -> dict:
+    """Phase 7f: the start grants in lane order.  A chunk whose quota binds
+    after its first pass (``BINDING``), from one state, ``ordered`` in K2
+    (the rule's form and the HBM-plane form; float32, bfloat16 and int8),
+    K4 (the rule's form and the HBM-plane form) and K7 (words and bytes)
+    against the plain chunk: planes, counters and ``remaining`` equal (the
+    min-sum family).  Then the grant kernel against its plain version and
+    timed; K2 and K4 timed on that state unordered and not binding, and
+    ordered under the binding quota; and the streaming step, three times
+    from empty streams on the same draws under a quota of 3 B + 5000 (K2 on
+    the 1152 code at 3.0 dB, K4 on wifi 1944 at 2.0 dB): one outcome."""
+    import dataclasses
+
+    from libldpc_tpu_torch.ops import channel
+    from libldpc_tpu_torch.ops.kernels import decode_bec as db
+    from libldpc_tpu_torch.ops.kernels import decode_fused as df
+    from libldpc_tpu_torch.ops.kernels import decode_layered as dl
+    from libldpc_tpu_torch.ops.streaming_fused import init_state, make_streaming_fused_step
+    from libldpc_tpu_torch.sim.driver import DecoderParams
+    from libldpc_tpu_torch.utils.roofline import bound
+
+    ones = torch.ones(1, dtype=torch.int32, device=dev)
+
+    def half_started(tb, plain, bec, x, dtype, form):
+        """Half the lanes started from a full pool by the plain chunk, one
+        pass run; then a fresh pool on every lane."""
+        kind = "BEC" if bec else "AWGN"
+        kw = {} if bec else {"message_dtype": dtype, "minsum_mode": form}
+        st = init_state(tb, BATCH, kind, "float32" if bec else dtype)
+        gen = channel.make_generator(dev, 8, 0)
+
+        def fresh_pool():
+            ch = channel.simulate_channel(tb.code, kind, gen, BATCH, x)
+            st.fresh_llr.copy_(ch.llr)
+            st.fresh_cw.copy_(ch.codeword)
+            st.avail.fill_(1)
+
+        fresh_pool()
+        plain(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+              st.fresh_llr, st.fresh_cw, ones, torch.tensor([BATCH // 2], dtype=torch.int32,
+                                                            device=dev), k=1, cap=ITERS, **kw)
+        fresh_pool()
+        st.ctr.zero_()
+        return st
+
+    def copy(st):
+        return dataclasses.replace(st, **{f.name: getattr(st, f.name).clone()
+                                          for f in dataclasses.fields(st)
+                                          if isinstance(getattr(st, f.name), torch.Tensor)})
+
+    def chunk(fn, tb, st, quota, **kw):
+        rem = torch.tensor([quota], dtype=torch.int32, device=dev)
+        fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+           st.fresh_llr, st.fresh_cw, ones, rem, k=6, cap=ITERS, **kw)
+        return rem
+
+    cases = [("K2", "bench1152", df.bp_stream_chunk_fused, df.bp_stream_chunk_fused_plain, False,
+              2.5, dtype, form, (df, "STREAM_FORM_OVERRIDE", forced, None))
+             for dtype, form in (("float32", "BP_MS"), ("bfloat16", "BP_MS"), ("int8", "BP_OMS"))
+             for forced in (None, (0, False))]
+    cases += [("K4", "wifi1944", dl.bp_stream_chunk_layered_fast,
+               dl.bp_stream_chunk_layered_fast_plain, False, 2.5, "float32", "BP_MS",
+               (dl, "STREAM_FORM_OVERRIDE", forced, None)) for forced in (None, (0, False))]
+    cases += [("K7", "bench1152", db.bec_stream_chunk_fused, db.bec_stream_chunk_fused_plain,
+               True, 0.25, "float32", None, (db, "FORCE_BYTES", forced, False))
+              for forced in (False, True)]
+    states = {}
+    for name, key, kernel, plain, bec, x, dtype, form, (mod_, attr, forced, default) in cases:
+        tb = tables[key]
+        kw = {} if bec else {"minsum_mode": form, "message_dtype": dtype}
+        if (name, dtype) not in states:
+            states[name, dtype] = half_started(tb, plain, bec, x, dtype, form)
+        st_p, st_k = copy(states[name, dtype]), copy(states[name, dtype])
+        setattr(mod_, attr, forced)
+        try:
+            rk = chunk(kernel, tb, st_k, BINDING, ordered=True, **kw)
+        finally:
+            setattr(mod_, attr, default)
+        rp = chunk(plain, tb, st_p, BINDING, **kw)
+        starts = int(st_p.ctr[4].sum())
+        same = [n for n in ("llr_in", "codeword", "lv2c", "done", "iters", "age", "avail", "ctr")
+                if torch.equal(getattr(st_k, n), getattr(st_p, n))]
+        print(f"{name} {key} {dtype} {form or 'peeling'} form {forced}: a chunk under a quota of "
+              f"{BINDING}, ordered: {starts} starts (plain), remaining {int(rk)} / {int(rp)}; "
+              f"equal planes {same}")
+        check(BATCH // 2 < starts <= BINDING and int(rp) == 0, f"{name}: the quota did not bind")
+        check(len(same) == 8 and torch.equal(rk, rp),
+              f"{name} {dtype} form {forced}: the ordered chunk differs from the plain chunk")
+    # the grant kernel alone, against its plain version, on the K2 state
+    st = states["K2", "float32"]
+    rem_k = torch.tensor([BINDING], dtype=torch.int32, device=dev)
+    rem_p = rem_k.clone()
+    grant_k = df.stream_grant(st.done, st.avail, ones, rem_k)
+    grant_p = df.stream_grant_plain(st.done, st.avail, ones, rem_p)
+    check(torch.equal(grant_k, grant_p) and torch.equal(rem_k, rem_p), "stream_grant differs")
+    rem = torch.tensor([BINDING], dtype=torch.int32, device=dev)
+    grant_ms = cuda_ms(lambda: df.stream_grant(st.done, st.avail, ones, rem), 50,
+                       lambda: rem.fill_(BINDING))
+    grant_plain_ms = cuda_ms(lambda: df.stream_grant_plain(st.done, st.avail, ones, rem), 50,
+                             lambda: rem.fill_(BINDING))
+    # read: done, avail (int32), remaining; written: the grant plane, remaining
+    grant_bound = bound(BATCH * (4 + 4 + 1) + 8, BATCH * 4)
+    print(f"time stream_grant B={BATCH}: kernel {grant_ms:.4f} ms, plain {grant_plain_ms:.4f} ms; "
+          f"bound {grant_bound[0]:.5f} ms by {grant_bound[1]} [{name_power}]")
+    # K2 and K4 (the rules' forms, float32 BP) on the same state: not binding
+    # (every wanting lane starts; one launch of 6 passes), and ordered under
+    # the binding quota (6 grant launches and 6 one-pass launches)
+    times = {}
+    for name, key, kernel in (("K2", "bench1152", df.bp_stream_chunk_fused),
+                              ("K4", "wifi1944", dl.bp_stream_chunk_layered_fast)):
+        base = states[name, "float32"]
+        box = {}
+
+        def reset():
+            box["st"] = copy(base)
+
+        row = {}
+        for label, quota, ordered in (("not binding", 10**9, False), ("binding, ordered",
+                                                                      BINDING, True),
+                                      ("binding, ordered again", BINDING, True),
+                                      ("not binding again", 10**9, False)):
+            row[label] = cuda_ms(lambda: chunk(kernel, tables[key], box["st"], quota,
+                                               ordered=ordered, minsum_mode="BP"), 5, reset)
+        times[name] = row
+        print(f"time {name} {key} float32 BP chunk of 6 passes B={BATCH}, half the lanes in "
+              f"flight: " + "; ".join(f"{k} {v:.3f} ms" for k, v in row.items())
+              + f" [{name_power}]")
+    # the streaming step repeats under a binding quota
+    for key, snr, layered in (("bench1152", 3.0, False), ("wifi1944", 2.0, True)):
+        init_fn, step_fn = make_streaming_fused_step(
+            tables[key], "AWGN", DecoderParams(iterations=ITERS, layered=layered), BATCH,
+            max_frames=3 * BATCH + 5000, layered=layered)
+        outcomes = set()
+        for _ in range(3):
+            st_, totals = init_fn(), []
+            for step in range(2):
+                st_, acc = step_fn(st_, channel.make_generator(dev, 1, 0, step), snr, True)
+                totals.append(torch.stack(list(acc)).tolist())
+            outcomes.add((st_.done.cpu().numpy().tobytes(), st_.iters.cpu().numpy().tobytes(),
+                          st_.avail.cpu().numpy().tobytes(), int(st_.started), str(totals)))
+        started = sorted({o[3] for o in outcomes})
+        print(f"grant {key} {'K4' if layered else 'K2'} {snr} dB, quota {3 * BATCH + 5000}: "
+              f"{len(outcomes)} distinct outcome(s) in 3 repetitions (frames started {started})")
+        check(len(outcomes) == 1 and started == [3 * BATCH + 5000],
+              f"the streaming step under a binding quota does not repeat on {key}")
+    return {"grant_ms": grant_ms, "grant_plain_ms": grant_plain_ms, "grant_bound": grant_bound,
+            "chunk_times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1037,11 +1298,18 @@ def main() -> int:
     from libldpc_tpu_torch.ops.kernels import decode_bec as db
     from libldpc_tpu_torch.ops.kernels import decode_fused as df
     from libldpc_tpu_torch.ops.kernels import decode_layered as dl
+    from libldpc_tpu_torch.ops.kernels import pool_refill as pr
     from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
     from libldpc_tpu_torch.ops.sorted import to_sorted_device
     from libldpc_tpu_torch.ops.streaming_fused import init_state, make_streaming_fused_step
     from libldpc_tpu_torch.sim.driver import (
         ChannelParams, DecoderParams, SimulationParams, Simulator,
+    )
+    # the card's peaks and the operations a slot (H100 SXM; one copy, with
+    # the port's cost model)
+    from libldpc_tpu_torch.utils.roofline import (
+        HBM_BYTES_S, OPS_BEC_SLOT, OPS_BP_FAST_SLOT, OPS_BP_SLOT, OPS_MS_FAST_SLOT, OPS_MS_SLOT,
+        bound,
     )
 
     t_start = time.perf_counter()
@@ -1480,6 +1748,12 @@ def main() -> int:
     print(f"degree-36 code: largest |kernel - plain| {err36:.3e}")
 
     mark("K6, K7 and the degree-36 code held against plain")
+    # ---- 7e. K8, the streaming pool's refill, against its plain version
+    k8 = run_pool_refill(dev, tables, name_power)
+    # ---- 7f. the start grants in lane order of K2, K4 and K7 where the
+    # quota binds, and their cost
+    grants = run_ordered_grants(dev, tables, name_power)
+    mark("K8 and the ordered grants held against plain")
     # ---- 8. the flooding slice: the CLI sweep of the 1152 code on the card
     WORK.mkdir(parents=True, exist_ok=True)
 
@@ -1509,7 +1783,7 @@ def main() -> int:
         check(rows and all(math.isfinite(v) for r in rows for v in r), f"{out} rows")
         return lines[0], rows
 
-    counted = (db.bec_decode_fused, db.bec_stream_chunk_fused)
+    counted = (db.bec_decode_fused, db.bec_stream_chunk_fused, pr.pool_refill, df.stream_grant)
     layered_fns = (dl.bp_decode_layered_fast, dl.bp_stream_chunk_layered_fast,
                    dl.bp_decode_layered)
     by_form = (df.bp_decode_fused, df.bp_stream_chunk_fused, *layered_fns)  # a count per form
@@ -1534,6 +1808,9 @@ def main() -> int:
     flooding_launches = read_counts()
     print(f"flooding path launches: {flooding_launches}")
     check(flooding_launches["bp_stream_chunk_fused"] > 0, "the sweep did not run kernel 2")
+    check(flooding_launches["pool_refill"] > 0, "the sweep did not refill its pool with K8")
+    check(flooding_launches["stream_grant"] > 0,
+          "no chunk of the sweep's max_frames-ended points ran the ordered grants")
     check(flooding_launches["bp_decode_fused"] > 0, "the fixed point did not run kernel 1")
     check(head.startswith("# kernel=cuda-fused") and "schedule=flooding streaming=on" in head,
           "flooding provenance line")
@@ -2088,6 +2365,8 @@ def main() -> int:
                 "bp_stream_chunk_fused": flooding_launches["bp_stream_chunk_fused"],
                 "bec_decode_fused": bec_launches["bec_decode_fused"],
                 "bec_stream_chunk_fused": bec_launches["bec_stream_chunk_fused"],
+                "pool_refill": flooding_launches["pool_refill"],
+                "stream_grant": flooding_launches["stream_grant"],
                 **{f"{fn.__name__}{SUFFIX[dt]}": form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
                    for fn in by_form[:2] for dt in ("bfloat16", "int8")},
                 **{f"{fn.__name__}{SUFFIX[dt]}":
@@ -2196,6 +2475,8 @@ def main() -> int:
             * OPS_MS_FAST_SLOT),
         "bp_decode_layered_bf16": bound(batch_bytes("wifi648", 4, 2), k5_needed(3 * 10)),
         "bp_decode_layered_int8": bound(batch_bytes("wifi648", 4, 1), k5_needed(3 * 3)),
+        "pool_refill": k8["bound"],
+        "stream_grant": grants["grant_bound"],
     }
     # the wifi 1944 rows of kernel 1 (float32, BP), K6 and K7 (BEC); K7's
     # two forms on both codes
@@ -2238,6 +2519,8 @@ def main() -> int:
                  else "words in device memory",
                  "bec_stream_chunk_fused": "words in shared memory"
                  if db.bec_stream_form(tb7) == "words" else "HBM planes, 32 frames x 8 warps"}
+    forms_run["pool_refill"] = "32 lanes x 8 warps a block; a used entry's lane draws"
+    forms_run["stream_grant"] = "one block of 1024 threads, a scan over the batch"
     # K1, K2 and K5 by their size rules, per message form, at the timed shapes
     for dt in SUFFIX:
         forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
@@ -2278,6 +2561,16 @@ def main() -> int:
         *[(f"bp_decode_layered{SUFFIX[dt]}", exact_src[dt],
            "libldpc_tpu/ops/pallas/decode_fused.py:544", err_form[f"k5 {dt}"],
            times[f"K5{SUFFIX[dt]} wifi648"]) for dt in ("bfloat16", "int8")],
+        # K8: the pool's refill, XLA in the JAX super-step (simulate_channel
+        # and the merge under lax.cond), a kernel here
+        ("pool_refill", "libldpc_tpu_torch/csrc/pool_refill.cu",
+         "libldpc_tpu/ops/streaming_pallas.py:134", k8["max_abs_err"],
+         (k8["ms"], k8["plain_ms"])),
+        # the start grants in lane order of a chunk where the quota binds
+        # (the JAX kernels' in-kernel scan)
+        ("stream_grant", "libldpc_tpu_torch/csrc/pool_refill.cu",
+         "libldpc_tpu/ops/pallas/decode_fused.py:464", 0.0,
+         (grants["grant_ms"], grants["grant_plain_ms"])),
     ]
     for name, _, _, _, t in rows_json:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "
@@ -2286,7 +2579,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         # no single PyTorch call decodes an LDPC code
+         # no single PyTorch call decodes an LDPC code, draws an encoded
+         # frame or grants starts in lane order against a quota
          "library_ms": None,
          "form": forms_run.get(name, forms_run.get(name.replace("_bf16", "").replace("_int8", ""),
                                                    "HBM planes, 32 frames x 8 warps"))}

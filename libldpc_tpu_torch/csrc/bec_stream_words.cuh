@@ -13,7 +13,9 @@
 // and its counters live in registers of lane f of the first warp, which
 // also takes the start tickets: one atomicSub of the word's wanting lanes
 // against the global quota, granted in lane order, so exactly `remaining`
-// frames start over the grid.  A reload packs the pool's rows into the
+// frames start over the grid (or, in a one-pass launch of a chunk where the
+// quota may bind, the lanes' entries of the grant plane, computed in lane
+// order over the batch: pool_refill.cu stream_grant_kernel).  A reload packs the pool's rows into the
 // channel and codeword words under the grant mask R (and copies the bytes
 // into the carried planes), then sets each reloaded frame's messages to its
 // channel symbol at the slot, as K6 starts.  A pass is the check update,
@@ -204,16 +206,19 @@ bec_stream_words_kernel(Code c, StreamArgs<uint8_t, uint8_t> s, int B_, int k, i
   uint32_t ran = 0;  // frames that ran a pass in this chunk
   for (int p = 0; p < k; ++p) {
     // ---- reload: the word's idle lanes with an unused pool entry take
-    // tickets against the global quota, granted in lane order
+    // tickets against the global quota, granted in lane order; with a grant
+    // plane (a one-pass launch of a chunk where the quota may bind) the
+    // lanes' entries of it, in lane order over the whole batch
     bool work = false;
     if (warp == 0) {
       const bool want = valid && refill_on && done && avail;
       const uint32_t wanting = __ballot_sync(0xffffffffu, want);
       int left = 0;  // the quota before this word's tickets
-      if (lane == 0 && wanting && *(volatile int*)s.remaining > 0)
+      if (!s.grant && lane == 0 && wanting && *(volatile int*)s.remaining > 0)
         left = atomicSub(s.remaining, __popc(wanting));
       left = __shfl_sync(0xffffffffu, left, 0);
-      const bool grant = want && __popc(wanting & ((1u << lane) - 1u)) < left;
+      const bool grant = s.grant ? want && s.grant[b]
+                                 : want && __popc(wanting & ((1u << lane) - 1u)) < left;
       if (grant) {
         done = 0;
         age = 1;
@@ -223,7 +228,7 @@ bec_stream_words_kernel(Code c, StreamArgs<uint8_t, uint8_t> s, int B_, int k, i
       }
       const uint32_t granted = __ballot_sync(0xffffffffu, grant);
       const uint32_t live = __ballot_sync(0xffffffffu, !done);
-      work = !done || (want && *(volatile int*)s.remaining > 0);
+      work = !done || may_start(want, s.grant, s.remaining);
       if (lane == 0) {
         reload_s = granted;
         live_s = live;

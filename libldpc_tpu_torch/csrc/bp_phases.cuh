@@ -88,6 +88,23 @@ __device__ void syndrome_part(const Code& c, const Msg& m,
   }
 }
 
+// The start grant of an idle lane that wants its pool entry (`want`) in a
+// streaming chunk (K2, K4, K7).  With a grant plane (`grant`, a one-pass
+// launch of a chunk where the quota may bind; pool_refill.cu
+// stream_grant_kernel) the lane's entry of it, computed in lane order over
+// the whole batch; else a ticket against the global quota, which grants
+// every wanting lane wherever the quota does not bind.
+__device__ __forceinline__ bool start_grant(bool want, const uint8_t* grant, int* remaining,
+                                            size_t b) {
+  if (grant) return want && grant[b];
+  return want && *(volatile int*)remaining > 0 && atomicSub(remaining, 1) > 0;
+}
+
+// A wanting lane that may still start in a later pass of this launch.
+__device__ __forceinline__ bool may_start(bool want, const uint8_t* grant, int* remaining) {
+  return want && !grant && *(volatile int*)remaining > 0;
+}
+
 inline unsigned grid_for(int B) { return (unsigned)((B + LDPC_FRAMES - 1) / LDPC_FRAMES); }
 const dim3 kBlock(LDPC_FRAMES, LDPC_WARPS);
 

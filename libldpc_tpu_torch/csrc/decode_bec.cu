@@ -409,13 +409,13 @@ int ldpc_bec_decode_fused(const uint8_t* sym_in, const uint8_t* cw, uint8_t* sym
 int ldpc_bec_stream_chunk_words(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* done, int* iters,
                                 int* age, int* avail, int* ctr, const uint8_t* fresh_sym,
                                 const uint8_t* fresh_cw, const int* refill, int* remaining,
-                                const int* row_ptr, const int* col_sorted, const int* vn_ptr,
+                                const uint8_t* grant, const int* row_ptr, const int* col_sorted, const int* vn_ptr,
                                 const int* perm_c2v, const int* bit_pos, int nc, int mc, int nnz,
                                 int nct, int B, int k, int cap, int stale, void* stream) {
   Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
   StreamArgs<uint8_t, uint8_t> s{sym,    cw,        lv2c,      done, iters,   age,
                                  avail,  ctr,       fresh_sym, fresh_cw, refill, remaining,
-                                 nullptr, bit_pos,  nct};
+                                 nullptr, bit_pos,  nct,      grant};
   const size_t bytes = (size_t)(4 * nc + 2 * nnz) * 4;  // the state of one word (BecWords)
   return launch_smem(bec_stream_words_kernel, grid_for(B), dim3(LDPC_BEC_THREADS), bytes,
                      (cudaStream_t)stream, c, s, B, k, cap, stale);
@@ -425,7 +425,8 @@ int ldpc_bec_stream_chunk_words(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* d
 int ldpc_bec_stream_chunk_fused(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* done, int* iters,
                                 int* age, int* avail, int* ctr, const uint8_t* fresh_sym,
                                 const uint8_t* fresh_cw, const int* refill, int* remaining,
-                                uint8_t* lc2v, uint8_t* post, const int* row_ptr,
+                                const uint8_t* grant, uint8_t* lc2v, uint8_t* post,
+                                const int* row_ptr,
                                 const int* col_sorted, const int* vn_ptr, const int* perm_c2v,
                                 const int* bit_pos, int nc, int mc, int nnz, int nct, int B, int k,
                                 int cap, int stale, void* stream) {
@@ -433,7 +434,7 @@ int ldpc_bec_stream_chunk_fused(uint8_t* sym, uint8_t* cw, uint8_t* lv2c, int* d
   BecStreamPass pass{lc2v, stale};
   StreamArgs<uint8_t, uint8_t> s{sym,    cw,        lv2c,      done, iters,   age,
                                  avail,  ctr,       fresh_sym, fresh_cw, refill, remaining,
-                                 post,   bit_pos,   nct};
+                                 post,   bit_pos,   nct,      grant};
   bec_stream_chunk_fused_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(c, pass, s, B,
                                                                                   k, cap);
   return (int)cudaGetLastError();

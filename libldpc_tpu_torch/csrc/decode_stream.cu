@@ -58,7 +58,7 @@ extern "C" {
 int ldpc_bp_stream_chunk_fused(float* llr, uint8_t* cw, void* lv2c, int* done, int* iters,
                                int* age, int* avail, int* ctr, const float* fresh_llr,
                                const uint8_t* fresh_cw, const int* refill, int* remaining,
-                               void* lc2v, void* post, const int* row_ptr, const int* col_sorted,
+                               const uint8_t* grant, void* lc2v, void* post, const int* row_ptr, const int* col_sorted,
                                const int* vn_ptr, const int* perm_c2v, const int* bit_pos, int nc,
                                int mc, int nnz, int nct, int B, int k, int cap, int cn_mode,
                                float scale, float offset, int msg_dtype, float inv_q,
@@ -72,7 +72,7 @@ int ldpc_bp_stream_chunk_fused(float* llr, uint8_t* cw, void* lv2c, int* done, i
     BpStreamPass<Msg, FAM> pass{cp, m, (T*)lc2v};
     StreamArgs<float, T> s{llr,      cw,      (T*)lv2c,  done,     iters,  age,
                            avail,    ctr,     fresh_llr, fresh_cw, refill, remaining,
-                           (T*)post, bit_pos, nct};
+                           (T*)post, bit_pos, nct, grant};
     bp_stream_chunk_fused_kernel<Msg, FAM>
         <<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(c, pass, s, B, k, cap);
     return (int)cudaGetLastError();

@@ -182,11 +182,10 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
   const bool refill_on = *s.refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
   for (int p = 0; p < k; ++p) {
-    // ---- reload: a ticket against the global quota per idle lane with an
-    // unused pool entry; it starts iff the ticket is below the remaining count
+    // ---- reload: an idle lane with an unused pool entry starts if granted
+    // (start_grant: a ticket against the global quota, or the grant plane)
     const bool want = valid && refill_on && done && avail;
-    if (lead)
-      flag[f] = want && *(volatile int*)s.remaining > 0 && atomicSub(s.remaining, 1) > 0;
+    if (lead) flag[f] = start_grant(want, s.grant, s.remaining, b);
     __syncthreads();  // also ends the table staging before the first pass
     if (flag[f]) {
       for (int v = ty; v < c.nc; v += NTY) {
@@ -202,7 +201,7 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
       avail = 0;
       ++n_start;
     }
-    const bool work = !done || (want && *(volatile int*)s.remaining > 0);
+    const bool work = !done || may_start(want, s.grant, s.remaining);
     if (!__syncthreads_or(work)) break;  // also orders the reload's tile writes
     // ---- one flooding pass over the frames in flight, then the syndrome
     const bool run = !done;
@@ -322,9 +321,10 @@ bp_decode_fused_tile_kernel(Code c, CnParams cp, Msg m, const float* __restrict_
 #define LDPC_FLOOD_STREAM_ENTRY(NAME, FRAMES)                                                    \
   extern "C" int NAME(float* llr, uint8_t* cw, void* lv2c, int* done, int* iters, int* age,      \
                       int* avail, int* ctr, const float* fresh_llr, const uint8_t* fresh_cw,     \
-                      const int* refill, int* remaining, const int* row_ptr,                     \
-                      const int* col_sorted, const int* vn_ptr, const int* perm_c2v,             \
-                      const int* bit_pos, int nc, int mc, int nnz, int nct, int B, int k,        \
+                      const int* refill, int* remaining, const uint8_t* grant,                   \
+                      const int* row_ptr, const int* col_sorted, const int* vn_ptr,              \
+                      const int* perm_c2v, const int* bit_pos, int nc, int mc, int nnz, int nct, \
+                      int B, int k,                                                              \
                       int cap, int cn_mode, float scale, float offset, int msg_dtype,            \
                       float inv_q, int stage, void* stream) {                                    \
     Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};                                  \
@@ -334,7 +334,7 @@ bp_decode_fused_tile_kernel(Code c, CnParams cp, Msg m, const float* __restrict_
       using T = typename Msg::T;                                                                 \
       StreamArgs<float, T> s{llr,       cw,       (T*)lv2c, done,    iters,  age,                \
                              avail,     ctr,      fresh_llr, fresh_cw, refill, remaining,        \
-                             (T*)nullptr, bit_pos, nct};                                         \
+                             (T*)nullptr, bit_pos, nct, grant};                                  \
       return launch_smem(bp_stream_chunk_tile_kernel<Msg, decltype(fam)::value, FRAMES>,         \
                          (B + FRAMES - 1) / FRAMES, dim3(FRAMES, flood_rows(FRAMES)),            \
                          flood_tile_bytes(nc, mc, nnz, FRAMES, (int)sizeof(T), stage != 0),      \

@@ -10,7 +10,8 @@
 // The streaming chunk: k self-refilling passes per lane on the fast engine.
 // A lane in flight at
 // age 0 starts the engine, an idle lane reloads from the pool under the
-// exact quota (one atomicSub against `remaining`, as in stream_chunk.cuh),
+// exact quota (one atomicSub against `remaining`, or the lane-order grant
+// plane of a one-pass launch: start_grant in bp_phases.cuh),
 // then a lane in flight runs one full layered iteration and is counted at
 // the pass that finishes it.  The `app` plane is the persistent APP in
 // decoder units: a start takes the prior of the LLRs it carries, a reload
@@ -104,6 +105,7 @@ struct LayeredStream {
   int* remaining;                         // [1] starts left in the quota
   const int* __restrict__ bit_pos;        // [nct] transmitted variables
   int nct;
+  const uint8_t* grant;                   // [B] this pass's grants in lane order, or null
 };
 
 // ---------------------------------------------------------------- HBM form
@@ -136,12 +138,10 @@ bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, Msg m,
       for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) s.lc2v[e * B + b] = m.store(0.0f);
       age = 1;
     }
-    // ---- reload: a ticket against the global quota per idle lane with an
-    // unused pool entry; it starts iff the ticket is below the remaining count
+    // ---- reload: an idle lane with an unused pool entry starts if granted
+    // (start_grant: a ticket against the global quota, or the grant plane)
     const bool want = valid && refill_on && done && avail;
-    if (lead)
-      flag[threadIdx.x] =
-          want && *(volatile int*)s.remaining > 0 && atomicSub(s.remaining, 1) > 0;
+    if (lead) flag[threadIdx.x] = start_grant(want, s.grant, s.remaining, b);
     __syncthreads();
     if (flag[threadIdx.x]) {
       for (int v = threadIdx.y; v < c.nc; v += blockDim.y) {
@@ -155,7 +155,7 @@ bp_stream_chunk_layered_fast_kernel(Code c, Layers L, CnParams cp, Msg m,
       avail = 0;
       ++n_start;
     }
-    const bool work = !done || (want && *(volatile int*)s.remaining > 0);
+    const bool work = !done || may_start(want, s.grant, s.remaining);
     if (!__syncthreads_or(work)) break;  // also orders the start writes before the pass
     // ---- one full layered iteration over the lanes in flight
     const bool run = !done;
@@ -413,11 +413,10 @@ bp_stream_chunk_layered_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
       for (int v = ty; v < c.nc; v += NTY) tile[v * F + f] = m.prior(tile[v * F + f]);
       age = 1;
     }
-    // ---- reload: a ticket against the global quota per idle lane with an
-    // unused pool entry; it starts iff the ticket is below the remaining count
+    // ---- reload: an idle lane with an unused pool entry starts if granted
+    // (start_grant: a ticket against the global quota, or the grant plane)
     const bool want = valid && refill_on && done && avail;
-    if (lead)
-      flag[f] = want && *(volatile int*)s.remaining > 0 && atomicSub(s.remaining, 1) > 0;
+    if (lead) flag[f] = start_grant(want, s.grant, s.remaining, b);
     __syncthreads();  // also ends the table staging before the first pass
     if (flag[f]) {
       for (int v = ty; v < c.nc; v += NTY) {
@@ -431,7 +430,7 @@ bp_stream_chunk_layered_tile_kernel(Code c, Layers L, CnParams cp, Msg m,
       dirty = true;
       ++n_start;
     }
-    const bool work = !done || (want && *(volatile int*)s.remaining > 0);
+    const bool work = !done || may_start(want, s.grant, s.remaining);
     if (!__syncthreads_or(work)) break;  // also orders the start writes before the pass
     // ---- one full layered iteration over the frames in flight, then the
     // syndrome.  The first pass since a start finds lc2v = 0 without reading
@@ -570,10 +569,11 @@ int launch_stream(const Code& c, const Layers& L, const CnParams& cp, const Msg&
 #define LDPC_STREAM_ENTRY(NAME, FRAMES)                                                          \
   extern "C" int NAME(float* app, uint8_t* cw, void* lc2v, int* done, int* iters, int* age,      \
                       int* avail, int* ctr, const float* fresh_llr, const uint8_t* fresh_cw,     \
-                      const int* refill, int* remaining, const int* row_ptr,                     \
-                      const int* col_sorted, const int* vn_ptr, const int* perm_c2v,             \
-                      const int* layer_ptr, const int* layer_checks, const int* bit_pos, int nc, \
-                      int mc, int nnz, int nl, int nlc, int nct, int B, int k, int cap,          \
+                      const int* refill, int* remaining, const uint8_t* grant,                   \
+                      const int* row_ptr, const int* col_sorted, const int* vn_ptr,              \
+                      const int* perm_c2v, const int* layer_ptr, const int* layer_checks,        \
+                      const int* bit_pos, int nc, int mc, int nnz, int nl, int nlc, int nct,     \
+                      int B, int k, int cap,                                                     \
                       int cn_mode, float scale, float offset, int msg_dtype, float inv_q,        \
                       int stage, void* stream) {                                                 \
     Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};                                  \
@@ -583,7 +583,7 @@ int launch_stream(const Code& c, const Layers& L, const CnParams& cp, const Msg&
       using Msg = decltype(m);                                                                   \
       using T = typename Msg::T;                                                                 \
       LayeredStream<T> s{app,      cw,     (T*)lc2v,  done,    iters,  age, avail, ctr,          \
-                         fresh_llr, fresh_cw, refill, remaining, bit_pos, nct};                  \
+                         fresh_llr, fresh_cw, refill, remaining, bit_pos, nct, grant};           \
       return launch_stream<Msg, decltype(fam)::value, FRAMES>(c, L, cp, m, s, nlc, stage, B, k,  \
                                                               cap, (cudaStream_t)stream);        \
     });                                                                                          \

@@ -4,7 +4,9 @@
 //
 // Per pass and lane: an idle lane (done) with an unused pool entry (avail)
 // takes a ticket against one global start quota (`remaining`, taken with
-// atomicSub, so starts never exceed it in any block order) and, if granted,
+// atomicSub, so starts never exceed it in any block order; or, in a
+// one-pass launch of a chunk where the quota may bind, its entry of a grant
+// plane computed in lane order: start_grant in bp_phases.cuh) and, if granted,
 // reloads its carried channel values, codeword and CN-space messages (the
 // prior at each slot) from the pool, with age 1 (check-eligible at once);
 // then a lane in flight runs one decode pass, checks convergence once
@@ -53,6 +55,7 @@ struct StreamArgs {
   M* post;                  // [nc, B] scratch: the pass's posterior
   const int* bit_pos;       // [nct] transmitted variables
   int nct;
+  const uint8_t* grant;     // [B] this pass's grants in lane order, or null (start_grant)
 };
 
 // Every thread of a frame keeps the frame's control state in registers and
@@ -77,12 +80,11 @@ __device__ void stream_chunk(const Code& c, const Pass& pass,
   const bool refill_on = *s.refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
   for (int p = 0; p < k; ++p) {
-    // ---- reload: an idle lane with an unused pool entry takes a ticket
-    // against the global quota; it starts iff the ticket is below the
-    // remaining count
+    // ---- reload: an idle lane with an unused pool entry starts if granted
+    // (start_grant: a ticket against the global quota, or the lane-order
+    // grant plane of a one-pass launch)
     const bool want = valid && refill_on && done && avail;
-    if (lead)
-      flag[threadIdx.x] = want && *(volatile int*)s.remaining > 0 && atomicSub(s.remaining, 1) > 0;
+    if (lead) flag[threadIdx.x] = start_grant(want, s.grant, s.remaining, b);
     __syncthreads();
     if (flag[threadIdx.x]) {
       for (int v = threadIdx.y; v < c.nc; v += blockDim.y) {
@@ -100,7 +102,7 @@ __device__ void stream_chunk(const Code& c, const Pass& pass,
       avail = 0;
       ++n_start;
     }
-    const bool work = !done || (want && *(volatile int*)s.remaining > 0);
+    const bool work = !done || may_start(want, s.grant, s.remaining);
     if (!__syncthreads_or(work)) break;  // also orders the reload copy
     // ---- one decode pass; convergence is checked once age >= 1
     const bool run = !done;

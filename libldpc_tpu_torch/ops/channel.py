@@ -62,15 +62,37 @@ def _place(sdc: TorchSortedCode, values: torch.Tensor, shorten_value: float) -> 
     return llr
 
 
+def awgn_values(sdc: TorchSortedCode, c: torch.Tensor, noise: torch.Tensor,
+                snr_db: float) -> torch.Tensor:
+    """The BPSK LLRs ``2y/sigma^2`` of codewords ``c`` (u8 ``[nc, B]``)
+    under unit normal draws ``noise`` (``[nct, B]``, one per transmitted
+    bit)."""
+    sigma2 = np.float32(10.0 ** (-float(snr_db) / 10.0))
+    x = 1.0 - 2.0 * c.index_select(0, sdc.bit_pos).to(torch.float32)
+    y = x + noise * float(np.sqrt(sigma2))
+    return _place(sdc, 2.0 * y / float(sigma2), SHORTEN_LLR)
+
+
 def awgn_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, snr_db: float) -> ChannelOutput:
     """BPSK (0 -> +1, 1 -> -1) over AWGN with ``sigma^2 = 10^(-snr/10)``,
     ``LLR = 2y/sigma^2``."""
     c = encode_batch(sdc, gen, batch)
+    noise = torch.randn((sdc.nct, batch), generator=gen, device=c.device, dtype=torch.float32)
+    return ChannelOutput(llr=awgn_values(sdc, c, noise, snr_db), codeword=c)
+
+
+def modulated_values(sdc: TorchSortedCode, c: torch.Tensor, noise: torch.Tensor, snr_db: float,
+                     cstl: mod.Constellation, bit_mapper: torch.Tensor) -> torch.Tensor:
+    """The M-ASK bitwise LLRs of codewords ``c`` under unit normal draws
+    ``noise`` (``[n_sym, B]``, one per symbol); see
+    :func:`modulated_awgn_channel`."""
+    x = mod.modulate(cstl, mod.map_bits_to_symbols(cstl, bit_mapper, c))
     sigma2 = np.float32(10.0 ** (-float(snr_db) / 10.0))
-    x = 1.0 - 2.0 * c.index_select(0, sdc.bit_pos).to(torch.float32)
-    noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
     y = x + noise * float(np.sqrt(sigma2))
-    return ChannelOutput(llr=_place(sdc, 2.0 * y / float(sigma2), SHORTEN_LLR), codeword=c)
+    llr = mod.demap_llrs_to_codeword(mod.bitwise_llrs(cstl, y, sigma2), bit_mapper, sdc.nc)
+    if sdc.shorten.shape[0]:
+        llr[sdc.shorten.long()] = SHORTEN_LLR
+    return llr
 
 
 def modulated_awgn_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int,
@@ -85,25 +107,40 @@ def modulated_awgn_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: in
     rounding.  Shortened bits get ``SHORTEN_LLR``; a punctured bit that no
     mapper entry names stays 0."""
     c = encode_batch(sdc, gen, batch)
-    x = mod.modulate(cstl, mod.map_bits_to_symbols(cstl, bit_mapper, c))
-    sigma2 = np.float32(10.0 ** (-float(snr_db) / 10.0))
-    noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
-    y = x + noise * float(np.sqrt(sigma2))
-    llr = mod.demap_llrs_to_codeword(mod.bitwise_llrs(cstl, y, sigma2), bit_mapper, sdc.nc)
-    if sdc.shorten.shape[0]:
-        llr[sdc.shorten.long()] = SHORTEN_LLR
-    return ChannelOutput(llr=llr, codeword=c)
+    noise = torch.randn((bit_mapper.shape[1], batch), generator=gen, device=c.device,
+                        dtype=torch.float32)
+    return ChannelOutput(llr=modulated_values(sdc, c, noise, snr_db, cstl, bit_mapper),
+                         codeword=c)
+
+
+def bsc_values(sdc: TorchSortedCode, c: torch.Tensor, uniform: torch.Tensor,
+               epsilon: float) -> torch.Tensor:
+    """The BSC LLRs ``±log((1-eps)/eps)`` of codewords ``c`` whose
+    transmitted bits flip where ``uniform < epsilon`` (``[nct, B]``)."""
+    y = c.index_select(0, sdc.bit_pos) ^ (uniform < epsilon).to(torch.uint8)
+    delta = float(np.float32(np.log((1.0 - epsilon) / epsilon)))
+    return _place(sdc, delta * (1.0 - 2.0 * y.to(torch.float32)), delta)
 
 
 def bsc_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon: float) -> ChannelOutput:
     """Binary symmetric channel: flip with probability ``epsilon``,
     ``LLR = ±log((1-eps)/eps)``; shortened bits get ``+delta``."""
     c = encode_batch(sdc, gen, batch)
+    uniform = torch.rand((sdc.nct, batch), generator=gen, device=c.device)
+    return ChannelOutput(llr=bsc_values(sdc, c, uniform, epsilon), codeword=c)
+
+
+def bec_values(sdc: TorchSortedCode, c: torch.Tensor, uniform: torch.Tensor,
+               epsilon: float) -> torch.Tensor:
+    """The BEC symbols of codewords ``c`` whose transmitted bits are erased
+    where ``uniform < epsilon`` (``[nct, B]``); punctured bits erased,
+    shortened bits known."""
     x = c.index_select(0, sdc.bit_pos)
-    flips = torch.rand(x.shape, generator=gen, device=x.device) < epsilon
-    y = x ^ flips.to(torch.uint8)
-    delta = float(np.float32(np.log((1.0 - epsilon) / epsilon)))
-    return ChannelOutput(llr=_place(sdc, delta * (1.0 - 2.0 * y.to(torch.float32)), delta), codeword=c)
+    sym = torch.full(c.shape, BEC_ERASURE, dtype=torch.uint8, device=c.device)
+    if sdc.shorten.shape[0]:
+        sym[sdc.shorten.long()] = c.index_select(0, sdc.shorten)
+    sym[sdc.bit_pos.long()] = torch.where(uniform < epsilon, BEC_ERASURE, x).to(torch.uint8)
+    return sym
 
 
 def bec_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon: float) -> ChannelOutput:
@@ -111,13 +148,25 @@ def bec_channel(sdc: TorchSortedCode, gen: torch.Generator, batch: int, epsilon:
     probability ``epsilon``; u8 symbols ``{0, 1, BEC_ERASURE}``, punctured
     bits erased and shortened bits known."""
     c = encode_batch(sdc, gen, batch)
-    x = c.index_select(0, sdc.bit_pos)
-    erase = torch.rand(x.shape, generator=gen, device=x.device) < epsilon
-    sym = torch.full((sdc.nc, batch), BEC_ERASURE, dtype=torch.uint8, device=c.device)
-    if sdc.shorten.shape[0]:
-        sym[sdc.shorten.long()] = c.index_select(0, sdc.shorten)
-    sym[sdc.bit_pos.long()] = torch.where(erase, BEC_ERASURE, x).to(torch.uint8)
-    return ChannelOutput(llr=sym, codeword=c)
+    uniform = torch.rand((sdc.nct, batch), generator=gen, device=c.device)
+    return ChannelOutput(llr=bec_values(sdc, c, uniform, epsilon), codeword=c)
+
+
+def channel_values(sdc: TorchSortedCode, channel_type: str, c: torch.Tensor, draws: torch.Tensor,
+                   x_value: float, modulation=None) -> torch.Tensor:
+    """The decoder input of codewords ``c`` under the channel's draws (unit
+    normals for AWGN, uniforms for the BSC and the BEC; one per transmitted
+    bit, or per symbol with a constellation): :func:`simulate_channel`
+    after its encode and its draw."""
+    if channel_type == "AWGN":
+        if modulation is not None:
+            return modulated_values(sdc, c, draws, x_value, *modulation)
+        return awgn_values(sdc, c, draws, x_value)
+    if channel_type == "BSC":
+        return bsc_values(sdc, c, draws, x_value)
+    if channel_type == "BEC":
+        return bec_values(sdc, c, draws, x_value)
+    raise ValueError(f"No channel selected: {channel_type!r}")
 
 
 def simulate_channel(

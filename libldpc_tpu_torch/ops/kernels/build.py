@@ -147,7 +147,7 @@ def load() -> ctypes.CDLL:
             lib.ldpc_bp_stream_chunk_fused.argtypes = [
                 P, P, P,  # llr cw lv2c
                 P, P, P, P, P,  # done iters age avail ctr
-                P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                P, P, P, P, P,  # fresh_llr fresh_cw refill remaining grant
                 P, P,  # lc2v llr_post (scratch)
                 P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                 I, I, I, I, I,  # nc mc nnz nct B
@@ -163,7 +163,7 @@ def load() -> ctypes.CDLL:
                 entry.argtypes = [
                     P, P, P,  # llr cw lv2c
                     P, P, P, P, P,  # done iters age avail ctr
-                    P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                    P, P, P, P, P,  # fresh_llr fresh_cw refill remaining grant
                     P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                     I, I, I, I, I,  # nc mc nnz nct B
                     I, I, I, F, F,  # k cap cn_mode scale offset
@@ -203,7 +203,7 @@ def load() -> ctypes.CDLL:
                 entry.argtypes = [
                     P, P, P,  # app cw lc2v
                     P, P, P, P, P,  # done iters age avail ctr
-                    P, P, P, P,  # fresh_llr fresh_cw refill remaining
+                    P, P, P, P, P,  # fresh_llr fresh_cw refill remaining grant
                     *tables, P,  # ..., bit_pos
                     I, I, I, I, I, I, I,  # nc mc nnz nl nlc nct B
                     I, I, I, F, F,  # k cap cn_mode scale offset
@@ -244,7 +244,7 @@ def load() -> ctypes.CDLL:
             lib.ldpc_bec_stream_chunk_fused.argtypes = [
                 P, P, P,  # sym cw lv2c
                 P, P, P, P, P,  # done iters age avail ctr
-                P, P, P, P,  # fresh_sym fresh_cw refill remaining
+                P, P, P, P, P,  # fresh_sym fresh_cw refill remaining grant
                 P, P,  # lc2v post (scratch)
                 P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                 I, I, I, I, I,  # nc mc nnz nct B
@@ -255,13 +255,35 @@ def load() -> ctypes.CDLL:
             lib.ldpc_bec_stream_chunk_words.argtypes = [
                 P, P, P,  # sym cw lv2c
                 P, P, P, P, P,  # done iters age avail ctr
-                P, P, P, P,  # fresh_sym fresh_cw refill remaining
+                P, P, P, P, P,  # fresh_sym fresh_cw refill remaining grant
                 P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                 I, I, I, I, I,  # nc mc nnz nct B
                 I, I, I,  # k cap stale
                 P,  # stream
             ]
             lib.ldpc_bec_stream_chunk_words.restype = I
+            # K8, the streaming pool's refill (plan, draw), and the streaming
+            # chunks' grants in lane order
+            L = ctypes.c_longlong
+            lib.ldpc_pool_plan.argtypes = [
+                P, P, P, L,  # avail ctr started quota
+                P, I, I,  # refill watermark B
+                P, P,  # ctl remaining
+                P,  # stream
+            ]
+            lib.ldpc_pool_plan.restype = I
+            lib.ldpc_pool_draw.argtypes = [
+                I, P, I,  # channel gcols kw
+                P, P, I, I,  # item_src item_dst n_items bpi
+                P, P, I,  # other_pos other_short n_other
+                P, P, P, P, I,  # points logp label_of point_of M
+                P, P, P, P, P, P,  # fresh fresh_cw avail ctl key debug
+                I, F, F, F, F, F, F,  # B sigma inv_s2 two_s2 delta eps shorten
+                P,  # stream
+            ]
+            lib.ldpc_pool_draw.restype = I
+            lib.ldpc_stream_grant.argtypes = [P, P, P, P, P, I, P]  # done avail refill remaining grant B stream
+            lib.ldpc_stream_grant.restype = I
             # the shared memory of the tile forms of K1 and K2, K3 and K4, and
             # K5, for the card tests to hold the size rules' byte counts to
             lib.ldpc_flood_tile_bytes.argtypes = [I] * 6  # nc mc nnz frames msg stage

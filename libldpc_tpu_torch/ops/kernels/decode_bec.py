@@ -42,7 +42,8 @@ from ..bec_sorted import bec_decode_sorted, bec_pass, wrong_bits
 from ..channel import BEC_ERASURE
 from . import build
 from .decode_fused import (
-    SMEM_BLOCK_BYTES, _check, _p, _raise_on, _require_cuda, stream_chunk_plain,
+    SMEM_BLOCK_BYTES, _check, _p, _p_or_null, _raise_on, _require_cuda, chunk_launches,
+    stream_chunk_plain,
 )
 from .layout import KernelTables
 
@@ -172,11 +173,13 @@ bec_decode_fused.last_in_shared = None
 def bec_stream_chunk_fused_plain(
     tables, sym, cw, lv2c, done, iters, age, avail, ctr, fresh_sym, fresh_cw,
     refill, remaining, *, k: int, cap: int, degree1_stale_byte: Optional[int] = None,
+    ordered: bool = False,
 ) -> None:
     """Plain version of :func:`bec_stream_chunk_fused`: the plain chunk
     with the peeling pass; a frame converges when no posterior is erased,
     and its bit errors are its unresolved transmitted bits (in the
-    bug-compatible mode, those whose constant decision 1 is wrong)."""
+    bug-compatible mode, those whose constant decision 1 is wrong).  It
+    grants in lane order whatever ``ordered`` says."""
     sdc = tables.code
     stream_chunk_plain(
         tables, sym, cw, lv2c, done, iters, age, avail, ctr, fresh_sym, fresh_cw, refill,
@@ -206,6 +209,7 @@ def bec_stream_chunk_fused(
     k: int,
     cap: int,
     degree1_stale_byte: Optional[int] = None,
+    ordered: bool = False,
 ) -> None:
     """``k`` self-refilling peeling passes per lane, updating the state in
     place, with the reload, quota and counters of
@@ -213,9 +217,11 @@ def bec_stream_chunk_fused(
     frame is resolved or at ``age >= cap + 1``.  The pool holds symbols,
     not LLRs.  On CUDA the quota is one device counter taken with
     ``atomicSub`` (once a word in the word form, granted in lane order
-    within the word): which lanes start differs from the plain version's
-    lane order, the number that start does not.  The form is
-    :func:`bec_stream_form`'s; the word form allocates nothing."""
+    within the word), so where the quota binds, which lanes start depends on
+    the block order; ``ordered=True`` runs the chunk as ``k`` one-pass
+    launches with the grants in lane order over the batch
+    (:func:`.decode_fused.chunk_launches`), equal to the plain version's.
+    The form is :func:`bec_stream_form`'s; the word form allocates nothing."""
     sdc = tables.code
     nc, nnz = sdc.nc, sdc.nnz
     B = sym.shape[1] if sym.dim() == 2 else -1
@@ -240,20 +246,22 @@ def bec_stream_chunk_fused(
         )
     _require_cuda(sym)
     lib = build.load()
-    state = (_p(sym), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
-             _p(fresh_sym), _p(fresh_cw), _p(refill), _p(remaining))
-    tabs = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
-            _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, stale,
-            ctypes.c_void_p(torch.cuda.current_stream(sym.device).cuda_stream))
     form = bec_stream_form(tables)
-    if form == "words":
-        err = lib.ldpc_bec_stream_chunk_words(*state, *tabs)
-    else:
+    if form != "words":
         lc2v = torch.empty((nnz, B), dtype=torch.uint8, device=sym.device)
         post = torch.empty((nc, B), dtype=torch.uint8, device=sym.device)
-        err = lib.ldpc_bec_stream_chunk_fused(*state, _p(lc2v), _p(post), *tabs)
-    _raise_on(lib, err, "bec_stream_chunk_fused")
-    bec_stream_chunk_fused.launches += 1
+    for passes, grant in chunk_launches(k, ordered, done, avail, refill, remaining):
+        state = (_p(sym), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+                 _p(fresh_sym), _p(fresh_cw), _p(refill), _p(remaining), _p_or_null(grant))
+        tabs = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr),
+                _p(tables.perm_c2v), _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, passes,
+                cap, stale, ctypes.c_void_p(torch.cuda.current_stream(sym.device).cuda_stream))
+        if form == "words":
+            err = lib.ldpc_bec_stream_chunk_words(*state, *tabs)
+        else:
+            err = lib.ldpc_bec_stream_chunk_fused(*state, _p(lc2v), _p(post), *tabs)
+        _raise_on(lib, err, "bec_stream_chunk_fused")
+        bec_stream_chunk_fused.launches += 1
     bec_stream_chunk_fused.last_form = form
 
 

@@ -84,6 +84,10 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _p_or_null(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def _zero_output(llr_in: torch.Tensor) -> SortedDecodeOutput:
     B = llr_in.shape[1]
     return SortedDecodeOutput(
@@ -308,6 +312,60 @@ def stream_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[i
         tables, message_dtype)
 
 
+def stream_grant_plain(done: torch.Tensor, avail: torch.Tensor, refill: torch.Tensor,
+                       remaining: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`stream_grant`."""
+    eligible = (refill != 0) & (done != 0) & (avail != 0)
+    grant = eligible & (torch.cumsum(eligible.to(torch.int32), 0) <= remaining)
+    remaining -= grant.sum().to(torch.int32)
+    return grant.to(torch.uint8)
+
+
+def stream_grant(done: torch.Tensor, avail: torch.Tensor, refill: torch.Tensor,
+                 remaining: torch.Tensor) -> torch.Tensor:
+    """The start grants of one pass of a streaming chunk in lane order
+    over the whole batch, as the plain chunks and the JAX kernels grant
+    (``decode_fused.py:464-494``): a lane is eligible when reloads are on
+    (``refill``) and it is idle (``done``) with an unused pool entry
+    (``avail``), and granted iff the inclusive count of eligible lanes is at
+    most ``remaining``, which drops by the grants.  u8 ``[B]``.  On CUDA one
+    block's scan (``csrc/pool_refill.cu`` ``stream_grant_kernel``); the
+    chunk kernels take the plane in a one-pass launch of a chunk where the
+    quota may bind (``ordered=True``).  Counted in
+    ``stream_grant.launches``."""
+    B = done.shape[0]
+    for name, t, shape in (("done", done, (B,)), ("avail", avail, (B,)),
+                           ("refill", refill, (1,)), ("remaining", remaining, (1,))):
+        _check(t, name, torch.int32, shape, done.device)
+    if done.device.type == "cpu":
+        return stream_grant_plain(done, avail, refill, remaining)
+    _require_cuda(done)
+    lib = build.load()
+    grant = torch.empty(B, dtype=torch.uint8, device=done.device)
+    err = lib.ldpc_stream_grant(_p(done), _p(avail), _p(refill), _p(remaining), _p(grant), B,
+                                ctypes.c_void_p(torch.cuda.current_stream(done.device).cuda_stream))
+    _raise_on(lib, err, "stream_grant")
+    stream_grant.launches += 1
+    return grant
+
+
+stream_grant.launches = 0
+
+
+def chunk_launches(k: int, ordered: bool, done, avail, refill, remaining):
+    """``(passes, grant)`` of each launch of a streaming chunk of ``k``
+    passes: one launch of ``k`` passes whose lanes take tickets against
+    ``remaining`` (every wanting lane starts wherever the quota does not
+    bind), or, ``ordered``, ``k`` one-pass launches, each after the grant
+    plane of its pass (:func:`stream_grant`), so that the starts are the
+    plain chunk's in a chunk where the quota binds."""
+    if not ordered:
+        yield k, None
+        return
+    for _ in range(k):
+        yield 1, stream_grant(done, avail, refill, remaining)
+
+
 def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
                        refill, remaining, k: int, cap: int, decode_pass, converged,
                        bit_errors, reload=None) -> None:
@@ -321,12 +379,9 @@ def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fres
     sdc = tables.code
     is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=llr.device)
     is_tx[sdc.bit_pos.long()] = True
-    refill_on = refill != 0
     for _ in range(k):
         # ---- reload idle lanes from the pool, within the quota
-        eligible = refill_on & (done != 0) & (avail != 0)
-        rs = eligible & (torch.cumsum(eligible.to(torch.int32), 0) <= remaining)
-        remaining -= rs.sum().to(torch.int32)
+        rs = stream_grant_plain(done, avail, refill, remaining) != 0
         llr.copy_(torch.where(rs, fresh_llr, llr))
         cw.copy_(torch.where(rs, fresh_cw, cw))
         first = fresh_llr.index_select(0, sdc.col_sorted)
@@ -358,11 +413,12 @@ def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fres
 def bp_stream_chunk_fused_plain(
     tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
     refill, remaining, *, k: int, cap: int, minsum_mode=False, message_dtype: str = "float32",
-    quant_scale: float = DEFAULT_QUANT_SCALE,
+    quant_scale: float = DEFAULT_QUANT_SCALE, ordered: bool = False,
 ) -> None:
     """Plain version of :func:`bp_stream_chunk_fused`: the plain chunk with
     the BP pass in the message form, the syndrome of the stored
-    posterior's ``<= 0`` decisions, and reloads of ``store(prior(x))``."""
+    posterior's ``<= 0`` decisions, and reloads of ``store(prior(x))``.
+    It grants in lane order whatever ``ordered`` says."""
     sdc = tables.code
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode, "int8 streaming")
@@ -397,6 +453,7 @@ def bp_stream_chunk_fused(
     minsum_mode=False,
     message_dtype: str = "float32",
     quant_scale: float = DEFAULT_QUANT_SCALE,
+    ordered: bool = False,
 ) -> None:
     """``k`` self-refilling BP passes per lane, updating the state in place.
 
@@ -407,10 +464,13 @@ def bp_stream_chunk_fused(
     and finishes on convergence or at ``age >= cap + 1``, adding its
     transmitted-bit errors, a frame error, a frame and its iteration count
     to ``ctr`` rows 0-3 (row 4 counts starts).  On CUDA the quota is one
-    device counter taken with ``atomicSub``: which lanes start differs from
-    the plain version's lane order, the number that start does not.  The
-    kernel's form (a block's frames on chip for the chunk, or every plane in
-    device memory) follows :func:`stream_form`; both leave the same state.
+    device counter taken with ``atomicSub``, so where the quota binds, which
+    lanes start depends on the block order; ``ordered=True`` runs the chunk
+    as ``k`` one-pass launches with the grants in lane order
+    (:func:`chunk_launches`), equal to the plain version's in every chunk.
+    The kernel's form (a block's frames on chip for the chunk, or every
+    plane in device memory) follows :func:`stream_form`; both leave the same
+    state.
 
     The messages ``lv2c`` are stored in ``message_dtype`` (a reload stores
     ``store(prior(x))``, as the batch decode starts); the carried LLRs and
@@ -444,22 +504,24 @@ def bp_stream_chunk_fused(
     lib = build.load()
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     frames, stage = stream_form(tables, form.dtype)
-    state = (_p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
-             _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining))
-    code = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr), _p(tables.perm_c2v),
-            _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, k, cap, mode, scale, offset,
-            form.code, form.inv_q)
     stream = ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream)
     if frames == 0:
         lc2v = torch.empty((nnz, B), dtype=form.torch_dtype, device=llr.device)
         post = torch.empty((nc, B), dtype=form.torch_dtype, device=llr.device)
-        err = lib.ldpc_bp_stream_chunk_fused(*state, _p(lc2v), _p(post), *code, stream)
-    else:
-        entry = {16: lib.ldpc_bp_stream_chunk_tile16, 8: lib.ldpc_bp_stream_chunk_tile8,
-                 4: lib.ldpc_bp_stream_chunk_tile4}[frames]
-        err = entry(*state, *code, int(stage), stream)
-    _raise_on(lib, err, "bp_stream_chunk_fused")
-    bp_stream_chunk_fused.launches[form.dtype] += 1
+    for passes, grant in chunk_launches(k, ordered, done, avail, refill, remaining):
+        state = (_p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+                 _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p_or_null(grant))
+        code = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr),
+                _p(tables.perm_c2v), _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, passes,
+                cap, mode, scale, offset, form.code, form.inv_q)
+        if frames == 0:
+            err = lib.ldpc_bp_stream_chunk_fused(*state, _p(lc2v), _p(post), *code, stream)
+        else:
+            entry = {16: lib.ldpc_bp_stream_chunk_tile16, 8: lib.ldpc_bp_stream_chunk_tile8,
+                     4: lib.ldpc_bp_stream_chunk_tile4}[frames]
+            err = entry(*state, *code, int(stage), stream)
+        _raise_on(lib, err, "bp_stream_chunk_fused")
+        bp_stream_chunk_fused.launches[form.dtype] += 1
     bp_stream_chunk_fused.last_form = (frames, stage)
 
 

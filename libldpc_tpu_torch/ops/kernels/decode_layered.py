@@ -50,8 +50,8 @@ from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, TORCH_DTYPES, MessageFo
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
 from . import build
 from .decode_fused import (
-    SMEM_BLOCK_BYTES, _check, _p, _raise_on, _require_cuda, _zero_output, cn_mode_args,
-    code_table_ints, tile_bytes, tile_form,
+    SMEM_BLOCK_BYTES, _check, _p, _p_or_null, _raise_on, _require_cuda, _zero_output,
+    chunk_launches, cn_mode_args, code_table_ints, stream_grant_plain, tile_bytes, tile_form,
 )
 from .layout import KernelTables
 
@@ -210,17 +210,16 @@ def stream_form(tables: KernelTables) -> tuple[int, bool]:
 def bp_stream_chunk_layered_fast_plain(
     tables, app, cw, lc2v, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
     refill, remaining, *, k: int, cap: int, minsum_mode=False, message_dtype: str = "float32",
-    quant_scale: float = DEFAULT_QUANT_SCALE,
+    quant_scale: float = DEFAULT_QUANT_SCALE, ordered: bool = False,
 ) -> None:
     """Plain version of :func:`bp_stream_chunk_layered_fast`, pass for pass
     as ``kernel_stream_layered_qc``: starts are granted in lane order (an
-    inclusive scan against ``remaining``)."""
+    inclusive scan against ``remaining``), whatever ``ordered`` says."""
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode, "int8 streaming")
     sdc = tables.code
     is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=app.device)
     is_tx[sdc.bit_pos.long()] = True
-    refill_on = refill != 0
     for _ in range(k):
         # ---- lanes injected in flight at age 0 start the engine here, from
         # the prior of the LLRs they carry
@@ -229,9 +228,7 @@ def bp_stream_chunk_layered_fast_plain(
         lc2v.masked_fill_(raw[None, :], 0)
         age += raw.to(torch.int32)
         # ---- reload idle lanes from the pool, within the quota
-        eligible = refill_on & (done != 0) & (avail != 0)
-        rs = eligible & (torch.cumsum(eligible.to(torch.int32), 0) <= remaining)
-        remaining -= rs.sum().to(torch.int32)
+        rs = stream_grant_plain(done, avail, refill, remaining) != 0
         app.copy_(torch.where(rs, form.prior(fresh_llr), app))
         cw.copy_(torch.where(rs, fresh_cw, cw))
         lc2v.masked_fill_(rs[None, :], 0)
@@ -278,6 +275,7 @@ def bp_stream_chunk_layered_fast(
     minsum_mode=False,
     message_dtype: str = "float32",
     quant_scale: float = DEFAULT_QUANT_SCALE,
+    ordered: bool = False,
 ) -> None:
     """``k`` self-refilling passes of the fast layered engine per lane,
     updating the state in place.
@@ -292,8 +290,11 @@ def bp_stream_chunk_layered_fast(
     ``age >= cap + 1``, adding its transmitted-bit errors (decided from the
     APP), a frame error, a frame and its iteration count to ``ctr`` rows
     0-3 (row 4 counts starts).  On CUDA the quota is one device counter
-    taken with ``atomicSub``: which lanes start differs from the plain
-    version's lane order, the number that start does not.  The kernel's form
+    taken with ``atomicSub``, so where the quota binds, which lanes start
+    depends on the block order; ``ordered=True`` runs the chunk as ``k``
+    one-pass launches with the grants in lane order
+    (:func:`.decode_fused.chunk_launches`), equal to the plain version's in
+    every chunk.  The kernel's form
     (a block's APP in shared memory, or every plane in device memory)
     follows :func:`stream_form`; both compute the same.
 
@@ -334,14 +335,16 @@ def bp_stream_chunk_layered_fast(
     entry = {16: lib.ldpc_bp_stream_chunk_layered_tile16,
              8: lib.ldpc_bp_stream_chunk_layered_tile8,
              0: lib.ldpc_bp_stream_chunk_layered_hbm}[frames]
-    err = entry(
-        _p(app), _p(cw), _p(lc2v), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
-        _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), *_tables_args(tables),
-        _p(tables.bit_pos), nc, sdc.mc, nnz, tables.n_layers, tables.layer_checks.shape[0],
-        sdc.nct, B, k, cap, mode, scale, offset, form.code, form.inv_q, int(stage), _stream(app),
-    )
-    _raise_on(lib, err, "bp_stream_chunk_layered_fast")
-    bp_stream_chunk_layered_fast.launches[form.dtype] += 1
+    for passes, grant in chunk_launches(k, ordered, done, avail, refill, remaining):
+        err = entry(
+            _p(app), _p(cw), _p(lc2v), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
+            _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p_or_null(grant),
+            *_tables_args(tables), _p(tables.bit_pos), nc, sdc.mc, nnz, tables.n_layers,
+            tables.layer_checks.shape[0], sdc.nct, B, passes, cap, mode, scale, offset,
+            form.code, form.inv_q, int(stage), _stream(app),
+        )
+        _raise_on(lib, err, "bp_stream_chunk_layered_fast")
+        bp_stream_chunk_layered_fast.launches[form.dtype] += 1
     bp_stream_chunk_layered_fast.last_form = (frames, stage)
 
 

@@ -34,14 +34,21 @@ messages; a reload sets the APP to the fresh LLRs, the messages to 0 and
 
 **Pool.**  Lane ``i`` reloads only from pool entry ``i``.  Before each
 chunk, once at least 3/4 of the entries (the JAX package's watermark)
-are consumed, the consumed entries take the frames of a new channel batch;
-unused entries keep theirs.  Whether the watermark is met is a device-side
-mask, not a host branch, so a super-step never waits for the device: the
-channel batch is drawn for every chunk and only merged when the mask is
-set.
+are consumed, the consumed entries take fresh channel frames; unused
+entries keep theirs.  :func:`~.kernels.pool_refill.pool_refill` (K8) does
+it: on the card the device decides and draws only the consumed entries, so
+a super-step never waits for the device and nothing is drawn in a chunk
+where the JAX super-step keeps its pool (``lax.cond``) or in a drain; on
+the CPU its plain version draws a channel batch in exactly those chunks.
 
 **Quota.**  ``max_frames`` is exact: before each chunk the device computes
 ``remaining = quota - started`` and the kernel grants starts against it.
+The plain chunks grant in lane order, pass by pass, as the JAX kernels do.
+A kernel's tickets (``atomicSub``) grant every wanting lane wherever the
+quota does not bind, and the same lanes then; in a chunk where it may bind
+(:class:`QuotaWatch`: fewer than ``B`` starts may be left) the chunk runs
+``ordered``, as one-pass launches with the grants in lane order, so a
+quota-ended point repeats frame for frame on the card too.
 
 The state is updated in place; the driver reads the counters of a
 super-step (:class:`~.streaming.StreamDeltas`) when it absorbs them.
@@ -49,19 +56,22 @@ super-step (:class:`~.streaming.StreamDeltas`) when it absorbs them.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
-from .channel import BEC_ERASURE, simulate_channel
+from .channel import BEC_ERASURE
 from .kernels.decode_bec import bec_stream_chunk_fused, bec_stream_chunk_fused_plain
 from .kernels.decode_fused import bp_stream_chunk_fused, bp_stream_chunk_fused_plain
 from .kernels.decode_layered import (
     bp_stream_chunk_layered_fast, bp_stream_chunk_layered_fast_plain,
 )
 from .kernels.layout import KernelTables
+from .kernels.pool_refill import draw_keys, pool_refill, pool_tables
 from .messages import TORCH_DTYPES, MessageForm
 from .streaming import _INT32_SAFE, StreamDeltas, split_exact_multi
 
@@ -81,6 +91,44 @@ class StreamState:
     fresh_llr: torch.Tensor  # f32 [nc, B] fresh-frame pool (BEC: u8 symbols)
     fresh_cw: torch.Tensor  # u8 [nc, B]
     started: torch.Tensor  # i64 [1] frames started so far
+    #: on CUDA, the host's bound on ``started`` that picks the ordered chunks
+    watch: Optional["QuotaWatch"] = None
+
+
+class QuotaWatch:
+    """Whether a CUDA shard's start quota may bind in its next chunk, known
+    on the host without a host read.
+
+    Every super-step ends with a copy of ``started`` into pinned host
+    memory behind an event; a copy whose event has completed is read, and
+    the chunks since then are counted at ``B`` starts each (a chunk starts
+    each pool entry at most once).  The quota can bind only where fewer
+    than ``B`` starts are left: :meth:`may_bind` says so until a read shows
+    none left."""
+
+    def __init__(self, quota: int, batch: int, started: int):
+        self.quota, self.batch = int(quota), int(batch)
+        self.seen, self.seen_at = int(started), 0  # started frames, as of chunk ``seen_at``
+        self.chunks = 0  # chunks dispatched
+        self._pending = collections.deque()  # (pinned copy, its event, chunks at the copy)
+        self._free = []
+
+    def may_bind(self) -> bool:
+        while self._pending and self._pending[0][1].query():
+            buf, _, at = self._pending.popleft()
+            self.seen, self.seen_at = int(buf[0]), at
+            self._free.append(buf)
+        left = self.quota - self.seen
+        return left > 0 and left - (self.chunks - self.seen_at) * self.batch < self.batch
+
+    def observe(self, started: torch.Tensor) -> None:
+        with torch.cuda.device(started.device):
+            buf = self._free.pop() if self._free else torch.empty(1, dtype=torch.int64,
+                                                                  pin_memory=True)
+            buf.copy_(started, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        self._pending.append((buf, event, self.chunks))
 
 
 def init_state(tables: KernelTables, batch: int, channel_type: str = "AWGN",
@@ -244,7 +292,6 @@ def _shard_stepper(tables: KernelTables, channel_type: str, dec, batch: int, chu
         raise ValueError("streaming decode requires iterations >= 1")
     k = chunk_iters or max(4, min(8, iterations // 8))
     n_outer = max(1, -(-iterations // k))
-    gen_watermark = max(1, 3 * batch // 4)
     if bec:
         stale = 0 if dec.bec_ref_bug_compat else None
         chunk = functools.partial(bec_stream_chunk_fused_plain if plain else bec_stream_chunk_fused,
@@ -260,8 +307,9 @@ def _shard_stepper(tables: KernelTables, channel_type: str, dec, batch: int, chu
 
     def make(tables: KernelTables, quota_frames: int, modulation):
         dev = tables.device
-        sdc = tables.code
-        quota = torch.tensor(quota_frames, dtype=torch.int64, device=dev)
+        cuda = dev.type == "cuda"
+        pool = pool_tables(tables.code, channel_type, modulation)
+        remaining = torch.zeros(1, dtype=torch.int32, device=dev)
         refill_flag = {
             flag: torch.full((1,), int(flag), dtype=torch.int32, device=dev)
             for flag in (False, True)
@@ -272,29 +320,31 @@ def _shard_stepper(tables: KernelTables, channel_type: str, dec, batch: int, chu
             already, so a point resumed after ``started_offset`` counted
             frames starts exactly ``quota - started_offset`` more."""
             st = init_state(tables, batch, channel_type, message_dtype)
-            st.started.fill_(min(int(started_offset), _INT32_SAFE))
+            offset = min(int(started_offset), _INT32_SAFE)
+            st.started.fill_(offset)
+            if cuda:
+                st.watch = QuotaWatch(quota_frames, batch, offset)
             return st
 
         def step_fn(st: StreamState, gen: torch.Generator, x_value: float, refill: bool):
             refill_t = refill_flag[bool(refill)]
             st.ctr.zero_()
-            for _ in range(n_outer):
-                # refresh the consumed pool entries once the watermark is met
-                used = batch - st.avail.sum()
-                do_gen = (refill_t > 0) & (used >= gen_watermark)
-                ch = simulate_channel(sdc, channel_type, gen, batch, x_value, modulation)
-                take = do_gen & (st.avail == 0)
-                st.fresh_llr.copy_(torch.where(take, ch.llr, st.fresh_llr))
-                st.fresh_cw.copy_(torch.where(take, ch.codeword, st.fresh_cw))
-                st.avail.copy_(torch.where(do_gen, 1, st.avail))
-                remaining = torch.clamp(
-                    quota - st.started - st.ctr[4].sum(dtype=torch.int64), 0, _INT32_SAFE
-                ).to(torch.int32)
+            keys = draw_keys(gen, n_outer, dev) if cuda else None
+            if cuda and st.watch is None:  # a state not made by init_fn: one read
+                st.watch = QuotaWatch(quota_frames, batch, int(st.started))
+            for j in range(n_outer):
+                # refresh the consumed pool entries once the watermark is met;
+                # the chunk's start budget
+                pool_refill(pool, gen, x_value, refill_t, st.avail, st.fresh_llr, st.fresh_cw,
+                            st.ctr, st.started, quota_frames, remaining,
+                            key=keys[j:j + 1] if cuda else None)
                 chunk(
                     tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
                     st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_t, remaining,
-                    k=k, cap=iterations,
+                    k=k, cap=iterations, ordered=bool(refill) and cuda and st.watch.may_bind(),
                 )
+                if cuda:
+                    st.watch.chunks += 1
             sums = st.ctr.sum(dim=1, dtype=torch.int64)
             acc = StreamDeltas(
                 bit_errors=sums[0],
@@ -304,6 +354,8 @@ def _shard_stepper(tables: KernelTables, channel_type: str, dec, batch: int, chu
                 n_active=(st.done == 0).sum(),
             )
             st.started += sums[4]
+            if cuda:
+                st.watch.observe(st.started)
             return st, acc
 
         return init_fn, step_fn

@@ -32,6 +32,7 @@ MODULES = [
     "libldpc_tpu_torch.ops.kernels.decode_fused",
     "libldpc_tpu_torch.ops.kernels.decode_layered",
     "libldpc_tpu_torch.ops.kernels.layout",
+    "libldpc_tpu_torch.ops.kernels.pool_refill",
     "libldpc_tpu_torch.ops.layered",
     "libldpc_tpu_torch.ops.modulation",
     "libldpc_tpu_torch.ops.sorted",
@@ -46,6 +47,8 @@ MODULES = [
     "libldpc_tpu_torch.sim.tpu_layouts",
     "libldpc_tpu_torch.sim_cuda",
     "libldpc_tpu_torch.utils.params",
+    "libldpc_tpu_torch.utils.profiling",
+    "libldpc_tpu_torch.utils.roofline",
 ]
 
 

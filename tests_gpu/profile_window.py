@@ -3,7 +3,11 @@ super-step on the card: where the device time goes and how busy the card is.
 
 Run from the repo root on a machine with one NVIDIA H100:
 
-    python3 tests_gpu/profile_window.py [OUT.json]
+    python3 tests_gpu/profile_window.py [OUT.json] [--root DIR]
+
+``--root`` imports ``libldpc_tpu_torch`` from another checkout (a
+``git archive`` of a parent commit), so two trees are compared in one call
+by running this file, from the newer tree, on each in turns.
 
 The super-step is the one ``ldpcsim-torch`` runs for the default sweep
 (``make_streaming_fused_step``: AWGN, BP, 50 iterations, early termination,
@@ -19,14 +23,16 @@ with the pool drawn through 4-ASK (Gray labels ``0 1 3 2``, the transmitted
 bits mapped consecutively) at 7.5 dB, where the 1152 code's ``avg_iter``
 is close to BPSK's at 2.0 dB.
 
-A kernel's part is set by where it was launched: the channel draw
-(``simulate_channel``, run inside a ``record_function`` range of its own,
+A kernel's part is set by where it was launched: the pool's refill (the
+streaming step's ``pool_refill``, K8, or in a tree before it its
+``simulate_channel``, run inside a ``record_function`` range of its own,
 whose span on the card holds the kernels launched in it) or the rest of
-the super-step.  In the channel: its float32 ``u G``
-product, its normal draws, its reductions (4-ASK: the labels' packing and
-the bitwise LLRs' logsumexps) and its elementwise work.  Outside it: the
-streaming kernel K2, the pool merge's elementwise work and the counters'
-reductions.  The JSON is also written to
+the super-step.  In the channel: K8's plan and draw kernels, or a channel
+batch's float32 ``u G`` product, its normal draws, its reductions (4-ASK:
+the labels' packing and the bitwise LLRs' logsumexps) and its elementwise
+work.  Outside it: the streaming kernel K2, the grants in lane order, the
+draw of K8's keys, the elementwise work (before K8: the pool merge) and
+the counters' reductions.  The JSON is also written to
 ``OUT.json`` when given.  Card name and power limit are
 printed with it.
 """
@@ -43,6 +49,8 @@ import time
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+if "--root" in sys.argv:
+    ROOT = pathlib.Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
 sys.path.insert(0, str(ROOT))
 
 BATCH = 16384
@@ -55,8 +63,16 @@ def part_of(name: str, in_channel: bool) -> str:
     low = name.lower()
     if "stream_chunk" in low:
         return "k2_stream_chunk"
+    if "pool_draw" in low or "pool_plan" in low:
+        return "channel_k8"
+    if "stream_grant" in low:
+        return "ordered_grant"
     if not in_channel:
-        return "counter_reductions" if "reduce" in low else "pool_merge_elementwise"
+        if "reduce" in low:
+            return "counter_reductions"
+        if "random" in low or "philox" in low or "distribution" in low:
+            return "k8_keys"
+        return "pool_merge_elementwise"
     if "gemm" in low or "xmma" in low or "cutlass" in low or "matmul" in low:
         return "channel_matmul"
     if "normal" in low or "philox" in low or "distribution" in low or "rand" in low:
@@ -67,16 +83,18 @@ def part_of(name: str, in_channel: bool) -> str:
 
 
 def traced_channel():
-    """Run the streaming step's channel draw inside ``CHANNEL_RANGE``."""
+    """Run the streaming step's pool refill (K8; before it, the channel
+    draw) inside ``CHANNEL_RANGE``."""
     from libldpc_tpu_torch.ops import streaming_fused
 
-    draw = streaming_fused.simulate_channel
+    name = "pool_refill" if hasattr(streaming_fused, "pool_refill") else "simulate_channel"
+    draw = getattr(streaming_fused, name)
 
     def traced(*args, **kwargs):
         with torch.profiler.record_function(CHANNEL_RANGE):
             return draw(*args, **kwargs)
 
-    streaming_fused.simulate_channel = traced
+    setattr(streaming_fused, name, traced)
 
 
 def device_events(prof):
@@ -162,7 +180,8 @@ def window(step_fn, state, gen_seed: int, snr_db: float = SNR_DB):
                                             if k.startswith("channel")) / device_us
         if device_us else None,
         "channel_and_pool_merge_share": sum(v for k, v in by_part.items()
-                                            if k.startswith("channel") or k.startswith("pool"))
+                                            if k.startswith("channel") or k.startswith("pool")
+                                            or k.startswith("k8"))
         / device_us if device_us else None,
         "top_kernels_ms_per_superstep": [(n[:90], v / 1e3 / WINDOW) for n, v in top],
     }
@@ -189,7 +208,8 @@ def main() -> int:
     traced_channel()
     tables = kernel_tables(to_sorted_device(make_benchmark_code(1152, 3, 6, seed=0, with_G=True),
                                             dev))
-    result = {"card": card, "batch": BATCH, "snr_db": SNR_DB, "code": "bench1152 f32 BP"}
+    result = {"card": card, "root": str(ROOT), "batch": BATCH, "snr_db": SNR_DB,
+              "code": "bench1152 f32 BP"}
     for label, forced in (("rule", None), ("hbm-planes", (0, False))):
         df.STREAM_FORM_OVERRIDE = forced
         init_fn, step_fn = make_streaming_fused_step(tables, "AWGN", DecoderParams(iterations=50),
@@ -208,7 +228,7 @@ def main() -> int:
     result["window rule 4-ASK"] = row
     text = json.dumps(result, indent=1)
     print(text)
-    if len(sys.argv) > 1:
+    if len(sys.argv) > 1 and sys.argv[1] != "--root":
         out = pathlib.Path(sys.argv[1])
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(text + "\n")

@@ -17,10 +17,12 @@ run cannot be held to equal them there.
 Before the sweeps, the streaming step alone (K4 on wifi 1944 at 2.0 dB, K2 on the 1152
 code at 3.0 dB), ``grants`` times (default 20) from empty streams with the
 same channel draws: two super-steps under a start quota of 3 B + 5000
-frames, which binds inside the first.  One ``grant`` line per kernel: how
+frames, which binds within them.  One ``grant`` line per kernel: how
 many distinct outcomes (the lanes idle, their iteration counts, the pool
-entries used, the counters) the repetitions gave.  More than one means the
-kernel's ``atomicSub`` start grants alone make a quota-ended point vary.
+entries used, the counters) the repetitions gave.  With the chunks where
+the quota may bind run in lane order (``ordered``) and the pool drawn by
+lane (K8's Philox streams keyed by the step's generator), there is one; more
+than one would mean that the block order decides which lanes start.
 """
 
 import pathlib
