@@ -97,11 +97,13 @@ def card() -> str:
     return out[0]
 
 
-def cuda_ms(fn, reps: int, setup=None, warm: bool = True) -> float:
+def cuda_ms(fn, reps: int, setup=None, warm: bool = True, busy: bool = False) -> float:
     """Mean device time of ``fn()`` over ``reps`` runs (CUDA events), after
     one warm-up run unless ``warm`` is False (a plain version of seconds a
     call that the kernel checks already ran at the same shapes); ``setup()``
-    runs before each, outside the timing."""
+    runs before each, outside the timing.  ``busy`` gives the card ~1 ms of
+    work before the start event, so that the host's launch work overlaps it
+    and the events span the device's work alone (for calls of tens of µs)."""
     if setup:
         setup()
     if warm:
@@ -112,6 +114,8 @@ def cuda_ms(fn, reps: int, setup=None, warm: bool = True) -> float:
             setup()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if busy:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -1008,15 +1012,22 @@ def run_tuning(dev, tables, name_power) -> None:
 POOL_USED = 13000
 POOL_CHANNELS = (("BPSK", "AWGN", 2.0), ("4-ASK", "AWGN", 7.5), ("BSC", "BSC", 0.05),
                  ("BEC", "BEC", BEC_EPS))
+#: phase 7e: K8's times: (code, channel) pairs, each drawn at POOL_USED and
+#: as a full batch
+POOL_TIMED = (("bench1152", "BPSK"), ("bench1152", "4-ASK"), ("bench1152", "BSC"),
+              ("bench1152", "BEC"), ("wifi1944", "BPSK"))
 #: phase 7f: a chunk's quota that every idle lane's start fits in its first
 #: pass and that binds in a later one
 BINDING = BATCH // 2 + 1000
+#: phase 7f: the batch sizes the lane-order scans are held at (16-byte
+#: vectors, a ragged last run, a single partial run)
+SCAN_BATCHES = (BATCH, 1000, 33)
 
 
-def pool_case(tb, kind, channel_type, x_value):
+def pool_case(tb, kind, channel_type, x_value, used=POOL_USED):
     """K8's tables for one channel on ``tb`` (4-ASK: Gray labels, the
     transmitted bits mapped consecutively) and a pool of ``BATCH`` entries
-    with ``POOL_USED`` of them used, its values sentinels."""
+    with ``used`` of them used, its values sentinels."""
     from libldpc_tpu_torch.ops import modulation as mod
     from libldpc_tpu_torch.ops.kernels import pool_refill as pr
 
@@ -1027,7 +1038,7 @@ def pool_case(tb, kind, channel_type, x_value):
                       sdc.bit_pos[: sdc.nct // 2 * 2].reshape(-1, 2).T.contiguous())
     g = torch.Generator(device="cpu").manual_seed(3)
     avail = torch.ones(BATCH, dtype=torch.int32)
-    avail[torch.randperm(BATCH, generator=g)[:POOL_USED]] = 0
+    avail[torch.randperm(BATCH, generator=g)[:used]] = 0
     vals = torch.uint8 if channel_type == "BEC" else torch.float32
     state = dict(avail=avail.to(dev),
                  fresh=torch.full((sdc.nc, BATCH), 1 if channel_type == "BEC" else 123.0,
@@ -1039,40 +1050,111 @@ def pool_case(tb, kind, channel_type, x_value):
     return pr.pool_tables(sdc, channel_type, modulation), modulation, state
 
 
+def syndromes_zero(tb, cw) -> bool:
+    """``H c = 0`` for every column of ``cw`` (u8 ``[nc, n]``, sorted labels)."""
+    row_ptr = tb.row_ptr.long()
+    rows = torch.repeat_interleave(torch.arange(tb.code.mc, device=cw.device),
+                                   row_ptr[1:] - row_ptr[:-1])
+    par = torch.zeros((tb.code.mc, cw.shape[1]), dtype=torch.int32, device=cw.device)
+    par.index_add_(0, rows, cw.index_select(0, tb.col_sorted.long()).to(torch.int32))
+    return bool((cw <= 1).all()) and bool(((par % 2) == 0).all())
+
+
+def encoded(tb, info):
+    """``u G mod 2`` of info words ``info`` (int32 ``[kwords, n]``, bit ``i``
+    of word ``j`` info bit ``32 j + i``), u8 ``[nc, n]``."""
+    G = tb.code.G
+    shifts = torch.arange(32, device=info.device, dtype=torch.int64)
+    bits = ((info.to(torch.int64)[:, None, :] >> shifts[None, :, None]) & 1).reshape(-1, info.shape[1])
+    return (torch.matmul(G.t(), bits[: G.shape[0]].to(torch.float32)).to(torch.int64) % 2).to(
+        torch.uint8)
+
+
+def check_drawn(tag, tb, pt, channel_type, x, modulation, cw, vals, draws, info) -> float:
+    """K8's drawn columns against the plain formulas: codewords with ``H c
+    = 0`` equal to ``u G`` of the lanes' info words; the values equal to
+    ``channel_values`` on the codewords and K8's own draws (4-ASK within
+    1e-5 relative).  Returns the largest 4-ASK |difference| (0 elsewhere)."""
+    from libldpc_tpu_torch.ops import channel
+
+    check(syndromes_zero(tb, cw), f"{tag}: a drawn codeword with H c != 0")
+    check(pt.gtiles is None or torch.equal(cw, encoded(tb, info)),
+          f"{tag}: a drawn codeword is not u G of its info words")
+    check(not bool(torch.isnan(draws).any()), f"{tag}: an item without its draw")
+    want = channel.channel_values(tb.code, channel_type, cw, draws, x, modulation)
+    if modulation is not None:
+        rel = float(((vals - want).abs() / want.abs().clamp(min=1.0)).max())
+        check(rel <= 1e-5, f"{tag}: relative error {rel:.2e}")
+        return float((vals - want).abs().max())
+    check(torch.equal(vals, want), f"{tag}: values differ from the plain formulas on its draws")
+    return 0.0
+
+
+def pool_z(tb, channel_type, a_pool, b_pool) -> tuple:
+    """The drawn transmitted bits' mean signed LLR (AWGN), flip share (BSC)
+    or erasure share (BEC) of two pools ``(values, codewords)``, and their z."""
+    tx = tb.code.bit_pos.long()
+    stats = []
+    for v, c in (a_pool, b_pool):
+        v, c = v[tx].double(), c[tx].double()
+        stats.append(((v == 2).double() if channel_type == "BEC" else
+                      ((v < 0).double() != c).double() if channel_type == "BSC" else
+                      v * (1 - 2 * c)).flatten())
+    a, b = stats
+    z = float((a.mean() - b.mean()).abs() / (a.var() / a.numel() + b.var() / b.numel()).sqrt())
+    return float(a.mean()), float(b.mean()), z
+
+
+def k8_bound(pt, taken: int, batch: int, refill: bool):
+    """K8's bound: each drawn entry's values (float32, u8
+    for the BEC) and codeword (u8) written once, and for a refill ``avail``
+    (and ``ctr``'s starts row) read once and ``avail`` written once; the
+    encode counted word-wise, an AND and an XOR per generator word."""
+    from libldpc_tpu_torch.utils.roofline import bound
+
+    nc = pt.code.nc
+    nbytes = taken * nc * (2 if pt.channel_type == "BEC" else 5) + (batch * 4 * 3 if refill else 0)
+    return bound(nbytes, taken * nc * 2 * pt.kw)
+
+
 def run_pool_refill(dev, tables, name_power) -> dict:
-    """Phase 7e: K8 (the streaming pool's refill) against its plain version
-    on the 1152 code and wifi 1944, for BPSK, 4-ASK, BSC and the BEC: the
+    """Phase 7e: K8 (the channel draw) against its plain version on the
+    1152 code and wifi 1944, for BPSK, 4-ASK, BSC and the BEC, in both its
+    forms.  The refill (``POOL_USED`` of ``BATCH`` entries used): the
     entries taken, ``avail`` after, the untouched entries and ``remaining``
-    equal; every drawn codeword with ``H c = 0``; the plain formulas on
-    K8's codewords and its drawn normals or uniforms (its debug plane) equal
-    to K8's values (4-ASK within 1e-5 relative); the drawn entries' mean
-    signed LLR, flip or erasure share within 5 standard errors of the plain
-    refill's.  Then K8 and the plain refill timed on the 1152 code, BPSK,
-    from the same pool.  Returns K8's largest error, times and bound."""
+    equal to the plain refill's.  The full batch (``channel_batch``):
+    shapes and types as ``simulate_channel``'s.  In both: every drawn
+    codeword with ``H c = 0`` and equal to ``u G`` of its lane's info words
+    (the ``debug_info`` plane); the plain formulas on K8's codewords and its
+    drawn normals or uniforms (its ``debug`` plane) equal to K8's values
+    (4-ASK within 1e-5 relative); the drawn entries' mean signed LLR, flip
+    or erasure share within 5 standard errors of the plain version's.  A
+    batch step of K1, K5 and K6 drawn through ``channel_batch`` counts as
+    its plain step on the same draws.  Then the refill (and its plan and
+    draw apart) and the full batch timed against the plain versions on
+    ``POOL_TIMED``.  Returns K8's largest errors, times and bounds."""
     from libldpc_tpu_torch.ops import channel
     from libldpc_tpu_torch.ops.kernels import pool_refill as pr
-    from libldpc_tpu_torch.utils.roofline import bound
+    from libldpc_tpu_torch.parallel.mesh import make_sim_step
+    from libldpc_tpu_torch.sim.driver import DecoderParams
 
     refill_on = torch.ones(1, dtype=torch.int32, device=dev)
 
-    def refill(fn, pt, st, x, seed, debug=None):
-        kw = {} if debug is None else {"debug": debug}
+    def refill(fn, pt, st, x, seed, **kw):
         fn(pt, channel.make_generator(dev, 5, seed), x, refill_on, st["avail"], st["fresh"],
            st["fresh_cw"], st["ctr"], st["started"], 10**9, st["remaining"], **kw)
 
-    err = 0.0
+    err = {"pool_refill": 0.0, "channel_batch": 0.0}
     for key in ("bench1152", "wifi1944"):
         tb = tables[key]
-        row_ptr = tb.row_ptr.long()
-        rows = torch.repeat_interleave(torch.arange(tb.code.mc, device=dev),
-                                       row_ptr[1:] - row_ptr[:-1])
         for kind, channel_type, x in POOL_CHANNELS:
             pt, modulation, s0 = pool_case(tb, kind, channel_type, x)
             taken = s0["avail"] == 0
             k8 = {n: t.clone() for n, t in s0.items()}
             plain = {n: t.clone() for n, t in s0.items()}
             debug = torch.full((pt.item_src.shape[0], BATCH), float("nan"), device=dev)
-            refill(pr.pool_refill, pt, k8, x, 1, debug)
+            info = torch.zeros((pt.kwords, BATCH), dtype=torch.int32, device=dev)
+            refill(pr.pool_refill, pt, k8, x, 1, debug=debug, debug_info=info)
             refill(pr.pool_refill_plain, pt, plain, x, 1)
             torch.cuda.synchronize()
             check(torch.equal(k8["avail"], plain["avail"]) and bool((k8["avail"] == 1).all()),
@@ -1083,56 +1165,97 @@ def run_pool_refill(dev, tables, name_power) -> dict:
                       f"K8 {key} {kind}: an untouched entry moved")
                 check(not bool((k8[name][:, taken] == s0[name][:, taken]).all(0).any()),
                       f"K8 {key} {kind}: a used entry was not drawn")
-            cw = k8["fresh_cw"][:, taken]
-            par = torch.zeros((tb.code.mc, cw.shape[1]), dtype=torch.int32, device=dev)
-            par.index_add_(0, rows, cw.index_select(0, tb.col_sorted.long()).to(torch.int32))
-            check(bool((cw <= 1).all()) and bool(((par % 2) == 0).all()),
-                  f"K8 {key} {kind}: a drawn codeword with H c != 0")
-            want = channel.channel_values(tb.code, channel_type, cw, debug[:, taken], x,
-                                          modulation)
-            got = k8["fresh"][:, taken]
-            if kind == "4-ASK":
-                rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
-                check(rel <= 1e-5, f"K8 {key} 4-ASK: relative error {rel:.2e}")
-                err = max(err, float((got - want).abs().max()))
-            else:
-                check(torch.equal(got, want), f"K8 {key} {kind}: values differ from the plain "
-                                              f"formulas on its draws")
-            tx = tb.code.bit_pos.long()
-            stats = []
-            for st in (k8, plain):
-                v, c = st["fresh"][tx][:, taken].double(), st["fresh_cw"][tx][:, taken].double()
-                stats.append((v == 2).double() if channel_type == "BEC" else
-                             ((v < 0).double() != c).double() if channel_type == "BSC" else
-                             v * (1 - 2 * c))
-            a, b = (t.flatten() for t in stats)
-            z = float((a.mean() - b.mean()).abs() / (a.var() / a.numel() + b.var() / b.numel()).sqrt())
+            err["pool_refill"] = max(err["pool_refill"], check_drawn(
+                f"K8 {key} {kind}", tb, pt, channel_type, x, modulation, k8["fresh_cw"][:, taken],
+                k8["fresh"][:, taken], debug[:, taken], info[:, taken]))
+            a, b, z = pool_z(tb, channel_type, (k8["fresh"][:, taken], k8["fresh_cw"][:, taken]),
+                             (plain["fresh"][:, taken], plain["fresh_cw"][:, taken]))
             print(f"K8 {key} {kind} ({channel_type} {x}): {int(taken.sum())} entries drawn, equal "
-                  f"to plain where it must be; values from its draws exact; drawn statistic "
-                  f"{float(a.mean()):.5f} against plain {float(b.mean()):.5f} (z {z:.2f})")
+                  f"to plain where it must be; codewords u G with H c = 0, values from its draws "
+                  f"exact; drawn statistic {a:.5f} against plain {b:.5f} (z {z:.2f})")
             check(z < 5, f"K8 {key} {kind}: pool statistics differ from the plain refill's")
-    # times: K8 and the plain refill (a channel batch and the merge) from the
-    # same pool, BPSK on the 1152 code
-    tb = tables["bench1152"]
-    pt, _, s0 = pool_case(tb, "BPSK", "AWGN", 2.0)
-    box = {}
+            # the full batch
+            debug.fill_(float("nan"))
+            out = pr.channel_batch(pt, channel.make_generator(dev, 6, 1), BATCH, x, debug=debug,
+                                   debug_info=info)
+            want = channel.simulate_channel(tb.code, channel_type, channel.make_generator(dev, 6, 1),
+                                            BATCH, x, modulation)
+            torch.cuda.synchronize()
+            check(out.llr.dtype == want.llr.dtype and out.llr.shape == want.llr.shape and
+                  out.codeword.shape == want.codeword.shape, f"K8 full batch {key} {kind}: shapes")
+            err["channel_batch"] = max(err["channel_batch"], check_drawn(
+                f"K8 full batch {key} {kind}", tb, pt, channel_type, x, modulation, out.codeword,
+                out.llr, debug, info))
+            a, b, z = pool_z(tb, channel_type, (out.llr, out.codeword), (want.llr, want.codeword))
+            print(f"K8 full batch {key} {kind}: {BATCH} frames, codewords u G with H c = 0, values "
+                  f"from its draws exact; statistic {a:.5f} against simulate_channel {b:.5f} "
+                  f"(z {z:.2f})")
+            check(z < 5, f"K8 full batch {key} {kind}: statistics differ from simulate_channel's")
+    # a batch step of K1, K5 and K6 through channel_batch, kernel against plain
+    for name, key, channel_type, x, schedule in (
+            ("K1", "bench1152", "AWGN", 2.0, "flooding"), ("K5", "wifi648", "AWGN", 2.0, "layered"),
+            ("K6", "bench1152", "BEC", BEC_EPS, "flooding")):
+        dec = DecoderParams(iterations=ITERS, type="BP_MS", layered=schedule == "layered")
+        before = pr.channel_batch.launches
+        got, want = (make_sim_step(tables[key], channel_type, dec, BATCH // 4, schedule, plain=p)(
+            channel.make_generator(dev, 4, 0), x) for p in (False, True))
+        got, want = [int(v) for v in got], [int(v) for v in want]
+        print(f"batch step {name} {key} through channel_batch: kernel {got} plain {want} "
+              f"(channel_batch launches {pr.channel_batch.launches - before})")
+        check(got == want and pr.channel_batch.launches - before == 2,
+              f"batch step {name}: kernel and plain steps differ on the same draws")
+    # times: the refill (its plan and draw together, and apart) and the full
+    # batch, against the plain versions (a channel batch and the merge; a
+    # channel batch), from the same pool
+    times = {}
+    for key, kind in POOL_TIMED:
+        tb = tables[key]
+        channel_type, x = {k: (c, v) for k, c, v in POOL_CHANNELS}[kind]
+        pt, _, s0 = pool_case(tb, kind, channel_type, x)
+        box = {}
 
-    def reset():
-        box["st"] = {n: t.clone() for n, t in s0.items()}
+        def reset():
+            box["st"] = {n: t.clone() for n, t in s0.items()}
 
-    ms = cuda_ms(lambda: refill(pr.pool_refill, pt, box["st"], 2.0, 7), 20, reset)
-    plain_ms = cuda_ms(lambda: refill(pr.pool_refill_plain, pt, box["st"], 2.0, 7), 20, reset)
-    nc = tb.code.nc
-    taken = POOL_USED
-    # written once: each drawn entry's values (float32) and codeword (u8);
-    # read once: avail (and ctr's starts row), written once: avail
-    nbytes = taken * nc * 5 + BATCH * 4 * 3
-    ops = taken * nc * 2 * pt.kw  # the encode: an AND and an XOR per generator word
-    b = bound(nbytes, ops)
-    print(f"time K8 bench1152 BPSK, {taken} of {BATCH} entries drawn: kernel {ms:.4f} ms, plain "
-          f"(channel batch and merge) {plain_ms:.4f} ms; bound {b[0]:.4f} ms by {b[1]} "
-          f"({b[0] / ms:.1%} of the bound) [{name_power}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b}
+        key_t = pr.draw_keys(channel.make_generator(dev, 7), 1, dev)
+
+        def plan_only():
+            st = box["st"]
+            return pr.pool_plan(refill_on, st["avail"], st["ctr"], st["started"], 10**9,
+                                st["remaining"])
+
+        def draw_only():
+            st = box["st"]
+            pr._draw(pt, x, st["fresh"], st["fresh_cw"], BATCH, key_t, avail=st["avail"],
+                     lanes=box["lanes"], count=box["ctl"][1:])
+
+        def plan_then_reset():
+            reset()
+            box["ctl"], box["lanes"] = plan_only()
+
+        ms = cuda_ms(lambda: refill(pr.pool_refill, pt, box["st"], x, 7), 20, reset, busy=True)
+        plain_ms = cuda_ms(lambda: refill(pr.pool_refill_plain, pt, box["st"], x, 7), 10, reset,
+                           busy=True)
+        plan_ms = cuda_ms(plan_only, 20, reset, busy=True)
+        draw_ms = cuda_ms(draw_only, 20, plan_then_reset, busy=True)
+        full_ms = cuda_ms(lambda: pr.channel_batch(pt, None, BATCH, x, key=key_t), 20, busy=True)
+        gen_t = channel.make_generator(dev, 7)
+        full_plain_ms = cuda_ms(lambda: channel.simulate_channel(
+            tb.code, channel_type, gen_t, BATCH, x, pt.modulation), 10, busy=True)
+        b_refill = k8_bound(pt, POOL_USED, BATCH, True)
+        b_full = k8_bound(pt, BATCH, BATCH, False)
+        times[key, kind] = dict(ms=ms, plain_ms=plain_ms, plan_ms=plan_ms, draw_ms=draw_ms,
+                                bound=b_refill, full_ms=full_ms, full_plain_ms=full_plain_ms,
+                                full_bound=b_full)
+        print(f"time K8 {key} {kind}, {POOL_USED} of {BATCH} entries drawn: kernel {ms:.4f} ms "
+              f"(plan {plan_ms:.4f} ms, draw {draw_ms:.4f} ms), plain (channel batch and merge) "
+              f"{plain_ms:.4f} ms; bound {b_refill[0]:.4f} ms by {b_refill[1]} "
+              f"({b_refill[0] / ms:.1%} of the bound) [{name_power}]")
+        print(f"time K8 full batch {key} {kind}, {BATCH} frames: kernel {full_ms:.4f} ms, plain "
+              f"(simulate_channel) {full_plain_ms:.4f} ms; bound {b_full[0]:.4f} ms by {b_full[1]} "
+              f"({b_full[0] / full_ms:.1%} of the bound) [{name_power}]")
+    return {"max_abs_err": err, "times": times,
+            "tables": pool_case(tables["bench1152"], "BPSK", "AWGN", 2.0)[0]}
 
 
 def run_ordered_grants(dev, tables, name_power) -> dict:
@@ -1152,6 +1275,7 @@ def run_ordered_grants(dev, tables, name_power) -> dict:
     from libldpc_tpu_torch.ops.kernels import decode_bec as db
     from libldpc_tpu_torch.ops.kernels import decode_fused as df
     from libldpc_tpu_torch.ops.kernels import decode_layered as dl
+    from libldpc_tpu_torch.ops.kernels import pool_refill as pr
     from libldpc_tpu_torch.ops.streaming_fused import init_state, make_streaming_fused_step
     from libldpc_tpu_torch.sim.driver import DecoderParams
     from libldpc_tpu_torch.utils.roofline import bound
@@ -1230,15 +1354,51 @@ def run_ordered_grants(dev, tables, name_power) -> dict:
     grant_k = df.stream_grant(st.done, st.avail, ones, rem_k)
     grant_p = df.stream_grant_plain(st.done, st.avail, ones, rem_p)
     check(torch.equal(grant_k, grant_p) and torch.equal(rem_k, rem_p), "stream_grant differs")
+    # the lane-order scans (the grant, the refill plan's lane list) against
+    # their plain versions at odd batch sizes, on aligned planes and on
+    # planes 4 bytes past an aligned start
+    g = torch.Generator(device="cpu").manual_seed(17)
+    for b_ in SCAN_BATCHES:
+        for offset in (0, 1):
+            # done 60 % of the lanes; avail 10 %: past the refill's watermark
+            done_, avail_ = ((torch.rand(b_ + offset, generator=g) < share).to(torch.int32)
+                             .to(dev)[offset:] for share in (0.6, 0.1))
+            ctr_ = torch.randint(0, 3, (5, b_), dtype=torch.int32, generator=g).to(dev)
+            for quota in (0, b_ // 3, 10**6):
+                rk = torch.tensor([quota], dtype=torch.int32, device=dev)
+                rp = rk.clone()
+                check(torch.equal(df.stream_grant(done_, avail_, ones, rk),
+                                  df.stream_grant_plain(done_, avail_, ones, rp))
+                      and torch.equal(rk, rp), f"stream_grant B={b_} offset {offset} quota {quota}")
+            rk, rp = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2))
+            started_ = torch.tensor([5], dtype=torch.int64, device=dev)
+            ctl, lanes = pr.pool_plan(ones, avail_, ctr_, started_, 10**6, rk)
+            ctl_p, lanes_p = pr.pool_plan_plain(ones, avail_, ctr_, started_, 10**6, rp)
+            n = int(ctl[1])
+            check(torch.equal(ctl, ctl_p) and torch.equal(rk, rp) and int(ctl[0]) == 1
+                  and n == int((avail_ == 0).sum()) and torch.equal(lanes[:n], lanes_p[:n]),
+                  f"pool_plan's lane list B={b_} offset {offset}")
+        print(f"lane-order scans B={b_}: stream_grant and pool_plan's lane list equal to their "
+              f"plain versions (aligned and offset planes)")
     rem = torch.tensor([BINDING], dtype=torch.int32, device=dev)
     grant_ms = cuda_ms(lambda: df.stream_grant(st.done, st.avail, ones, rem), 50,
-                       lambda: rem.fill_(BINDING))
+                       lambda: rem.fill_(BINDING), busy=True)
     grant_plain_ms = cuda_ms(lambda: df.stream_grant_plain(st.done, st.avail, ones, rem), 50,
-                             lambda: rem.fill_(BINDING))
+                             lambda: rem.fill_(BINDING), busy=True)
+    grant_host_ms = cuda_ms(lambda: df.stream_grant(st.done, st.avail, ones, rem), 50,
+                            lambda: rem.fill_(BINDING))
     # read: done, avail (int32), remaining; written: the grant plane, remaining
     grant_bound = bound(BATCH * (4 + 4 + 1) + 8, BATCH * 4)
-    print(f"time stream_grant B={BATCH}: kernel {grant_ms:.4f} ms, plain {grant_plain_ms:.4f} ms; "
-          f"bound {grant_bound[0]:.5f} ms by {grant_bound[1]} [{name_power}]")
+    # the floor of a launch: a one-element fill, timed alike
+    tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = cuda_ms(lambda: tiny.fill_(1), 50, busy=True)
+    plan_ms = cuda_ms(lambda: pr.pool_plan(ones, st.avail, st.ctr, st.started, 10**9, rem), 50,
+                      busy=True)
+    print(f"time stream_grant B={BATCH}: kernel {grant_ms:.4f} ms on the device "
+          f"({grant_host_ms:.4f} ms with the host's launch work), plain {grant_plain_ms:.4f} ms; "
+          f"bound {grant_bound[0]:.5f} ms by {grant_bound[1]}; a launch's floor (a one-element "
+          f"fill) {floor_ms:.4f} ms; pool_plan (the same scan listing the used lanes) "
+          f"{plan_ms:.4f} ms [{name_power}]")
     # K2 and K4 (the rules' forms, float32 BP) on the same state: not binding
     # (every wanting lane starts; one launch of 6 passes), and ordered under
     # the binding quota (6 grant launches and 6 one-pass launches)
@@ -1281,6 +1441,7 @@ def run_ordered_grants(dev, tables, name_power) -> dict:
         check(len(outcomes) == 1 and started == [3 * BATCH + 5000],
               f"the streaming step under a binding quota does not repeat on {key}")
     return {"grant_ms": grant_ms, "grant_plain_ms": grant_plain_ms, "grant_bound": grant_bound,
+            "grant_host_ms": grant_host_ms, "launch_floor_ms": floor_ms, "plan_ms": plan_ms,
             "chunk_times": times}
 
 
@@ -1783,7 +1944,8 @@ def main() -> int:
         check(rows and all(math.isfinite(v) for r in rows for v in r), f"{out} rows")
         return lines[0], rows
 
-    counted = (db.bec_decode_fused, db.bec_stream_chunk_fused, pr.pool_refill, df.stream_grant)
+    counted = (db.bec_decode_fused, db.bec_stream_chunk_fused, pr.pool_refill, df.stream_grant,
+               pr.channel_batch)
     layered_fns = (dl.bp_decode_layered_fast, dl.bp_stream_chunk_layered_fast,
                    dl.bp_decode_layered)
     by_form = (df.bp_decode_fused, df.bp_stream_chunk_fused, *layered_fns)  # a count per form
@@ -1799,6 +1961,15 @@ def main() -> int:
         out.update({fn.__name__ + SUFFIX[dt]: n for fn in by_form for dt, n in fn.launches.items()})
         return out
 
+    # the sweeps of phases 8-9b draw every channel batch with K8: the plain
+    # channel (simulate_channel) must not run on the card
+    plain_channel = pr.simulate_channel
+
+    def no_plain_channel(sdc, *args, **kwargs):
+        check(sdc.device.type != "cuda", "a card step fell back to simulate_channel")
+        return plain_channel(sdc, *args, **kwargs)
+
+    pr.simulate_channel = no_plain_channel
     zero_counts()
     head, rows = run_cli("bench1152", "res.txt", SWEEP, "--frame-error-count", "50",
                          "--max-frames", "2000000")
@@ -1812,6 +1983,7 @@ def main() -> int:
     check(flooding_launches["stream_grant"] > 0,
           "no chunk of the sweep's max_frames-ended points ran the ordered grants")
     check(flooding_launches["bp_decode_fused"] > 0, "the fixed point did not run kernel 1")
+    check(flooding_launches["channel_batch"] > 0, "the fixed point did not draw with K8")
     check(head.startswith("# kernel=cuda-fused") and "schedule=flooding streaming=on" in head,
           "flooding provenance line")
     check(len(rows) == 5 and rows[0][1] > rows[-1][1], "FER does not fall across the sweep")
@@ -1870,6 +2042,8 @@ def main() -> int:
     check(layered_launches["bp_stream_chunk_layered_fast"] > 0, "the layered sweep did not run K4")
     check(layered_launches["bp_decode_layered_fast"] > 0, "the fixed layered point did not run K3")
     check(layered_launches["bp_decode_layered"] > 0, "the wifi 648 point did not run K5")
+    check(layered_launches["channel_batch"] > 0, "the batch-stepped layered points did not draw "
+                                                 "with K8")
     check("schedule=layered-fast streaming=on" in head_l, "wifi 1944 sweep provenance")
     check("schedule=layered-fast streaming=off" in head_lf, "wifi 1944 fixed provenance")
     check("schedule=layered streaming=off" in head_648, "wifi 648 provenance")
@@ -1972,6 +2146,7 @@ def main() -> int:
     print(f"BEC streaming step eps {BEC_EPS}: {s_frames} frames, FER {s_fec / s_frames:.4e}, "
           f"avg_iter {s_iter / s_frames:.3f}")
     check(bec_launches["bec_decode_fused"] > 0, "the BEC sweep did not run K6")
+    check(bec_launches["channel_batch"] > 0, "the BEC sweep did not draw with K8")
     check(bec_launches["bec_stream_chunk_fused"] > 0, "the BEC streaming step did not run K7")
     check(s_frames == 4 * BATCH and int(sst.started) == 4 * BATCH, "BEC streaming quota")
     for head in (head_b, head_bf, head_bw):
@@ -1984,6 +2159,7 @@ def main() -> int:
     check(all(0 <= r[4] <= ITERS for r in rows_b + rows_bw), "BEC avg_iter out of range")
     check(fixed_b[0][4] == ITERS, "fixed-iteration BEC point did not run every iteration")
 
+    pr.simulate_channel = plain_channel
     mark("BEC sweeps done")
     # ---- 10. times (CUDA events), kernel against plain
     times = {}
@@ -2342,7 +2518,7 @@ def main() -> int:
     print(f"checkpoint / error-log / LDPC path launches: {slice_launches}")
     for name in ("bp_decode_fused", "bp_stream_chunk_fused", "bp_decode_layered_fast",
                  "bp_stream_chunk_layered_fast", "bp_decode_layered", "bec_decode_fused",
-                 "bp_decode_fused_int8"):
+                 "bp_decode_fused_int8", "channel_batch"):
         check(slice_launches[name] > 0, f"the checkpoint / error-log / LDPC path did not run {name}")
     mark("checkpoint, error log and LDPC done")
     # ---- 12. the modulation slice and the widened routing: its own path, counted
@@ -2366,6 +2542,7 @@ def main() -> int:
                 "bec_decode_fused": bec_launches["bec_decode_fused"],
                 "bec_stream_chunk_fused": bec_launches["bec_stream_chunk_fused"],
                 "pool_refill": flooding_launches["pool_refill"],
+                "channel_batch": flooding_launches["channel_batch"],
                 "stream_grant": flooding_launches["stream_grant"],
                 **{f"{fn.__name__}{SUFFIX[dt]}": form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
                    for fn in by_form[:2] for dt in ("bfloat16", "int8")},
@@ -2475,7 +2652,8 @@ def main() -> int:
             * OPS_MS_FAST_SLOT),
         "bp_decode_layered_bf16": bound(batch_bytes("wifi648", 4, 2), k5_needed(3 * 10)),
         "bp_decode_layered_int8": bound(batch_bytes("wifi648", 4, 1), k5_needed(3 * 3)),
-        "pool_refill": k8["bound"],
+        "pool_refill": k8["times"]["bench1152", "BPSK"]["bound"],
+        "channel_batch": k8["times"]["bench1152", "BPSK"]["full_bound"],
         "stream_grant": grants["grant_bound"],
     }
     # the wifi 1944 rows of kernel 1 (float32, BP), K6 and K7 (BEC); K7's
@@ -2519,8 +2697,14 @@ def main() -> int:
                  else "words in device memory",
                  "bec_stream_chunk_fused": "words in shared memory"
                  if db.bec_stream_form(tb7) == "words" else "HBM planes, 32 frames x 8 warps"}
-    forms_run["pool_refill"] = "32 lanes x 8 warps a block; a used entry's lane draws"
-    forms_run["stream_grant"] = "one block of 1024 threads, a scan over the batch"
+    k8_form = (f"{k8['tables'].lane_tile} lanes x {k8['tables'].items_per_slab} items a block "
+               f"of 8 warps, the encode on the tensor cores (mma.sync m16n8k256 b1 .and.popc, "
+               f"systematic columns from the info words)")
+    forms_run["pool_refill"] = ("a one-block lane-order scan lists the used lanes; the draw over "
+                                "them, " + k8_form)
+    forms_run["channel_batch"] = "the draw over every lane, " + k8_form
+    forms_run["stream_grant"] = ("one block of 1024 threads, 16 lanes a thread in 16-byte loads "
+                                 "and stores, a warp-then-block shuffle scan")
     # K1, K2 and K5 by their size rules, per message form, at the timed shapes
     for dt in SUFFIX:
         forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
@@ -2564,8 +2748,13 @@ def main() -> int:
         # K8: the pool's refill, XLA in the JAX super-step (simulate_channel
         # and the merge under lax.cond), a kernel here
         ("pool_refill", "libldpc_tpu_torch/csrc/pool_refill.cu",
-         "libldpc_tpu/ops/streaming_pallas.py:134", k8["max_abs_err"],
-         (k8["ms"], k8["plain_ms"])),
+         "libldpc_tpu/ops/streaming_pallas.py:134", k8["max_abs_err"]["pool_refill"],
+         (k8["times"]["bench1152", "BPSK"]["ms"], k8["times"]["bench1152", "BPSK"]["plain_ms"])),
+        # K8's full batch: the batch step's channel, XLA in the JAX package
+        ("channel_batch", "libldpc_tpu_torch/csrc/pool_refill.cu",
+         "libldpc_tpu/parallel/mesh.py:89", k8["max_abs_err"]["channel_batch"],
+         (k8["times"]["bench1152", "BPSK"]["full_ms"],
+          k8["times"]["bench1152", "BPSK"]["full_plain_ms"])),
         # the start grants in lane order of a chunk where the quota binds
         # (the JAX kernels' in-kernel scan)
         ("stream_grant", "libldpc_tpu_torch/csrc/pool_refill.cu",

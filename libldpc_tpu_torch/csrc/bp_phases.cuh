@@ -113,7 +113,7 @@ const dim3 kBlock(LDPC_FRAMES, LDPC_WARPS);
 // limit the card refuses (a tile past a block's shared memory) is returned
 // and cleared, so that the next launch's check does not report it as its own.
 template <class... P, class... A>
-int launch_smem(void (*kernel)(P...), unsigned grid, dim3 block, size_t bytes,
+int launch_smem(void (*kernel)(P...), dim3 grid, dim3 block, size_t bytes,
                 cudaStream_t stream, A... args) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

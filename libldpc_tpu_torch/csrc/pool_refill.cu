@@ -1,100 +1,133 @@
-// K8: the streaming pool's refill for Hopper (sm_90a), and the start grants
-// in lane order that the streaming chunks (K2, K4, K7) take in a chunk
-// where the start quota binds.
+// K8: the channel draw for Hopper (sm_90a): the streaming pool's refill and
+// the full channel batch of a batch step; and the start grants in lane order
+// that the streaming chunks (K2, K4, K7) take in a chunk where the start
+// quota binds.
 //
-// Replaces the pool regeneration of the JAX streaming super-steps, which
-// is XLA, not Pallas: `simulate_channel` and the merge of the consumed
-// entries under `jax.lax.cond(do_gen, gen, keep)` with
-// do_gen = refill && used >= watermark (libldpc_tpu/ops/streaming_pallas.py
-// :134-161 flooding, :526-566 the lanes path; libldpc_tpu/ops/streaming.py
-// :176-198).  JAX draws a whole channel batch and keeps it on the consumed
-// entries only; here only those entries are drawn, which gives the same
-// pool in distribution, and nothing is drawn in a chunk where JAX keeps the
-// pool.  ops/kernels/pool_refill.py holds the wrappers and the plain
-// versions.
+// Replaces the XLA channel of the JAX package: `simulate_channel` of a batch
+// step (libldpc_tpu/parallel/mesh.py:89, ops/channel.py:166), and in the
+// streaming super-steps the pool regeneration under
+// `jax.lax.cond(do_gen, gen, keep)` with do_gen = refill && used >=
+// watermark (libldpc_tpu/ops/streaming_pallas.py :134-161 flooding,
+// :526-566 the lanes path; libldpc_tpu/ops/streaming.py :176-198).  JAX
+// draws a whole channel batch and keeps it on the consumed entries only;
+// here only those entries are drawn, which gives the same pool in
+// distribution, and nothing is drawn in a chunk where JAX keeps the pool.
+// ops/kernels/pool_refill.py holds the wrappers and the plain versions.
 //
-// * pool_plan_kernel (one block): used = B - sum(avail), do_gen into ctl[0];
-//   and the chunk's start budget remaining = clamp(quota - started -
-//   sum(ctr[4]), 0, INT32_SAFE), as the streaming step computed it in
-//   PyTorch before.
-// * pool_draw_kernel: a block of 32 lanes x 8 warps returns at once unless
-//   do_gen.  A lane whose entry is used (avail == 0) draws its info word,
-//   encodes it with the generator's columns packed into 32-bit words at
-//   table build (c_v = parity(u & column v); the all-zero word without a
-//   generator, as encode_batch does), draws its noise (normal) or its
-//   uniforms (BSC flips, BEC erasures) and writes its column of the pool's
-//   values (float32 LLRs, or u8 BEC symbols) and codewords; then avail = 1
-//   on every lane.  The channel's arithmetic is ops/channel.py's and
-//   ops/modulation.py's, operation for operation (the BPSK LLR is 2 y times
-//   1 / sigma^2, as PyTorch divides a CUDA tensor by a host scalar), so the
-//   plain formulas on a lane's codeword and draws give its values: bit for
-//   bit, and M-ASK's logsumexps to float32 rounding.
+// * pool_plan_kernel (one block): used = B - sum(avail), do_gen and the
+//   count of lanes to draw into ctl; when do_gen, the used lanes in lane
+//   order into `lanes` (a lane-order scan, lane_scan.cuh); and the chunk's
+//   start budget remaining = clamp(quota - started - sum(ctr[4]), 0,
+//   INT32_SAFE).
+// * pool_draw_kernel: a block draws a tile of LT lanes (64 unless shared
+//   memory needs fewer) over one slab of the codeword's columns (a run of
+//   items, or of the positions no item writes); lanes come from the plan's
+//   list (blocks past its count return at once) or, for a full batch, are
+//   the batch's lanes in order.  Per block:
+//   1. each lane's info words from curand's Philox into shared memory, word
+//      major ([words, LT + 8]: the pad keeps a fragment's loads off each
+//      other's banks), and the slab's generator tiles from device memory;
+//   2. the encode on the tensor cores: codeword bit = parity of popc(info
+//      AND column), mma.sync m16n8k256 b1 .and.popc -> s32 (exact: a count
+//      is at most kc), the lanes' 32-bit info words as A, G's columns packed
+//      in 32-bit words as B, in tiles built at table build in the
+//      fragment's own order (8 bytes a thread); a warp holds its m-tile's A
+//      fragments for every k-step and runs its n-tiles; the bits to shared
+//      memory [columns, LT].  A systematic column (G's column a unit
+//      vector, half of a systematic G's) is not encoded: its bit is the
+//      info bit, read from the info words;
+//   3. each (lane, group of 4 items) draws its 4 normals or uniforms, forms
+//      the values (M-ASK: a symbol's M log-weights once, for M <= 16, then
+//      each bit's two logsumexps) and stores them: a warp is 32 lanes of one
+//      item, so its stores are 32 neighbouring lanes of one position.
+//   The values are ops/channel.py's and ops/modulation.py's, operation for
+//   operation (the BPSK LLR is 2 y times 1 / sigma^2, as PyTorch divides a
+//   CUDA tensor by a host scalar), so the plain formulas on a lane's
+//   codeword and draws give its values: bit for bit, and M-ASK's logsumexps
+//   to float32 rounding.
 // * stream_grant_kernel (one block): the grants of one pass in lane order
 //   over the whole batch, eligible = refill && done && avail, granted iff
 //   the inclusive count of eligible lanes is <= remaining; remaining is
-//   reduced by the grants.  A chunk's plain version grants so, pass by pass
-//   (ops/kernels/decode_fused.py stream_chunk_plain), and so do the JAX
-//   kernels (decode_fused.py:464-494).  Blocks of a chunk launch run in no
-//   order and not all at once, so a chunk where the quota can bind runs as
-//   k one-pass launches, each after a grant launch; elsewhere every wanting
-//   lane is granted, and the kernels' atomicSub tickets are exact.
+//   reduced by the grants (lane_scan.cuh).  A chunk's plain version grants
+//   so, pass by pass (ops/kernels/decode_fused.py stream_chunk_plain), and so
+//   do the JAX kernels (decode_fused.py:464-494).  Blocks of a chunk launch
+//   run in no order and not all at once, so a chunk where the quota can
+//   bind runs as k one-pass launches, each after a grant launch; elsewhere
+//   every wanting lane is granted, and the kernels' atomicSub tickets are
+//   exact.
 //
-// Random numbers: curand's Philox4x32-10 in the kernel, seeded with a key
-// the wrapper draws from the step's torch.Generator as a device tensor (no
-// host read), subsequence = the lane, outputs [0, kw) the info words and
-// from kw rounded up to 4 the item draws, four a call.  Warp w draws its
-// own contiguous runs from their offsets, so a lane's numbers depend on the
-// key and the lane only, never on the block order.
+// Random numbers: curand's Philox4x32-10, seeded with a key the wrapper
+// draws from the step's torch.Generator as a device tensor (no host read),
+// subsequence = the lane, outputs [0, kw) the info words and from kw the
+// item draws, four a call.  A (lane, call) pair initialises its own state at
+// its call, so a lane's numbers depend on the key and the lane only, never
+// on the block, the slab or the tiling.  The keying is the one of the
+// scalar draw this design replaced (csrc/dev/pool_stamps.cu keeps it): the
+// same key gives the same pool.
 //
-// Bound: the fresh values and codewords of the taken lanes, taken x nc x 5
-// bytes (x 2 for the BEC), are written once; the encode is 2 kw integer
-// operations a position (AND, XOR; the column words are broadcast loads).
-// At the 1152 code the two are of one size (5,760 bytes and 41,472
-// operations a lane), so the kernel keeps each lane's info words in shared
-// memory and gives each warp a run of positions, writing the planes with
-// the lanes of a warp on neighbouring addresses.
+// Bound: the values and codewords of the drawn lanes, taken x nc x 5 bytes
+// (x 2 for the BEC), are written once.  The scalar draw's stamps (PERF.md
+// section 5)
+// put 63-82 % of a lane's time in the encode (BPSK, BEC) and 59-74 % in
+// M-ASK's logsumexps.  The encode is now a few hundred tensor-core
+// instructions a block on packed words (an int8 form, m16n8k32 s8 on
+// unpacked bits, moved 8 times the operand bytes and ran slower than the
+// scalar draw: PERF.md section 6); each M-ASK weight is computed once; LT-lane x
+// slab blocks fill the card.
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 #include <stdint.h>
 
 #include "bp_phases.cuh"
+#include "lane_scan.cuh"
 
 namespace {
 
-constexpr int kPoolLanes = 32;   // lanes a block, one per thread of a warp
-constexpr int kPoolWarps = 8;    // warps a block, splitting the positions
-constexpr int kPlanThreads = 1024;
-constexpr int kMaxBits = 8;      // bits a symbol (M <= 256)
+constexpr int kDrawThreads = 256;  // 8 warps
+constexpr int kDrawWarps = kDrawThreads / 32;
+constexpr int kLanePad = 8;        // words past LT in a row of the info words
+constexpr int kMaxBits = 8;        // bits a symbol (M <= 256)
+constexpr int kCachedPoints = 16;  // M-ASK: weights kept in registers up to this M
 constexpr long long kInt32Safe = (1LL << 31) - (1LL << 20);  // ops/streaming.py _INT32_SAFE
 constexpr uint8_t kErasedSym = 2;  // ops/channel.py BEC_ERASURE
 
 enum PoolChannel { CH_AWGN = 0, CH_MASK = 1, CH_BSC = 2, CH_BEC = 3 };
 
 // One code's and channel's tables, built once (ops/kernels/pool_refill.py
-// pool_tables).  Positions are sorted VN labels.
+// pool_tables), and the launch's tiling.  Positions are sorted VN labels;
+// a column is an item's bit (column t * bpi + k) or, from other_col0, a
+// position no item writes.
 struct PoolPlan {
-  const uint32_t* gcols;       // [nc, kw] bit i of word j: G[32 j + i, v]; null: no generator
-  int kw;                      // a multiple of 4, the last words zero
+  const uint2* gtiles;         // [n_tiles, ksteps, 32] G in mma B fragments; null: no generator
+  const int* slab_tile0;       // [n_slabs + 1] slab y's tiles: [slab_tile0[y], slab_tile0[y + 1])
+  const int* col_src;          // [n_cols] place among the slab's encoded columns, or -1 - info bit
+  int ksteps;                  // ceil(kc / 256): the encode's k-steps
+  int kwords;                  // ceil(kc / 32): the info words a lane draws
+  int kw;                      // the info words a lane's keying skips (a multiple of 4)
   const int* item_src;         // [n_items, bpi] the positions an item's draw covers
   const int* item_dst;         // [n_items, bpi] where each bit's value goes (-1: nowhere)
   int n_items, bpi;            // items: transmitted bits (bpi 1), or M-ASK symbols
   const int* other_pos;        // [n_other] the positions no item writes
   const uint8_t* other_short;  // [n_other] 1 shortened (known), 0 punctured or unnamed
-  int n_other;
+  int n_other, other_col0;
   const float* points;         // [M] M-ASK amplitudes, point order
   const float* logp;           // [M] log priors
   const int* label_of;         // [M] label of each point
   const int* point_of;         // [M] point of each label
   int M;
+  int lane_tile;               // LT: 16, 32 or 64 lanes a block
+  int items_per_slab, item_slabs, others_per_slab, slab_cols;
 };
 
 struct PoolDraw {
   void* fresh;                     // [nc, B] float32 LLRs, or u8 BEC symbols
   uint8_t* fresh_cw;               // [nc, B]
-  int* avail;                      // [B]
-  const int* ctl;                  // [1] do_gen, from pool_plan_kernel
+  int* avail;                      // [B] set to 1 on every drawn lane; null for a full batch
+  const int* lanes;                // [B] the lanes to draw, in order; null: lane i is i
+  const int* count;                // [1] how many of `lanes`; null: B
   const unsigned long long* key;   // [1] Philox seed
   float* debug;                    // [n_items, B] each item's draw, or null
+  uint32_t* debug_info;            // [kwords, B] each lane's info words, or null
   int B;
   float sigma;    // AWGN: sqrt(sigma^2)
   float inv_s2;   // BPSK: 1 / sigma^2
@@ -104,27 +137,18 @@ struct PoolDraw {
   float shorten;  // the LLR of a shortened bit
 };
 
-// c_v of lane f: the parity of its info words AND column v.  A column is
-// kw words, kw a multiple of 4 (zero words pad it at table build), read as
-// 16-byte loads that are all in flight at once: a position costs one trip
-// to the L2, not kw of them.
-__device__ __forceinline__ int code_bit(const PoolPlan& p, const uint32_t* u, int f, int v) {
-  if (!p.gcols) return 0;
-  const uint4* g = reinterpret_cast<const uint4*>(p.gcols + (size_t)v * p.kw);
-  uint32_t x = 0;
-#pragma unroll 8
-  for (int q = 0; q < p.kw / 4; ++q) {
-    const uint4 w = __ldg(g + q);
-    const uint32_t* uq = u + 4 * q * kPoolLanes + f;
-    x ^= (w.x & uq[0]) ^ (w.y & uq[kPoolLanes]) ^ (w.z & uq[2 * kPoolLanes]) ^
-         (w.w & uq[3 * kPoolLanes]);
-  }
-  return __popc(x) & 1;
+// c += popc(a AND b): A 16 x 256 bits (row), B 256 x 8 bits (col), C 16 x 8 s32.
+__device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// log sum exp of the points' log-weights whose label has bit `bit` (most
-// significant first) equal to `one`, in point order, as torch.logsumexp
-// computes it: the max, then log of the sum of exp(w - max), plus the max.
+// log sum exp over the points whose label has bit `bit` (most significant
+// first) equal to `one`, in point order, as torch.logsumexp computes it:
+// the max, then log of the sum of exp(w - max), plus the max; each weight
+// recomputed (M > kCachedPoints).
 __device__ float label_lse(const PoolPlan& p, float y, float two_s2, int shift, int one) {
   const float inf = __int_as_float(0x7f800000);
   float m = -inf;
@@ -143,33 +167,91 @@ __device__ float label_lse(const PoolPlan& p, float y, float two_s2, int shift, 
   return logf(s) + mm;
 }
 
-// One item of a taken lane: its codeword bits, its channel values.
-template <int CH>
-__device__ void draw_item(const PoolPlan& p, const PoolDraw& d, const uint32_t* u, int f, size_t b,
-                          int t, float r) {
+// The same with the symbol's weights w[j] computed once (j < M <= MC): the
+// points of the bit's half are the bits of `half` (bit j: point j).
+template <int MC>
+__device__ __forceinline__ float cached_lse(const float (&w)[MC], uint32_t half, int M) {
+  const float inf = __int_as_float(0x7f800000);
+  float m = -inf;
+#pragma unroll
+  for (int j = 0; j < MC; ++j)
+    if (j < M && ((half >> j) & 1u)) m = fmaxf(m, w[j]);
+  const float mm = m == inf || m == -inf ? 0.0f : m;
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MC; ++j)
+    if (j < M && ((half >> j) & 1u)) s = s + expf(w[j] - mm);
+  return logf(s) + mm;
+}
+
+// The codeword bit of draw column `col` for the block's lane r: an encoded
+// column's from cw_s, a systematic column's info bit from u_s.
+__device__ __forceinline__ int column_bit(const PoolPlan& p, const uint8_t* cw_s,
+                                          const uint32_t* u_s, int r, int col) {
+  if (!p.gtiles) return 0;
+  const int s = __ldg(p.col_src + col);
+  if (s >= 0) return cw_s[s * p.lane_tile + r];
+  const int k = -1 - s;
+  return (u_s[(k >> 5) * (p.lane_tile + kLanePad) + r] >> (k & 31)) & 1;
+}
+
+// One M-ASK symbol's values: MC > 0 keeps its weights in registers (M <= MC).
+template <int MC>
+__device__ __forceinline__ void symbol_values(const PoolPlan& p, const PoolDraw& d,
+                                              const uint8_t* cw_s, const uint32_t* u_s,
+                                              int r_lane, size_t b, int t, int col, float r) {
+  const size_t B = d.B;
+  int c[kMaxBits];
+  int label = 0;
+  for (int k = 0; k < p.bpi; ++k) {
+    c[k] = column_bit(p, cw_s, u_s, r_lane, col + k);
+    label = (label << 1) | c[k];
+  }
+  const float x = __ldg(p.points + __ldg(p.point_of + label));
+  const float y = x + r * d.sigma;
+  float w[MC > 0 ? MC : 1];
+  if constexpr (MC > 0) {
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      if (j < p.M) {
+        const float dj = y - __ldg(p.points + j);
+        w[j] = -(dj * dj) / d.two_s2 + __ldg(p.logp + j);
+      }
+    }
+  }
+  for (int k = 0; k < p.bpi; ++k) {
+    const int v = __ldg(p.item_dst + t * p.bpi + k);
+    if (v < 0) continue;
+    const int shift = p.bpi - 1 - k;
+    float llr;
+    if constexpr (MC > 0) {
+      uint32_t ones = 0;  // bit j: bit k of point j's label
+#pragma unroll
+      for (int j = 0; j < MC; ++j)
+        if (j < p.M) ones |= (uint32_t)((__ldg(p.label_of + j) >> shift) & 1) << j;
+      llr = cached_lse<MC>(w, ~ones, p.M) - cached_lse<MC>(w, ones, p.M);
+    } else {
+      llr = label_lse(p, y, d.two_s2, shift, 0) - label_lse(p, y, d.two_s2, shift, 1);
+    }
+    llr = fminf(fmaxf(llr, -9999.9f), 9999.9f);  // utils/params.py MIN_LLR, MAX_LLR
+    ((float*)d.fresh)[v * B + b] = llr;
+    d.fresh_cw[v * B + b] = (uint8_t)c[k];
+  }
+}
+
+// One item of lane b: its codeword bits (draw columns from `col`), its draw
+// r, its values and codewords stored.
+template <int CH, int MC>
+__device__ __forceinline__ void draw_item(const PoolPlan& p, const PoolDraw& d,
+                                          const uint8_t* cw_s, const uint32_t* u_s, int r_lane,
+                                          size_t b, int t, int col, float r) {
   const size_t B = d.B;
   if (d.debug) d.debug[(size_t)t * B + b] = r;
   if constexpr (CH == CH_MASK) {
-    int c[kMaxBits];
-    int label = 0;
-    for (int k = 0; k < p.bpi; ++k) {
-      c[k] = code_bit(p, u, f, __ldg(p.item_src + t * p.bpi + k));
-      label = (label << 1) | c[k];
-    }
-    const float x = __ldg(p.points + __ldg(p.point_of + label));
-    const float y = x + r * d.sigma;
-    for (int k = 0; k < p.bpi; ++k) {
-      const int v = __ldg(p.item_dst + t * p.bpi + k);
-      if (v < 0) continue;
-      const int shift = p.bpi - 1 - k;
-      float llr = label_lse(p, y, d.two_s2, shift, 0) - label_lse(p, y, d.two_s2, shift, 1);
-      llr = fminf(fmaxf(llr, -9999.9f), 9999.9f);  // utils/params.py MIN_LLR, MAX_LLR
-      ((float*)d.fresh)[v * B + b] = llr;
-      d.fresh_cw[v * B + b] = (uint8_t)c[k];
-    }
+    symbol_values<MC>(p, d, cw_s, u_s, r_lane, b, t, col, r);
   } else {
     const int v = __ldg(p.item_src + t);
-    const int c = code_bit(p, u, f, v);
+    const int c = column_bit(p, cw_s, u_s, r_lane, col);
     if constexpr (CH == CH_AWGN) {
       const float x = 1.0f - 2.0f * (float)c;
       const float y = x + r * d.sigma;
@@ -184,45 +266,129 @@ __device__ void draw_item(const PoolPlan& p, const PoolDraw& d, const uint32_t* 
   }
 }
 
-template <int CH>
-__global__ void __launch_bounds__(kPoolLanes * kPoolWarps)
+// Shared memory of a draw block: the info words, the slab's generator
+// tiles, its codeword bits.
+__host__ __device__ inline size_t draw_smem_bytes(int ksteps, bool has_g, int lane_tile,
+                                                  int slab_cols) {
+  const size_t g = has_g ? (size_t)8 * ksteps * (lane_tile + kLanePad) * 4 +
+                               (size_t)(slab_cols / 8) * ksteps * 256
+                         : 0;
+  return g + (size_t)slab_cols * lane_tile;
+}
+
+template <int CH, int MC>
+__global__ void __launch_bounds__(kDrawThreads)
 pool_draw_kernel(PoolPlan p, PoolDraw d) {
-  if (!*d.ctl) return;  // the pool keeps every entry
-  extern __shared__ uint32_t u_s[];  // [kw, 32] the lanes' info words
-  const int f = threadIdx.x, w = threadIdx.y;
-  const size_t B = d.B;
-  const size_t b = (size_t)blockIdx.x * kPoolLanes + f;
-  const bool take = b < B && d.avail[b] == 0;
+  extern __shared__ __align__(16) unsigned char pool_smem[];
+  const int LT = p.lane_tile;
+  const int n_take = d.count ? *d.count : d.B;
+  const int tile0 = blockIdx.x * LT;
+  if (tile0 >= n_take) return;  // nothing to draw here (or no refill at all)
+  const int tid = threadIdx.x;
+  const int row = LT + kLanePad;  // words a row of u_s
+  const int nwords = 8 * p.ksteps;
+  uint32_t* u_s = reinterpret_cast<uint32_t*>(pool_smem);  // [nwords, row] info words
+  uint2* g_s = reinterpret_cast<uint2*>(u_s + (p.gtiles ? (size_t)nwords * row : 0));
+  uint8_t* cw_s = reinterpret_cast<uint8_t*>(
+      g_s + (p.gtiles ? (size_t)(p.slab_cols / 8) * p.ksteps * 32 : 0));  // [slab_cols, LT]
+  const int y = blockIdx.y;
+  const int r_lane = tid % LT, part = tid / LT, parts = kDrawThreads / LT;
+  const int idx = tile0 + r_lane;
+  const int lane = idx < n_take ? (d.lanes ? __ldg(d.lanes + idx) : idx) : -1;
   const unsigned long long seed = *d.key;
-  curandStatePhilox4_32_10_t st;
-  const int kpw = (p.kw + kPoolWarps - 1) / kPoolWarps;
-  const int j0 = w * kpw, j1 = min(p.kw, j0 + kpw);
-  if (take && j0 < j1) {
-    curand_init(seed, b, (unsigned long long)j0, &st);
-    for (int j = j0; j < j1; ++j) u_s[j * kPoolLanes + f] = curand(&st);
+  const size_t B = d.B;
+
+  // the slab: items [i0, i1), or the other positions [o0, o1)
+  const bool item_slab = y < p.item_slabs;
+  int i0 = 0, i1 = 0, o0 = 0, o1 = 0;
+  if (item_slab) {
+    i0 = y * p.items_per_slab;
+    i1 = min(p.n_items, i0 + p.items_per_slab);
+  } else {
+    o0 = (y - p.item_slabs) * p.others_per_slab;
+    o1 = min(p.n_other, o0 + p.others_per_slab);
   }
-  __syncthreads();  // the info words; every warp has read avail
-  if (take) {
-    const int groups = (p.n_items + 3) / 4;
-    const int gpw = (groups + kPoolWarps - 1) / kPoolWarps;
-    const int g0 = w * gpw, g1 = min(groups, g0 + gpw);
-    if (g0 < g1) curand_init(seed, b, (unsigned long long)((p.kw + 3) / 4 * 4 + 4 * g0), &st);
-    for (int g = g0; g < g1; ++g) {
-      float4 r;
-      if constexpr (CH == CH_AWGN || CH == CH_MASK)
-        r = curand_normal4(&st);
-      else
-        r = curand_uniform4(&st);
-      const int t = 4 * g;
-      draw_item<CH>(p, d, u_s, f, b, t, r.x);
-      if (t + 1 < p.n_items) draw_item<CH>(p, d, u_s, f, b, t + 1, r.y);
-      if (t + 2 < p.n_items) draw_item<CH>(p, d, u_s, f, b, t + 2, r.z);
-      if (t + 3 < p.n_items) draw_item<CH>(p, d, u_s, f, b, t + 3, r.w);
+
+  if (p.gtiles) {
+    // 1. info words (call q of the lane gives words 4q..4q+3; words past
+    // kwords are 0: they meet zero rows of G) and the slab's tiles
+    const int calls = (nwords + 3) / 4;
+    for (int q = part; q < calls; q += parts) {
+      uint4 w4 = make_uint4(0u, 0u, 0u, 0u);
+      if (lane >= 0 && 4 * q < p.kwords) {
+        curandStatePhilox4_32_10_t st;
+        curand_init(seed, (unsigned long long)lane, 4ull * q, &st);
+        w4 = curand4(&st);
+      }
+      const uint32_t ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * q + i;
+        if (j >= nwords) break;
+        const uint32_t w = j < p.kwords ? ws[i] : 0u;
+        u_s[j * row + r_lane] = w;
+        if (d.debug_info && y == 0 && lane >= 0 && j < p.kwords)
+          d.debug_info[(size_t)j * B + lane] = w;
+      }
     }
-    for (int i = w; i < p.n_other; i += kPoolWarps) {
-      const int v = __ldg(p.other_pos + i);
-      const bool shortened = __ldg(p.other_short + i) != 0;
-      const int c = code_bit(p, u_s, f, v);
+    const int jt0 = __ldg(p.slab_tile0 + y), jt1 = __ldg(p.slab_tile0 + y + 1);
+    {
+      const uint4* src = reinterpret_cast<const uint4*>(p.gtiles + (size_t)jt0 * p.ksteps * 32);
+      uint4* dst = reinterpret_cast<uint4*>(g_s);
+      const int n16 = (jt1 - jt0) * p.ksteps * 16;  // 16-byte pieces: 256 bytes a tile
+      for (int i = tid; i < n16; i += kDrawThreads) dst[i] = __ldg(src + i);
+    }
+    __syncthreads();
+    // 2. the encode: warp w holds m-tile w % mt (16 lanes) for every k-step
+    // and takes the n-tiles j = w / mt (mod 8 / mt) of the slab
+    const int warp = tid >> 5, l = tid & 31;
+    const int mt = LT / 16, wpm = kDrawWarps / mt;
+    const int m = warp % mt;
+    const int g = l >> 2, tq = l & 3;
+    for (int j = jt0 + warp / mt; j < jt1; j += wpm) {
+      int acc[4] = {0, 0, 0, 0};
+      for (int s = 0; s < p.ksteps; ++s) {
+        const uint32_t* us = u_s + (size_t)(8 * s + tq) * row + 16 * m + g;
+        const uint32_t a[4] = {us[0], us[8], us[4 * row], us[4 * row + 8]};
+        mma_b1(acc, a, g_s[((size_t)(j - jt0) * p.ksteps + s) * 32 + l]);
+      }
+      const int col = (j - jt0) * 8 + 2 * tq;
+      const int rw = 16 * m + g;
+      cw_s[col * LT + rw] = (uint8_t)(acc[0] & 1);
+      cw_s[(col + 1) * LT + rw] = (uint8_t)(acc[1] & 1);
+      cw_s[col * LT + rw + 8] = (uint8_t)(acc[2] & 1);
+      cw_s[(col + 1) * LT + rw + 8] = (uint8_t)(acc[3] & 1);
+    }
+    __syncthreads();
+  }
+  if (lane < 0) return;
+  const size_t b = (size_t)lane;
+  // 3. the draws, values and stores: (lane, group of 4 items) units; a warp
+  // holds consecutive lanes of one group
+  if (item_slab) {
+    const int gbase = i0 / 4, ng = (i1 - i0 + 3) / 4;
+    for (int gi = part; gi < ng; gi += parts) {
+      const int grp = gbase + gi;
+      curandStatePhilox4_32_10_t st;
+      curand_init(seed, b, (unsigned long long)p.kw + 4ull * grp, &st);
+      float4 r4;
+      if constexpr (CH == CH_AWGN || CH == CH_MASK)
+        r4 = curand_normal4(&st);
+      else
+        r4 = curand_uniform4(&st);
+      const float rs[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 4 * grp + e;
+        if (t >= i1) break;
+        draw_item<CH, MC>(p, d, cw_s, u_s, r_lane, b, t, t * p.bpi, rs[e]);
+      }
+    }
+  } else {
+    for (int o = o0 + part; o < o1; o += parts) {
+      const int v = __ldg(p.other_pos + o);
+      const bool shortened = __ldg(p.other_short + o) != 0;
+      const int c = column_bit(p, cw_s, u_s, r_lane, p.other_col0 + o);
       if constexpr (CH == CH_BEC)
         ((uint8_t*)d.fresh)[v * B + b] = shortened ? (uint8_t)c : kErasedSym;
       else
@@ -230,10 +396,10 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
       d.fresh_cw[v * B + b] = (uint8_t)c;
     }
   }
-  if (w == 0 && b < B) d.avail[b] = 1;
+  if (d.avail && y == 0 && part == 0) d.avail[b] = 1;
 }
 
-// Sum over the block (1024 threads); the result in thread 0.
+// Sum over the block (kScanThreads threads); the result in every thread.
 __device__ long long block_sum(long long v, long long* sh) {
   for (int o = 16; o; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
@@ -241,66 +407,70 @@ __device__ long long block_sum(long long v, long long* sh) {
   v = threadIdx.x < 32 ? sh[threadIdx.x] : 0;
   if (threadIdx.x < 32)
     for (int o = 16; o; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (threadIdx.x == 0) sh[0] = v;
+  __syncthreads();
+  v = sh[0];
   __syncthreads();
   return v;
 }
 
-__global__ void __launch_bounds__(kPlanThreads)
+__global__ void __launch_bounds__(kScanThreads)
 pool_plan_kernel(const int* __restrict__ avail, const int* __restrict__ ctr4,
                  const long long* __restrict__ started, long long quota,
                  const int* __restrict__ refill, int watermark, int B, int* __restrict__ ctl,
-                 int* __restrict__ remaining) {
+                 int* __restrict__ remaining, int* __restrict__ lanes) {
   __shared__ long long sh[32];
+  __shared__ int sh_scan[32];
   long long a = 0, s = 0;
-  for (int i = threadIdx.x; i < B; i += kPlanThreads) {
+  for (int i = threadIdx.x; i < B; i += kScanThreads) {
     a += avail[i];
     s += ctr4[i];
   }
   a = block_sum(a, sh);
   s = block_sum(s, sh);
+  const bool do_gen = *refill > 0 && (long long)B - a >= (long long)watermark;
+  // the used lanes (avail == 0) in lane order, where the pool is drawn
+  int carry = 0;
+  for (int base0 = 0; do_gen && base0 < B; base0 += kScanRound) {
+    const int base = base0 + kScanRun * threadIdx.x;
+    uint32_t m = ~nonzero_mask16(avail, base, B) & valid_mask16(base, B);
+    int total;
+    int at = carry + block_exclusive_scan(__popc(m), &total, sh_scan);
+    while (m) {
+      const int i = __ffs(m) - 1;
+      m &= m - 1;
+      lanes[at++] = base + i;
+    }
+    carry += total;
+  }
   if (threadIdx.x == 0) {
-    ctl[0] = *refill > 0 && (long long)B - a >= (long long)watermark;
+    ctl[0] = do_gen;
+    ctl[1] = carry;
     long long rem = quota - *started - s;
     rem = rem < 0 ? 0 : rem > kInt32Safe ? kInt32Safe : rem;
     *remaining = (int)rem;
   }
 }
 
-__global__ void __launch_bounds__(kPlanThreads)
+__global__ void __launch_bounds__(kScanThreads)
 stream_grant_kernel(const int* __restrict__ done, const int* __restrict__ avail,
                     const int* __restrict__ refill, int* remaining, uint8_t* __restrict__ grant,
                     int B) {
-  __shared__ int warp_sum[32];
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int per = (B + kPlanThreads - 1) / kPlanThreads;
-  const int i0 = min(B, tid * per), i1 = min(B, i0 + per);
+  __shared__ int sh[32];
   const bool on = *refill != 0;
   const int R = max(*remaining, 0);
-  int n = 0;
-  for (int i = i0; i < i1; ++i) n += on && done[i] && avail[i];
-  int x = n;  // inclusive scan over the warp, then over the warps
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+  int carry = 0;  // eligible lanes of the earlier rounds
+  for (int base0 = 0; base0 < B; base0 += kScanRound) {
+    const int base = base0 + kScanRun * threadIdx.x;
+    const uint32_t m = on ? nonzero_mask16(done, base, B) & nonzero_mask16(avail, base, B) : 0u;
+    const int n = __popc(m);
+    int total;
+    const int before = carry + block_exclusive_scan(n, &total, sh);  // eligible lanes below base
+    // lane i (an eligible one) is granted iff before + its rank + 1 <= R
+    store_mask16(grant, lowest_set_bits(m, min(n, max(R - before, 0))), base, B);
+    carry += total;
   }
-  if (lane == 31) warp_sum[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int t = warp_sum[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    warp_sum[lane] = t;
-  }
-  __syncthreads();
-  int before = x - n + (wid ? warp_sum[wid - 1] : 0);  // eligible lanes below i0
-  for (int i = i0; i < i1; ++i) {
-    const bool e = on && done[i] && avail[i];
-    before += e;
-    grant[i] = e && before <= R;
-  }
-  if (tid == kPlanThreads - 1) *remaining = R - min(before, R);  // `before` is the total here
+  if (threadIdx.x == 0) *remaining = R - min(carry, R);
 }
 
 }  // namespace
@@ -309,50 +479,78 @@ extern "C" {
 
 // Each returns the launch's cudaGetLastError() (0 = launched).
 
+// ctl[0] = do_gen, ctl[1] = the lanes to draw (0 unless do_gen); lanes
+// [B]: its first ctl[1] entries the used lanes in order.
 int ldpc_pool_plan(const int* avail, const int* ctr, const long long* started, long long quota,
-                   const int* refill, int watermark, int B, int* ctl, int* remaining,
+                   const int* refill, int watermark, int B, int* ctl, int* remaining, int* lanes,
                    void* stream) {
-  pool_plan_kernel<<<1, kPlanThreads, 0, (cudaStream_t)stream>>>(
-      avail, ctr + (size_t)4 * B, started, quota, refill, watermark, B, ctl, remaining);
+  pool_plan_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
+      avail, ctr + (size_t)4 * B, started, quota, refill, watermark, B, ctl, remaining, lanes);
   return (int)cudaGetLastError();
 }
 
+// Shared memory of a draw block (its info words, the slab's generator
+// tiles, its codeword bits).
+long long ldpc_pool_draw_bytes(int ksteps, int has_g, int lane_tile, int slab_cols) {
+  return (long long)draw_smem_bytes(ksteps, has_g != 0, lane_tile, slab_cols);
+}
+
 // `channel`: 0 AWGN (BPSK), 1 AWGN through an M-ASK constellation, 2 BSC,
-// 3 BEC.  `fresh` is float32, or u8 for the BEC.  `debug` (or null) takes
-// each item's draw, [n_items, B].
-int ldpc_pool_draw(int channel, const uint32_t* gcols, int kw, const int* item_src,
-                   const int* item_dst, int n_items, int bpi, const int* other_pos,
-                   const uint8_t* other_short, int n_other, const float* points,
-                   const float* logp, const int* label_of, const int* point_of, int M, void* fresh,
-                   uint8_t* fresh_cw, int* avail, const int* ctl, const unsigned long long* key,
-                   float* debug, int B, float sigma, float inv_s2, float two_s2, float delta,
-                   float eps, float shorten, void* stream) {
-  if (bpi < 1 || bpi > kMaxBits) return (int)cudaErrorInvalidValue;
-  PoolPlan p{gcols,     kw,          item_src, item_dst, n_items, bpi,      other_pos,
-             other_short, n_other,   points,   logp,     label_of, point_of, M};
-  PoolDraw d{fresh, fresh_cw, avail, ctl, key, debug, B, sigma, inv_s2, two_s2, delta, eps,
-             shorten};
-  const unsigned grid = (unsigned)((B + kPoolLanes - 1) / kPoolLanes);
-  const dim3 block(kPoolLanes, kPoolWarps);
-  const size_t bytes = (size_t)kw * kPoolLanes * 4;
+// 3 BEC.  `fresh` is float32, or u8 for the BEC.  `lanes`/`count` (or null:
+// every lane of the batch), `avail` (or null), `debug` ([n_items, B], or
+// null) takes each item's draw, `debug_info` ([kwords, B], or null) each
+// lane's info words.  Items and other positions are cut into slabs of
+// `items_per_slab` items and `others_per_slab` positions (multiples of 8);
+// `slab_tile0` and `col_src` (pool_refill.py draw_slabs) give each slab's
+// encoded columns, at most `slab_cols` a slab.
+int ldpc_pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int* col_src,
+                   int ksteps, int kwords, int kw, const int* item_src, const int* item_dst,
+                   int n_items, int bpi, const int* other_pos, const uint8_t* other_short,
+                   int n_other, int other_col0, const float* points, const float* logp,
+                   const int* label_of, const int* point_of, int M, int lane_tile,
+                   int items_per_slab, int others_per_slab, int slab_cols, void* fresh,
+                   uint8_t* fresh_cw, int* avail, const int* lanes, const int* count,
+                   const unsigned long long* key,
+                   float* debug, uint32_t* debug_info, int B, float sigma, float inv_s2,
+                   float two_s2, float delta, float eps, float shorten, void* stream) {
+  if (bpi < 1 || bpi > kMaxBits || (lane_tile != 16 && lane_tile != 32 && lane_tile != 64) ||
+      items_per_slab < 8 || items_per_slab % 8 || others_per_slab < 8 || others_per_slab % 8 ||
+      other_col0 != n_items * bpi || B < 1 || kwords > 8 * ksteps || slab_cols % 8 ||
+      (gtiles && (!slab_tile0 || !col_src)))
+    return (int)cudaErrorInvalidValue;
+  const int item_slabs = (n_items + items_per_slab - 1) / items_per_slab;
+  const int other_slabs = (n_other + others_per_slab - 1) / others_per_slab;
+  PoolPlan p{gtiles,    slab_tile0,  col_src,        ksteps,     kwords,         kw,
+             item_src,  item_dst,    n_items,        bpi,        other_pos,      other_short,
+             n_other,   other_col0,  points,         logp,       label_of,       point_of,
+             M,         lane_tile,   items_per_slab, item_slabs, others_per_slab, slab_cols};
+  PoolDraw d{fresh, fresh_cw, avail, lanes, count, key, debug, debug_info, B,
+             sigma, inv_s2,   two_s2, delta, eps,  shorten};
+  const dim3 grid((unsigned)((B + lane_tile - 1) / lane_tile), (unsigned)(item_slabs + other_slabs));
+  if (grid.y == 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = draw_smem_bytes(ksteps, gtiles != nullptr, lane_tile, slab_cols);
+  const dim3 block(kDrawThreads);
   cudaStream_t st = (cudaStream_t)stream;
   switch (channel) {
     case CH_AWGN:
-      return launch_smem(pool_draw_kernel<CH_AWGN>, grid, block, bytes, st, p, d);
+      return launch_smem(pool_draw_kernel<CH_AWGN, 0>, grid, block, bytes, st, p, d);
     case CH_MASK:
-      return launch_smem(pool_draw_kernel<CH_MASK>, grid, block, bytes, st, p, d);
+      if (M <= 4) return launch_smem(pool_draw_kernel<CH_MASK, 4>, grid, block, bytes, st, p, d);
+      if (M <= kCachedPoints)
+        return launch_smem(pool_draw_kernel<CH_MASK, kCachedPoints>, grid, block, bytes, st, p, d);
+      return launch_smem(pool_draw_kernel<CH_MASK, 0>, grid, block, bytes, st, p, d);
     case CH_BSC:
-      return launch_smem(pool_draw_kernel<CH_BSC>, grid, block, bytes, st, p, d);
+      return launch_smem(pool_draw_kernel<CH_BSC, 0>, grid, block, bytes, st, p, d);
     case CH_BEC:
-      return launch_smem(pool_draw_kernel<CH_BEC>, grid, block, bytes, st, p, d);
+      return launch_smem(pool_draw_kernel<CH_BEC, 0>, grid, block, bytes, st, p, d);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int ldpc_stream_grant(const int* done, const int* avail, const int* refill, int* remaining,
                       uint8_t* grant, int B, void* stream) {
-  stream_grant_kernel<<<1, kPlanThreads, 0, (cudaStream_t)stream>>>(done, avail, refill,
-                                                                     remaining, grant, B);
+  stream_grant_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(done, avail, refill,
+                                                                    remaining, grant, B);
   return (int)cudaGetLastError();
 }
 

@@ -262,26 +262,30 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_bec_stream_chunk_words.restype = I
-            # K8, the streaming pool's refill (plan, draw), and the streaming
-            # chunks' grants in lane order
+            # K8, the channel draw (the refill's plan; the draw over listed
+            # lanes or a full batch), and the streaming chunks' grants in
+            # lane order
             L = ctypes.c_longlong
             lib.ldpc_pool_plan.argtypes = [
                 P, P, P, L,  # avail ctr started quota
                 P, I, I,  # refill watermark B
-                P, P,  # ctl remaining
+                P, P, P,  # ctl remaining lanes
                 P,  # stream
             ]
             lib.ldpc_pool_plan.restype = I
             lib.ldpc_pool_draw.argtypes = [
-                I, P, I,  # channel gcols kw
+                I, P, P, P, I, I, I,  # channel gtiles slab_tile0 col_src ksteps kwords kw
                 P, P, I, I,  # item_src item_dst n_items bpi
-                P, P, I,  # other_pos other_short n_other
+                P, P, I, I,  # other_pos other_short n_other other_col0
                 P, P, P, P, I,  # points logp label_of point_of M
-                P, P, P, P, P, P,  # fresh fresh_cw avail ctl key debug
+                I, I, I, I,  # lane_tile items_per_slab others_per_slab slab_cols
+                P, P, P, P, P, P, P, P,  # fresh fresh_cw avail lanes count key debug debug_info
                 I, F, F, F, F, F, F,  # B sigma inv_s2 two_s2 delta eps shorten
                 P,  # stream
             ]
             lib.ldpc_pool_draw.restype = I
+            lib.ldpc_pool_draw_bytes.argtypes = [I, I, I, I]  # ksteps has_g lane_tile slab_cols
+            lib.ldpc_pool_draw_bytes.restype = L
             lib.ldpc_stream_grant.argtypes = [P, P, P, P, P, I, P]  # done avail refill remaining grant B stream
             lib.ldpc_stream_grant.restype = I
             # the shared memory of the tile forms of K1 and K2, K3 and K4, and

@@ -329,7 +329,9 @@ def stream_grant(done: torch.Tensor, avail: torch.Tensor, refill: torch.Tensor,
     (``refill``) and it is idle (``done``) with an unused pool entry
     (``avail``), and granted iff the inclusive count of eligible lanes is at
     most ``remaining``, which drops by the grants.  u8 ``[B]``.  On CUDA one
-    block's scan (``csrc/pool_refill.cu`` ``stream_grant_kernel``); the
+    block's scan (``csrc/pool_refill.cu`` ``stream_grant_kernel`` on
+    ``csrc/lane_scan.cuh``: 16 lanes a thread in 16-byte loads and one
+    16-byte store, a warp-then-block shuffle scan); the
     chunk kernels take the plane in a one-pass launch of a chunk where the
     quota may bind (``ordered=True``).  Counted in
     ``stream_grant.launches``."""

@@ -1,4 +1,5 @@
-"""K8: the streaming pool's refill, its wrapper and its plain version.
+"""K8: the channel draw on the card (the streaming pool's refill and a
+batch step's channel), its wrappers and its plain versions.
 
 Between the chunks of a streaming super-step the pool of fresh frames is
 refilled as the JAX super-steps refill it (``streaming_pallas.py``
@@ -8,17 +9,21 @@ every used entry takes a fresh channel frame and every entry is marked
 unused; otherwise the pool is kept.  JAX draws a whole channel batch under
 ``lax.cond`` and keeps it on the used entries only; :func:`pool_refill`
 draws only those entries, on the card, without a host read
-(``csrc/pool_refill.cu``): the same pool in distribution, and no draw in
-a chunk where JAX keeps the pool or in a drain.  The same launch computes
-the chunk's start budget, ``remaining = clamp(quota - started -
-sum(ctr[4]), 0)``.
+(``csrc/pool_refill.cu``): :func:`pool_plan` lists the used lanes in order
+(and computes the chunk's start budget, ``remaining = clamp(quota -
+started - sum(ctr[4]), 0)``), then the draw covers those lanes alone: the
+same pool in distribution, and no draw in a chunk where JAX keeps the pool
+or in a drain.  :func:`channel_batch` is the same draw over every lane of a
+batch, the channel of every batch step on the card
+(``parallel/mesh.py``).
 
-:func:`pool_refill_plain` is the same step in plain PyTorch: the channel
+:func:`pool_refill_plain` is the refill in plain PyTorch: the channel
 batch of :func:`..channel.simulate_channel`, merged under the same mask,
-drawn only when ``do_gen`` holds (a host branch, free on the CPU).  The
-draws of the two differ (curand's Philox in the kernel, the generator's
-own streams here), so the card's checks hold the kernel to the plain
-formulas on its own codewords and draws (:func:`pool_refill` ``debug``,
+drawn only when ``do_gen`` holds (a host branch, free on the CPU);
+:func:`channel_batch` on the CPU is :func:`..channel.simulate_channel`.
+The draws differ (curand's Philox in the kernel, the generator's own
+streams here), so the card's checks hold the kernel to the plain formulas
+on its own codewords and draws (``debug``, ``debug_info``,
 :func:`..channel.channel_values`).
 """
 
@@ -32,16 +37,22 @@ import numpy as np
 import torch
 
 from ...utils.params import SHORTEN_LLR
-from ..channel import simulate_channel
+from ..channel import ChannelOutput, simulate_channel
 from ..sorted import TorchSortedCode
 from ..streaming import _INT32_SAFE
 from . import build
-from .decode_fused import _check, _p, _p_or_null, _raise_on, _require_cuda
+from .decode_fused import SMEM_BLOCK_BYTES, _check, _p, _p_or_null, _raise_on, _require_cuda
 
 #: The channel's code in the kernel (``enum PoolChannel``).
 CHANNEL_CODES = {"AWGN": 0, "MASK": 1, "BSC": 2, "BEC": 3}
 #: Bits a symbol the kernel takes (``kMaxBits``).
 MAX_BITS = 8
+#: Lanes a draw block takes at most (16, 32 or 64); fewer when a block's
+#: shared memory needs it (:func:`pool_tables` fixes the tiling).
+LANE_TILE = 64
+#: Columns of the codeword a draw block takes at most: items times bits a
+#: symbol, or positions no item writes (a multiple of 8).
+SLAB_COLS = 288
 
 
 def pool_watermark(batch: int) -> int:
@@ -51,16 +62,30 @@ def pool_watermark(batch: int) -> int:
 
 @dataclasses.dataclass
 class PoolTables:
-    """One code's and channel's tables for :func:`pool_refill`, on the
-    code's device (sorted VN labels throughout)."""
+    """One code's and channel's tables for the draw, on the code's device
+    (sorted VN labels throughout), and the draw's tiling.  Column ``t * bpi
+    + k`` of the draw is bit ``k`` of item ``t``; from ``n_items * bpi`` on,
+    the columns are the positions no item writes.  The items are cut into
+    slabs of ``items_per_slab``, the other positions into slabs of
+    ``others_per_slab``; a block draws ``lane_tile`` lanes of one slab."""
 
     code: TorchSortedCode
     channel_type: str  # "AWGN", "BSC" or "BEC"
     #: ``(Constellation, bit_mapper)`` with the mapper in sorted labels, or None
     modulation: Optional[tuple]
-    #: int32 ``[nc, kw]``: bit ``i`` of word ``j`` is ``G[32 j + i, v]`` (``kw`` a
-    #: multiple of 4, zero words past ``kc``); None without G
-    gcols: Optional[torch.Tensor]
+    #: int32 ``[n_tiles, ksteps, 32, 2]`` (:func:`g_tiles`): each slab's
+    #: encoded columns as b1 mma B fragments, slab after slab; None without G
+    gtiles: Optional[torch.Tensor]
+    #: int32 ``[n_slabs + 1]``: slab ``y``'s tiles are ``[slab_tile0[y],
+    #: slab_tile0[y + 1])`` of ``gtiles``; None without G
+    slab_tile0: Optional[torch.Tensor]
+    #: int32 ``[n_cols]``: a column's place among its slab's encoded columns
+    #: (>= 0), or ``-1 - k`` for a systematic column (G's column is the unit
+    #: vector of row ``k``: its bit is info bit ``k``, no product); None without G
+    col_src: Optional[torch.Tensor]
+    ksteps: int  # ceil(kc / 256): the encode's k-steps
+    kwords: int  # ceil(kc / 32): the info words a lane draws
+    kw: int  # info words a lane's Philox outputs start with (ceil(kc / 128) * 4; 0 without G)
     item_src: torch.Tensor  # int32 [n_items, bpi] positions of an item's bits
     item_dst: torch.Tensor  # int32 [n_items, bpi] where each bit's value goes (-1: nowhere)
     other_pos: torch.Tensor  # int32 [n_other] positions no item writes
@@ -69,10 +94,10 @@ class PoolTables:
     logp: torch.Tensor  # f32 [M] log priors
     label_of: torch.Tensor  # int32 [M] label of each point
     point_of: torch.Tensor  # int32 [M] point of each label
-
-    @property
-    def kw(self) -> int:
-        return 0 if self.gcols is None else self.gcols.shape[1]
+    lane_tile: int  # lanes a block: 16, 32 or 64
+    items_per_slab: int  # a multiple of 8
+    others_per_slab: int  # a multiple of 8
+    slab_cols: int  # a block's encoded columns at most (a multiple of 8; 0 without G)
 
     @property
     def channel(self) -> int:
@@ -83,12 +108,16 @@ class PoolTables:
     def device(self) -> torch.device:
         return self.item_src.device
 
+    @property
+    def other_col0(self) -> int:
+        return self.item_src.numel()
+
 
 def pack_columns(G: np.ndarray) -> np.ndarray:
-    """The generator's columns as 32-bit words: ``[nc, kw]`` uint32, bit
-    ``i`` of word ``j`` of column ``v`` is ``G[32 j + i, v]``, with ``kw``
-    ``ceil(kc / 32)`` rounded up to a multiple of 4 (zero words), so that a
-    column is read in 16-byte loads."""
+    """The generator's columns as 32-bit words, the layout of the scalar
+    draw (``csrc/dev/pool_stamps.cu``): ``[nc, kw]`` uint32, bit ``i`` of word
+    ``j`` of column ``v`` is ``G[32 j + i, v]``, with ``kw`` ``ceil(kc /
+    32)`` rounded up to a multiple of 4 (zero words)."""
     kc, nc = G.shape
     kw = -(-kc // 128) * 4
     bits = np.zeros((nc, kw * 32), dtype=np.uint8)
@@ -96,13 +125,71 @@ def pack_columns(G: np.ndarray) -> np.ndarray:
     return np.packbits(bits, axis=1, bitorder="little").view("<u4").reshape(nc, kw)
 
 
+def g_tiles(G: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """The generator's columns ``cols`` (-1: a zero column; a multiple of 8
+    of them) as the B operands of ``mma.m16n8k256`` b1: int32 ``[n_tiles,
+    ksteps, 32, 2]``, ``ksteps = ceil(kc / 256)``.  Word ``q`` of a column
+    holds its rows ``32 q .. 32 q + 31`` (bit ``i``: row ``32 q + i``; rows
+    past ``kc`` are 0).  Thread ``l`` of n-tile ``j`` at k-step ``s`` holds,
+    for ``g = l // 4`` and ``t = l % 4``, words ``8 s + t`` and ``8 s + t +
+    4`` of column ``cols[8 j + g]``: its two fragment registers, one 8-byte
+    load, 256 bytes a warp."""
+    kc, nc = G.shape
+    if len(cols) % 8:
+        raise ValueError(f"{len(cols)} columns: a multiple of 8 expected")
+    ks = -(-kc // 256)
+    bits = np.zeros((nc + 1, ks * 256), dtype=np.uint8)
+    bits[:nc, :kc] = (G != 0).T
+    words = np.packbits(bits, axis=1, bitorder="little").view("<u4")  # [nc + 1, 8 ks]
+    w = words[np.where(np.asarray(cols) < 0, nc, cols)]  # [8 T, 8 ks]
+    T = len(cols) // 8
+    # column 8 j + g, word 8 s + 4 h + t -> [j, s, (g, t), h]
+    return np.ascontiguousarray(
+        w.reshape(T, 8, ks, 2, 4).transpose(0, 2, 1, 4, 3).reshape(T, ks, 32, 2)).view(np.int32)
+
+
+def draw_slabs(G: Optional[np.ndarray], item_src: np.ndarray, other: np.ndarray,
+               items_per_slab: int, others_per_slab: int):
+    """The encode's share of the draw's slabs: ``(cols, slab_tile0, col_src,
+    slab_cols)``.  A slab's columns are its items' bits in order (or its
+    positions no item writes); a column whose G column is the unit vector
+    of row ``k`` (a systematic column) is info bit ``k`` (``col_src = -1 -
+    k``), the others are the slab's encoded columns, in order, padded with
+    -1 to a multiple of 8 (``cols``, slab after slab; ``slab_tile0`` the
+    tile offsets).  ``slab_cols``: the most encoded columns of a slab."""
+    n_items, bpi = item_src.shape
+    pos = np.concatenate([item_src.reshape(-1), other]).astype(np.int64)
+    bounds = ([(i0 * bpi, min(n_items, i0 + items_per_slab) * bpi)
+               for i0 in range(0, n_items, items_per_slab)]
+              + [(n_items * bpi + o0, n_items * bpi + min(len(other), o0 + others_per_slab))
+                 for o0 in range(0, len(other), others_per_slab)])
+    if G is None:
+        return None, None, None, 0
+    gb = G != 0
+    weight = gb.sum(0)
+    sys_row = np.where(weight == 1, gb.argmax(0), -1)[pos]  # per column
+    col_src = np.empty(len(pos), dtype=np.int64)
+    cols, tile0 = [], [0]
+    for c0, c1 in bounds:
+        enc = np.flatnonzero(sys_row[c0:c1] < 0) + c0
+        col_src[c0:c1] = -1 - sys_row[c0:c1]
+        col_src[enc] = np.arange(len(enc))
+        padded = np.full(-(-len(enc) // 8) * 8, -1, dtype=np.int64)
+        padded[:len(enc)] = pos[enc]
+        cols.append(padded)
+        tile0.append(tile0[-1] + len(padded) // 8)
+    slab_cols = max(8, max(len(c) for c in cols)) if cols else 8
+    return np.concatenate(cols), np.asarray(tile0), col_src, slab_cols
+
+
 def pool_tables(sdc: TorchSortedCode, channel_type: str, modulation=None) -> PoolTables:
-    """The tables of :func:`pool_refill` for ``sdc`` and the channel:
-    an item is a transmitted bit (its one draw: a normal for AWGN, a
-    uniform for the BSC and the BEC) or, with a constellation, a symbol (a
-    normal) whose bits the mapper names.  The positions no item writes are
-    the others: shortened (a known bit) or punctured (an erased one), and
-    with a constellation, the positions the mapper does not name."""
+    """The draw's tables for ``sdc`` and the channel: an item is a
+    transmitted bit (its one draw: a normal for AWGN, a uniform for the BSC
+    and the BEC) or, with a constellation, a symbol (a normal) whose bits
+    the mapper names.  The positions no item writes are the others:
+    shortened (a known bit) or punctured (an erased one), and with a
+    constellation, the positions the mapper does not name.  The generator
+    goes to the device once, as :func:`g_tiles` in the draw's column order."""
     if channel_type not in ("AWGN", "BSC", "BEC"):
         raise ValueError(f"No channel selected: {channel_type!r}")
     dev, nc = sdc.device, sdc.nc
@@ -115,7 +202,7 @@ def pool_tables(sdc: TorchSortedCode, channel_type: str, modulation=None) -> Poo
     else:
         mapper = mod[1].cpu().numpy().astype(np.int64)  # [bits, n_sym]
         if mapper.shape[0] > MAX_BITS:
-            raise ValueError(f"{mapper.shape[0]} bits a symbol: the refill takes at most "
+            raise ValueError(f"{mapper.shape[0]} bits a symbol: the draw takes at most "
                              f"{MAX_BITS}")
         if mapper.size and (mapper.min() < 0 or mapper.max() >= nc):
             raise ValueError("the bit mapper names a position outside the codeword")
@@ -140,18 +227,55 @@ def pool_tables(sdc: TorchSortedCode, channel_type: str, modulation=None) -> Poo
         pts = cstl.points.astype(np.float32)
         logp = np.log(cstl.priors).astype(np.float32)
         label_of, point_of = cstl.labels, cstl.labels_rev
+    kc = 0 if G is None else G.shape[0]
+    ksteps = -(-kc // 256)
+    # the tiling: slabs of at most SLAB_COLS columns (whole groups of 8
+    # items) and LANE_TILE lanes a block, the slab halved (to 64 columns)
+    # and then the lanes (to 16) while a block's shared memory does not fit
+    target, lane_tile = SLAB_COLS, LANE_TILE
+    while True:
+        ips = max(8, target // src.shape[1] // 8 * 8)
+        ops = max(8, target // 8 * 8)
+        cols, tile0, col_src, slab_cols = draw_slabs(G, src, other, ips, ops)
+        if _draw_bytes(ksteps, G is not None, lane_tile, slab_cols) <= SMEM_BLOCK_BYTES:
+            break
+        if target > 64:
+            target //= 2
+        elif lane_tile > 16:
+            lane_tile //= 2
+        else:
+            raise ValueError(f"kc {kc}: 16 lanes' info words pass a block's shared memory")
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
 
     return PoolTables(
         code=sdc, channel_type=channel_type, modulation=mod,
-        gcols=None if G is None else i32(pack_columns(G).view(np.int32)),
+        gtiles=None if G is None else torch.as_tensor(g_tiles(G, cols), device=dev),
+        slab_tile0=None if G is None else i32(tile0),
+        col_src=None if G is None else i32(col_src),
+        ksteps=ksteps, kwords=-(-kc // 32), kw=-(-kc // 128) * 4,
         item_src=i32(src), item_dst=i32(dst), other_pos=i32(other),
         other_short=torch.as_tensor(short[other].astype(np.uint8), device=dev),
         points=torch.as_tensor(pts, device=dev), logp=torch.as_tensor(logp, device=dev),
         label_of=i32(label_of), point_of=i32(point_of),
+        lane_tile=lane_tile, items_per_slab=ips, others_per_slab=ops,
+        slab_cols=slab_cols if G is not None else 0,
     )
+
+
+def _draw_bytes(ksteps: int, has_g: bool, lane_tile: int, slab_cols: int) -> int:
+    """Shared memory of a draw block (``ldpc_pool_draw_bytes``): the lanes'
+    info words (``8 ksteps`` rows of ``lane_tile + 8`` words), the slab's
+    generator tiles (256 bytes a tile and k-step) and its encoded bits."""
+    if not has_g:
+        return 0
+    return 8 * ksteps * (lane_tile + 8) * 4 + slab_cols // 8 * ksteps * 256 + slab_cols * lane_tile
+
+
+def draw_bytes(pt: PoolTables) -> int:
+    """Shared memory of one of ``pt``'s draw blocks."""
+    return _draw_bytes(pt.ksteps, pt.gtiles is not None, pt.lane_tile, pt.slab_cols)
 
 
 def draw_keys(gen: torch.Generator, n: int, device) -> torch.Tensor:
@@ -171,6 +295,88 @@ def _check_pool(pt: PoolTables, refill, avail, fresh_llr, fresh_cw, ctr, started
     ):
         _check(t, name, dtype, shape, pt.device)
     return B
+
+
+def pool_plan_plain(refill: torch.Tensor, avail: torch.Tensor, ctr: torch.Tensor,
+                    started: torch.Tensor, quota: int, remaining: torch.Tensor):
+    """Plain version of :func:`pool_plan`."""
+    B = avail.shape[0]
+    do_gen = int(refill[0]) > 0 and B - int(avail.sum()) >= pool_watermark(B)
+    used = torch.nonzero(avail == 0).flatten().to(torch.int32) if do_gen else avail[:0]
+    lanes = torch.zeros(B, dtype=torch.int32, device=avail.device)
+    lanes[:used.shape[0]] = used
+    ctl = torch.tensor([int(do_gen), used.shape[0]], dtype=torch.int32, device=avail.device)
+    remaining.copy_(torch.clamp(quota - started - ctr[4].sum(dtype=torch.int64), 0,
+                                _INT32_SAFE).to(torch.int32))
+    return ctl, lanes
+
+
+def pool_plan(refill: torch.Tensor, avail: torch.Tensor, ctr: torch.Tensor,
+              started: torch.Tensor, quota: int, remaining: torch.Tensor):
+    """The refill's plan, on the device: ``(ctl, lanes)``, int32 ``ctl =
+    [do_gen, count]`` (``count`` the used lanes when ``do_gen``, else 0)
+    and ``lanes`` ``[B]``, whose first ``count`` entries are the used lanes
+    (``avail == 0``) in lane order (listed only when ``do_gen``: a chunk
+    that keeps its pool skips the scan); and ``remaining = clamp(quota - started
+    - sum(ctr[4]), 0)``, in place.  On CUDA one block's lane-order scan
+    (``csrc/pool_refill.cu`` ``pool_plan_kernel``), counted in
+    ``pool_plan.launches``; on the CPU :func:`pool_plan_plain`."""
+    B = avail.shape[0]
+    for name, t, dtype, shape in (("refill", refill, torch.int32, (1,)),
+                                  ("avail", avail, torch.int32, (B,)),
+                                  ("ctr", ctr, torch.int32, (5, B)),
+                                  ("started", started, torch.int64, (1,)),
+                                  ("remaining", remaining, torch.int32, (1,))):
+        _check(t, name, dtype, shape, avail.device)
+    if avail.device.type == "cpu":
+        return pool_plan_plain(refill, avail, ctr, started, quota, remaining)
+    _require_cuda(avail)
+    dev = avail.device
+    lib = build.load()
+    ctl = torch.empty(2, dtype=torch.int32, device=dev)
+    lanes = torch.empty(B, dtype=torch.int32, device=dev)
+    err = lib.ldpc_pool_plan(_p(avail), _p(ctr), _p(started), int(quota), _p(refill),
+                             pool_watermark(B), B, _p(ctl), _p(remaining), _p(lanes),
+                             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, "pool_plan")
+    pool_plan.launches += 1
+    return ctl, lanes
+
+
+pool_plan.launches = 0
+
+
+def _draw(pt: PoolTables, x_value: float, fresh: torch.Tensor, fresh_cw: torch.Tensor, B: int,
+          key: torch.Tensor, avail=None, lanes=None, count=None, debug=None,
+          debug_info=None) -> None:
+    """One launch of the draw kernel over ``lanes[:count]`` (every lane of
+    the batch when None)."""
+    dev = fresh.device
+    _check(key, "key", torch.int64, key.shape[:1], dev)
+    n_items, bpi = pt.item_src.shape
+    if debug is not None:
+        _check(debug, "debug", torch.float32, (n_items, B), dev)
+    if debug_info is not None:
+        _check(debug_info, "debug_info", torch.int32, (pt.kwords, B), dev)
+    sigma2 = np.float32(10.0 ** (-float(x_value) / 10.0))
+    awgn = pt.channel_type == "AWGN"
+    bsc = pt.channel_type == "BSC"
+    delta = float(np.float32(np.log((1.0 - x_value) / x_value))) if bsc else 0.0
+    lib = build.load()
+    err = lib.ldpc_pool_draw(
+        pt.channel, _p_or_null(pt.gtiles), _p_or_null(pt.slab_tile0), _p_or_null(pt.col_src),
+        pt.ksteps, pt.kwords, pt.kw, _p(pt.item_src), _p(pt.item_dst),
+        n_items, bpi, _p(pt.other_pos), _p(pt.other_short), pt.other_pos.shape[0],
+        pt.other_col0, _p(pt.points), _p(pt.logp), _p(pt.label_of), _p(pt.point_of),
+        pt.points.shape[0], pt.lane_tile, pt.items_per_slab, pt.others_per_slab, pt.slab_cols,
+        _p(fresh), _p(fresh_cw), _p_or_null(avail),
+        _p_or_null(lanes), _p_or_null(count), _p(key), _p_or_null(debug), _p_or_null(debug_info),
+        B, float(np.sqrt(sigma2)) if awgn else 0.0,
+        float(np.float32(1.0) / sigma2) if awgn else 0.0,
+        float(np.float32(2.0) * sigma2) if awgn else 0.0,
+        delta, float(np.float32(x_value)), delta if bsc else float(np.float32(SHORTEN_LLR)),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, "the channel draw")
 
 
 def pool_refill_plain(pt: PoolTables, gen: torch.Generator, x_value: float,
@@ -194,7 +400,8 @@ def pool_refill_plain(pt: PoolTables, gen: torch.Generator, x_value: float,
 def pool_refill(pt: PoolTables, gen: torch.Generator, x_value: float, refill: torch.Tensor,
                 avail: torch.Tensor, fresh_llr: torch.Tensor, fresh_cw: torch.Tensor,
                 ctr: torch.Tensor, started: torch.Tensor, quota: int, remaining: torch.Tensor,
-                key: Optional[torch.Tensor] = None, debug: Optional[torch.Tensor] = None) -> None:
+                key: Optional[torch.Tensor] = None, debug: Optional[torch.Tensor] = None,
+                debug_info: Optional[torch.Tensor] = None) -> None:
     """Refill the streaming pool before a chunk, in place, and set the
     chunk's start budget ``remaining``.
 
@@ -203,48 +410,53 @@ def pool_refill(pt: PoolTables, gen: torch.Generator, x_value: float, refill: to
     ``refill`` (int32 ``[1]``) allows it, ``ctr`` the chunk's counters (row
     4: starts so far in this super-step), ``started`` (int64 ``[1]``) the
     frames started before it and ``quota`` the shard's start quota.  On
-    CUDA: one planning launch (``sum(avail)``, ``do_gen``, ``remaining``)
-    and one draw launch, in which a lane returns at once unless ``do_gen``
-    and its entry is used; ``key`` (int64 ``[1]`` on the device; drawn from
-    ``gen`` when None) seeds the draw's Philox, and ``debug`` (float32
-    ``[n_items, B]``), when given, takes each drawn item's normal or
-    uniform.  Counted in ``pool_refill.launches`` (one per refill).  On the
-    CPU: :func:`pool_refill_plain`."""
+    CUDA: :func:`pool_plan` (``do_gen``, the used lanes in order,
+    ``remaining``), then one draw launch over the listed lanes (none unless
+    ``do_gen``); ``key`` (int64 ``[1]`` on the device; drawn from ``gen``
+    when None) seeds the draw's Philox, ``debug`` (float32 ``[n_items,
+    B]``) takes each drawn item's normal or uniform and ``debug_info``
+    (int32 ``[kwords, B]``) each drawn lane's info words.  Counted in
+    ``pool_refill.launches`` (one per refill).  On the CPU:
+    :func:`pool_refill_plain`."""
     B = _check_pool(pt, refill, avail, fresh_llr, fresh_cw, ctr, started, remaining)
     if avail.device.type == "cpu":
         return pool_refill_plain(pt, gen, x_value, refill, avail, fresh_llr, fresh_cw, ctr,
                                  started, quota, remaining)
     _require_cuda(avail)
-    dev = avail.device
     if key is None:
-        key = draw_keys(gen, 1, dev)
-    _check(key, "key", torch.int64, key.shape[:1], dev)
-    n_items = pt.item_src.shape[0]
-    if debug is not None:
-        _check(debug, "debug", torch.float32, (n_items, B), dev)
-    lib = build.load()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    ctl = torch.empty(1, dtype=torch.int32, device=dev)
-    err = lib.ldpc_pool_plan(_p(avail), _p(ctr), _p(started), int(quota), _p(refill),
-                             pool_watermark(B), B, _p(ctl), _p(remaining), stream)
-    _raise_on(lib, err, "pool_refill (plan)")
-    sigma2 = np.float32(10.0 ** (-float(x_value) / 10.0))
-    eps = float(np.float32(x_value))
-    awgn = pt.channel_type == "AWGN"
-    delta = (float(np.float32(np.log((1.0 - x_value) / x_value)))
-             if pt.channel_type == "BSC" else 0.0)
-    err = lib.ldpc_pool_draw(
-        pt.channel, _p_or_null(pt.gcols), pt.kw, _p(pt.item_src), _p(pt.item_dst), n_items,
-        pt.item_src.shape[1], _p(pt.other_pos), _p(pt.other_short), pt.other_pos.shape[0],
-        _p(pt.points), _p(pt.logp), _p(pt.label_of), _p(pt.point_of), pt.points.shape[0],
-        _p(fresh_llr), _p(fresh_cw), _p(avail), _p(ctl), _p(key), _p_or_null(debug), B,
-        float(np.sqrt(sigma2)) if awgn else 0.0,
-        float(np.float32(1.0) / sigma2) if awgn else 0.0,
-        float(np.float32(2.0) * sigma2) if awgn else 0.0,
-        delta, eps, delta if pt.channel_type == "BSC" else float(np.float32(SHORTEN_LLR)),
-        stream)
-    _raise_on(lib, err, "pool_refill (draw)")
+        key = draw_keys(gen, 1, avail.device)
+    ctl, lanes = pool_plan(refill, avail, ctr, started, quota, remaining)
+    _draw(pt, x_value, fresh_llr, fresh_cw, B, key, avail=avail, lanes=lanes, count=ctl[1:],
+          debug=debug, debug_info=debug_info)
     pool_refill.launches += 1
 
 
 pool_refill.launches = 0
+
+
+def channel_batch(pt: PoolTables, gen: torch.Generator, batch: int, x_value: float,
+                  key: Optional[torch.Tensor] = None, debug: Optional[torch.Tensor] = None,
+                  debug_info: Optional[torch.Tensor] = None) -> ChannelOutput:
+    """One channel batch of ``batch`` frames: the decoder input (float32
+    ``[nc, batch]`` LLRs, u8 symbols for the BEC) and the codewords (u8
+    ``[nc, batch]``), as :func:`..channel.simulate_channel` returns them.
+    On CUDA one launch of K8's draw with every lane taken (no plan; ``key``,
+    ``debug`` and ``debug_info`` as :func:`pool_refill` takes them), counted
+    in ``channel_batch.launches``; on the CPU :func:`simulate_channel` from
+    ``gen``."""
+    dev = pt.device
+    if dev.type == "cpu":
+        return simulate_channel(pt.code, pt.channel_type, gen, batch, x_value, pt.modulation)
+    _require_cuda(pt.item_src)
+    if key is None:
+        key = draw_keys(gen, 1, dev)
+    nc = pt.code.nc
+    llr = torch.empty((nc, batch), dtype=torch.uint8 if pt.channel_type == "BEC" else torch.float32,
+                      device=dev)
+    cw = torch.empty((nc, batch), dtype=torch.uint8, device=dev)
+    _draw(pt, x_value, llr, cw, batch, key, debug=debug, debug_info=debug_info)
+    channel_batch.launches += 1
+    return ChannelOutput(llr=llr, codeword=cw)
+
+
+channel_batch.launches = 0

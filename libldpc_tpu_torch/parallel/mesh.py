@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.channel import make_generator, simulate_channel
+from ..ops.channel import make_generator
 from ..ops.kernels.decode_bec import bec_decode_fused, bec_decode_fused_plain
 from ..ops.kernels.decode_fused import bp_decode_fused, bp_decode_fused_plain
 from ..ops.kernels.decode_layered import (
@@ -36,6 +36,7 @@ from ..ops.kernels.decode_layered import (
     bp_decode_layered_plain,
 )
 from ..ops.kernels.layout import KernelTables, kernel_tables
+from ..ops.kernels.pool_refill import PoolTables, channel_batch, pool_tables
 
 FRAME_AXIS = "frames"
 POINT_AXIS = "points"
@@ -204,12 +205,15 @@ def on_device(device: torch.device):
 
 
 class Replicas:
-    """The tables (and the device form of a modulation's bit mapper) of
-    one code on each device of a mesh, built once per device."""
+    """The tables (the device form of a modulation's bit mapper, and the
+    channel draw's tables of ``channel_type``) of one code on each device
+    of a mesh, each built once per device."""
 
-    def __init__(self, tables: KernelTables, modulation=None):
+    def __init__(self, tables: KernelTables, modulation=None, channel_type: Optional[str] = None):
         self._tables = {tables.device: tables}
         self._modulation = modulation
+        self._channel_type = channel_type
+        self._pools = {}
 
     def tables(self, device: torch.device) -> KernelTables:
         device = canonical_device(device)
@@ -222,6 +226,15 @@ class Replicas:
             return None
         cstl, mapper = self._modulation
         return cstl, mapper.to(device)
+
+    def pool(self, device: torch.device) -> PoolTables:
+        """The channel draw's tables on ``device`` (:func:`pool_tables`),
+        built at the first call."""
+        device = canonical_device(device)
+        if device not in self._pools:
+            self._pools[device] = pool_tables(self.tables(device).code, self._channel_type,
+                                              self.modulation(device))
+        return self._pools[device]
 
 
 # ----------------------------------------------------------- the batch step
@@ -241,24 +254,25 @@ def batch_decoder(tables: KernelTables, schedule: str, plain: bool = False):
 
 def _sim_and_count(
     tables: KernelTables,
+    pool: PoolTables,
     gen: torch.Generator,
     x_value: float,
-    channel_type: str,
     dec,
     batch: int,
     schedule: str,
     forensics: bool = False,
-    modulation=None,
     plain: bool = False,
 ):
-    """Simulate (through ``modulation``'s constellation when given), decode with the schedule's batch kernel in
-    ``dec.message_dtype`` (the BEC: the peeling kernel, flooding), count
-    from its decisions.  Bit errors count the transmitted bits
-    (``bit_pos``) only.  ``forensics`` returns
-    :class:`ForensicStepCounters`, else :class:`StepCounters`.  ``plain``
-    decodes with the kernels' plain versions (on any device: the card's
-    checks hold a kernel step against it on the same draws)."""
-    ch = simulate_channel(tables.code, channel_type, gen, batch, x_value, modulation)
+    """Draw a channel batch with K8 (:func:`channel_batch` on ``pool``, the
+    channel's and modulation's tables; on the CPU the plain channel),
+    decode with the schedule's batch kernel in ``dec.message_dtype`` (the
+    BEC: the peeling kernel, flooding), count from its decisions.  Bit
+    errors count the transmitted bits (``bit_pos``) only.  ``forensics``
+    returns :class:`ForensicStepCounters`, else :class:`StepCounters`.
+    ``plain`` decodes with the kernels' plain versions (on any device, on
+    the same draws: the card's checks hold a kernel step against it)."""
+    ch = channel_batch(pool, gen, batch, x_value)
+    channel_type = pool.channel_type
     if channel_type == "BEC":
         out = (bec_decode_fused_plain if plain else bec_decode_fused)(
             tables, ch.llr, ch.codeword, iterations=dec.iterations, early_term=dec.early_term,
@@ -307,9 +321,9 @@ class ShardedStep:
         out = []
         for s, gen in zip(self._shards, gens):
             with on_device(s.device):
-                out.append(self._count(self._replicas.tables(s.device), gen,
-                                       float(x_values[s.point]),
-                                       self._replicas.modulation(s.device)))
+                out.append(self._count(self._replicas.tables(s.device),
+                                       self._replicas.pool(s.device), gen,
+                                       float(x_values[s.point])))
         return out
 
     def reduce(self, parts: list):
@@ -359,17 +373,17 @@ def make_sim_step(
     mesh is a frame shard), the forensic planes ``[nc, shards * batch]`` in
     frame order.  ``plain`` decodes with the plain versions."""
 
-    def count(tb, gen, x, mod_dev):
-        return _sim_and_count(tb, gen, x, channel_type, dec, batch, schedule, forensics,
-                              mod_dev, plain)
+    def count(tb, pool, gen, x):
+        return _sim_and_count(tb, pool, gen, x, dec, batch, schedule, forensics, plain)
 
+    replicas = Replicas(tables, modulation, channel_type)
     if mesh is None:
         def step(gen: torch.Generator, x_value: float):
-            return count(tables, gen, x_value, modulation)
+            return count(tables, replicas.pool(tables.device), gen, x_value)
 
         return step
     flat = Mesh(mesh.devices.reshape(-1), (FRAME_AXIS,), mesh.processes.reshape(-1))
-    sharded = ShardedStep(Replicas(tables, modulation), flat, count)
+    sharded = ShardedStep(replicas, flat, count)
 
     def step(gens, x_value: float):
         out = sharded(gens, [x_value])
@@ -390,8 +404,7 @@ def make_multipoint_sim_step(
     ``[n_points, nc, frames of a point]``."""
     mesh.shape[POINT_AXIS]  # a points axis is required
 
-    def count(tb, gen, x, mod_dev):
-        return _sim_and_count(tb, gen, x, channel_type, dec, batch, schedule, forensics,
-                              mod_dev, plain)
+    def count(tb, pool, gen, x):
+        return _sim_and_count(tb, pool, gen, x, dec, batch, schedule, forensics, plain)
 
-    return ShardedStep(Replicas(tables, modulation), mesh, count)
+    return ShardedStep(Replicas(tables, modulation, channel_type), mesh, count)

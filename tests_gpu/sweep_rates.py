@@ -1,7 +1,7 @@
 """Sweep rates over long windows, from any checkout of the port, for
 comparing two commits on one card in one call.
 
-    python3 tests_gpu/sweep_rates.py <root of a checkout> [reps] [exact|streaming]
+    python3 tests_gpu/sweep_rates.py <root of a checkout> [reps] [exact|streaming|batch]
 
 It imports ``libldpc_tpu_torch`` from that root.  Every point runs 50
 iterations, B = 16384, seed 1, with no frame-error stop and ``max_frames``
@@ -21,6 +21,11 @@ frames are exactly 786,432).
   7.5 and 7.75 dB, float32 BP; then the BEC streaming step at erasure rate
   0.40 (``make_streaming_fused_step(tables, "BEC")``, host clock over 8
   super-steps after 2 warm ones), one ``stream`` line per run.
+* ``batch``: the batch-stepped points, whose every batch draws a full
+  channel batch (K8's ``channel_batch`` on the card): the BEC
+  sweep of the 1152 code (K6, ET) at erasure rates 0.35 and 0.40, and the
+  1152 flooding BPSK point at 2.0 dB without early termination (K1, BP), as
+  ``--channel BEC`` and ``--no-early-term`` run them.
 
 Run it on two trees in turns (parent, change, change, parent).
 """
@@ -51,9 +56,10 @@ def main() -> int:
 
     def sweep(code, snr, batches, **dec):
         modulation = dec.pop("modulation", None)
+        channel_type = dec.pop("channel", "AWGN")
         return Simulator(
             code, DecoderParams(iterations=50, **dec),
-            ChannelParams(seed=1, x_range=(snr, snr + 0.001, 1.0)),
+            ChannelParams(seed=1, x_range=(snr, snr + 0.001, 1.0), type=channel_type),
             SimulationParams(batch_size=16384, fec=10**9, max_frames=batches * 16384),
             device=dev, verbose=False, use_pallas=True, modulation=modulation,
         ).start()
@@ -63,6 +69,11 @@ def main() -> int:
                    dict(layered=True, type="BP", message_dtype="float32")),
                   ("wifi648 layered BP_MS int8", wifi_code(648), 2.0,
                    dict(layered=True, type="BP_MS", message_dtype="int8"))]
+    elif which == "batch":
+        points = ([("bench1152 BEC peeling", bench, eps, dict(channel="BEC"))
+                   for eps in (0.35, 0.40)]
+                  + [("bench1152 flooding BP float32 no-ET", bench, 2.0,
+                      dict(type="BP", early_term=False))])
     else:
         ask4 = (Constellation.mask(4, [0, 1, 3, 2]), default_bit_mapper(2, bench.nct // 2))
         wifi = wifi_code(1944)
@@ -76,7 +87,9 @@ def main() -> int:
     for tag, code, snr, dec in points:
         for r in range(reps):
             res = sweep(code, snr, BATCHES, **dict(dec))
-            print(f"rate {tag} ET {snr} dB run {r}: {1.0 / res.time[0]:.0f} frames/s (avg_iter "
+            unit = "" if dec.get("channel") == "BEC" else " dB"
+            et = "" if dec.get("early_term", True) is False else " ET"
+            print(f"rate {tag}{et} {snr}{unit} run {r}: {1.0 / res.time[0]:.0f} frames/s (avg_iter "
                   f"{res.avg_iter[0]:.4f}, FER {res.fer[0]:.4e}, frame errors {int(res.fec[0])}, "
                   f"{int(res.frames[0])} frames) [{root.name}]", flush=True)
     if which == "streaming":

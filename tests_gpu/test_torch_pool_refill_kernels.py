@@ -1,6 +1,7 @@
-"""Card tests of K8 (the streaming pool's refill, ``csrc/pool_refill.cu``)
-and of the start grants in lane order of the streaming chunks K2, K4 and K7
-in a chunk where the quota binds.
+"""Card tests of K8 (the channel draw, ``csrc/pool_refill.cu``: the
+streaming pool's refill and the full channel batch of a batch step) and of
+the start grants in lane order of the streaming chunks K2, K4 and K7 in a
+chunk where the quota binds.
 
 * K8 against its plain version for each channel (BPSK, 4-ASK, BSC, BEC) on
   the 1152 (3,6) code and wifi 1944: which entries are taken, ``avail``
@@ -9,7 +10,13 @@ in a chunk where the quota binds.
   its drawn normals or uniforms (its debug plane) give K8's values bit for
   bit (4-ASK's logsumexps within 1e-5 relative); no entry moves when the
   watermark is not met or refill is off; the pool's statistics agree with
-  the plain refill's within 5 standard errors.
+  the plain refill's within 5 standard errors; every drawn codeword is
+  ``u G mod 2`` of the lane's info words (its ``debug_info`` plane).
+* K8's full batch (``channel_batch``) the same way against
+  ``simulate_channel``; the plan's lane list and the redesigned grant
+  against their plain versions at B = 16384, 1000 and 33 (and on planes
+  that are not 16-byte aligned); a batch step of K1, K5 and K6, drawn
+  through ``channel_batch``, counts as its plain step on the same draws.
 * A chunk under a binding quota, from the same state: K2 (its tile forms
   and its HBM-plane form, float32, bfloat16 and int8), K4 (each form) and K7
   (the word and the byte form), run ``ordered``, equal their plain chunks'
@@ -32,12 +39,14 @@ from libldpc_tpu_torch.ops.kernels import pool_refill as pr
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 from libldpc_tpu_torch.ops.streaming_fused import init_state
+from libldpc_tpu_torch.parallel.mesh import make_sim_step
+from libldpc_tpu_torch.sim.driver import DecoderParams
 
 pytestmark = pytest.mark.cuda
 
 B = 16384
 CODES = {"bench1152": lambda: make_benchmark_code(1152, 3, 6, seed=0, with_G=True),
-         "wifi1944": lambda: wifi_code(1944)}
+         "wifi1944": lambda: wifi_code(1944), "wifi648": lambda: wifi_code(648)}
 CHANNELS = {"BPSK": ("AWGN", 2.0), "4-ASK": ("AWGN", 7.5), "BSC": ("BSC", 0.05),
             "BEC": ("BEC", 0.40)}
 GRAY4 = [0, 1, 3, 2]
@@ -110,8 +119,55 @@ def syndrome_zero(tables, cw):
     return ((par % 2) == 0).all(0)
 
 
+def encoded(tables, info):
+    """``u G mod 2`` of info words ``info`` (int32 ``[kwords, n]``, bit
+    ``i`` of word ``j`` info bit ``32 j + i``), u8 ``[nc, n]``."""
+    G = tables.code.G
+    kc = G.shape[0]
+    shifts = torch.arange(32, device=info.device, dtype=torch.int64)
+    bits = ((info.to(torch.int64)[:, None, :] >> shifts[None, :, None]) & 1).reshape(-1, info.shape[1])
+    return (torch.matmul(G.t(), bits[:kc].to(torch.float32)).to(torch.int64) % 2).to(torch.uint8)
+
+
+def check_draw(tables, pt, channel_type, x, modulation, cw, vals, draws, info):
+    """A drawn batch (its columns): codewords with ``H c = 0`` equal to
+    ``u G`` of the lanes' info words, values equal to the plain formulas on
+    the codewords and draws (4-ASK within 1e-5 relative)."""
+    assert bool((cw <= 1).all()) and bool(syndrome_zero(tables, cw).all())
+    if pt.gtiles is not None:
+        assert torch.equal(cw, encoded(tables, info))
+    assert not bool(torch.isnan(draws).any())
+    want = channel.channel_values(tables.code, channel_type, cw, draws, x, modulation)
+    if modulation is not None:
+        torch.testing.assert_close(vals, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(vals, want)
+
+
+def stat_pairs(tables, channel_type, pools):
+    """(codeword bits, channel statistic) of each pool's transmitted bits."""
+    tx = tables.code.bit_pos.long()
+    out = []
+    for v, c in pools:
+        v, c = v[tx].double(), c[tx].double()
+        if channel_type == "BEC":
+            stat = (v == channel.BEC_ERASURE).double()
+        elif channel_type == "BSC":
+            stat = ((v < 0).double() != c).double()
+        else:
+            stat = v * (1 - 2 * c)
+        out.append((c.flatten(), stat.flatten()))
+    return out
+
+
+def assert_same_statistics(pairs):
+    for a, b in zip(*pairs):
+        se = (a.var() / a.numel() + b.var() / b.numel()).sqrt()
+        assert abs(float(a.mean() - b.mean())) < 5 * float(se)
+
+
 @pytest.mark.parametrize("kind", list(CHANNELS))
-@pytest.mark.parametrize("code", list(CODES))
+@pytest.mark.parametrize("code", ["bench1152", "wifi1944"])
 def test_k8_against_plain(tables_of, code, kind):
     tables = tables_of(code)
     pt, channel_type, x, modulation = pool_of(tables, kind)
@@ -120,8 +176,13 @@ def test_k8_against_plain(tables_of, code, kind):
     taken = s0["avail"] == 0
     k8, plain = clone(s0), clone(s0)
     debug = torch.full((pt.item_src.shape[0], B), float("nan"), device=tables.device)
+    info = torch.zeros((pt.kwords, B), dtype=torch.int32, device=tables.device)
     before = pr.pool_refill.launches
-    refill(pr.pool_refill, pt, k8, x, True, 1, debug)
+    dev = tables.device
+    pr.pool_refill(pt, channel.make_generator(dev, 5, 1), x,
+                   torch.ones(1, dtype=torch.int32, device=dev), k8["avail"], k8["fresh"],
+                   k8["fresh_cw"], k8["ctr"], k8["started"], 10**6, k8["remaining"], debug=debug,
+                   debug_info=info)
     refill(pr.pool_refill_plain, pt, plain, x, True, 1)
     torch.cuda.synchronize()
     assert pr.pool_refill.launches == before + 1
@@ -131,30 +192,138 @@ def test_k8_against_plain(tables_of, code, kind):
         assert torch.equal(k8[name][:, ~taken], s0[name][:, ~taken]), name
         assert torch.equal(plain[name][:, ~taken], s0[name][:, ~taken]), name
         assert not bool((k8[name][:, taken] == s0[name][:, taken]).all(0).any()), name
-    cw = k8["fresh_cw"][:, taken]
-    assert bool((cw <= 1).all()) and bool(syndrome_zero(tables, cw).all())
-    assert not bool(torch.isnan(debug[:, taken]).any())
-    want = channel.channel_values(tables.code, channel_type, cw, debug[:, taken], x, modulation)
-    got = k8["fresh"][:, taken]
-    if kind == "4-ASK":
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    else:
-        assert torch.equal(got, want)
-    # the statistics of the two pools' drawn entries
-    tx = tables.code.bit_pos.long()
-    stats = []
-    for s in (k8, plain):
-        v, c = s["fresh"][tx][:, taken].double(), s["fresh_cw"][tx][:, taken].double()
-        if channel_type == "BEC":
-            stat = (v == channel.BEC_ERASURE).double()
-        elif channel_type == "BSC":
-            stat = ((v < 0).double() != c).double()
-        else:
-            stat = v * (1 - 2 * c)
-        stats.append((c.flatten(), stat.flatten()))
-    for a, b in zip(*stats):
-        se = (a.var() / a.numel() + b.var() / b.numel()).sqrt()
-        assert abs(float(a.mean() - b.mean())) < 5 * float(se)
+    check_draw(tables, pt, channel_type, x, modulation, k8["fresh_cw"][:, taken],
+               k8["fresh"][:, taken], debug[:, taken], info[:, taken])
+    assert_same_statistics(stat_pairs(
+        tables, channel_type, [(s["fresh"][:, taken], s["fresh_cw"][:, taken]) for s in (k8, plain)]))
+
+
+@pytest.mark.parametrize("kind", list(CHANNELS))
+@pytest.mark.parametrize("code", ["bench1152", "wifi1944"])
+def test_channel_batch_against_plain(tables_of, code, kind):
+    """K8's full batch: every lane drawn, against the plain channel batch."""
+    tables = tables_of(code)
+    pt, channel_type, x, modulation = pool_of(tables, kind)
+    dev = tables.device
+    debug = torch.full((pt.item_src.shape[0], B), float("nan"), device=dev)
+    info = torch.zeros((pt.kwords, B), dtype=torch.int32, device=dev)
+    before = pr.channel_batch.launches
+    out = pr.channel_batch(pt, channel.make_generator(dev, 6, 1), B, x, debug=debug,
+                           debug_info=info)
+    want = channel.simulate_channel(tables.code, channel_type, channel.make_generator(dev, 6, 1),
+                                    B, x, modulation)
+    torch.cuda.synchronize()
+    assert pr.channel_batch.launches == before + 1
+    assert out.llr.dtype == want.llr.dtype and out.llr.shape == want.llr.shape
+    assert out.codeword.shape == want.codeword.shape
+    check_draw(tables, pt, channel_type, x, modulation, out.codeword, out.llr, debug, info)
+    assert_same_statistics(stat_pairs(tables, channel_type, [(out.llr, out.codeword),
+                                                             (want.llr, want.codeword)]))
+
+
+@pytest.mark.parametrize("with_g", [True, False])
+def test_channel_batch_punctured_shortened(cuda_device, with_g):
+    """Punctured and shortened positions (the draw's slab of positions no
+    item writes), with the generator and without it (the all-zero word)."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from libldpc_tpu_torch.models import make_regular_code
+
+    code = (make_benchmark_code(1152, 3, 6, seed=0, with_G=True) if with_g
+            else make_regular_code(1152, 3, 36, seed=1))
+    code = dc.replace(code, puncture=np.array([3, 8], np.int32), shorten=np.array([0, 17], np.int32))
+    tables = kernel_tables(to_sorted_device(code, cuda_device))
+    n = 4096
+    for kind in CHANNELS:
+        pt, channel_type, x, modulation = pool_of(tables, kind)
+        assert (pt.gtiles is not None) == with_g and pt.other_pos.shape[0] >= 4
+        debug = torch.full((pt.item_src.shape[0], n), float("nan"), device=cuda_device)
+        info = torch.zeros((pt.kwords, n), dtype=torch.int32, device=cuda_device)
+        out = pr.channel_batch(pt, channel.make_generator(cuda_device, 2), n, x, debug=debug,
+                               debug_info=info)
+        if not with_g:
+            assert not bool(out.codeword.any())
+        check_draw(tables, pt, channel_type, x, modulation, out.codeword, out.llr, debug, info)
+
+
+@pytest.mark.parametrize("kind", list(CHANNELS))
+@pytest.mark.parametrize("code", ["bench1152", "wifi1944"])
+def test_draw_bytes_match_the_kernel(tables_of, code, kind):
+    """The draw's shared memory as pool_tables sizes it equals the kernel's
+    own count (``ldpc_pool_draw_bytes``)."""
+    from libldpc_tpu_torch.ops.kernels import build
+
+    pt = pool_of(tables_of(code), kind)[0]
+    assert build.load().ldpc_pool_draw_bytes(pt.ksteps, int(pt.gtiles is not None), pt.lane_tile,
+                                             pt.slab_cols) == pr.draw_bytes(pt)
+
+
+@pytest.mark.parametrize("batch", [16384, 1000, 33])
+@pytest.mark.parametrize("used_share", [0.0, 0.5, 0.8, 1.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_plan_lanes_equal_plain(cuda_device, batch, used_share, offset):
+    """The plan's used lanes in order, do_gen, its count and ``remaining``
+    against its plain version; ``offset`` 1 views the planes 4 bytes past
+    an aligned start (the scan's lane-by-lane loads)."""
+    g = torch.Generator(device="cpu").manual_seed(batch + int(10 * used_share))
+    avail = (torch.rand(batch + offset, generator=g) >= used_share).to(torch.int32).to(cuda_device)
+    ctr = torch.randint(0, 3, (5, batch), dtype=torch.int32, generator=g).to(cuda_device)
+    av = avail[offset:]
+    got_rem, want_rem = (torch.zeros(1, dtype=torch.int32, device=cuda_device) for _ in range(2))
+    started = torch.tensor([7], dtype=torch.int64, device=cuda_device)
+    refill_on = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    before = pr.pool_plan.launches
+    ctl, lanes = pr.pool_plan(refill_on, av, ctr, started, 10**5, got_rem)
+    ctl_p, lanes_p = pr.pool_plan_plain(refill_on, av, ctr, started, 10**5, want_rem)
+    torch.cuda.synchronize()
+    assert pr.pool_plan.launches == before + 1
+    assert torch.equal(ctl, ctl_p) and torch.equal(got_rem, want_rem)
+    n = int(ctl[1])  # every used lane when the pool is drawn, none otherwise
+    assert n == (int((av == 0).sum()) if int(ctl[0]) else 0)
+    assert torch.equal(lanes[:n], lanes_p[:n])
+    assert torch.equal(lanes[:n].long(), torch.nonzero(av == 0).flatten()[:n])
+
+
+@pytest.mark.parametrize("batch", [16384, 1000, 33])
+@pytest.mark.parametrize("quota", [0, 5, 400, 10**6])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_stream_grant_equals_plain(cuda_device, batch, quota, offset):
+    """The redesigned grant (16-byte loads and stores where aligned, lane by
+    lane elsewhere) against ``stream_grant_plain``."""
+    g = torch.Generator(device="cpu").manual_seed(batch + quota)
+    planes = [(torch.rand(batch + offset, generator=g) < 0.6).to(torch.int32).to(cuda_device)
+              for _ in range(2)]
+    done, avail = (p_[offset:] for p_ in planes)
+    for refill_on in (1, 0):
+        flag = torch.tensor([refill_on], dtype=torch.int32, device=cuda_device)
+        rem_k = torch.tensor([quota], dtype=torch.int32, device=cuda_device)
+        rem_p = rem_k.clone()
+        got = df.stream_grant(done, avail, flag, rem_k)
+        want = df.stream_grant_plain(done, avail, flag, rem_p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(rem_k, rem_p)
+
+
+@pytest.mark.parametrize("case", ["K1", "K5", "K6"])
+def test_batch_step_draws_through_k8(tables_of, case):
+    """A batch step of K1 (flooding), K5 (exact layered) and K6 (BEC) draws
+    its channel with K8's full batch and counts as its plain step on the
+    same draws (the min-sum family and the peeling are exact)."""
+    code, channel_type, x, schedule = {
+        "K1": ("bench1152", "AWGN", 2.0, "flooding"),
+        "K5": ("wifi648", "AWGN", 2.0, "layered"),
+        "K6": ("bench1152", "BEC", 0.40, "flooding")}[case]
+    tables = tables_of(code)
+    dec = DecoderParams(iterations=50, type="BP_MS", layered=schedule == "layered")
+    before = pr.channel_batch.launches
+    got, want = (make_sim_step(tables, channel_type, dec, 4096, schedule, plain=plain)(
+        channel.make_generator(tables.device, 4, 0), x) for plain in (False, True))
+    torch.cuda.synchronize()
+    assert pr.channel_batch.launches == before + 2
+    assert [int(v) for v in got] == [int(v) for v in want]
+    assert 0 < int(got.frames) == 4096
 
 
 @pytest.mark.parametrize("used,refill_on", [(12287, True), (16384, False)])
