@@ -29,28 +29,39 @@ wifi 648 and wifi 1296), the fixed-iteration ``Simulator`` frames/s of the
 the checkpoint / error-log / ``LDPC`` slice (phase 11: sweeps stopped and
 resumed against the uninterrupted ones on K2 and K4, a streaming point
 resumed mid-point, the forensic error log on K1, K3 and K6, ``LDPC.decode``
-on K1, K3 and K5 against the plain versions, the threaded simulation, the
-CLI with ``--checkpoint --resume --error-log --log-codewords``), the
+on K1, K3 and K5 against the plain versions, the threaded simulation on
+each streaming engine, the CLI with ``--checkpoint --resume --error-log --log-codewords``), the
 modulation slice (phase 12: the ``sim_cuda`` command line with 4-ASK on the
-1152 code on K2 and, with ``-layer``, 8-ASK on wifi 1944 on K5,
+1152 code on the XLA super-step (K2 and K8's reload form) and, with
+``-layer``, 8-ASK on wifi 1944 on K5,
 ``LDPC.simulate`` with 16-ASK on wifi 1944 on K4, each in its waterfall;
-M = 2 against BPSK on the same draws; a modulated error log whose ``dE`` is
+M = 2 against BPSK on the same draws and 4-ASK on the fused step; a modulated error log whose ``dE`` is
 recomputed on the host; the bfloat16 sweep of a (3,6) code of 49152 edges
 that the port once refused, and K2's bfloat16 form there against its plain
 chunk on the same frames; K5 on wifi 1944 against its plain version,
 timed), the multi-device slice (phase 13: ``Simulator.start_wide`` on a
-``(2, 2)`` mesh of this card over the 1152 code on K2, wifi 1944 on K4, the
-error-logged 1152 sweep on K1 and the BEC on K6, against ``start()``, and
-each kernel's per-shard counters against its plain step; phase 14: two
-ranks of the CLI with ``--multihost --points-parallel 2`` on this card;
+``(2, 2)`` mesh of this card over the 1152 code on K2 with and without
+``--pallas`` (the fused step and the XLA super-step), wifi 1944 on K4, the
+error-logged 1152 sweep on K1 and the BEC on K6, against ``start()``, each
+engine checked, and each kernel's and each streaming engine's per-shard
+counters against its plain step; phase 14: two ranks of the CLI with
+``--multihost --points-parallel 2`` on this card, with and without
+``--pallas``;
 phase 15: ``tune_nms_scales``, ``tune_oms_offsets`` and ``decode_soft``
-against K1), and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
+against K1), the default sweep without ``--pallas`` (phase 16: the JAX
+package's XLA super-step on a one-pass K2 launch and K8's reload form, its
+super-step against the plain super-step on the card, the reload and K2's one-pass launch
+timed, the CLI sweep of the 1152 code beside phase 8's ``--pallas`` sweep,
+a ``max_frames``-ended point run five times), the padded-layout library
+(phase 17: ``bp_decode`` on K1 and K5, ``bec_decode`` on K6, each against
+its plain padded version, timed), and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -346,19 +357,23 @@ def run_resume_log_api(dev, codes, name_power, zero_counts, read_counts) -> dict
     api_case("wifi648", True, False, "float32", "BP_MS", dl.bp_decode_layered,
              dl.bp_decode_layered_plain, batch=4096, iters=20)
 
-    # -- the threaded simulation, polled and stopped
-    ldpc = LDPC(code=codes["bench1152"], device=dev)
-    ldpc.simulate(snr=[1.0, 3.01, 0.5], fec=10**9, batchSize=BATCH, iterations=ITERS,
-                  maxFrames=10**12)
-    t0 = time.perf_counter()
-    while not len(ldpc.get_results().get("frames", ())) and time.perf_counter() - t0 < 120:
-        time.sleep(0.05)
-    ldpc.stop_simulation()
-    got = ldpc.get_results()
-    check(ldpc._sim_thread is None and len(got["frames"]) == 1 and got["frames"][0] > 0
-          and np.isfinite(got["fer"]).all(), "threaded simulate")
-    print(f"LDPC.simulate threaded: stopped after {int(got['frames'][0])} frames at 1.0 dB, "
-          f"FER {got['fer'][0]:.4e}, avg_iter {got['avg_iter'][0]:.3f}")
+    # -- the threaded simulation, polled and stopped, on each streaming
+    # engine: the XLA super-step (the default) and the fused step (usePallas)
+    for use_pallas, engine in ((False, "xla-superstep"), (True, "fused-pool")):
+        ldpc = LDPC(code=codes["bench1152"], device=dev)
+        ldpc.simulate(snr=[1.0, 3.01, 0.5], fec=10**9, batchSize=BATCH, iterations=ITERS,
+                      maxFrames=10**12, usePallas=use_pallas)
+        t0 = time.perf_counter()
+        while not len(ldpc.get_results().get("frames", ())) and time.perf_counter() - t0 < 120:
+            time.sleep(0.05)
+        ldpc.stop_simulation()
+        got = ldpc.get_results()
+        check(ldpc._simulator.engine == engine, f"LDPC.simulate usePallas={use_pallas}: engine "
+              f"{ldpc._simulator.engine}")
+        check(ldpc._sim_thread is None and len(got["frames"]) == 1 and got["frames"][0] > 0
+              and np.isfinite(got["fer"]).all(), f"threaded simulate on {engine}")
+        print(f"LDPC.simulate threaded ({engine}): stopped after {int(got['frames'][0])} frames "
+              f"at 1.0 dB, FER {got['fer'][0]:.4e}, avg_iter {got['avg_iter'][0]:.3f}")
 
     # -- the CLI with every new flag, twice (the second resumes the finished sweep)
     code = codes["bench1152"]
@@ -521,7 +536,11 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
                   resultFile=str(work / "res_16ask.txt"))
     counts = read_counts()
     print(f"modulation path launches: {counts}")
+    # sim_cuda has no --pallas: its 4-ASK sweep streams on the XLA super-step
+    # (K2 one pass a launch, K8's reload form); the fused step takes 4-ASK
+    # in this phase's Simulator sweeps below (use_pallas=True)
     for name, what in (("bp_stream_chunk_fused", "K2 (4-ASK sim_cuda)"),
+                       ("stream_reload", "K8's reload form (4-ASK sim_cuda)"),
                        ("bp_decode_layered", "K5 (8-ASK sim_cuda -layer)"),
                        ("bp_stream_chunk_layered_fast", "K4 (16-ASK LDPC.simulate)")):
         check(counts[name] > 0, f"the modulation path did not run {what}")
@@ -571,6 +590,9 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
           f"{ask4.avg_iter[0]:.4f}, {1.0 / ask4.time[0]:.0f} frames/s = "
           f"{bpsk.time[0] / ask4.time[0]:.3f}x BPSK at 2.0 dB (avg_iter {bpsk.avg_iter[0]:.4f}) "
           f"[{name_power}]")
+    counts = read_counts()
+    check(counts["pool_refill"] > 0 and counts["stream_reload"] == 0,
+          f"the use_pallas sweeps (BPSK, M = 2, 4-ASK) did not run the fused step: {counts}")
 
     # -- a modulated --error-log point, dE recomputed on the host
     log = work / "errors_4ask.txt"
@@ -661,7 +683,6 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
 #: the highest SNR / lowest epsilon of each)
 WIDE_FEC = 100
 WIDE_MAX = 12 * BATCH
-#: phase 13's sweeps: (tag, code, kernel counted, channel, decoder, --pallas)
 WIDE_SNRS = (1.0, 1.5, 2.0, 2.5)
 WIDE_LOG_SNRS = (2.0, 2.25, 2.5, 2.75)
 WIDE_BEC_EPS = (0.45, 0.42, 0.39, 0.36)
@@ -671,6 +692,22 @@ def z_score(f1, n1, f2, n2) -> float:
     """Two-proportion z of FERs ``f1`` over ``n1`` and ``f2`` over ``n2``."""
     p = (f1 * n1 + f2 * n2) / (n1 + n2)
     return 0.0 if p in (0.0, 1.0) else (f1 - f2) / math.sqrt(p * (1 - p) * (1 / n1 + 1 / n2))
+
+
+@contextlib.contextmanager
+def plain_superstep():
+    """Inside it, the XLA streaming super-step's makers build the plain
+    super-step (``ops.streaming._superstep_body``, its draws K8's full batch
+    on each pass's key) on the card: the reference the card's launches are
+    held to."""
+    from libldpc_tpu_torch.ops import streaming
+
+    saved = streaming._runs_kernels
+    streaming._runs_kernels = lambda device: False
+    try:
+        yield
+    finally:
+        streaming._runs_kernels = saved
 
 
 def check_counters(tag, got, want, frames: int, nc: int, exact: bool) -> None:
@@ -692,16 +729,21 @@ def run_wide_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> 
     """Phase 13, the point-parallel sweep on one card at B = 16384 a point:
     ``Simulator.start_wide`` on a ``(2, 2)`` mesh of this card (8192 frames
     a shard, the shards of a point one after another) over four points of
-    the 1152 code on K2 (f32 BP, streaming), wifi 1944 on K4 (``--layer-file
-    --pallas``), the 1152 code batch-stepped with the error log on K1, and
-    the BEC on K6, each counted; per point the stopping rule, exact frame
-    counts, FER against ``start()`` on the same card (|z| < 3), every
-    error-log line's ``dE`` against the host's recomputation.  Then, for
-    one batch (one super-step) of each kernel, the per-shard counters of
+    the 1152 code streaming on K2 (f32 BP) twice, with ``--pallas`` (the
+    fused step, ``"fused-pool"``) and without (the XLA super-step,
+    ``"xla-superstep"``: K2 one pass a launch and K8's reload form), wifi
+    1944 on K4 (``--layer-file --pallas``), the 1152 code batch-stepped with
+    the error log on K1, and the BEC on K6, each counted and its engine
+    checked; per point the stopping rule, exact frame counts, FER against
+    ``start()`` on the same card (|z| < 3), every error-log line's ``dE``
+    against the host's recomputation.  Then, for one batch (one super-step)
+    of each kernel and of each streaming engine, the per-shard counters of
     the kernel step against its plain step on the same generators.
-    Returns the launches and the K2 sweep's rows (phase 14's reference)."""
+    Returns the launches and the two K2 sweeps' rows by engine (phase 14's
+    references)."""
     import numpy as np
 
+    from libldpc_tpu_torch.ops.streaming import make_streaming_multipoint_step
     from libldpc_tpu_torch.ops.streaming_fused import make_streaming_fused_multipoint_step
     from libldpc_tpu_torch.parallel.mesh import (
         FRAME_AXIS, POINT_AXIS, make_mesh, make_multipoint_sim_step, shard_generators,
@@ -715,20 +757,26 @@ def run_wide_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> 
     for f in work.iterdir():
         f.unlink()
     mesh = make_mesh((2, 2), (POINT_AXIS, FRAME_AXIS), [dev] * 4)
+    # (tag, code, kernel counted, channel, decoder, --pallas, the engine)
     cases = (
         ("K2 1152", "bench1152", "bp_stream_chunk_fused",
-         ChannelParams(seed=21, x_values=WIDE_SNRS), DecoderParams(iterations=ITERS), False),
+         ChannelParams(seed=21, x_values=WIDE_SNRS), DecoderParams(iterations=ITERS), True,
+         "fused-pool"),
+        ("K2 1152 XLA super-step", "bench1152", "stream_reload",
+         ChannelParams(seed=21, x_values=WIDE_SNRS), DecoderParams(iterations=ITERS), False,
+         "xla-superstep"),
         ("K4 wifi1944", "wifi1944", "bp_stream_chunk_layered_fast",
          ChannelParams(seed=22, x_values=WIDE_SNRS),
-         DecoderParams(iterations=ITERS, layered=True), True),
+         DecoderParams(iterations=ITERS, layered=True), True, "fused-pool"),
         ("K1 1152 error log", "bench1152", "bp_decode_fused",
-         ChannelParams(seed=23, x_values=WIDE_LOG_SNRS), DecoderParams(iterations=ITERS), False),
+         ChannelParams(seed=23, x_values=WIDE_LOG_SNRS), DecoderParams(iterations=ITERS), False,
+         "batch"),
         ("K6 1152 BEC", "bench1152", "bec_decode_fused",
          ChannelParams(seed=24, x_values=WIDE_BEC_EPS, type="BEC"),
-         DecoderParams(iterations=ITERS), False),
+         DecoderParams(iterations=ITERS), False, "batch"),
     )
-    launches, k2_rows = {}, None
-    for tag, key, kernel, ch, dec, pallas in cases:
+    launches, k2_rows = {}, {}
+    for tag, key, kernel, ch, dec, pallas, engine in cases:
         logged = kernel == "bp_decode_fused"
 
         def build(run):
@@ -741,6 +789,7 @@ def run_wide_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> 
                              device=dev, verbose=False, use_pallas=pallas)
 
         sim = build("wide")
+        check(sim.engine == engine, f"{tag}: engine {sim.engine}, not {engine}")
         zero_counts()
         t0 = time.perf_counter()
         wide = sim.start_wide(mesh)
@@ -750,6 +799,14 @@ def run_wide_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> 
         print(f"phase 13 {tag} start_wide launches: "
               f"{ {k: v for k, v in counts.items() if v} }")
         check(counts[kernel] > 0, f"the wide {tag} sweep did not run {kernel}")
+        if engine != "batch":
+            xla = engine == "xla-superstep"
+            check(counts["stream_reload"] > 0 if xla else counts["stream_reload"] == 0,
+                  f"{tag}: K8's reload form ran {counts['stream_reload']} times")
+            check(counts["pool_refill"] == 0 if xla else counts["pool_refill"] > 0,
+                  f"{tag}: the pool's refill ran {counts['pool_refill']} times")
+            if xla:
+                check(counts["bp_stream_chunk_fused"] > 0, f"{tag}: K2 did not run")
         t0 = time.perf_counter()
         seq = build("start").start()
         t_seq = time.perf_counter() - t0
@@ -776,8 +833,8 @@ def run_wide_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> 
         print(f"phase 13 {tag}: start_wide {t_wide:.2f} s, start() {t_seq:.2f} s of host time "
               f"for {int(wide.frames.sum())} / {int(seq.frames.sum())} frames "
               f"({wide.frames.sum() / t_wide:.0f} / {seq.frames.sum() / t_seq:.0f} frames/s)")
-        if kernel == "bp_stream_chunk_fused":
-            k2_rows = wide
+        if key == "bench1152" and engine != "batch":
+            k2_rows[engine] = wide
         if logged:
             code = codes[key]
             for run, r in (("wide", wide), ("start", seq)):
@@ -818,6 +875,20 @@ def run_wide_slice(dev, codes, tables, name_power, zero_counts, read_counts) -> 
                                tables[key].code.nc, form != "BP")
             print(f"phase 13 {name} {form} per shard, one super-step (kernel / plain): "
                   f"{[[int(v) for v in g] for g in got]} / {[[int(v) for v in w] for w in want]}")
+        # the XLA super-step (the default engine) against the plain
+        # super-step on the card, on the same generators
+        bundles = []
+        for p in (False, True):
+            with plain_superstep() if p else contextlib.nullcontext():
+                bundles.append(make_streaming_multipoint_step(
+                    tables["bench1152"], "AWGN", dec, BATCH // 2, mesh))
+        got, want = (step.per_shard(init(), shard_generators(mesh, 7, 16, 0), xs["bench1152"],
+                                    [True, True]) for init, step in bundles)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_counters(f"XLA super-step shard {i} {form}", g, w, BATCH // 2, 1152,
+                           form != "BP")
+        print(f"phase 13 XLA super-step {form} per shard, one super-step (kernel / plain): "
+              f"{[[int(v) for v in g] for g in got]} / {[[int(v) for v in w] for w in want]}")
     steps = [make_multipoint_sim_step(tables["bench1152"], "BEC", DecoderParams(iterations=ITERS),
                                       BATCH // 2, "flooding", mesh, plain=p) for p in (False, True)]
     got, want = (s.per_shard(shard_generators(mesh, 7, 15, 0), [0.40, 0.42]) for s in steps)
@@ -835,6 +906,7 @@ import json, sys
 sys.path.insert(0, {root!r})
 from libldpc_tpu_torch import cli
 from libldpc_tpu_torch.ops.kernels import decode_fused as df
+from libldpc_tpu_torch.ops.kernels import pool_refill as pr
 from libldpc_tpu_torch.sim import driver
 
 start_wide = driver.Simulator.start_wide
@@ -844,8 +916,10 @@ def reported(self, *a, **k):
     res = start_wide(self, *a, **k)
     print("RESULT " + json.dumps({{"frames": res.frames.tolist(), "fec": res.fec.tolist(),
                                   "ber": res.ber.tolist(), "avg_iter": res.avg_iter.tolist(),
-                                  "time": res.time.tolist()}}), flush=True)
-    print("LAUNCHES " + json.dumps(df.bp_stream_chunk_fused.launches), flush=True)
+                                  "time": res.time.tolist(), "engine": self.engine}}), flush=True)
+    print("LAUNCHES " + json.dumps({{"k2": df.bp_stream_chunk_fused.launches["float32"],
+                                    "reload": pr.stream_reload.launches,
+                                    "refill": pr.pool_refill.launches}}), flush=True)
     return res
 
 
@@ -854,13 +928,15 @@ sys.exit(cli.main(sys.argv[1:]))
 """
 
 
-def run_two_ranks(dev, codes, name_power, ref) -> dict:
+def run_two_ranks(dev, codes, name_power, refs) -> dict:
     """Phase 14, two processes on this card: two ranks of ``python -m
     libldpc_tpu_torch.cli --multihost --points-parallel 2`` (gloo on the
     host for the counters, each rank on ``cuda:0`` with one point of each
-    group, 16384 frames), phase 13's K2 sweep.  Both ranks must report the
-    same counters, only rank 0 may write its results file, and the rows
-    must match phase 13's (|z| < 3).  A rank that fails or hangs fails the
+    group, 16384 frames), phase 13's K2 sweep, once with ``--pallas`` (the
+    fused step) and once without (the XLA super-step).  Both ranks must
+    report the same counters and the engine of their command line, only
+    rank 0 may write its results file, and the rows must match phase 13's
+    of the same engine (|z| < 3).  A rank that fails or hangs fails the
     phase."""
     import socket
 
@@ -875,64 +951,75 @@ def run_two_ranks(dev, codes, name_power, ref) -> dict:
     r_, c_ = code.G.nonzero()
     (work / "g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r_, c_)))
     (work / "worker.py").write_text(RANK_WORKER.format(root=str(ROOT)))
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    procs = []
-    t0 = time.perf_counter()
-    for rank in range(2):
-        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE="2", LOCAL_RANK=str(rank))
-        argv = [sys.executable, str(work / "worker.py"), str(work / "h.txt"),
-                str(work / f"res_{rank}.txt"), str(WIDE_SNRS[0]), str(WIDE_SNRS[-1] + 0.01),
-                str(WIDE_SNRS[1] - WIDE_SNRS[0]), "-G", str(work / "g.txt"), "-i", str(ITERS),
-                "-s", "21", "--batch-size", str(BATCH), "--frame-error-count", str(WIDE_FEC),
-                "--max-frames", str(WIDE_MAX), "--multihost", "--points-parallel", "2",
-                "--device", str(dev)]
-        procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True, env=env, cwd=str(ROOT)))
-    outs = []
-    try:
-        for rank, p in enumerate(procs):
-            try:
-                out, _ = p.communicate(timeout=400)
-            except subprocess.TimeoutExpired:
-                raise RuntimeError(f"check failed: rank {rank} hung") from None
-            outs.append(out)
-            print(f"--- rank {rank} (exit {p.returncode})\n{out[-1500:]}")
-            check(p.returncode == 0, f"rank {rank} exited {p.returncode}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall = time.perf_counter() - t0
-    res = []
-    for rank, out in enumerate(outs):
-        found = {k: [ln[len(k) + 1:] for ln in out.splitlines() if ln.startswith(k + " ")]
-                 for k in ("RESULT", "LAUNCHES")}
-        check(all(len(v) == 1 for v in found.values()), f"rank {rank}: no result line")
-        res.append((json.loads(found["RESULT"][0]), json.loads(found["LAUNCHES"][0])))
-    (r0, l0), (r1, l1) = res
-    for k in ("frames", "fec", "ber", "avg_iter"):
-        check(r0[k] == r1[k], f"the ranks disagree on {k}: {r0[k]} / {r1[k]}")
-    check(l0["float32"] > 0 and l1["float32"] > 0, f"a rank did not run K2: {l0} / {l1}")
-    check((work / "res_0.txt").exists() and not (work / "res_1.txt").exists(),
-          "the results file was not written by rank 0 alone")
-    head = (work / "res_0.txt").read_text().splitlines()[0]
-    check(head.startswith("# kernel=cuda-fused") and "streaming=on" in head, f"rank 0: {head}")
-    for i, x in enumerate(WIDE_SNRS):
-        fer = r0["fec"][i] / r0["frames"][i]
-        check(r0["fec"][i] >= WIDE_FEC or r0["frames"][i] == WIDE_MAX, f"rank 0 {x}: stopping rule")
-        z = z_score(fer, r0["frames"][i], ref.fer[i], ref.frames[i])
-        check(abs(z) < 3, f"two ranks {x}: FER {fer} against phase 13's {ref.fer[i]}")
-        print(f"phase 14 two ranks {x} dB: FER {fer:.4e} frames {r0['frames'][i]} avg_iter "
-              f"{r0['avg_iter'][i]:.3f} frames/s {1.0 / r0['time'][i]:.0f} | one process "
-              f"(phase 13) FER {ref.fer[i]:.4e} frames/s {1.0 / ref.time[i]:.0f} | z {z:.2f} "
-              f"[{name_power}]")
-    print(f"phase 14: two ranks on one card, {wall:.1f} s wall (start-up and build load "
-          f"included), K2 launches {l0['float32']} + {l1['float32']}")
-    return {"launches": [l0["float32"], l1["float32"]]}
+    launches = {}
+    for engine, flags in (("fused-pool", ["--pallas"]), ("xla-superstep", [])):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs = []
+        t0 = time.perf_counter()
+        for rank in range(2):
+            env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
+            argv = [sys.executable, str(work / "worker.py"), str(work / "h.txt"),
+                    str(work / f"res_{engine}_{rank}.txt"), str(WIDE_SNRS[0]),
+                    str(WIDE_SNRS[-1] + 0.01), str(WIDE_SNRS[1] - WIDE_SNRS[0]), "-G",
+                    str(work / "g.txt"), "-i", str(ITERS), "-s", "21", "--batch-size", str(BATCH),
+                    "--frame-error-count", str(WIDE_FEC), "--max-frames", str(WIDE_MAX),
+                    "--multihost", "--points-parallel", "2", "--device", str(dev), *flags]
+            procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True, env=env, cwd=str(ROOT)))
+        outs = []
+        try:
+            for rank, p in enumerate(procs):
+                try:
+                    out, _ = p.communicate(timeout=400)
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"check failed: {engine} rank {rank} hung") from None
+                outs.append(out)
+                print(f"--- {engine} rank {rank} (exit {p.returncode})\n{out[-1500:]}")
+                check(p.returncode == 0, f"{engine} rank {rank} exited {p.returncode}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        res = []
+        for rank, out in enumerate(outs):
+            found = {k: [ln[len(k) + 1:] for ln in out.splitlines() if ln.startswith(k + " ")]
+                     for k in ("RESULT", "LAUNCHES")}
+            check(all(len(v) == 1 for v in found.values()), f"{engine} rank {rank}: no result")
+            res.append((json.loads(found["RESULT"][0]), json.loads(found["LAUNCHES"][0])))
+        (r0, l0), (r1, l1) = res
+        for k in ("frames", "fec", "ber", "avg_iter", "engine"):
+            check(r0[k] == r1[k], f"the {engine} ranks disagree on {k}: {r0[k]} / {r1[k]}")
+        check(r0["engine"] == engine, f"two ranks with {flags}: engine {r0['engine']}")
+        xla = engine == "xla-superstep"
+        for rank, lr in enumerate((l0, l1)):
+            check(lr["k2"] > 0 and (lr["reload"] > 0) == xla and (lr["refill"] > 0) != xla,
+                  f"{engine} rank {rank} launches: {lr}")
+        check((work / f"res_{engine}_0.txt").exists()
+              and not (work / f"res_{engine}_1.txt").exists(),
+              f"{engine}: the results file was not written by rank 0 alone")
+        head = (work / f"res_{engine}_0.txt").read_text().splitlines()[0]
+        check(head.startswith("# kernel=cuda-fused") and "streaming=on" in head,
+              f"{engine} rank 0: {head}")
+        ref = refs[engine]
+        for i, x in enumerate(WIDE_SNRS):
+            fer = r0["fec"][i] / r0["frames"][i]
+            check(r0["fec"][i] >= WIDE_FEC or r0["frames"][i] == WIDE_MAX,
+                  f"{engine} rank 0 {x}: stopping rule")
+            z = z_score(fer, r0["frames"][i], ref.fer[i], ref.frames[i])
+            check(abs(z) < 3, f"two ranks {engine} {x}: FER {fer} against phase 13's {ref.fer[i]}")
+            print(f"phase 14 two ranks {engine} {x} dB: FER {fer:.4e} frames {r0['frames'][i]} "
+                  f"avg_iter {r0['avg_iter'][i]:.3f} frames/s {1.0 / r0['time'][i]:.0f} | one "
+                  f"process (phase 13) FER {ref.fer[i]:.4e} frames/s {1.0 / ref.time[i]:.0f} | z "
+                  f"{z:.2f} [{name_power}]")
+        print(f"phase 14 {engine}: two ranks on one card, {wall:.1f} s wall (start-up and build "
+              f"load included), launches {l0} + {l1}")
+        launches[engine] = [l0, l1]
+    return launches
 
 
 def run_tuning(dev, tables, name_power) -> None:
@@ -1445,6 +1532,278 @@ def run_ordered_grants(dev, tables, name_power) -> dict:
             "chunk_times": times}
 
 
+#: phase 16: the idle lanes a timed reload grants (a burst of the 1152
+#: sweep at 2.0 dB is ~1-2 k lanes), and the max_frames of the repeated point
+RELOAD_IDLE = 1536
+REPEAT_MAX_FRAMES = 100000
+
+
+def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
+                      write_files) -> dict:
+    """Phase 16: the JAX package's default streaming sweep (its XLA
+    super-step, no ``--pallas``) on the card: per pass a one-pass K2 launch
+    and K8's reload form.  The card's super-step against the plain
+    super-step on the card (``_superstep_body``, whose draw is K8's full
+    batch on the pass's key) on the 1152 code at B = 16384: BP_MS
+    bit-exact (deltas, ``started``, every plane; ``lv2c`` on the lanes in
+    flight), BP to the frames counted, and under a binding quota.  The
+    reload timed against its plain version at ``RELOAD_IDLE`` idle lanes,
+    and K2's one-pass launch against its 6-pass chunk.  Then the default
+    CLI sweep (no ``--pallas``) beside the ``--pallas`` sweep of the same
+    code, in turn: frames/s, avg_iter, FER within |z| < 3; and a
+    ``max_frames``-ended point run 5 times: one outcome."""
+    from libldpc_tpu_torch import cli
+    from libldpc_tpu_torch.ops import channel, streaming
+    from libldpc_tpu_torch.ops.kernels import decode_fused as df
+    from libldpc_tpu_torch.ops.kernels import pool_refill as pr
+    from libldpc_tpu_torch.ops.streaming_fused import init_state
+    from libldpc_tpu_torch.sim.driver import (
+        ChannelParams, DecoderParams, SimulationParams, Simulator,
+    )
+    from libldpc_tpu_torch.utils.roofline import bound
+
+    tb = tables["bench1152"]
+    sdc = tb.code
+    out = {}
+    # -- the card's super-step against the plain one
+    worst = 0.0
+    for form, max_frames in (("BP_MS", 10**9), ("BP_MS", BATCH + BATCH // 3), ("BP", 10**9)):
+        dec = DecoderParams(iterations=ITERS, type=form)
+        runs = []
+        for plain in (False, True):
+            # the reference: the plain super-step on the card, K8's draws
+            with plain_superstep() if plain else contextlib.nullcontext():
+                init, step = streaming.make_streaming_step(tb, "AWGN", dec, BATCH,
+                                                           max_frames=max_frames)
+            st, deltas = init(), []
+            for s in range(8):
+                st, acc = step(st, channel.make_generator(dev, 16, s), 1.5, s < 5)
+                deltas.append([int(v) for v in acc])
+            runs.append((st, deltas))
+        (ka, kd), (pa, pd) = runs
+        frames_k, frames_p = sum(d[2] for d in kd), sum(d[2] for d in pd)
+        print(f"phase 16 superstep {form} max_frames {max_frames}: kernel deltas {kd[-3:]} "
+              f"plain {pd[-3:]}; frames {frames_k} / {frames_p}, started "
+              f"{int(ka.started)} / {int(pa.started)}")
+        check(frames_k > BATCH, f"phase 16 {form}: the streams did not recycle")
+        if form == "BP_MS":
+            check(kd == pd, f"phase 16 {form}: super-step deltas differ from the plain super-step")
+            for name in ("llr_in", "codeword", "active", "age", "iters", "started"):
+                check(torch.equal(getattr(ka, name), getattr(pa, name)),
+                      f"phase 16 {form}: plane {name} differs")
+            act = ka.active
+            check(torch.equal(ka.lv2c[:, act], pa.lv2c[:, act]), f"phase 16 {form}: lv2c differs")
+            worst = max(worst, float((ka.llr_in - pa.llr_in).abs().max()))
+            if max_frames < 10**9:
+                check(frames_k == max_frames == int(ka.started),
+                      "phase 16: the quota did not land exactly")
+        else:
+            check(abs(frames_k - frames_p) <= BATCH // 1000, f"phase 16 BP: frames {frames_k} "
+                  f"against the plain super-step's {frames_p}")
+    out["max_abs_err"] = worst
+    # -- the reload alone, timed against its plain version
+    pt = pr.pool_tables(sdc, "AWGN")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    idle_lanes = torch.randperm(BATCH, generator=g)[:RELOAD_IDLE].to(dev)
+    planes = dict(done=torch.zeros(BATCH, dtype=torch.int32, device=dev),
+                  llr=torch.zeros((sdc.nc, BATCH), device=dev),
+                  cw=torch.zeros((sdc.nc, BATCH), dtype=torch.uint8, device=dev),
+                  lv2c=torch.zeros((sdc.nnz, BATCH), device=dev),
+                  age=torch.zeros(BATCH, dtype=torch.int32, device=dev),
+                  iters=torch.zeros(BATCH, dtype=torch.int32, device=dev),
+                  started=torch.zeros(1, dtype=torch.int32, device=dev))
+    refill_on = torch.ones(1, dtype=torch.int32, device=dev)
+    key = torch.tensor([99], dtype=torch.int64, device=dev)
+
+    def reset():
+        planes["done"].zero_()
+        planes["done"][idle_lanes] = 1
+        planes["started"].zero_()
+
+    args = lambda: (refill_on, planes["done"], planes["llr"], planes["cw"], planes["lv2c"],
+                    planes["age"], planes["iters"], planes["started"], 10**9, BATCH // 16)
+    ms = cuda_ms(lambda: pr.stream_reload(pt, None, 2.0, *args(), vn_ptr=tb.vn_ptr,
+                                          perm_c2v=tb.perm_c2v, key=key), 20, setup=reset,
+                 busy=True)
+    check(int(planes["started"]) == RELOAD_IDLE, "the timed reload did not grant its lanes")
+    plain_ms = cuda_ms(lambda: pr.stream_reload_plain(
+        pt, lambda: pr.channel_batch(pt, None, BATCH, 2.0, key=key), *args()), 5, setup=reset)
+    nbytes = RELOAD_IDLE * (sdc.nc * 5 + sdc.nnz * 4 + 12) + BATCH * 4
+    out["bound"] = bound(nbytes, RELOAD_IDLE * sdc.nc * 2 * pt.kw)
+    out["ms"], out["plain_ms"] = ms, plain_ms
+    # the plan alone, and a pass's reload where do_gen fails (a plan, no draw)
+    plan_ms = cuda_ms(lambda: pr.reload_plan(refill_on, planes["done"], planes["started"], 10**9,
+                                             BATCH // 16), 20, setup=reset, busy=True)
+    idle_ms = cuda_ms(lambda: pr.stream_reload(pt, None, 2.0, refill_on, planes["done"],
+                                               planes["llr"], planes["cw"], planes["lv2c"],
+                                               planes["age"], planes["iters"],
+                                               planes["started"], 10**9, BATCH + 1,
+                                               vn_ptr=tb.vn_ptr, perm_c2v=tb.perm_c2v, key=key),
+                      20, setup=reset, busy=True)
+    print(f"time stream_reload bench1152 BPSK {RELOAD_IDLE} of {BATCH} lanes granted: kernel "
+          f"{ms:.4f} ms (plan {plan_ms:.4f}; no draw {idle_ms:.4f}), plain {plain_ms:.4f} ms; "
+          f"bound {out['bound'][0]:.4f} ms by {out['bound'][1]} "
+          f"({out['bound'][0] / ms:.1%} of the bound) [{name_power}]")
+    # -- K2: one pass a launch against a 6-pass chunk, from the same full pool
+    ch = channel.awgn_channel(sdc, channel.make_generator(dev, 16, 99), BATCH, 1.5)
+    st = init_state(tb, BATCH)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    saved = {}
+
+    def load():
+        st.fresh_llr.copy_(ch.llr)
+        st.fresh_cw.copy_(ch.codeword)
+        st.avail.fill_(1)
+        st.done.fill_(1)
+        df.bp_stream_chunk_fused(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
+                                 st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_on,
+                                 torch.full((1,), BATCH, dtype=torch.int32, device=dev), k=1,
+                                 cap=ITERS, minsum_mode="BP")
+        for name in ("llr_in", "codeword", "lv2c", "done", "iters", "age", "avail", "ctr"):
+            saved[name] = getattr(st, name).clone()
+
+    load()
+
+    def restore():
+        for name, v in saved.items():
+            getattr(st, name).copy_(v)
+
+    def chunk(k):
+        return lambda: df.bp_stream_chunk_fused(
+            tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age, st.avail, st.ctr,
+            st.llr_in, st.codeword, zero, zero, k=k, cap=ITERS, minsum_mode="BP")
+
+    one = cuda_ms(chunk(1), 20, setup=restore)
+    six = cuda_ms(chunk(6), 10, setup=restore)
+    out["k2_one_pass_ms"], out["k2_six_pass_ms"] = one, six
+    print(f"time K2 bench1152 BP one-pass launch (no starts) {one:.3f} ms, 6-pass chunk "
+          f"{six:.3f} ms ({six / 6:.3f} a pass; one pass a launch costs "
+          f"{one / (six / 6):.2f}x) [{name_power}]")
+    # -- the default sweep (no --pallas) and the --pallas sweep of the same
+    # code in this run, through the CLI; each Simulator's results kept (the
+    # results file rounds a frame's time to the microsecond)
+    from libldpc_tpu_torch.sim import driver
+
+    files = write_files("bench1152")
+    runs = {}
+    real_start = driver.Simulator.start
+
+    def keep(self, *a, **k):
+        res = real_start(self, *a, **k)
+        runs[self.engine] = res
+        return res
+
+    driver.Simulator.start = keep
+    try:
+        for out_name, flags in (("res_xla.txt", []), ("res_xla_pallas.txt", ["--pallas"])):
+            if not flags:
+                zero_counts()
+            args_cli = [files[0], str(WORK / out_name), *SWEEP, *files[1:], "-i", str(ITERS),
+                        "--batch-size", str(BATCH), "--frame-error-count", "50",
+                        "--max-frames", "2000000", *flags]
+            t0 = time.perf_counter()
+            check(cli.main(args_cli) == 0, f"the CLI sweep {out_name} failed")
+            text = (WORK / out_name).read_text()
+            print(f"--- {out_name} ({time.perf_counter() - t0:.1f} s)\n{text}", end="")
+            if not flags:
+                launches = read_counts()
+                head = text.splitlines()[0]
+    finally:
+        driver.Simulator.start = real_start
+    print(f"phase 16 default sweep launches: {launches}")
+    check(set(runs) == {"xla-superstep", "fused-pool"}, f"phase 16 engines: {sorted(runs)}")
+    check(launches["bp_stream_chunk_fused"] > 0, "the default sweep did not run K2")
+    check(launches["stream_reload"] > 0, "the default sweep did not reload with K8's reload form")
+    check(launches["pool_refill"] == 0 and launches["stream_grant"] == 0,
+          "the default sweep ran the fused step's pool")
+    check(head.startswith("# kernel=cuda-fused") and "streaming=on" in head,
+          "default sweep provenance line")
+    xla, fused = runs["xla-superstep"], runs["fused-pool"]
+    for i, x in enumerate(xla.x_values):
+        fx, ff = 1.0 / xla.time[i], 1.0 / fused.time[i]
+        z = z_score(xla.fer[i], xla.frames[i], fused.fer[i], fused.frames[i])
+        print(f"phase 16 {x:.1f} dB: default (XLA super-step) {fx:.0f} frames/s avg_iter "
+              f"{xla.avg_iter[i]:.4f} FER {xla.fer[i]:.4e} ({int(xla.frames[i])} frames) | "
+              f"--pallas (fused step) {ff:.0f} frames/s avg_iter {fused.avg_iter[i]:.4f} FER "
+              f"{fused.fer[i]:.4e} ({int(fused.frames[i])} frames) | ratio {fx / ff:.3f} | "
+              f"z {z:.2f} [{name_power}]")
+        check(math.isfinite(fx) and xla.frames[i] > 0, f"default sweep row {x}")
+        check(abs(z) < 3, f"default sweep FER at {x} dB against --pallas: z {z:.2f}")
+    out["launches"] = launches["stream_reload"]
+    out["k2_launches"] = launches["bp_stream_chunk_fused"]
+    # -- a max_frames-ended point, 5 times: one outcome
+    outcomes = set()
+    for _ in range(5):
+        res = Simulator(codes["bench1152"], DecoderParams(iterations=ITERS),
+                        ChannelParams(seed=4, x_range=(2.0, 2.01, 1.0)),
+                        SimulationParams(batch_size=BATCH, fec=10**9,
+                                         max_frames=REPEAT_MAX_FRAMES),
+                        device=dev, verbose=False).start()
+        outcomes.add((int(res.frames[0]), int(res.fec[0]), float(res.ber[0]),
+                      float(res.avg_iter[0])))
+    print(f"phase 16 max_frames {REPEAT_MAX_FRAMES} point, 5 runs: {sorted(outcomes)}")
+    check(len(outcomes) == 1 and next(iter(outcomes))[0] == REPEAT_MAX_FRAMES,
+          "the max_frames-ended point does not repeat")
+    return out
+
+
+def run_padded(dev, codes, name_power, zero_counts, read_counts) -> dict:
+    """Phase 17: the padded-layout library on the card at B = 16384, each
+    entry against its plain padded version on the same card, both timed:
+    ``bp_decode`` on wifi 1944 (50 it, K1), ``bp_decode(layered=True)`` on
+    wifi 648 (K5, 50 it) and ``bec_decode`` on the 1152 code at ε 0.40 (K6).
+    BP_MS and the BEC bit-exact, BP to 99.9 % of decisions and counts."""
+    from libldpc_tpu_torch.ops import bec, channel, decoder
+    from libldpc_tpu_torch.ops.device import to_device
+
+    out = {}
+    zero_counts()
+    cases = (("bp_decode wifi1944", "wifi1944", False, "bp_decode_fused"),
+             ("bp_decode layered wifi648", "wifi648", True, "bp_decode_layered"))
+    for tag, key, layered, kernel in cases:
+        dc = to_device(codes[key], with_layers=layered, device=dev)
+        llr = channel.awgn_channel(dc, channel.make_generator(dev, 17, 0), BATCH,
+                                   COMPARE_SNR_DB).llr
+        for form in ("BP_MS", "BP"):
+            got = decoder.bp_decode(dc, llr, ITERS, True, form, layered)
+            want = decoder.bp_decode_plain(dc, llr, ITERS, True, form, layered)
+            same = (got.hard == want.hard).all(0) & (got.iterations == want.iterations)
+            print(f"phase 17 {tag} {form}: frames agreeing {same.float().mean().item():.6f}, "
+                  f"avg_iter {got.iterations.float().mean().item():.3f}")
+            if form == "BP":
+                check(same.float().mean().item() >= 0.999, f"phase 17 {tag} BP decisions")
+                torch.testing.assert_close(got.llr_out[:, same], want.llr_out[:, same],
+                                           rtol=1e-4, atol=1e-4)
+            else:
+                check(bool(same.all()) and torch.equal(got.llr_out, want.llr_out),
+                      f"phase 17 {tag} {form} not bit-exact")
+        ms = cuda_ms(lambda: decoder.bp_decode(dc, llr, ITERS, True, "BP", layered), 3)
+        plain_ms = cuda_ms(lambda: decoder.bp_decode_plain(dc, llr, ITERS, True, "BP", layered),
+                           1, warm=False)
+        out[tag] = (ms, plain_ms)
+        print(f"time phase 17 {tag} BP {ITERS} it ET B={BATCH} {COMPARE_SNR_DB} dB: padded entry "
+              f"on {kernel} {ms:.3f} ms, plain padded {plain_ms:.3f} ms [{name_power}]")
+    dc = to_device(codes["bench1152"], device=dev)
+    ch = channel.bec_channel(dc, channel.make_generator(dev, 17, 1), BATCH, BEC_EPS)
+    for stale in (None, 0):
+        got = bec.bec_decode(dc, ch.llr, ch.codeword, ITERS, True, stale)
+        want = bec.bec_decode_plain(dc, ch.llr, ch.codeword, ITERS, True, stale)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"phase 17 bec_decode (stale {stale}) not bit-exact")
+    ms = cuda_ms(lambda: bec.bec_decode(dc, ch.llr, ch.codeword, ITERS), 5)
+    plain_ms = cuda_ms(lambda: bec.bec_decode_plain(dc, ch.llr, ch.codeword, ITERS), 1,
+                       warm=False)
+    out["bec_decode bench1152"] = (ms, plain_ms)
+    print(f"time phase 17 bec_decode bench1152 ε {BEC_EPS} {ITERS} it B={BATCH}: padded entry on "
+          f"K6 {ms:.3f} ms, plain padded {plain_ms:.3f} ms [{name_power}]")
+    launches = read_counts()
+    print(f"phase 17 launches: {launches}")
+    for name in ("bp_decode_fused", "bp_decode_layered", "bec_decode_fused"):
+        check(launches[name] > 0, f"phase 17 did not run {name}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1945,7 +2304,7 @@ def main() -> int:
         return lines[0], rows
 
     counted = (db.bec_decode_fused, db.bec_stream_chunk_fused, pr.pool_refill, df.stream_grant,
-               pr.channel_batch)
+               pr.channel_batch, pr.stream_reload)
     layered_fns = (dl.bp_decode_layered_fast, dl.bp_stream_chunk_layered_fast,
                    dl.bp_decode_layered)
     by_form = (df.bp_decode_fused, df.bp_stream_chunk_fused, *layered_fns)  # a count per form
@@ -2535,6 +2894,14 @@ def main() -> int:
     # ---- 15. gradient tuning (plain PyTorch autograd; no kernel of its own)
     run_tuning(dev, tables, name_power)
     mark("tuning done")
+    # ---- 16. the default sweep (no --pallas): the XLA super-step on K2 and
+    # K8's reload form, its own path, counted
+    xla = run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
+                            write_files)
+    mark("XLA super-step done")
+    # ---- 17. the padded-layout library on K1, K5 and K6
+    run_padded(dev, codes, name_power, zero_counts, read_counts)
+    mark("padded decoders done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],
@@ -2544,6 +2911,7 @@ def main() -> int:
                 "pool_refill": flooding_launches["pool_refill"],
                 "channel_batch": flooding_launches["channel_batch"],
                 "stream_grant": flooding_launches["stream_grant"],
+                "stream_reload": xla["launches"],
                 **{f"{fn.__name__}{SUFFIX[dt]}": form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
                    for fn in by_form[:2] for dt in ("bfloat16", "int8")},
                 **{f"{fn.__name__}{SUFFIX[dt]}":
@@ -2655,6 +3023,7 @@ def main() -> int:
         "pool_refill": k8["times"]["bench1152", "BPSK"]["bound"],
         "channel_batch": k8["times"]["bench1152", "BPSK"]["full_bound"],
         "stream_grant": grants["grant_bound"],
+        "stream_reload": xla["bound"],
     }
     # the wifi 1944 rows of kernel 1 (float32, BP), K6 and K7 (BEC); K7's
     # two forms on both codes
@@ -2705,6 +3074,10 @@ def main() -> int:
     forms_run["channel_batch"] = "the draw over every lane, " + k8_form
     forms_run["stream_grant"] = ("one block of 1024 threads, 16 lanes a thread in 16-byte loads "
                                  "and stores, a warp-then-block shuffle scan")
+    forms_run["stream_reload"] = ("a one-block lane-order scan lists the idle lanes and grants "
+                                  "them on the device (do_gen, the quota); the draw over the "
+                                  "granted lanes straight into the stream state (LLRs, codewords, "
+                                  "each edge's first message), " + k8_form)
     # K1, K2 and K5 by their size rules, per message form, at the timed shapes
     for dt in SUFFIX:
         forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
@@ -2760,6 +3133,10 @@ def main() -> int:
         ("stream_grant", "libldpc_tpu_torch/csrc/pool_refill.cu",
          "libldpc_tpu/ops/pallas/decode_fused.py:464", 0.0,
          (grants["grant_ms"], grants["grant_plain_ms"])),
+        # K8's reload form: the XLA super-step's per-pass reload (the draw
+        # and the lane-order merge under lax.cond), a kernel here
+        ("stream_reload", "libldpc_tpu_torch/csrc/pool_refill.cu",
+         "libldpc_tpu/ops/streaming.py:176", xla["max_abs_err"], (xla["ms"], xla["plain_ms"])),
     ]
     for name, _, _, _, t in rows_json:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "

@@ -225,7 +225,8 @@ def main(argv=None) -> int:
     out("== Simulation Parameters")
     out(f"Batch size: {batch}\nMax frames: {int(args.max_frames)}\n"
         f"Frame error count: {args.frame_error_count}\n"
-        f"Result file: {args.output_file}\nDecode path: {sim.decode_path}")
+        f"Result file: {args.output_file}\nDecode path: {sim.decode_path}\n"
+        f"Engine: {sim.engine}")
     out(bar)
     try:
         if wide_mesh is not None:

@@ -45,6 +45,17 @@
 //   CUDA tensor by a host scalar), so the plain formulas on a lane's
 //   codeword and draws give its values: bit for bit, and M-ASK's logsumexps
 //   to float32 rounding.
+// * the reload form (the XLA streaming super-step's per-pass reload,
+//   libldpc_tpu/ops/streaming.py :176-209): reload_plan_kernel (one block)
+//   lists the idle lanes (done != 0) in lane order, decides do_gen = refill
+//   && idle >= gen_threshold on the device, grants the first min(idle,
+//   quota - started) of them and adds the grants to `started`; then
+//   pool_draw_kernel draws only the granted lanes, with the keying and
+//   formulas above, straight into the stream state: the LLRs and the
+//   codeword, each edge's first message (the prior at its variable, from
+//   the VN-space slot lists vn_ptr / perm_c2v), and done = 0, age = 1,
+//   iters = 0.  No host read: a pass where JAX's lax.cond draws nothing
+//   draws nothing here.
 // * stream_grant_kernel (one block): the grants of one pass in lane order
 //   over the whole batch, eligible = refill && done && avail, granted iff
 //   the inclusive count of eligible lanes is <= remaining; remaining is
@@ -135,7 +146,25 @@ struct PoolDraw {
   float delta;    // BSC: log((1 - eps) / eps)
   float eps;      // BSC, BEC
   float shorten;  // the LLR of a shortened bit
+  // the reload form (null otherwise): the drawn lanes' stream state
+  float* lv2c;            // [nnz, B] a reloaded lane's first messages: its prior at each edge
+  const int* vn_ptr;      // [nc + 1] a variable's VN-space slots
+  const int* perm_c2v;    // [nnz] the CN-space slot of each VN-space slot
+  int* done;              // [B] set to 0 (in flight) on every drawn lane
+  int* age;               // [B] set to 1
+  int* iters;             // [B] set to 0
 };
+
+// A float value of variable v for lane b: the decoder input and, in the
+// reload form, the first message of each of v's edges.
+__device__ __forceinline__ void store_value(const PoolDraw& d, int v, size_t b, float x) {
+  const size_t B = d.B;
+  ((float*)d.fresh)[v * B + b] = x;
+  if (d.lv2c) {
+    const int j1 = __ldg(d.vn_ptr + v + 1);
+    for (int j = __ldg(d.vn_ptr + v); j < j1; ++j) d.lv2c[(size_t)__ldg(d.perm_c2v + j) * B + b] = x;
+  }
+}
 
 // c += popc(a AND b): A 16 x 256 bits (row), B 256 x 8 bits (col), C 16 x 8 s32.
 __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4], uint2 b) {
@@ -234,7 +263,7 @@ __device__ __forceinline__ void symbol_values(const PoolPlan& p, const PoolDraw&
       llr = label_lse(p, y, d.two_s2, shift, 0) - label_lse(p, y, d.two_s2, shift, 1);
     }
     llr = fminf(fmaxf(llr, -9999.9f), 9999.9f);  // utils/params.py MIN_LLR, MAX_LLR
-    ((float*)d.fresh)[v * B + b] = llr;
+    store_value(d, v, b, llr);
     d.fresh_cw[v * B + b] = (uint8_t)c[k];
   }
 }
@@ -255,10 +284,10 @@ __device__ __forceinline__ void draw_item(const PoolPlan& p, const PoolDraw& d,
     if constexpr (CH == CH_AWGN) {
       const float x = 1.0f - 2.0f * (float)c;
       const float y = x + r * d.sigma;
-      ((float*)d.fresh)[v * B + b] = (2.0f * y) * d.inv_s2;
+      store_value(d, v, b, (2.0f * y) * d.inv_s2);
     } else if constexpr (CH == CH_BSC) {
       const int yb = c ^ (int)(r < d.eps);
-      ((float*)d.fresh)[v * B + b] = d.delta * (1.0f - 2.0f * (float)yb);
+      store_value(d, v, b, d.delta * (1.0f - 2.0f * (float)yb));
     } else {
       ((uint8_t*)d.fresh)[v * B + b] = r < d.eps ? kErasedSym : (uint8_t)c;
     }
@@ -392,11 +421,18 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
       if constexpr (CH == CH_BEC)
         ((uint8_t*)d.fresh)[v * B + b] = shortened ? (uint8_t)c : kErasedSym;
       else
-        ((float*)d.fresh)[v * B + b] = shortened ? d.shorten : 0.0f;
+        store_value(d, v, b, shortened ? d.shorten : 0.0f);
       d.fresh_cw[v * B + b] = (uint8_t)c;
     }
   }
-  if (d.avail && y == 0 && part == 0) d.avail[b] = 1;
+  if (y == 0 && part == 0) {
+    if (d.avail) d.avail[b] = 1;
+    if (d.done) {
+      d.done[b] = 0;
+      d.age[b] = 1;
+      d.iters[b] = 0;
+    }
+  }
 }
 
 // Sum over the block (kScanThreads threads); the result in every thread.
@@ -452,6 +488,37 @@ pool_plan_kernel(const int* __restrict__ avail, const int* __restrict__ ctr4,
   }
 }
 
+// The reload form's plan: the idle lanes (done != 0) in lane order into
+// `lanes` (when refill), and count = the lanes to draw: min(idle, quota -
+// started) when refill && idle >= gen_threshold, else 0; started += count.
+__global__ void __launch_bounds__(kScanThreads)
+reload_plan_kernel(const int* __restrict__ done, const int* __restrict__ refill,
+                   int* __restrict__ started, long long quota, int gen_threshold, int B,
+                   int* __restrict__ count, int* __restrict__ lanes) {
+  __shared__ int sh[32];
+  const bool on = *refill != 0;
+  int carry = 0;  // idle lanes of the earlier rounds
+  for (int base0 = 0; on && base0 < B; base0 += kScanRound) {
+    const int base = base0 + kScanRun * threadIdx.x;
+    uint32_t m = nonzero_mask16(done, base, B);
+    int total;
+    int at = carry + block_exclusive_scan(__popc(m), &total, sh);
+    while (m) {
+      const int i = __ffs(m) - 1;
+      m &= m - 1;
+      lanes[at++] = base + i;
+    }
+    carry += total;
+  }
+  if (threadIdx.x == 0) {
+    const long long s = *started;
+    const long long left = quota - s < 0 ? 0 : quota - s;
+    const int n = on && carry >= gen_threshold ? (int)(carry < left ? carry : left) : 0;
+    *count = n;
+    *started = (int)(s + n);
+  }
+}
+
 __global__ void __launch_bounds__(kScanThreads)
 stream_grant_kernel(const int* __restrict__ done, const int* __restrict__ avail,
                     const int* __restrict__ refill, int* remaining, uint8_t* __restrict__ grant,
@@ -495,24 +562,30 @@ long long ldpc_pool_draw_bytes(int ksteps, int has_g, int lane_tile, int slab_co
   return (long long)draw_smem_bytes(ksteps, has_g != 0, lane_tile, slab_cols);
 }
 
-// `channel`: 0 AWGN (BPSK), 1 AWGN through an M-ASK constellation, 2 BSC,
-// 3 BEC.  `fresh` is float32, or u8 for the BEC.  `lanes`/`count` (or null:
-// every lane of the batch), `avail` (or null), `debug` ([n_items, B], or
-// null) takes each item's draw, `debug_info` ([kwords, B], or null) each
-// lane's info words.  Items and other positions are cut into slabs of
-// `items_per_slab` items and `others_per_slab` positions (multiples of 8);
-// `slab_tile0` and `col_src` (pool_refill.py draw_slabs) give each slab's
-// encoded columns, at most `slab_cols` a slab.
-int ldpc_pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int* col_src,
-                   int ksteps, int kwords, int kw, const int* item_src, const int* item_dst,
-                   int n_items, int bpi, const int* other_pos, const uint8_t* other_short,
-                   int n_other, int other_col0, const float* points, const float* logp,
-                   const int* label_of, const int* point_of, int M, int lane_tile,
-                   int items_per_slab, int others_per_slab, int slab_cols, void* fresh,
-                   uint8_t* fresh_cw, int* avail, const int* lanes, const int* count,
-                   const unsigned long long* key,
-                   float* debug, uint32_t* debug_info, int B, float sigma, float inv_s2,
-                   float two_s2, float delta, float eps, float shorten, void* stream) {
+}  // extern "C"
+
+namespace {
+
+// The state a reload-form draw writes (null members: a pool or batch draw).
+struct ReloadState {
+  float* lv2c;
+  const int* vn_ptr;
+  const int* perm_c2v;
+  int* done;
+  int* age;
+  int* iters;
+};
+
+int pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int* col_src,
+              int ksteps, int kwords, int kw, const int* item_src, const int* item_dst,
+              int n_items, int bpi, const int* other_pos, const uint8_t* other_short,
+              int n_other, int other_col0, const float* points, const float* logp,
+              const int* label_of, const int* point_of, int M, int lane_tile,
+              int items_per_slab, int others_per_slab, int slab_cols, void* fresh,
+              uint8_t* fresh_cw, int* avail, const int* lanes, const int* count,
+              const unsigned long long* key, float* debug, uint32_t* debug_info, int B,
+              float sigma, float inv_s2, float two_s2, float delta, float eps, float shorten,
+              const ReloadState& r, void* stream) {
   if (bpi < 1 || bpi > kMaxBits || (lane_tile != 16 && lane_tile != 32 && lane_tile != 64) ||
       items_per_slab < 8 || items_per_slab % 8 || others_per_slab < 8 || others_per_slab % 8 ||
       other_col0 != n_items * bpi || B < 1 || kwords > 8 * ksteps || slab_cols % 8 ||
@@ -524,8 +597,10 @@ int ldpc_pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, cons
              item_src,  item_dst,    n_items,        bpi,        other_pos,      other_short,
              n_other,   other_col0,  points,         logp,       label_of,       point_of,
              M,         lane_tile,   items_per_slab, item_slabs, others_per_slab, slab_cols};
-  PoolDraw d{fresh, fresh_cw, avail, lanes, count, key, debug, debug_info, B,
-             sigma, inv_s2,   two_s2, delta, eps,  shorten};
+  PoolDraw d{fresh,  fresh_cw, avail,     lanes,  count,  key,   debug,  debug_info,
+             B,      sigma,    inv_s2,    two_s2, delta,  eps,   shorten, r.lv2c,
+             r.vn_ptr, r.perm_c2v, r.done, r.age,  r.iters};
+  if (r.lv2c && channel == CH_BEC) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((B + lane_tile - 1) / lane_tile), (unsigned)(item_slabs + other_slabs));
   if (grid.y == 0) return (int)cudaErrorInvalidValue;
   const size_t bytes = draw_smem_bytes(ksteps, gtiles != nullptr, lane_tile, slab_cols);
@@ -545,6 +620,68 @@ int ldpc_pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, cons
       return launch_smem(pool_draw_kernel<CH_BEC, 0>, grid, block, bytes, st, p, d);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// `channel`: 0 AWGN (BPSK), 1 AWGN through an M-ASK constellation, 2 BSC,
+// 3 BEC.  `fresh` is float32, or u8 for the BEC.  `lanes`/`count` (or null:
+// every lane of the batch), `avail` (or null), `debug` ([n_items, B], or
+// null) takes each item's draw, `debug_info` ([kwords, B], or null) each
+// lane's info words.  Items and other positions are cut into slabs of
+// `items_per_slab` items and `others_per_slab` positions (multiples of 8);
+// `slab_tile0` and `col_src` (pool_refill.py draw_slabs) give each slab's
+// encoded columns, at most `slab_cols` a slab.
+int ldpc_pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int* col_src,
+                   int ksteps, int kwords, int kw, const int* item_src, const int* item_dst,
+                   int n_items, int bpi, const int* other_pos, const uint8_t* other_short,
+                   int n_other, int other_col0, const float* points, const float* logp,
+                   const int* label_of, const int* point_of, int M, int lane_tile,
+                   int items_per_slab, int others_per_slab, int slab_cols, void* fresh,
+                   uint8_t* fresh_cw, int* avail, const int* lanes, const int* count,
+                   const unsigned long long* key,
+                   float* debug, uint32_t* debug_info, int B, float sigma, float inv_s2,
+                   float two_s2, float delta, float eps, float shorten, void* stream) {
+  return pool_draw(channel, gtiles, slab_tile0, col_src, ksteps, kwords, kw, item_src, item_dst,
+                   n_items, bpi, other_pos, other_short, n_other, other_col0, points, logp,
+                   label_of, point_of, M, lane_tile, items_per_slab, others_per_slab, slab_cols,
+                   fresh, fresh_cw, avail, lanes, count, key, debug, debug_info, B, sigma, inv_s2,
+                   two_s2, delta, eps, shorten, ReloadState{}, stream);
+}
+
+// The reload form's plan (reload_plan_kernel): count [1], lanes [B].
+int ldpc_reload_plan(const int* done, const int* refill, int* started, long long quota,
+                     int gen_threshold, int B, int* count, int* lanes, void* stream) {
+  reload_plan_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
+      done, refill, started, quota, gen_threshold, B, count, lanes);
+  return (int)cudaGetLastError();
+}
+
+// The reload form's draw: ldpc_pool_draw's arguments over the plan's lanes
+// (float values only: not the BEC), writing the state planes `fresh` (the
+// LLRs), `fresh_cw` (the codewords), lv2c [nnz, B] (through vn_ptr and
+// perm_c2v) and done / age / iters [B] of every drawn lane.
+int ldpc_pool_reload(int channel, const uint2* gtiles, const int* slab_tile0, const int* col_src,
+                     int ksteps, int kwords, int kw, const int* item_src, const int* item_dst,
+                     int n_items, int bpi, const int* other_pos, const uint8_t* other_short,
+                     int n_other, int other_col0, const float* points, const float* logp,
+                     const int* label_of, const int* point_of, int M, int lane_tile,
+                     int items_per_slab, int others_per_slab, int slab_cols, void* fresh,
+                     uint8_t* fresh_cw, const int* lanes, const int* count,
+                     const unsigned long long* key, float* debug, uint32_t* debug_info, int B,
+                     float sigma, float inv_s2, float two_s2, float delta, float eps,
+                     float shorten, float* lv2c, const int* vn_ptr, const int* perm_c2v,
+                     int* done, int* age, int* iters, void* stream) {
+  if (!lv2c || !vn_ptr || !perm_c2v || !done || !age || !iters || !lanes || !count)
+    return (int)cudaErrorInvalidValue;
+  return pool_draw(channel, gtiles, slab_tile0, col_src, ksteps, kwords, kw, item_src, item_dst,
+                   n_items, bpi, other_pos, other_short, n_other, other_col0, points, logp,
+                   label_of, point_of, M, lane_tile, items_per_slab, others_per_slab, slab_cols,
+                   fresh, fresh_cw, nullptr, lanes, count, key, debug, debug_info, B, sigma,
+                   inv_s2, two_s2, delta, eps, shorten,
+                   ReloadState{lv2c, vn_ptr, perm_c2v, done, age, iters}, stream);
 }
 
 int ldpc_stream_grant(const int* done, const int* avail, const int* refill, int* remaining,

@@ -284,6 +284,20 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_pool_draw.restype = I
+            lib.ldpc_reload_plan.argtypes = [P, P, P, L, I, I, P, P, P]  # done refill started quota gen_threshold B count lanes stream
+            lib.ldpc_reload_plan.restype = I
+            lib.ldpc_pool_reload.argtypes = [
+                I, P, P, P, I, I, I,  # channel gtiles slab_tile0 col_src ksteps kwords kw
+                P, P, I, I,  # item_src item_dst n_items bpi
+                P, P, I, I,  # other_pos other_short n_other other_col0
+                P, P, P, P, I,  # points logp label_of point_of M
+                I, I, I, I,  # lane_tile items_per_slab others_per_slab slab_cols
+                P, P, P, P, P, P, P,  # llr cw lanes count key debug debug_info
+                I, F, F, F, F, F, F,  # B sigma inv_s2 two_s2 delta eps shorten
+                P, P, P, P, P, P,  # lv2c vn_ptr perm_c2v done age iters
+                P,  # stream
+            ]
+            lib.ldpc_pool_reload.restype = I
             lib.ldpc_pool_draw_bytes.argtypes = [I, I, I, I]  # ksteps has_g lane_tile slab_cols
             lib.ldpc_pool_draw_bytes.restype = L
             lib.ldpc_stream_grant.argtypes = [P, P, P, P, P, I, P]  # done avail refill remaining grant B stream

@@ -56,6 +56,10 @@ class KernelTables:
     def device(self) -> torch.device:
         return self.row_ptr.device
 
+    def to(self, device) -> "KernelTables":
+        """The same code's tables on ``device``."""
+        return kernel_tables(self.code.to(device))
+
 
 def _node_ptr(classes) -> np.ndarray:
     degrees = np.repeat([d for _, d in classes], [c for c, _ in classes])

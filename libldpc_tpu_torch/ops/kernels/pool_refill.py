@@ -15,7 +15,10 @@ started - sum(ctr[4]), 0)``), then the draw covers those lanes alone: the
 same pool in distribution, and no draw in a chunk where JAX keeps the pool
 or in a drain.  :func:`channel_batch` is the same draw over every lane of a
 batch, the channel of every batch step on the card
-(``parallel/mesh.py``).
+(``parallel/mesh.py``).  :func:`stream_reload` is K8's reload form, the
+default sweep's reload at the end of every pass (``ops/streaming.py``): a
+plan that decides ``do_gen`` and grants the idle lanes on the device, then
+the same draw over the granted lanes straight into the stream state.
 
 :func:`pool_refill_plain` is the refill in plain PyTorch: the channel
 batch of :func:`..channel.simulate_channel`, merged under the same mask,
@@ -346,11 +349,10 @@ def pool_plan(refill: torch.Tensor, avail: torch.Tensor, ctr: torch.Tensor,
 pool_plan.launches = 0
 
 
-def _draw(pt: PoolTables, x_value: float, fresh: torch.Tensor, fresh_cw: torch.Tensor, B: int,
-          key: torch.Tensor, avail=None, lanes=None, count=None, debug=None,
-          debug_info=None) -> None:
-    """One launch of the draw kernel over ``lanes[:count]`` (every lane of
-    the batch when None)."""
+def _draw_args(pt: PoolTables, x_value: float, fresh: torch.Tensor, B: int, key: torch.Tensor,
+               debug=None, debug_info=None):
+    """The draw's arguments before the state pointers (the tables and the
+    tiling) and after them (``B`` and the channel's constants)."""
     dev = fresh.device
     _check(key, "key", torch.int64, key.shape[:1], dev)
     n_items, bpi = pt.item_src.shape
@@ -362,20 +364,31 @@ def _draw(pt: PoolTables, x_value: float, fresh: torch.Tensor, fresh_cw: torch.T
     awgn = pt.channel_type == "AWGN"
     bsc = pt.channel_type == "BSC"
     delta = float(np.float32(np.log((1.0 - x_value) / x_value))) if bsc else 0.0
-    lib = build.load()
-    err = lib.ldpc_pool_draw(
+    head = (
         pt.channel, _p_or_null(pt.gtiles), _p_or_null(pt.slab_tile0), _p_or_null(pt.col_src),
         pt.ksteps, pt.kwords, pt.kw, _p(pt.item_src), _p(pt.item_dst),
         n_items, bpi, _p(pt.other_pos), _p(pt.other_short), pt.other_pos.shape[0],
         pt.other_col0, _p(pt.points), _p(pt.logp), _p(pt.label_of), _p(pt.point_of),
-        pt.points.shape[0], pt.lane_tile, pt.items_per_slab, pt.others_per_slab, pt.slab_cols,
-        _p(fresh), _p(fresh_cw), _p_or_null(avail),
-        _p_or_null(lanes), _p_or_null(count), _p(key), _p_or_null(debug), _p_or_null(debug_info),
+        pt.points.shape[0], pt.lane_tile, pt.items_per_slab, pt.others_per_slab, pt.slab_cols)
+    tail = (
         B, float(np.sqrt(sigma2)) if awgn else 0.0,
         float(np.float32(1.0) / sigma2) if awgn else 0.0,
         float(np.float32(2.0) * sigma2) if awgn else 0.0,
-        delta, float(np.float32(x_value)), delta if bsc else float(np.float32(SHORTEN_LLR)),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        delta, float(np.float32(x_value)), delta if bsc else float(np.float32(SHORTEN_LLR)))
+    return head, tail
+
+
+def _draw(pt: PoolTables, x_value: float, fresh: torch.Tensor, fresh_cw: torch.Tensor, B: int,
+          key: torch.Tensor, avail=None, lanes=None, count=None, debug=None,
+          debug_info=None) -> None:
+    """One launch of the draw kernel over ``lanes[:count]`` (every lane of
+    the batch when None)."""
+    head, tail = _draw_args(pt, x_value, fresh, B, key, debug, debug_info)
+    lib = build.load()
+    err = lib.ldpc_pool_draw(
+        *head, _p(fresh), _p(fresh_cw), _p_or_null(avail), _p_or_null(lanes), _p_or_null(count),
+        _p(key), _p_or_null(debug), _p_or_null(debug_info), *tail,
+        ctypes.c_void_p(torch.cuda.current_stream(fresh.device).cuda_stream))
     _raise_on(lib, err, "the channel draw")
 
 
@@ -460,3 +473,115 @@ def channel_batch(pt: PoolTables, gen: torch.Generator, batch: int, x_value: flo
 
 
 channel_batch.launches = 0
+
+
+# ------------------------------------------------------------- reload form
+
+
+def _check_reload(pt: PoolTables, refill, done, llr, cw, lv2c, age, iters, started) -> int:
+    sdc, B = pt.code, done.shape[0] if done.dim() == 1 else -1
+    if pt.channel_type == "BEC":
+        raise ValueError("the reload form draws float LLRs: not the BEC")
+    for name, t, dtype, shape in (
+        ("refill", refill, torch.int32, (1,)), ("done", done, torch.int32, (B,)),
+        ("llr", llr, torch.float32, (sdc.nc, B)), ("cw", cw, torch.uint8, (sdc.nc, B)),
+        ("lv2c", lv2c, torch.float32, (sdc.nnz, B)), ("age", age, torch.int32, (B,)),
+        ("iters", iters, torch.int32, (B,)), ("started", started, torch.int32, (1,)),
+    ):
+        _check(t, name, dtype, shape, pt.device)
+    return B
+
+
+def stream_reload_plain(pt: PoolTables, draw, refill: torch.Tensor, done: torch.Tensor,
+                        llr: torch.Tensor, cw: torch.Tensor, lv2c: torch.Tensor,
+                        age: torch.Tensor, iters: torch.Tensor, started: torch.Tensor,
+                        quota: int, gen_threshold: int) -> None:
+    """Plain version of :func:`stream_reload` (on any device): ``do_gen``
+    read on the host; when it holds, ``draw()`` gives a channel batch
+    (:class:`~..channel.ChannelOutput` of ``B`` frames) and the granted
+    lanes take theirs, as ``_superstep_body`` merges its fresh batch.  On
+    the card's checks ``draw`` is K8's full batch on the reload's key
+    (:func:`channel_batch`), whose lane ``b`` is the reload's lane ``b``."""
+    _check_reload(pt, refill, done, llr, cw, lv2c, age, iters, started)
+    idle = done != 0
+    if not (int(refill[0]) > 0 and int(idle.sum()) >= gen_threshold):
+        return
+    ch = draw()
+    rs = idle & (int(started[0]) + torch.cumsum(idle.to(torch.int64), 0) <= quota)
+    llr.copy_(torch.where(rs, ch.llr, llr))
+    cw.copy_(torch.where(rs, ch.codeword, cw))
+    lv2c.copy_(torch.where(rs, ch.llr.index_select(0, pt.code.col_sorted), lv2c))
+    done.copy_(torch.where(rs, 0, done))
+    age.copy_(torch.where(rs, 1, age))
+    iters.copy_(torch.where(rs, 0, iters))
+    started += rs.sum().to(torch.int32)
+
+
+def reload_plan(refill: torch.Tensor, done: torch.Tensor, started: torch.Tensor, quota: int,
+                gen_threshold: int):
+    """The reload form's plan on the card: ``(count, lanes)``, int32 ``[1]``
+    and ``[B]``, ``lanes[:count]`` the granted lanes in lane order (the
+    first ``min(idle, quota - started)`` idle lanes when ``refill`` and at
+    least ``gen_threshold`` lanes are idle, else none), and ``started``
+    raised by ``count``, in place (``csrc/pool_refill.cu``
+    ``reload_plan_kernel``, one block's lane-order scan)."""
+    B = done.shape[0]
+    dev = done.device
+    lib = build.load()
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    lanes = torch.empty(B, dtype=torch.int32, device=dev)
+    err = lib.ldpc_reload_plan(_p(done), _p(refill), _p(started), int(quota), int(gen_threshold),
+                               B, _p(count), _p(lanes),
+                               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, "reload_plan")
+    return count, lanes
+
+
+def stream_reload(pt: PoolTables, gen: Optional[torch.Generator], x_value: float,
+                  refill: torch.Tensor, done: torch.Tensor, llr: torch.Tensor, cw: torch.Tensor,
+                  lv2c: torch.Tensor, age: torch.Tensor, iters: torch.Tensor,
+                  started: torch.Tensor, quota: int, gen_threshold: int, vn_ptr=None,
+                  perm_c2v=None, key: Optional[torch.Tensor] = None,
+                  debug: Optional[torch.Tensor] = None,
+                  debug_info: Optional[torch.Tensor] = None) -> None:
+    """The XLA streaming super-step's reload at the end of a pass
+    (``libldpc_tpu/ops/streaming.py:176-209``), in place: when ``refill``
+    (int32 ``[1]``) holds and at least ``gen_threshold`` lanes are idle
+    (``done != 0``), the idle lanes, in lane order and at most ``quota -
+    started`` of them, take fresh channel frames: the LLRs into ``llr``
+    (float32 ``[nc, B]``), the codeword into ``cw``, each edge's first
+    message, its variable's LLR, into ``lv2c`` (float32 ``[nnz, B]``,
+    CN-space slots), ``done = 0``, ``age = 1``, ``iters = 0``, and
+    ``started`` (int32 ``[1]``) counts them.  Float channels only (AWGN,
+    with or without a constellation, and the BSC).
+
+    On CUDA, K8's reload form: :func:`reload_plan` on the device, then one
+    draw launch over the granted lanes alone, keyed and computed as
+    :func:`pool_refill`'s draw (``key``: int64 ``[1]``, drawn from ``gen``
+    when None; ``vn_ptr``/``perm_c2v`` the kernel tables' VN-space slot
+    lists; ``debug``/``debug_info`` as there), with no host read; counted
+    in ``stream_reload.launches`` (one per reload).  On the CPU
+    :func:`stream_reload_plain`, drawing a channel batch from ``gen``
+    (:func:`simulate_channel`)."""
+    B = _check_reload(pt, refill, done, llr, cw, lv2c, age, iters, started)
+    if done.device.type == "cpu":
+        return stream_reload_plain(
+            pt, lambda: simulate_channel(pt.code, pt.channel_type, gen, B, x_value, pt.modulation),
+            refill, done, llr, cw, lv2c, age, iters, started, quota, gen_threshold)
+    _require_cuda(done)
+    if vn_ptr is None or perm_c2v is None:
+        raise ValueError("the reload form needs the kernel tables' vn_ptr and perm_c2v")
+    if key is None:
+        key = draw_keys(gen, 1, done.device)
+    count, lanes = reload_plan(refill, done, started, quota, gen_threshold)
+    head, tail = _draw_args(pt, x_value, llr, B, key, debug, debug_info)
+    lib = build.load()
+    err = lib.ldpc_pool_reload(
+        *head, _p(llr), _p(cw), _p(lanes), _p(count), _p(key), _p_or_null(debug),
+        _p_or_null(debug_info), *tail, _p(lv2c), _p(vn_ptr), _p(perm_c2v), _p(done), _p(age),
+        _p(iters), ctypes.c_void_p(torch.cuda.current_stream(done.device).cuda_stream))
+    _raise_on(lib, err, "stream_reload")
+    stream_reload.launches += 1
+
+
+stream_reload.launches = 0

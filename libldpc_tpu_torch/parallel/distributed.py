@@ -21,10 +21,17 @@ refuses two ranks on one card.  The group has a timeout, so a rank that
 fails or hangs fails the others instead of hanging them.  Only the
 primary process (rank 0) writes the console, results file, checkpoint and
 error log (:func:`is_primary`).
+
+:func:`initialize` registers one ``atexit`` teardown (:func:`shutdown`): a
+barrier bounded by :data:`EXIT_BARRIER_S`, then ``destroy_process_group``.
+A gloo group still running when the interpreter exits can abort the
+process (``terminate called without an active exception``) after its work
+is done; the bound keeps a rank whose peer died from waiting at exit.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Optional
@@ -34,6 +41,8 @@ import torch.distributed as dist
 
 #: Seconds a collective waits for the other ranks before it fails.
 DEFAULT_TIMEOUT_S = 600.0
+#: Seconds the exit barrier waits for the other ranks (:func:`shutdown`).
+EXIT_BARRIER_S = 30.0
 
 
 def initialize(
@@ -58,6 +67,21 @@ def initialize(
     dist.init_process_group(
         "gloo", init_method=f"tcp://{coordinator_address}", world_size=int(num_processes),
         rank=int(process_id or 0), timeout=datetime.timedelta(seconds=timeout_s))
+    atexit.register(shutdown)
+
+
+def shutdown(timeout_s: float = EXIT_BARRIER_S) -> None:
+    """Leave the process group: a barrier of at most ``timeout_s`` seconds
+    (a rank that died or is late fails it; it is not waited for), then
+    ``destroy_process_group``.  A no-op without a group; registered at exit
+    by :func:`initialize`."""
+    if not dist.is_initialized():
+        return
+    try:
+        dist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout_s))
+    except RuntimeError:
+        pass  # a peer is gone: leave without it
+    dist.destroy_process_group()
 
 
 def process_count() -> int:

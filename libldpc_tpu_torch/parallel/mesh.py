@@ -28,14 +28,17 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.bec import bec_decode, bec_decode_plain
 from ..ops.channel import make_generator
+from ..ops.decoder import bp_decode, bp_decode_plain
+from ..ops.device import DeviceCode
 from ..ops.kernels.decode_bec import bec_decode_fused, bec_decode_fused_plain
 from ..ops.kernels.decode_fused import bp_decode_fused, bp_decode_fused_plain
 from ..ops.kernels.decode_layered import (
     bp_decode_layered, bp_decode_layered_fast, bp_decode_layered_fast_plain,
     bp_decode_layered_plain,
 )
-from ..ops.kernels.layout import KernelTables, kernel_tables
+from ..ops.kernels.layout import KernelTables
 from ..ops.kernels.pool_refill import PoolTables, channel_batch, pool_tables
 
 FRAME_AXIS = "frames"
@@ -207,18 +210,22 @@ def on_device(device: torch.device):
 class Replicas:
     """The tables (the device form of a modulation's bit mapper, and the
     channel draw's tables of ``channel_type``) of one code on each device
-    of a mesh, each built once per device."""
+    of a mesh, each built once per device.  ``code_of(tables)`` is the code
+    a channel batch is drawn for: the kernel tables' sorted code by
+    default."""
 
-    def __init__(self, tables: KernelTables, modulation=None, channel_type: Optional[str] = None):
+    def __init__(self, tables: KernelTables, modulation=None, channel_type: Optional[str] = None,
+                 code_of: Callable = lambda tables: tables.code):
         self._tables = {tables.device: tables}
         self._modulation = modulation
         self._channel_type = channel_type
+        self._code_of = code_of
         self._pools = {}
 
     def tables(self, device: torch.device) -> KernelTables:
         device = canonical_device(device)
         if device not in self._tables:
-            self._tables[device] = kernel_tables(next(iter(self._tables.values())).code.to(device))
+            self._tables[device] = next(iter(self._tables.values())).to(device)
         return self._tables[device]
 
     def modulation(self, device: torch.device):
@@ -232,8 +239,8 @@ class Replicas:
         built at the first call."""
         device = canonical_device(device)
         if device not in self._pools:
-            self._pools[device] = pool_tables(self.tables(device).code, self._channel_type,
-                                              self.modulation(device))
+            self._pools[device] = pool_tables(self._code_of(self.tables(device)),
+                                              self._channel_type, self.modulation(device))
         return self._pools[device]
 
 
@@ -252,37 +259,54 @@ def batch_decoder(tables: KernelTables, schedule: str, plain: bool = False):
     return bp_decode_fused_plain if plain else bp_decode_fused
 
 
+def batch_decode(tables, channel_type: str, dec, schedule: str, plain: bool = False) -> Callable:
+    """``decode(tables, channel) -> output``: the batch decoder of a step
+    on ``tables``, which are the sorted layout's kernel tables, decoded by
+    the schedule's batch kernel in ``dec.message_dtype`` (the BEC: the
+    peeling kernel, flooding), or a :class:`DeviceCode` (the JAX step's
+    padded branch), decoded by the padded :func:`bp_decode` (layered as
+    ``dec.layered`` says; float32 messages) or :func:`bec_decode`, which
+    run K1/K5/K6 on the card, ``schedule`` not used.  ``plain`` takes the
+    plain versions (on any device, on the same draws: the card's checks
+    hold a kernel step against it)."""
+    stale = 0 if dec.bec_ref_bug_compat else None
+    if isinstance(tables, DeviceCode):
+        if channel_type == "BEC":
+            bec = bec_decode_plain if plain else bec_decode
+            return lambda tb, ch: bec(tb, ch.llr, ch.codeword, iterations=dec.iterations,
+                                      early_term=dec.early_term, degree1_stale_byte=stale)
+        bp = bp_decode_plain if plain else bp_decode
+        return lambda tb, ch: bp(tb, ch.llr, iterations=dec.iterations,
+                                 early_term=dec.early_term, minsum_mode=dec.cn_mode,
+                                 layered=dec.layered)
+    if channel_type == "BEC":
+        bec = bec_decode_fused_plain if plain else bec_decode_fused
+        return lambda tb, ch: bec(tb, ch.llr, ch.codeword, iterations=dec.iterations,
+                                  early_term=dec.early_term, degree1_stale_byte=stale)
+    bp = batch_decoder(tables, schedule, plain)
+    return lambda tb, ch: bp(tb, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
+                             minsum_mode=dec.cn_mode, message_dtype=dec.message_dtype,
+                             quant_scale=dec.quant_scale)
+
+
 def _sim_and_count(
     tables: KernelTables,
     pool: PoolTables,
     gen: torch.Generator,
     x_value: float,
-    dec,
     batch: int,
-    schedule: str,
+    decode: Callable,
     forensics: bool = False,
-    plain: bool = False,
 ):
     """Draw a channel batch with K8 (:func:`channel_batch` on ``pool``, the
     channel's and modulation's tables; on the CPU the plain channel),
-    decode with the schedule's batch kernel in ``dec.message_dtype`` (the
-    BEC: the peeling kernel, flooding), count from its decisions.  Bit
-    errors count the transmitted bits (``bit_pos``) only.  ``forensics``
-    returns :class:`ForensicStepCounters`, else :class:`StepCounters`.
-    ``plain`` decodes with the kernels' plain versions (on any device, on
-    the same draws: the card's checks hold a kernel step against it)."""
+    decode it with ``decode`` (:func:`batch_decode`), count from its
+    decisions.  Bit errors count the transmitted bits (the drawn code's
+    ``bit_pos``) only.  ``forensics`` returns
+    :class:`ForensicStepCounters`, else :class:`StepCounters`."""
     ch = channel_batch(pool, gen, batch, x_value)
-    channel_type = pool.channel_type
-    if channel_type == "BEC":
-        out = (bec_decode_fused_plain if plain else bec_decode_fused)(
-            tables, ch.llr, ch.codeword, iterations=dec.iterations, early_term=dec.early_term,
-            degree1_stale_byte=0 if dec.bec_ref_bug_compat else None,
-        )
-    else:
-        out = batch_decoder(tables, schedule, plain)(
-            tables, ch.llr, iterations=dec.iterations, early_term=dec.early_term,
-            minsum_mode=dec.cn_mode, message_dtype=dec.message_dtype, quant_scale=dec.quant_scale)
-    bit_pos = tables.code.bit_pos
+    out = decode(tables, ch)
+    bit_pos = pool.code.bit_pos
     frame_errs = (
         out.hard.index_select(0, bit_pos).bool() != ch.codeword.index_select(0, bit_pos).bool()
     ).sum(0)
@@ -359,13 +383,17 @@ class ShardedStep:
 
 
 def make_sim_step(
-    tables: KernelTables, channel_type: str, dec, batch: int, schedule: str,
+    tables, channel_type: str, dec, batch: int, schedule: str = "flooding",
     forensics: bool = False, modulation=None, mesh: Optional[Mesh] = None, plain: bool = False,
 ) -> Callable:
     """``step(gen, x_value) -> StepCounters`` on ``tables``' device
     (:class:`ForensicStepCounters` with ``forensics``); ``modulation`` as
     :func:`~..ops.channel.simulate_channel` takes it, ``batch`` the frames
-    of one shard.
+    of one shard.  ``tables`` is the sorted layout's
+    :class:`~..ops.kernels.layout.KernelTables` (the sweep's), decoded on
+    ``schedule``'s kernel, or a :class:`DeviceCode` (the library's padded
+    layout, in the code's labelling), decoded by the padded decoders
+    (:func:`batch_decode`).
 
     With a ``mesh`` the step is ``step(gens, x_value)``: one generator per
     local shard (:func:`shard_generators`), each shard ``batch`` frames on
@@ -373,10 +401,14 @@ def make_sim_step(
     mesh is a frame shard), the forensic planes ``[nc, shards * batch]`` in
     frame order.  ``plain`` decodes with the plain versions."""
 
-    def count(tb, pool, gen, x):
-        return _sim_and_count(tb, pool, gen, x, dec, batch, schedule, forensics, plain)
+    decode = batch_decode(tables, channel_type, dec, schedule, plain)
 
-    replicas = Replicas(tables, modulation, channel_type)
+    def count(tb, pool, gen, x):
+        return _sim_and_count(tb, pool, gen, x, batch, decode, forensics)
+
+    # a DeviceCode is drawn for in its own labelling
+    replicas = Replicas(tables, modulation, channel_type,
+                        **({"code_of": lambda dc: dc} if isinstance(tables, DeviceCode) else {}))
     if mesh is None:
         def step(gen: torch.Generator, x_value: float):
             return count(tables, replicas.pool(tables.device), gen, x_value)
@@ -404,7 +436,9 @@ def make_multipoint_sim_step(
     ``[n_points, nc, frames of a point]``."""
     mesh.shape[POINT_AXIS]  # a points axis is required
 
+    decode = batch_decode(tables, channel_type, dec, schedule, plain)
+
     def count(tb, pool, gen, x):
-        return _sim_and_count(tb, pool, gen, x, dec, batch, schedule, forensics, plain)
+        return _sim_and_count(tb, pool, gen, x, batch, decode, forensics)
 
     return ShardedStep(Replicas(tables, modulation, channel_type), mesh, count)

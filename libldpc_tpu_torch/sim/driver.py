@@ -3,8 +3,13 @@
 Each sweep point runs device batches until the reference's stopping rule
 ``fec >= minFec || frames >= maxFrames || stop`` is met, evaluated on the
 host between batches.  With early termination on (the default) the point
-runs on a streaming kernel; otherwise each batch is one launch of a batch
-decode kernel.  The schedule (flooding, exact layered, or the fast layered
+streams (each lane reloads as soon as its frame is done); otherwise each
+batch is one launch of a batch decode kernel.  The streaming engine is the
+one the JAX package picks for the same flags: without ``--pallas`` its XLA
+super-step (:func:`..ops.streaming.make_streaming_step`: a reload at the end
+of every pass, in bursts, K2 and K8's reload form on the card), with
+``--pallas`` the fused step (:func:`..ops.streaming_fused.make_streaming_fused_step`:
+a lane reloads from its own entry of a pool refilled between chunks).  The schedule (flooding, exact layered, or the fast layered
 engine) is the one the JAX package runs for the same code and flags
 (:func:`route`); the exact layered schedule is batch-stepped, as
 there.  So is the message dtype (:func:`route` too): with
@@ -64,6 +69,7 @@ from ..ops.layered import natural_qc_layers
 from ..ops import modulation as mod
 from ..ops.messages import DTYPE_CODES, MessageForm
 from ..ops.sorted import to_sorted_device
+from ..ops.streaming import make_streaming_multipoint_step, make_streaming_step
 from ..ops.streaming_fused import make_streaming_fused_multipoint_step, make_streaming_fused_step
 from ..parallel import distributed
 from ..parallel.mesh import (
@@ -308,7 +314,25 @@ class Simulator:
                 "which the streaming compaction pools don't surface; the streaming ET fast path "
                 "is disabled for this sweep (batch stepping instead)", stacklevel=2)
         self._streaming = stream_eligible and not self._forensic_fallback
-        if self._streaming:
+        # the JAX driver's engines: its XLA super-step without --pallas,
+        # the fused (Pallas) step with it.  The provenance line keeps the
+        # JAX driver's fields (its streaming=on covers both); the CLI's
+        # console names the engine.
+        self.engine = (("xla-superstep" if not use_pallas else "fused-pool")
+                       if self._streaming else "batch")
+        if self.engine == "xla-superstep":
+            self._stream_init, self._stream_step = make_streaming_step(
+                self.tables,
+                channel_params.type,
+                decoder_params,
+                batch,
+                mesh=mesh,
+                modulation=mod_for_step,
+                chunk_iters=simulation_params.streaming_chunk,
+                max_frames=simulation_params.max_frames,
+            )
+            self._step = None
+        elif self._streaming:
             self._stream_init, self._stream_step = make_streaming_fused_step(
                 self.tables,
                 channel_params.type,
@@ -610,7 +634,12 @@ class Simulator:
             resolve_device(d)
         per_shard = self.sim.batch_size // n_frame_dev
         stream_bundle = step = None
-        if self._streaming:
+        if self.engine == "xla-superstep":
+            stream_bundle = make_streaming_multipoint_step(
+                self.tables, self.ch.type, self.dec, per_shard, mesh,
+                modulation=self._mod_for_step, chunk_iters=self.sim.streaming_chunk,
+                max_frames=self.sim.max_frames)
+        elif self._streaming:
             stream_bundle = make_streaming_fused_multipoint_step(
                 self.tables, self.ch.type, self.dec, per_shard, mesh,
                 chunk_iters=self.sim.streaming_chunk, max_frames=self.sim.max_frames,

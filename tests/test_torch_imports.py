@@ -23,10 +23,13 @@ MODULES = [
     "libldpc_tpu_torch.models.gf2",
     "libldpc_tpu_torch.models.io",
     "libldpc_tpu_torch.models.standards",
+    "libldpc_tpu_torch.ops",
     "libldpc_tpu_torch.ops.bec",
     "libldpc_tpu_torch.ops.bec_sorted",
     "libldpc_tpu_torch.ops.channel",
     "libldpc_tpu_torch.ops.cn_ops",
+    "libldpc_tpu_torch.ops.decoder",
+    "libldpc_tpu_torch.ops.device",
     "libldpc_tpu_torch.ops.kernels.build",
     "libldpc_tpu_torch.ops.kernels.decode_bec",
     "libldpc_tpu_torch.ops.kernels.decode_fused",

@@ -174,7 +174,9 @@ def test_multipoint_stream_gates_refill_per_point(tables):
 
 
 #: Rows of a sweep without a mesh, from the port before meshes existed
-#: (``Simulator.start`` on the CPU, the 96-node code of ``code``).
+#: (``Simulator.start`` on the CPU, the 96-node code of ``code``).  The
+#: streaming rows are the fused step's, the engine of ``--pallas`` (the
+#: default command line runs the XLA super-step since it was ported).
 PARENT_ROWS = {
     "stream": {"frames": [128, 354, 504], "fec": [92, 101, 46],
                "avg_iter": [8.484375, 5.056497175141243, 2.8531746031746033]},
@@ -199,7 +201,7 @@ def test_rows_without_a_mesh_are_unchanged(code, name):
                 ChannelParams(seed=5, x_range=(0.3, 0.451, 0.05), type="BEC")),
     }[name]
     r = Simulator(code, dec, ch, SimulationParams(batch_size=64, fec=20, max_frames=4000),
-                  device="cpu", verbose=False).start()
+                  device="cpu", verbose=False, use_pallas=name == "stream").start()
     assert r.frames.tolist() == PARENT_ROWS[name]["frames"]
     assert r.fec.tolist() == PARENT_ROWS[name]["fec"]
     assert r.avg_iter.tolist() == PARENT_ROWS[name]["avg_iter"]

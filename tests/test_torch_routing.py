@@ -7,7 +7,10 @@ that each branch is reached: the edge-major layout (Beneš n_pad, the MXU
 plan), the qc lanes and their two sub-32-bit walls, the Clos lanes' fill
 wall, the lanes' n_pad walls, and the fixed-iteration reroute.  The
 NumPy sizes behind it (:mod:`libldpc_tpu_torch.sim.tpu_layouts`) are held
-to the JAX layouts' own."""
+to the JAX layouts' own.  The streaming engine each command line runs is
+held to the one the JAX driver builds (its XLA super-step without
+``--pallas``, its fused steps with it, batch stepping where streaming is
+off)."""
 
 import dataclasses
 import itertools
@@ -185,3 +188,79 @@ def test_clos_n_pad_wall(monkeypatch):
     monkeypatch.setattr(driver, "CLOS_LANES_FILL_LIMIT", 65536)
     monkeypatch.setattr(driver, "CLOS_LANES_N_PAD_LIMIT", 65536)
     assert driver.tpu_layout(small, dec, True) == ("clos", "bfloat16", ())
+
+
+#: command lines as ``Simulator`` arguments: (decoder, channel, simulation,
+#: use_pallas, code)
+ENGINE_CASES = {
+    "default": (dict(), dict(), dict(), False, "bench96"),
+    "--pallas": (dict(), dict(), dict(), True, "bench96"),
+    "--no-early-term": (dict(early_term=False), dict(), dict(), False, "bench96"),
+    "--channel BEC": (dict(), dict(type="BEC", x_range=(0.3, 0.31, 0.1)), dict(), False,
+                      "bench96"),
+    "--layer-file": (dict(layered=True), dict(), dict(), False, "wifi1944"),
+    "--layer-file --pallas": (dict(layered=True), dict(), dict(), True, "wifi1944"),
+    "--error-log": (dict(), dict(), dict(error_log_file="e.txt"), False, "bench96"),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_of_each_command_line_is_the_jax_drivers(codes, monkeypatch, tmp_path, case):
+    """Which streaming engine each command line runs, in both packages:
+    the JAX driver's XLA super-step (``ops.streaming.make_streaming_step``)
+    without ``--pallas``, its fused steps (``streaming_pallas``) with it,
+    batch stepping where streaming is off (spies on the JAX makers; the
+    port's ``Simulator.engine``)."""
+    from libldpc_tpu.ops import streaming as jstreaming
+    from libldpc_tpu.ops import streaming_pallas as jstreaming_pallas
+    from libldpc_tpu.sim.driver import Simulator as JaxSimulator
+    from libldpc_tpu_torch.utils.params import ChannelParams, SimulationParams
+
+    made = []
+    for mod, name, engine in ((jstreaming, "make_streaming_step", "xla-superstep"),
+                              (jstreaming_pallas, "make_streaming_pallas_step", "fused-pool"),
+                              (jstreaming_pallas, "make_streaming_lanes_step", "fused-pool")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _e=engine, **k: (made.append(_e),
+                                                                            _r(*a, **k))[1])
+    dec, ch, simp, use_pallas, name = ENGINE_CASES[case]
+    jcode = codes[name]
+    if dec.get("layered"):
+        jcode = dataclasses.replace(jcode, layers=[np.arange(i * 81, (i + 1) * 81)
+                                                   for i in range(jcode.mc // 81)])
+        jcode.qc = wifi_code(1944).qc
+    simp = dict(batch_size=32, fec=3, max_frames=64, **simp)
+    if "error_log_file" in simp:
+        simp["error_log_file"] = str(tmp_path / "e.txt")
+    ch = dict(dict(seed=1, x_range=(1.0, 1.1, 1.0)), **ch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        JaxSimulator(jcode, jparams.DecoderParams(iterations=8, **dec),
+                     jparams.ChannelParams(**ch), jparams.SimulationParams(**simp),
+                     use_pallas=use_pallas, verbose=False)
+        sim = driver.Simulator(code_from_jax(jcode), DecoderParams(iterations=8, **dec),
+                               ChannelParams(**ch), SimulationParams(**simp), device="cpu",
+                               verbose=False, use_pallas=use_pallas)
+    assert sim.engine == (made[0] if made else "batch"), (case, made)
+    assert sim.engine == {"default": "xla-superstep", "--pallas": "fused-pool",
+                          "--layer-file --pallas": "fused-pool"}.get(case, "batch")
+
+
+def test_start_wide_runs_the_engine_of_its_command_line(codes, monkeypatch):
+    """``start_wide`` without ``--pallas`` streams on the multipoint XLA
+    super-step, with it on the fused multipoint step."""
+    from libldpc_tpu_torch.parallel.mesh import FRAME_AXIS, POINT_AXIS, make_mesh
+    from libldpc_tpu_torch.utils.params import ChannelParams, SimulationParams
+
+    for use_pallas, maker in ((False, "make_streaming_multipoint_step"),
+                              (True, "make_streaming_fused_multipoint_step")):
+        calls = []
+        real = getattr(driver, maker)
+        monkeypatch.setattr(driver, maker, lambda *a, _r=real, **k: (calls.append(1),
+                                                                     _r(*a, **k))[1])
+        sim = driver.Simulator(code_from_jax(codes["bench96"]), DecoderParams(iterations=6),
+                               ChannelParams(seed=2, x_range=(2.0, 3.01, 1.0)),
+                               SimulationParams(batch_size=32, fec=5, max_frames=96),
+                               device="cpu", verbose=False, use_pallas=use_pallas)
+        res = sim.start_wide(make_mesh((2, 1), (POINT_AXIS, FRAME_AXIS), ["cpu"] * 2))
+        assert calls and res.frames.tolist() and min(res.frames.tolist()) > 0

@@ -21,7 +21,10 @@ kernel that the size rule picks and once for its HBM-plane form
 (``decode_fused.STREAM_FORM_OVERRIDE``), then once more in the rule's form
 with the pool drawn through 4-ASK (Gray labels ``0 1 3 2``, the transmitted
 bits mapped consecutively) at 7.5 dB, where the 1152 code's ``avg_iter``
-is close to BPSK's at 2.0 dB.
+is close to BPSK's at 2.0 dB.  Where the tree has it, one more window runs
+the default sweep's engine, the JAX package's XLA super-step
+(``ops.streaming.make_streaming_step``: per pass a one-pass K2 launch, then
+K8's reload form, ``stream_reload``, run inside the channel's range).
 
 A kernel's part is set by where it was launched: the pool's refill (the
 streaming step's ``pool_refill``, K8, or in a tree before it its
@@ -32,7 +35,9 @@ batch's float32 ``u G`` product, its normal draws, its reductions (4-ASK:
 the labels' packing and the bitwise LLRs' logsumexps) and its elementwise
 work.  Outside it: the streaming kernel K2, the grants in lane order, the
 draw of K8's keys, the elementwise work (before K8: the pool merge) and
-the counters' reductions.  The JSON is also written to
+the counters' reductions; in the XLA super-step's window the reload's
+plan (``reload_plan``) is a part of its own, its draw is K8's, and the
+elementwise work is the super-step's own.  The JSON is also written to
 ``OUT.json`` when given.  Card name and power limit are
 printed with it.
 """
@@ -63,6 +68,8 @@ def part_of(name: str, in_channel: bool) -> str:
     low = name.lower()
     if "stream_chunk" in low:
         return "k2_stream_chunk"
+    if "reload_plan" in low:
+        return "reload_plan"
     if "pool_draw" in low or "pool_plan" in low:
         return "channel_k8"
     if "stream_grant" in low:
@@ -84,17 +91,26 @@ def part_of(name: str, in_channel: bool) -> str:
 
 def traced_channel():
     """Run the streaming step's pool refill (K8; before it, the channel
-    draw) inside ``CHANNEL_RANGE``."""
+    draw) and, where the tree has it, the XLA super-step's reload
+    (``pool_refill.stream_reload``) inside ``CHANNEL_RANGE``."""
     from libldpc_tpu_torch.ops import streaming_fused
+    from libldpc_tpu_torch.ops.kernels import pool_refill
 
     name = "pool_refill" if hasattr(streaming_fused, "pool_refill") else "simulate_channel"
-    draw = getattr(streaming_fused, name)
+    sites = [(streaming_fused, name)]
+    if hasattr(pool_refill, "stream_reload"):
+        sites.append((pool_refill, "stream_reload"))
+    for mod, attr in sites:
+        draw = getattr(mod, attr)
 
-    def traced(*args, **kwargs):
-        with torch.profiler.record_function(CHANNEL_RANGE):
-            return draw(*args, **kwargs)
+        def traced(*args, _draw=draw, **kwargs):
+            with torch.profiler.record_function(CHANNEL_RANGE):
+                return _draw(*args, **kwargs)
 
-    setattr(streaming_fused, name, traced)
+        # a wrapper counts its launches in its own attribute (the function's
+        # global name is the wrapper now)
+        traced.launches = getattr(draw, "launches", 0)
+        setattr(mod, attr, traced)
 
 
 def device_events(prof):
@@ -226,6 +242,13 @@ def main() -> int:
     row["k2_form"] = df.bp_stream_chunk_fused.last_form
     row["snr_db"] = 7.5
     result["window rule 4-ASK"] = row
+    from libldpc_tpu_torch.ops import streaming
+
+    if hasattr(streaming, "make_streaming_step"):
+        init_fn, step_fn = streaming.make_streaming_step(tables, "AWGN",
+                                                         DecoderParams(iterations=50), BATCH)
+        _, row = window(step_fn, init_fn(), 11)
+        result["window default (XLA super-step)"] = row
     text = json.dumps(result, indent=1)
     print(text)
     if len(sys.argv) > 1 and sys.argv[1] != "--root":

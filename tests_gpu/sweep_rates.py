@@ -1,7 +1,7 @@
 """Sweep rates over long windows, from any checkout of the port, for
 comparing two commits on one card in one call.
 
-    python3 tests_gpu/sweep_rates.py <root of a checkout> [reps] [exact|streaming|batch]
+    python3 tests_gpu/sweep_rates.py <root of a checkout> [reps] [exact|streaming|batch|default]
 
 It imports ``libldpc_tpu_torch`` from that root.  Every point runs 50
 iterations, B = 16384, seed 1, with no frame-error stop and ``max_frames``
@@ -26,6 +26,10 @@ frames are exactly 786,432).
   sweep of the 1152 code (K6, ET) at erasure rates 0.35 and 0.40, and the
   1152 flooding BPSK point at 2.0 dB without early termination (K1, BP), as
   ``--channel BEC`` and ``--no-early-term`` run them.
+* ``default``: the 1152 flooding ET points at 1.5, 2.0 and 2.5 dB, float32
+  BP, on the command line without ``--pallas`` (the JAX package's default
+  streaming engine, its XLA super-step) and with it (the fused step), each
+  point both ways in turn; a ``rate`` line names which.
 
 Run it on two trees in turns (parent, change, change, parent).
 """
@@ -57,11 +61,12 @@ def main() -> int:
     def sweep(code, snr, batches, **dec):
         modulation = dec.pop("modulation", None)
         channel_type = dec.pop("channel", "AWGN")
+        use_pallas = dec.pop("pallas", True)
         return Simulator(
             code, DecoderParams(iterations=50, **dec),
             ChannelParams(seed=1, x_range=(snr, snr + 0.001, 1.0), type=channel_type),
             SimulationParams(batch_size=16384, fec=10**9, max_frames=batches * 16384),
-            device=dev, verbose=False, use_pallas=True, modulation=modulation,
+            device=dev, verbose=False, use_pallas=use_pallas, modulation=modulation,
         ).start()
 
     if which == "exact":
@@ -69,6 +74,10 @@ def main() -> int:
                    dict(layered=True, type="BP", message_dtype="float32")),
                   ("wifi648 layered BP_MS int8", wifi_code(648), 2.0,
                    dict(layered=True, type="BP_MS", message_dtype="int8"))]
+    elif which == "default":
+        points = [(f"bench1152 flooding BP float32 {'--pallas' if pallas else 'default'}", bench,
+                   snr, dict(type="BP", pallas=pallas))
+                  for snr in (1.5, 2.0, 2.5) for pallas in (False, True)]
     elif which == "batch":
         points = ([("bench1152 BEC peeling", bench, eps, dict(channel="BEC"))
                    for eps in (0.35, 0.40)]
