@@ -541,6 +541,7 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
     # in this phase's Simulator sweeps below (use_pallas=True)
     for name, what in (("bp_stream_chunk_fused", "K2 (4-ASK sim_cuda)"),
                        ("stream_reload", "K8's reload form (4-ASK sim_cuda)"),
+                       ("stream_reload_staged", "K8's staged reload (4-ASK sim_cuda)"),
                        ("bp_decode_layered", "K5 (8-ASK sim_cuda -layer)"),
                        ("bp_stream_chunk_layered_fast", "K4 (16-ASK LDPC.simulate)")):
         check(counts[name] > 0, f"the modulation path did not run {what}")
@@ -591,7 +592,8 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
           f"{bpsk.time[0] / ask4.time[0]:.3f}x BPSK at 2.0 dB (avg_iter {bpsk.avg_iter[0]:.4f}) "
           f"[{name_power}]")
     counts = read_counts()
-    check(counts["pool_refill"] > 0 and counts["stream_reload"] == 0,
+    check(counts["pool_refill"] > 0 and counts["stream_reload"] == 0
+          and counts["stream_reload_staged"] == 0,
           f"the use_pallas sweeps (BPSK, M = 2, 4-ASK) did not run the fused step: {counts}")
 
     # -- a modulated --error-log point, dE recomputed on the host
@@ -1542,15 +1544,18 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
                       write_files) -> dict:
     """Phase 16: the JAX package's default streaming sweep (its XLA
     super-step, no ``--pallas``) on the card: per pass a one-pass K2 launch
-    and K8's reload form.  The card's super-step against the plain
-    super-step on the card (``_superstep_body``, whose draw is K8's full
-    batch on the pass's key) on the 1152 code at B = 16384: BP_MS
-    bit-exact (deltas, ``started``, every plane; ``lv2c`` on the lanes in
-    flight), BP to the frames counted, and under a binding quota.  The
-    reload timed against its plain version at ``RELOAD_IDLE`` idle lanes,
-    and K2's one-pass launch against its 6-pass chunk.  Then the default
-    CLI sweep (no ``--pallas``) beside the ``--pallas`` sweep of the same
-    code, in turn: frames/s, avg_iter, FER within |z| < 3; and a
+    and K8's reload form, staged in every pass but a super-step's last.
+    The card's super-step against the plain super-step on the card
+    (``_superstep_body``, whose draw is K8's full batch on the pass's key)
+    on the 1152 code at B = 16384: BP_MS bit-exact (deltas, ``started``,
+    every plane; ``lv2c`` on the lanes in flight), BP to the frames
+    counted, and under a binding quota.  Both reload forms timed against
+    their plain versions at ``RELOAD_IDLE`` idle lanes (the staged one also
+    held to its plain version), and K2's one-pass launch against its 6-pass
+    chunk and with ``RELOAD_IDLE`` staged starts pending (held to the plain
+    chunk in BP_MS).  Then the default CLI sweep (no ``--pallas``) beside
+    the ``--pallas`` sweep of the same code, in turn: frames/s, avg_iter,
+    FER within |z| < 3, both reload forms' launches; and a
     ``max_frames``-ended point run 5 times: one outcome."""
     from libldpc_tpu_torch import cli
     from libldpc_tpu_torch.ops import channel, streaming
@@ -1560,7 +1565,7 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
     from libldpc_tpu_torch.sim.driver import (
         ChannelParams, DecoderParams, SimulationParams, Simulator,
     )
-    from libldpc_tpu_torch.utils.roofline import bound
+    from libldpc_tpu_torch.utils.roofline import OPS_BP_SLOT, bound
 
     tb = tables["bench1152"]
     sdc = tb.code
@@ -1601,8 +1606,8 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
             check(abs(frames_k - frames_p) <= BATCH // 1000, f"phase 16 BP: frames {frames_k} "
                   f"against the plain super-step's {frames_p}")
     out["max_abs_err"] = worst
-    # -- the reload alone, timed against its plain version
-    pt = pr.pool_tables(sdc, "AWGN")
+    # -- the reload alone, in the path's tiling, timed against its plain version
+    pt = pr.reload_tables(pr.pool_tables(sdc, "AWGN"))
     g = torch.Generator(device="cpu").manual_seed(3)
     idle_lanes = torch.randperm(BATCH, generator=g)[:RELOAD_IDLE].to(dev)
     planes = dict(done=torch.zeros(BATCH, dtype=torch.int32, device=dev),
@@ -1644,6 +1649,49 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
           f"{ms:.4f} ms (plan {plan_ms:.4f}; no draw {idle_ms:.4f}), plain {plain_ms:.4f} ms; "
           f"bound {out['bound'][0]:.4f} ms by {out['bound'][1]} "
           f"({out['bound'][0] / ms:.1%} of the bound) [{name_power}]")
+    # the staged form on the same lanes and key, held to its plain version:
+    # the slot plane, the staged columns, done / age / iters and started
+    stage = pr.ReloadStage.empty(sdc.nc, BATCH, dev)
+    plain_stage = pr.ReloadStage.empty(sdc.nc, BATCH, dev)
+
+    def reset_staged():
+        reset()
+        stage.slot.fill_(-1)
+        plain_stage.slot.fill_(-1)
+
+    def staged_reload():
+        pr.stream_reload(pt, None, 2.0, *args(), key=key, stage=stage)
+
+    def staged_plain():
+        pr.stream_reload_plain(pt, lambda: pr.channel_batch(pt, None, BATCH, 2.0, key=key),
+                               *args(), stage=plain_stage)
+
+    got = []
+    for fn, buf in ((staged_reload, stage), (staged_plain, plain_stage)):
+        reset_staged()
+        fn()
+        got.append([planes[n].clone() for n in ("done", "age", "iters", "started")]
+                   + [buf.slot.clone(), buf.cw[:, :RELOAD_IDLE].clone(),
+                      buf.llr[:, :RELOAD_IDLE].clone()])
+    check(all(torch.equal(a, b) for a, b in zip(got[0][:-1], got[1][:-1])),
+          "the staged reload differs from its plain version")
+    out["staged_err"] = float((got[0][-1] - got[1][-1]).abs().max())
+    check(out["staged_err"] == 0.0, f"the staged LLRs differ from the plain ones by "
+                                    f"{out['staged_err']}")
+    out["staged_ms"] = cuda_ms(staged_reload, 20, setup=reset_staged, busy=True)
+    out["staged_plain_ms"] = cuda_ms(staged_plain, 5, setup=reset_staged)
+    # the staged kernel's own bytes: done read; a granted lane's staged
+    # column (LLRs and codeword), its slot, done, age and iters written;
+    # started read and written.  No first message: K2 makes those
+    out["staged_bound"] = bound(BATCH * 4 + RELOAD_IDLE * (sdc.nc * 5 + 16) + 8,
+                                RELOAD_IDLE * sdc.nc * 2 * pt.kw)
+    print(f"time stream_reload staged bench1152 BPSK {RELOAD_IDLE} of {BATCH} lanes granted: "
+          f"kernel {out['staged_ms']:.4f} ms, plain {out['staged_plain_ms']:.4f} ms; bound "
+          f"{out['staged_bound'][0]:.4f} ms by {out['staged_bound'][1]} "
+          f"({out['staged_bound'][0] / out['staged_ms']:.1%} of the bound); against the reload "
+          f"function's output (LLRs, codewords and first messages, {out['bound'][0]:.4f} ms) "
+          f"{out['bound'][0] / out['staged_ms']:.1%}; {ms / out['staged_ms']:.2f}x the reload "
+          f"into the state [{name_power}]")
     # -- K2: one pass a launch against a 6-pass chunk, from the same full pool
     ch = channel.awgn_channel(sdc, channel.make_generator(dev, 16, 99), BATCH, 1.5)
     st = init_state(tb, BATCH)
@@ -1679,6 +1727,60 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
     print(f"time K2 bench1152 BP one-pass launch (no starts) {one:.3f} ms, 6-pass chunk "
           f"{six:.3f} ms ({six / 6:.3f} a pass; one pass a launch costs "
           f"{one / (six / 6):.2f}x) [{name_power}]")
+    # -- K2's one-pass launch with RELOAD_IDLE staged starts pending (the
+    # default sweep's pass after a staged reload), held to the plain chunk
+    pending = torch.randperm(BATCH, generator=torch.Generator(device="cpu").manual_seed(5))[
+        :RELOAD_IDLE].to(dev)
+    started_k2 = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def restore_pending():
+        restore()
+        st.done.zero_()  # every other lane in flight, so the plan grants these alone
+        st.done[pending] = 1
+        started_k2.zero_()
+        stage.slot.fill_(-1)
+        pr.stream_reload(pt, None, 2.0, refill_on, st.done, st.llr_in, st.codeword, st.lv2c,
+                         st.age, st.iters, started_k2, 10**9, BATCH // 16, key=key, stage=stage)
+
+    def staged_chunk(minsum_mode, plain=False):
+        fn = df.bp_stream_chunk_fused_plain if plain else df.bp_stream_chunk_fused
+        return lambda: fn(tb, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
+                          st.avail, st.ctr, st.llr_in, st.codeword, zero, zero, k=1, cap=ITERS,
+                          minsum_mode=minsum_mode, stage=stage)
+
+    k2_runs = []
+    for plain in (False, True):
+        restore_pending()
+        check(int(started_k2) == RELOAD_IDLE, "the staged starts were not granted")
+        staged_chunk("BP_MS", plain)()
+        k2_runs.append([getattr(st, n).clone() for n in ("llr_in", "codeword", "lv2c", "done",
+                                                     "iters", "age", "ctr")])
+        check(not bool((stage.slot >= 0).any()), "K2 left staged starts pending")
+    check(all(torch.equal(a, b) for a, b in zip(*k2_runs)),
+          "K2's one-pass launch with staged starts differs from the plain chunk (BP_MS)")
+    pend_ms = cuda_ms(staged_chunk("BP"), 20, setup=restore_pending)
+    pend_plain_ms = cuda_ms(staged_chunk("BP", plain=True), 3, setup=restore_pending)
+    # the frames this timed launch finishes (BP, as timed): each reads its
+    # transmitted bits' codeword bytes
+    restore_pending()
+    staged_chunk("BP")()
+    finished = int((st.ctr.view(5, -1)[2] - saved["ctr"].view(5, -1)[2]).sum())
+    # one pass of every lane, as this run's data needs it: a lane in flight
+    # reads its LLRs and its lv2c, a staged lane its staged column (and
+    # writes it into llr_in and codeword, and its slot); every lane writes
+    # its lv2c and reads and writes done, iters, age, avail and the 5
+    # counters, and reads its slot; BP's operations a slot
+    carried = BATCH - RELOAD_IDLE
+    out["k2_pending_bound"] = bound(
+        carried * (sdc.nc + sdc.nnz) * 4 + BATCH * (sdc.nnz * 4 + 2 * 4 * 4 + 2 * 5 * 4 + 4)
+        + RELOAD_IDLE * (sdc.nc * 10 + 4) + finished * sdc.nct, BATCH * sdc.nnz * OPS_BP_SLOT)
+    out["k2_pending_ms"], out["k2_pending_plain_ms"] = pend_ms, pend_plain_ms
+    print(f"time K2 bench1152 BP one-pass launch with {RELOAD_IDLE} staged starts pending "
+          f"{pend_ms:.3f} ms (no starts {one:.3f}: +{pend_ms - one:.3f}), plain "
+          f"{pend_plain_ms:.3f} ms; {finished} frames finished; bound "
+          f"{out['k2_pending_bound'][0]:.4f} ms by "
+          f"{out['k2_pending_bound'][1]} ({out['k2_pending_bound'][0] / pend_ms:.1%} of the "
+          f"bound) [{name_power}]")
     # -- the default sweep (no --pallas) and the --pallas sweep of the same
     # code in this run, through the CLI; each Simulator's results kept (the
     # results file rounds a frame's time to the microsecond)
@@ -1711,9 +1813,18 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
     finally:
         driver.Simulator.start = real_start
     print(f"phase 16 default sweep launches: {launches}")
+    print(f"phase 16 default sweep reloads: {launches['stream_reload_staged']} staged, "
+          f"{launches['stream_reload']} into the state (a super-step's last pass); K2 one-pass "
+          f"launches {launches['bp_stream_chunk_fused']}, {launches['bp_stream_chunk_fused_staged']}"
+          f" of them given the staging buffer")
     check(set(runs) == {"xla-superstep", "fused-pool"}, f"phase 16 engines: {sorted(runs)}")
     check(launches["bp_stream_chunk_fused"] > 0, "the default sweep did not run K2")
     check(launches["stream_reload"] > 0, "the default sweep did not reload with K8's reload form")
+    check(launches["stream_reload_staged"] == (ITERS - 1) * launches["stream_reload"],
+          "the default sweep did not stage every reload of a super-step but its last")
+    check(launches["bp_stream_chunk_fused_staged"] == launches["bp_stream_chunk_fused"]
+          == launches["stream_reload"] + launches["stream_reload_staged"],
+          "the default sweep's K2 launches did not all take the staging buffer")
     check(launches["pool_refill"] == 0 and launches["stream_grant"] == 0,
           "the default sweep ran the fused step's pool")
     check(head.startswith("# kernel=cuda-fused") and "streaming=on" in head,
@@ -1730,6 +1841,7 @@ def run_xla_streaming(dev, codes, tables, name_power, zero_counts, read_counts,
         check(math.isfinite(fx) and xla.frames[i] > 0, f"default sweep row {x}")
         check(abs(z) < 3, f"default sweep FER at {x} dB against --pallas: z {z:.2f}")
     out["launches"] = launches["stream_reload"]
+    out["staged_launches"] = launches["stream_reload_staged"]
     out["k2_launches"] = launches["bp_stream_chunk_fused"]
     # -- a max_frames-ended point, 5 times: one outcome
     outcomes = set()
@@ -2314,10 +2426,15 @@ def main() -> int:
             fn.launches = 0
         for fn in by_form:
             fn.launches = dict.fromkeys(SUFFIX, 0)
+        # the staged reload and K2's launches given its staging buffer
+        pr.stream_reload.staged_launches = 0
+        df.bp_stream_chunk_fused.staged_launches = 0
 
     def read_counts():
         out = {fn.__name__: fn.launches for fn in counted}
         out.update({fn.__name__ + SUFFIX[dt]: n for fn in by_form for dt, n in fn.launches.items()})
+        out["stream_reload_staged"] = pr.stream_reload.staged_launches
+        out["bp_stream_chunk_fused_staged"] = df.bp_stream_chunk_fused.staged_launches
         return out
 
     # the sweeps of phases 8-9b draw every channel batch with K8: the plain
@@ -2912,6 +3029,7 @@ def main() -> int:
                 "channel_batch": flooding_launches["channel_batch"],
                 "stream_grant": flooding_launches["stream_grant"],
                 "stream_reload": xla["launches"],
+                "stream_reload_staged": xla["staged_launches"],
                 **{f"{fn.__name__}{SUFFIX[dt]}": form_launches[f"{fn.__name__}{SUFFIX[dt]}"]
                    for fn in by_form[:2] for dt in ("bfloat16", "int8")},
                 **{f"{fn.__name__}{SUFFIX[dt]}":
@@ -3024,6 +3142,8 @@ def main() -> int:
         "channel_batch": k8["times"]["bench1152", "BPSK"]["full_bound"],
         "stream_grant": grants["grant_bound"],
         "stream_reload": xla["bound"],
+        # the staged kernel's own bytes (its first messages are K2's)
+        "stream_reload_staged": xla["staged_bound"],
     }
     # the wifi 1944 rows of kernel 1 (float32, BP), K6 and K7 (BEC); K7's
     # two forms on both codes
@@ -3074,10 +3194,17 @@ def main() -> int:
     forms_run["channel_batch"] = "the draw over every lane, " + k8_form
     forms_run["stream_grant"] = ("one block of 1024 threads, 16 lanes a thread in 16-byte loads "
                                  "and stores, a warp-then-block shuffle scan")
+    reload_form = (f"{pr.RELOAD_LANE_TILE} lanes x {pr.RELOAD_SLAB_COLS} items a block of 8 warps, "
+                   f"the encode on the tensor cores")
     forms_run["stream_reload"] = ("a one-block lane-order scan lists the idle lanes and grants "
                                   "them on the device (do_gen, the quota); the draw over the "
                                   "granted lanes straight into the stream state (LLRs, codewords, "
-                                  "each edge's first message), " + k8_form)
+                                  "each edge's first message), " + reload_form)
+    forms_run["stream_reload_staged"] = ("the same plan; the draw over the granted lanes into a "
+                                         "staging buffer, column = the lane's rank (a warp's "
+                                         "stores fill whole sectors), no first message: K2's "
+                                         "next one-pass launch starts the lane from it, "
+                                         + reload_form)
     # K1, K2 and K5 by their size rules, per message form, at the timed shapes
     for dt in SUFFIX:
         forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
@@ -3137,6 +3264,10 @@ def main() -> int:
         # and the lane-order merge under lax.cond), a kernel here
         ("stream_reload", "libldpc_tpu_torch/csrc/pool_refill.cu",
          "libldpc_tpu/ops/streaming.py:176", xla["max_abs_err"], (xla["ms"], xla["plain_ms"])),
+        # its staged form, every pass of a super-step but the last
+        ("stream_reload_staged", "libldpc_tpu_torch/csrc/pool_refill.cu",
+         "libldpc_tpu/ops/streaming.py:176", xla["staged_err"],
+         (xla["staged_ms"], xla["staged_plain_ms"])),
     ]
     for name, _, _, _, t in rows_json:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "

@@ -54,11 +54,14 @@ extern "C" {
 // Returns the launch's cudaGetLastError() (0 = launched).  The message
 // planes (lv2c, lc2v, and the posterior `post`) are of the type of
 // `msg_dtype`; `inv_q` is the int8 lattice's prior factor (unused
-// otherwise).
+// otherwise).  `slot` (or null), `stage_llr`, `stage_cw` [nc, S]: the staged
+// starts at the launch's entry (stream_chunk.cuh).
 int ldpc_bp_stream_chunk_fused(float* llr, uint8_t* cw, void* lv2c, int* done, int* iters,
                                int* age, int* avail, int* ctr, const float* fresh_llr,
                                const uint8_t* fresh_cw, const int* refill, int* remaining,
-                               const uint8_t* grant, void* lc2v, void* post, const int* row_ptr, const int* col_sorted,
+                               const uint8_t* grant, int* slot, const float* stage_llr,
+                               const uint8_t* stage_cw, int S, void* lc2v, void* post,
+                               const int* row_ptr, const int* col_sorted,
                                const int* vn_ptr, const int* perm_c2v, const int* bit_pos, int nc,
                                int mc, int nnz, int nct, int B, int k, int cap, int cn_mode,
                                float scale, float offset, int msg_dtype, float inv_q,
@@ -72,7 +75,7 @@ int ldpc_bp_stream_chunk_fused(float* llr, uint8_t* cw, void* lv2c, int* done, i
     BpStreamPass<Msg, FAM> pass{cp, m, (T*)lc2v};
     StreamArgs<float, T> s{llr,      cw,      (T*)lv2c,  done,     iters,  age,
                            avail,    ctr,     fresh_llr, fresh_cw, refill, remaining,
-                           (T*)post, bit_pos, nct, grant};
+                           (T*)post, bit_pos, nct, grant, slot, stage_llr, stage_cw, S};
     bp_stream_chunk_fused_kernel<Msg, FAM>
         <<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(c, pass, s, B, k, cap);
     return (int)cudaGetLastError();

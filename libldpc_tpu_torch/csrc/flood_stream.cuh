@@ -49,7 +49,10 @@
 // too) runs its first check phase from that plane; a frame reloaded in the
 // chunk starts from post = store(prior(x)) with lc2v taken as 0 (its first
 // check phase sees lv2c = store(prior(x)), the reload of decode_stream.cu);
-// at chunk exit every frame that ran a pass writes lv2c = store(load(post)
+// a frame started staged at the launch's entry (stream_chunk.cuh: the XLA
+// super-step's staged reload) copies its column of the staging buffer into
+// the planes and starts the same way, with no first message written; at
+// chunk exit every frame that ran a pass writes lv2c = store(load(post)
 // - load(lc2v)) of its last pass back to the plane, as the plain chunk
 // keeps lv2c_new for every lane active in a pass.  Reload, quota (one
 // atomicSub per granted start) and counters are those of stream_chunk.cuh.
@@ -179,6 +182,16 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
   // a frame that runs a pass writes its lv2c back at the end
   int src = done ? LV_TILE : LV_PLANE;
   bool dirty = false;
+  // a staged start: the lane's column into the planes, post = store(prior(x))
+  // with lc2v taken as 0, as an in-chunk reload (ordered before the first
+  // pass by its barriers)
+  const int slot = staged_slot(s, valid, b);
+  if (slot >= 0) {
+    staged_copy(s, c.nc, ty, NTY, B, b, slot, [&](int v, float x) {
+      t.post[v * F + f] = m.store(m.prior(x));
+    });
+    src = LV_FRESH;
+  }
   const bool refill_on = *s.refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
   for (int p = 0; p < k; ++p) {
@@ -244,6 +257,7 @@ bp_stream_chunk_tile_kernel(Code c, CnParams cp, Msg m, StreamArgs<float, typena
       s.lv2c[e * B + b] =
           m.store(m.load(t.post[tc.col_sorted[e] * F + f]) - m.load(t.q[e * F + f]));
   if (valid && lead) {
+    if (slot >= 0) s.slot[b] = -1;  // every thread of the frame read it at entry
     s.done[b] = done;
     s.iters[b] = iters;
     s.age[b] = age;
@@ -317,11 +331,13 @@ bp_decode_fused_tile_kernel(Code c, CnParams cp, Msg m, const float* __restrict_
 // side).  It returns the launch's cudaGetLastError() (0 = launched).  The
 // arguments are those of ldpc_bp_stream_chunk_fused (decode_stream.cu)
 // without its device-memory scratch, plus `stage`: the index tables staged
-// in shared memory.
+// in shared memory.  `slot` (or null), `stage_llr`, `stage_cw` and `S`: the
+// staged starts (stream_chunk.cuh).
 #define LDPC_FLOOD_STREAM_ENTRY(NAME, FRAMES)                                                    \
   extern "C" int NAME(float* llr, uint8_t* cw, void* lv2c, int* done, int* iters, int* age,      \
                       int* avail, int* ctr, const float* fresh_llr, const uint8_t* fresh_cw,     \
-                      const int* refill, int* remaining, const uint8_t* grant,                   \
+                      const int* refill, int* remaining, const uint8_t* grant, int* slot,        \
+                      const float* stage_llr, const uint8_t* stage_cw, int S,                    \
                       const int* row_ptr, const int* col_sorted, const int* vn_ptr,              \
                       const int* perm_c2v, const int* bit_pos, int nc, int mc, int nnz, int nct, \
                       int B, int k,                                                              \
@@ -334,7 +350,7 @@ bp_decode_fused_tile_kernel(Code c, CnParams cp, Msg m, const float* __restrict_
       using T = typename Msg::T;                                                                 \
       StreamArgs<float, T> s{llr,       cw,       (T*)lv2c, done,    iters,  age,                \
                              avail,     ctr,      fresh_llr, fresh_cw, refill, remaining,        \
-                             (T*)nullptr, bit_pos, nct, grant};                                  \
+                             (T*)nullptr, bit_pos, nct, grant, slot, stage_llr, stage_cw, S};    \
       return launch_smem(bp_stream_chunk_tile_kernel<Msg, decltype(fam)::value, FRAMES>,         \
                          (B + FRAMES - 1) / FRAMES, dim3(FRAMES, flood_rows(FRAMES)),            \
                          flood_tile_bytes(nc, mc, nnz, FRAMES, (int)sizeof(T), stage != 0),      \

@@ -51,11 +51,24 @@
 //   && idle >= gen_threshold on the device, grants the first min(idle,
 //   quota - started) of them and adds the grants to `started`; then
 //   pool_draw_kernel draws only the granted lanes, with the keying and
-//   formulas above, straight into the stream state: the LLRs and the
-//   codeword, each edge's first message (the prior at its variable, from
-//   the VN-space slot lists vn_ptr / perm_c2v), and done = 0, age = 1,
-//   iters = 0.  No host read: a pass where JAX's lax.cond draws nothing
-//   draws nothing here.
+//   formulas above, in one of two forms:
+//   - staged (StageSink; every pass of a super-step but its last): lane
+//     lanes[r] goes to column r of a staging buffer [nc, S] (the LLRs and
+//     the codeword), slot[lane] = r, and done = 0, age = 1, iters = 0.  A
+//     warp holds 32 consecutive ranks of one position, so its stores fill
+//     whole sectors, and no first message is written: K2's next one-pass
+//     launch copies the lane's column into the planes and starts it from
+//     its prior as an in-chunk reload does (flood_stream.cuh,
+//     stream_chunk.cuh), which gives the first messages bit for bit;
+//   - into the planes (PlaneSink; a super-step's last pass, so the state
+//     between super-steps is the JAX super-step's): the LLRs and the
+//     codeword, each edge's first message (the prior at its variable, from
+//     the VN-space slot lists vn_ptr / perm_c2v), and done = 0, age = 1,
+//     iters = 0.  The granted lanes are the idle ones, spread over the
+//     batch: each of a lane's 5 nc + 4 nnz bytes is a 32-byte sector of
+//     its own.
+//   No host read: a pass where JAX's lax.cond draws nothing draws nothing
+//   here.
 // * stream_grant_kernel (one block): the grants of one pass in lane order
 //   over the whole batch, eligible = refill && done && avail, granted iff
 //   the inclusive count of eligible lanes is <= remaining; remaining is
@@ -131,9 +144,6 @@ struct PoolPlan {
 };
 
 struct PoolDraw {
-  void* fresh;                     // [nc, B] float32 LLRs, or u8 BEC symbols
-  uint8_t* fresh_cw;               // [nc, B]
-  int* avail;                      // [B] set to 1 on every drawn lane; null for a full batch
   const int* lanes;                // [B] the lanes to draw, in order; null: lane i is i
   const int* count;                // [1] how many of `lanes`; null: B
   const unsigned long long* key;   // [1] Philox seed
@@ -146,25 +156,79 @@ struct PoolDraw {
   float delta;    // BSC: log((1 - eps) / eps)
   float eps;      // BSC, BEC
   float shorten;  // the LLR of a shortened bit
-  // the reload form (null otherwise): the drawn lanes' stream state
+};
+
+// Where a draw's results go.  `lane` is the drawn lane (its Philox
+// subsequence), `rank` its place in the plan's list (the lane itself for a
+// full batch).
+//
+// PlaneSink: lane `lane`'s column of [nc, B] planes: the pool, a channel
+// batch, or (lv2c set) the reload straight into the stream state, each of
+// the variable's edges taking its prior as the first message.
+struct PlaneSink {
+  static constexpr bool kSymbols = true;  // takes the BEC's u8 symbols
+  void* fresh;            // [nc, B] float32 LLRs, or u8 BEC symbols
+  uint8_t* fresh_cw;      // [nc, B]
+  int* avail;             // [B] set to 1 on every drawn lane; null: not a pool
+  size_t B;
+  // the reload into the state (null otherwise)
   float* lv2c;            // [nnz, B] a reloaded lane's first messages: its prior at each edge
   const int* vn_ptr;      // [nc + 1] a variable's VN-space slots
   const int* perm_c2v;    // [nnz] the CN-space slot of each VN-space slot
   int* done;              // [B] set to 0 (in flight) on every drawn lane
   int* age;               // [B] set to 1
   int* iters;             // [B] set to 0
+  __device__ __forceinline__ void value(int v, size_t lane, int, float x) const {
+    ((float*)fresh)[v * B + lane] = x;
+    if (lv2c) {
+      const int j1 = __ldg(vn_ptr + v + 1);
+      for (int j = __ldg(vn_ptr + v); j < j1; ++j) lv2c[(size_t)__ldg(perm_c2v + j) * B + lane] = x;
+    }
+  }
+  __device__ __forceinline__ void symbol(int v, size_t lane, int, uint8_t x) const {
+    ((uint8_t*)fresh)[v * B + lane] = x;
+  }
+  __device__ __forceinline__ void codeword(int v, size_t lane, int, uint8_t c) const {
+    fresh_cw[v * B + lane] = c;
+  }
+  __device__ __forceinline__ void drawn(size_t lane, int) const {
+    if (avail) avail[lane] = 1;
+    if (done) {
+      done[lane] = 0;
+      age[lane] = 1;
+      iters[lane] = 0;
+    }
+  }
 };
 
-// A float value of variable v for lane b: the decoder input and, in the
-// reload form, the first message of each of v's edges.
-__device__ __forceinline__ void store_value(const PoolDraw& d, int v, size_t b, float x) {
-  const size_t B = d.B;
-  ((float*)d.fresh)[v * B + b] = x;
-  if (d.lv2c) {
-    const int j1 = __ldg(d.vn_ptr + v + 1);
-    for (int j = __ldg(d.vn_ptr + v); j < j1; ++j) d.lv2c[(size_t)__ldg(d.perm_c2v + j) * B + b] = x;
+// StageSink: the staged reload.  Column `rank` of the staging buffer [nc,
+// S] takes the lane's LLRs and codeword (a warp's 32 consecutive ranks
+// fill whole sectors), slot[lane] = rank names it for K2, and the lane is
+// in flight from its next pass.  No first message: K2 starts the lane from
+// its prior.
+struct StageSink {
+  static constexpr bool kSymbols = false;  // float values only
+  float* llr;             // [nc, S]
+  uint8_t* cw;            // [nc, S]
+  size_t S;
+  int* slot;              // [B] the lane's column, or -1
+  int* done;              // [B] set to 0
+  int* age;               // [B] set to 1
+  int* iters;             // [B] set to 0
+  __device__ __forceinline__ void value(int v, size_t, int rank, float x) const {
+    llr[v * S + rank] = x;
   }
-}
+  __device__ __forceinline__ void symbol(int, size_t, int, uint8_t) const {}
+  __device__ __forceinline__ void codeword(int v, size_t, int rank, uint8_t c) const {
+    cw[v * S + rank] = c;
+  }
+  __device__ __forceinline__ void drawn(size_t lane, int rank) const {
+    slot[lane] = rank;
+    done[lane] = 0;
+    age[lane] = 1;
+    iters[lane] = 0;
+  }
+};
 
 // c += popc(a AND b): A 16 x 256 bits (row), B 256 x 8 bits (col), C 16 x 8 s32.
 __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4], uint2 b) {
@@ -225,11 +289,11 @@ __device__ __forceinline__ int column_bit(const PoolPlan& p, const uint8_t* cw_s
 }
 
 // One M-ASK symbol's values: MC > 0 keeps its weights in registers (M <= MC).
-template <int MC>
+template <int MC, class Sink>
 __device__ __forceinline__ void symbol_values(const PoolPlan& p, const PoolDraw& d,
-                                              const uint8_t* cw_s, const uint32_t* u_s,
-                                              int r_lane, size_t b, int t, int col, float r) {
-  const size_t B = d.B;
+                                              const Sink& k_, const uint8_t* cw_s,
+                                              const uint32_t* u_s, int r_lane, size_t b, int rank,
+                                              int t, int col, float r) {
   int c[kMaxBits];
   int label = 0;
   for (int k = 0; k < p.bpi; ++k) {
@@ -263,35 +327,34 @@ __device__ __forceinline__ void symbol_values(const PoolPlan& p, const PoolDraw&
       llr = label_lse(p, y, d.two_s2, shift, 0) - label_lse(p, y, d.two_s2, shift, 1);
     }
     llr = fminf(fmaxf(llr, -9999.9f), 9999.9f);  // utils/params.py MIN_LLR, MAX_LLR
-    store_value(d, v, b, llr);
-    d.fresh_cw[v * B + b] = (uint8_t)c[k];
+    k_.value(v, b, rank, llr);
+    k_.codeword(v, b, rank, (uint8_t)c[k]);
   }
 }
 
-// One item of lane b: its codeword bits (draw columns from `col`), its draw
-// r, its values and codewords stored.
-template <int CH, int MC>
-__device__ __forceinline__ void draw_item(const PoolPlan& p, const PoolDraw& d,
+// One item of lane b (rank `rank` in the plan's list): its codeword bits
+// (draw columns from `col`), its draw r, its values and codewords stored.
+template <int CH, int MC, class Sink>
+__device__ __forceinline__ void draw_item(const PoolPlan& p, const PoolDraw& d, const Sink& k,
                                           const uint8_t* cw_s, const uint32_t* u_s, int r_lane,
-                                          size_t b, int t, int col, float r) {
-  const size_t B = d.B;
-  if (d.debug) d.debug[(size_t)t * B + b] = r;
+                                          size_t b, int rank, int t, int col, float r) {
+  if (d.debug) d.debug[(size_t)t * d.B + b] = r;
   if constexpr (CH == CH_MASK) {
-    symbol_values<MC>(p, d, cw_s, u_s, r_lane, b, t, col, r);
+    symbol_values<MC>(p, d, k, cw_s, u_s, r_lane, b, rank, t, col, r);
   } else {
     const int v = __ldg(p.item_src + t);
     const int c = column_bit(p, cw_s, u_s, r_lane, col);
     if constexpr (CH == CH_AWGN) {
       const float x = 1.0f - 2.0f * (float)c;
       const float y = x + r * d.sigma;
-      store_value(d, v, b, (2.0f * y) * d.inv_s2);
+      k.value(v, b, rank, (2.0f * y) * d.inv_s2);
     } else if constexpr (CH == CH_BSC) {
       const int yb = c ^ (int)(r < d.eps);
-      store_value(d, v, b, d.delta * (1.0f - 2.0f * (float)yb));
+      k.value(v, b, rank, d.delta * (1.0f - 2.0f * (float)yb));
     } else {
-      ((uint8_t*)d.fresh)[v * B + b] = r < d.eps ? kErasedSym : (uint8_t)c;
+      k.symbol(v, b, rank, r < d.eps ? kErasedSym : (uint8_t)c);
     }
-    d.fresh_cw[v * B + b] = (uint8_t)c;
+    k.codeword(v, b, rank, (uint8_t)c);
   }
 }
 
@@ -305,9 +368,9 @@ __host__ __device__ inline size_t draw_smem_bytes(int ksteps, bool has_g, int la
   return g + (size_t)slab_cols * lane_tile;
 }
 
-template <int CH, int MC>
+template <int CH, int MC, class Sink>
 __global__ void __launch_bounds__(kDrawThreads)
-pool_draw_kernel(PoolPlan p, PoolDraw d) {
+pool_draw_kernel(PoolPlan p, PoolDraw d, Sink k) {
   extern __shared__ __align__(16) unsigned char pool_smem[];
   const int LT = p.lane_tile;
   const int n_take = d.count ? *d.count : d.B;
@@ -325,7 +388,6 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
   const int idx = tile0 + r_lane;
   const int lane = idx < n_take ? (d.lanes ? __ldg(d.lanes + idx) : idx) : -1;
   const unsigned long long seed = *d.key;
-  const size_t B = d.B;
 
   // the slab: items [i0, i1), or the other positions [o0, o1)
   const bool item_slab = y < p.item_slabs;
@@ -357,7 +419,7 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
         const uint32_t w = j < p.kwords ? ws[i] : 0u;
         u_s[j * row + r_lane] = w;
         if (d.debug_info && y == 0 && lane >= 0 && j < p.kwords)
-          d.debug_info[(size_t)j * B + lane] = w;
+          d.debug_info[(size_t)j * d.B + lane] = w;
       }
     }
     const int jt0 = __ldg(p.slab_tile0 + y), jt1 = __ldg(p.slab_tile0 + y + 1);
@@ -392,6 +454,7 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
   }
   if (lane < 0) return;
   const size_t b = (size_t)lane;
+  const int rank = idx;
   // 3. the draws, values and stores: (lane, group of 4 items) units; a warp
   // holds consecutive lanes of one group
   if (item_slab) {
@@ -410,7 +473,7 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
       for (int e = 0; e < 4; ++e) {
         const int t = 4 * grp + e;
         if (t >= i1) break;
-        draw_item<CH, MC>(p, d, cw_s, u_s, r_lane, b, t, t * p.bpi, rs[e]);
+        draw_item<CH, MC>(p, d, k, cw_s, u_s, r_lane, b, rank, t, t * p.bpi, rs[e]);
       }
     }
   } else {
@@ -419,20 +482,13 @@ pool_draw_kernel(PoolPlan p, PoolDraw d) {
       const bool shortened = __ldg(p.other_short + o) != 0;
       const int c = column_bit(p, cw_s, u_s, r_lane, p.other_col0 + o);
       if constexpr (CH == CH_BEC)
-        ((uint8_t*)d.fresh)[v * B + b] = shortened ? (uint8_t)c : kErasedSym;
+        k.symbol(v, b, rank, shortened ? (uint8_t)c : kErasedSym);
       else
-        store_value(d, v, b, shortened ? d.shorten : 0.0f);
-      d.fresh_cw[v * B + b] = (uint8_t)c;
+        k.value(v, b, rank, shortened ? d.shorten : 0.0f);
+      k.codeword(v, b, rank, (uint8_t)c);
     }
   }
-  if (y == 0 && part == 0) {
-    if (d.avail) d.avail[b] = 1;
-    if (d.done) {
-      d.done[b] = 0;
-      d.age[b] = 1;
-      d.iters[b] = 0;
-    }
-  }
+  if (y == 0 && part == 0) k.drawn(b, rank);
 }
 
 // Sum over the block (kScanThreads threads); the result in every thread.
@@ -566,26 +622,17 @@ long long ldpc_pool_draw_bytes(int ksteps, int has_g, int lane_tile, int slab_co
 
 namespace {
 
-// The state a reload-form draw writes (null members: a pool or batch draw).
-struct ReloadState {
-  float* lv2c;
-  const int* vn_ptr;
-  const int* perm_c2v;
-  int* done;
-  int* age;
-  int* iters;
-};
-
+// One launch of the draw into `sink` (PlaneSink or StageSink).
+template <class Sink>
 int pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int* col_src,
               int ksteps, int kwords, int kw, const int* item_src, const int* item_dst,
               int n_items, int bpi, const int* other_pos, const uint8_t* other_short,
               int n_other, int other_col0, const float* points, const float* logp,
               const int* label_of, const int* point_of, int M, int lane_tile,
-              int items_per_slab, int others_per_slab, int slab_cols, void* fresh,
-              uint8_t* fresh_cw, int* avail, const int* lanes, const int* count,
-              const unsigned long long* key, float* debug, uint32_t* debug_info, int B,
-              float sigma, float inv_s2, float two_s2, float delta, float eps, float shorten,
-              const ReloadState& r, void* stream) {
+              int items_per_slab, int others_per_slab, int slab_cols, const int* lanes,
+              const int* count, const unsigned long long* key, float* debug,
+              uint32_t* debug_info, int B, float sigma, float inv_s2, float two_s2, float delta,
+              float eps, float shorten, const Sink& sink, void* stream) {
   if (bpi < 1 || bpi > kMaxBits || (lane_tile != 16 && lane_tile != 32 && lane_tile != 64) ||
       items_per_slab < 8 || items_per_slab % 8 || others_per_slab < 8 || others_per_slab % 8 ||
       other_col0 != n_items * bpi || B < 1 || kwords > 8 * ksteps || slab_cols % 8 ||
@@ -597,10 +644,8 @@ int pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int
              item_src,  item_dst,    n_items,        bpi,        other_pos,      other_short,
              n_other,   other_col0,  points,         logp,       label_of,       point_of,
              M,         lane_tile,   items_per_slab, item_slabs, others_per_slab, slab_cols};
-  PoolDraw d{fresh,  fresh_cw, avail,     lanes,  count,  key,   debug,  debug_info,
-             B,      sigma,    inv_s2,    two_s2, delta,  eps,   shorten, r.lv2c,
-             r.vn_ptr, r.perm_c2v, r.done, r.age,  r.iters};
-  if (r.lv2c && channel == CH_BEC) return (int)cudaErrorInvalidValue;
+  PoolDraw d{lanes, count, key, debug, debug_info, B, sigma, inv_s2, two_s2, delta, eps, shorten};
+  if (channel == CH_BEC && !Sink::kSymbols) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((B + lane_tile - 1) / lane_tile), (unsigned)(item_slabs + other_slabs));
   if (grid.y == 0) return (int)cudaErrorInvalidValue;
   const size_t bytes = draw_smem_bytes(ksteps, gtiles != nullptr, lane_tile, slab_cols);
@@ -608,16 +653,19 @@ int pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, const int
   cudaStream_t st = (cudaStream_t)stream;
   switch (channel) {
     case CH_AWGN:
-      return launch_smem(pool_draw_kernel<CH_AWGN, 0>, grid, block, bytes, st, p, d);
+      return launch_smem(pool_draw_kernel<CH_AWGN, 0, Sink>, grid, block, bytes, st, p, d, sink);
     case CH_MASK:
-      if (M <= 4) return launch_smem(pool_draw_kernel<CH_MASK, 4>, grid, block, bytes, st, p, d);
+      if (M <= 4)
+        return launch_smem(pool_draw_kernel<CH_MASK, 4, Sink>, grid, block, bytes, st, p, d, sink);
       if (M <= kCachedPoints)
-        return launch_smem(pool_draw_kernel<CH_MASK, kCachedPoints>, grid, block, bytes, st, p, d);
-      return launch_smem(pool_draw_kernel<CH_MASK, 0>, grid, block, bytes, st, p, d);
+        return launch_smem(pool_draw_kernel<CH_MASK, kCachedPoints, Sink>, grid, block, bytes, st,
+                           p, d, sink);
+      return launch_smem(pool_draw_kernel<CH_MASK, 0, Sink>, grid, block, bytes, st, p, d, sink);
     case CH_BSC:
-      return launch_smem(pool_draw_kernel<CH_BSC, 0>, grid, block, bytes, st, p, d);
+      return launch_smem(pool_draw_kernel<CH_BSC, 0, Sink>, grid, block, bytes, st, p, d, sink);
     case CH_BEC:
-      return launch_smem(pool_draw_kernel<CH_BEC, 0>, grid, block, bytes, st, p, d);
+      if constexpr (Sink::kSymbols)
+        return launch_smem(pool_draw_kernel<CH_BEC, 0, Sink>, grid, block, bytes, st, p, d, sink);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -647,8 +695,8 @@ int ldpc_pool_draw(int channel, const uint2* gtiles, const int* slab_tile0, cons
   return pool_draw(channel, gtiles, slab_tile0, col_src, ksteps, kwords, kw, item_src, item_dst,
                    n_items, bpi, other_pos, other_short, n_other, other_col0, points, logp,
                    label_of, point_of, M, lane_tile, items_per_slab, others_per_slab, slab_cols,
-                   fresh, fresh_cw, avail, lanes, count, key, debug, debug_info, B, sigma, inv_s2,
-                   two_s2, delta, eps, shorten, ReloadState{}, stream);
+                   lanes, count, key, debug, debug_info, B, sigma, inv_s2, two_s2, delta, eps,
+                   shorten, PlaneSink{fresh, fresh_cw, avail, (size_t)B}, stream);
 }
 
 // The reload form's plan (reload_plan_kernel): count [1], lanes [B].
@@ -679,9 +727,37 @@ int ldpc_pool_reload(int channel, const uint2* gtiles, const int* slab_tile0, co
   return pool_draw(channel, gtiles, slab_tile0, col_src, ksteps, kwords, kw, item_src, item_dst,
                    n_items, bpi, other_pos, other_short, n_other, other_col0, points, logp,
                    label_of, point_of, M, lane_tile, items_per_slab, others_per_slab, slab_cols,
-                   fresh, fresh_cw, nullptr, lanes, count, key, debug, debug_info, B, sigma,
-                   inv_s2, two_s2, delta, eps, shorten,
-                   ReloadState{lv2c, vn_ptr, perm_c2v, done, age, iters}, stream);
+                   lanes, count, key, debug, debug_info, B, sigma, inv_s2, two_s2, delta, eps,
+                   shorten,
+                   PlaneSink{fresh, fresh_cw, nullptr, (size_t)B, lv2c, vn_ptr, perm_c2v, done,
+                             age, iters},
+                   stream);
+}
+
+// The staged reload: ldpc_pool_reload's draw over the plan's lanes into the
+// staging buffer instead of the planes: the lane of rank r writes column r
+// of stage_llr and stage_cw ([nc, S], S >= B, so any plan fits) and
+// slot[lane] = r; done / age / iters [B] as there; no first message.
+int ldpc_pool_reload_staged(int channel, const uint2* gtiles, const int* slab_tile0,
+                            const int* col_src, int ksteps, int kwords, int kw,
+                            const int* item_src, const int* item_dst, int n_items, int bpi,
+                            const int* other_pos, const uint8_t* other_short, int n_other,
+                            int other_col0, const float* points, const float* logp,
+                            const int* label_of, const int* point_of, int M, int lane_tile,
+                            int items_per_slab, int others_per_slab, int slab_cols,
+                            float* stage_llr, uint8_t* stage_cw, int S, const int* lanes,
+                            const int* count, const unsigned long long* key, float* debug,
+                            uint32_t* debug_info, int B, float sigma, float inv_s2, float two_s2,
+                            float delta, float eps, float shorten, int* slot, int* done, int* age,
+                            int* iters, void* stream) {
+  if (!stage_llr || !stage_cw || S < B || !slot || !done || !age || !iters || !lanes || !count)
+    return (int)cudaErrorInvalidValue;
+  return pool_draw(channel, gtiles, slab_tile0, col_src, ksteps, kwords, kw, item_src, item_dst,
+                   n_items, bpi, other_pos, other_short, n_other, other_col0, points, logp,
+                   label_of, point_of, M, lane_tile, items_per_slab, others_per_slab, slab_cols,
+                   lanes, count, key, debug, debug_info, B, sigma, inv_s2, two_s2, delta, eps,
+                   shorten, StageSink{stage_llr, stage_cw, (size_t)S, slot, done, age, iters},
+                   stream);
 }
 
 int ldpc_stream_grant(const int* done, const int* avail, const int* refill, int* remaining,

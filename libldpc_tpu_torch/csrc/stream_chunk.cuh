@@ -15,6 +15,13 @@
 // to the per-lane counters.  Counter rows: 0 bit errors (transmitted bits
 // only), 1 frame errors, 2 frames, 3 iteration sum, 4 starts.
 //
+// A lane may also start staged at the launch's entry (slot[b] >= 0: the XLA
+// super-step's staged reload, pool_refill.cu StageSink, set it in flight and
+// drew its frame into column slot[b] of a staging buffer): its column is
+// copied into the planes, its messages start as a reload's, slot[b] = -1,
+// and the start is not counted (the reload's plan counted it).  The fused
+// step's chunks pass no slot plane.
+//
 // The decode pass is the template argument, a struct with
 //   using V = ...;  // element type of the channel planes: prior and pool
 //                   // (float LLRs, uint8_t BEC symbols)
@@ -56,7 +63,53 @@ struct StreamArgs {
   const int* bit_pos;       // [nct] transmitted variables
   int nct;
   const uint8_t* grant;     // [B] this pass's grants in lane order, or null (start_grant)
+  // the staged starts of a launch (null: none)
+  int* slot;                 // [B] the lane's column of the staging buffer, or -1
+  const V* stage_prior;      // [nc, S] staged channel values
+  const uint8_t* stage_cw;   // [nc, S] staged codewords
+  int S;
 };
+
+// The column of the staging buffer lane b starts from at a launch's entry,
+// or -1.
+template <typename V, typename M>
+__device__ __forceinline__ int staged_slot(const StreamArgs<V, M>& s, bool valid, size_t b) {
+  return valid && s.slot ? s.slot[b] : -1;
+}
+
+// A staged start's copy: rows v = y0, y0 + ny, ... of column `slot` of the
+// staging buffer into lane b's column of the prior and codeword planes,
+// each value also given to at(v, x).  The loads of kStagedBatch rows are
+// issued before their stores: a block's other frames wait at its next
+// barrier, so the copy's latency is the block's.
+constexpr int kStagedBatch = 8;
+
+template <typename V, typename M, class At>
+__device__ __forceinline__ void staged_copy(const StreamArgs<V, M>& s, int nc, int y0, int ny,
+                                            size_t B, size_t b, int slot, At at) {
+  const size_t S = s.S;
+  for (int v0 = y0; v0 < nc; v0 += kStagedBatch * ny) {
+    V x[kStagedBatch];
+    uint8_t cw[kStagedBatch];
+#pragma unroll
+    for (int u = 0; u < kStagedBatch; ++u) {
+      const int v = v0 + u * ny;
+      if (v < nc) {
+        x[u] = __ldg(s.stage_prior + v * S + slot);
+        cw[u] = __ldg(s.stage_cw + v * S + slot);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStagedBatch; ++u) {
+      const int v = v0 + u * ny;
+      if (v < nc) {
+        s.prior[v * B + b] = x[u];
+        s.cw[v * B + b] = cw[u];
+        at(v, x[u]);
+      }
+    }
+  }
+}
 
 // Every thread of a frame keeps the frame's control state in registers and
 // updates it identically; every __syncthreads is reached by the whole block.
@@ -76,6 +129,27 @@ __device__ void stream_chunk(const Code& c, const Pass& pass,
     iters = s.iters[b];
     age = s.age[b];
     avail = s.avail[b];
+  }
+  // a staged start: the lane's column into the planes, its first messages
+  // the prior at each CN slot (ordered before the first pass by its barrier)
+  const int slot = staged_slot(s, valid, b);
+  if (slot >= 0) {
+    const int ny = blockDim.y;
+    staged_copy(s, c.nc, threadIdx.y, ny, B, b, slot, [](int, typename Pass::V) {});
+    const size_t S = s.S;
+    for (int e0 = threadIdx.y; e0 < c.nnz; e0 += kStagedBatch * ny) {
+      typename Pass::V x[kStagedBatch];
+#pragma unroll
+      for (int u = 0; u < kStagedBatch; ++u) {
+        const int e = e0 + u * ny;
+        if (e < c.nnz) x[u] = __ldg(s.stage_prior + __ldg(c.col_sorted + e) * S + slot);
+      }
+#pragma unroll
+      for (int u = 0; u < kStagedBatch; ++u) {
+        const int e = e0 + u * ny;
+        if (e < c.nnz) s.lv2c[e * B + b] = pass.reload(x[u]);
+      }
+    }
   }
   const bool refill_on = *s.refill != 0;
   int n_bit = 0, n_frame_err = 0, n_frames = 0, n_iter = 0, n_start = 0;
@@ -145,6 +219,7 @@ __device__ void stream_chunk(const Code& c, const Pass& pass,
     }
   }
   if (valid && lead) {
+    if (slot >= 0) s.slot[b] = -1;  // every thread of the frame read it at entry
     s.done[b] = done;
     s.iters[b] = iters;
     s.age[b] = age;

@@ -14,9 +14,10 @@ end decides the wrong bit, so its frame counts as errored; early
 termination stops a frame when no erasure remains, with the
 break-before-increment iteration count of the BP decoder.
 
-**dtype.**  The port's symbols are u8 throughout (``symbols_in``, and
-``symbols_out`` of :class:`BECDecodeOutput`); the JAX package's are int8.
-The values are the same three.
+**dtype.**  The port's symbols are u8 (``symbols_out`` of
+:class:`BECDecodeOutput`, on every device, for every input); the JAX
+package's are int8.  The values are the same three, so ``symbols_in`` may
+be either: int8 symbols are read as u8.
 
 On the CPU (or with no pass to run) :func:`bec_decode` runs the plain
 padded decoder (:func:`bec_decode_plain`, line for line the JAX decoder);
@@ -40,6 +41,13 @@ class BECDecodeOutput(NamedTuple):
     hard: torch.Tensor  # u8 [nc, B] decided bits (the wrong bit where unresolved)
     iterations: torch.Tensor  # int32 [B]
     resolved: torch.Tensor  # bool [B] True when no erasures remain
+
+
+def as_u8_symbols(symbols: torch.Tensor) -> torch.Tensor:
+    """``symbols`` as u8: int8 symbols (the JAX package's) are viewed as u8
+    (the three values keep their bits); any other dtype is left for the
+    decoders' checks."""
+    return symbols.view(torch.uint8) if symbols.dtype == torch.int8 else symbols
 
 
 def _cn_op(l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -74,6 +82,7 @@ def bec_decode_plain(
 ) -> BECDecodeOutput:
     """The plain padded peeling decoder (on any device); see
     :func:`bec_decode`."""
+    symbols_in = as_u8_symbols(symbols_in)
     B = symbols_in.shape[1]
     dev = symbols_in.device
     xi = codeword.to(torch.uint8)
@@ -132,19 +141,21 @@ def bec_decode_plain(
 
 def bec_decode(
     dcode,
-    symbols_in: torch.Tensor,  # u8 [nc, B] channel symbols (BEC_ERASURE for erased)
+    symbols_in: torch.Tensor,  # u8 or int8 [nc, B] channel symbols (BEC_ERASURE for erased)
     codeword: torch.Tensor,  # u8 [nc, B] true codeword
     iterations: int = 50,
     early_term: bool = True,
     degree1_stale_byte: Optional[int] = None,
 ) -> BECDecodeOutput:
-    """Peeling decode of a batch on ``dcode``'s device (module docstring).
+    """Peeling decode of a batch on ``dcode``'s device (module docstring);
+    ``symbols_out`` is u8 whether ``symbols_in`` is u8 or int8.
 
     ``degree1_stale_byte`` emulates a reference bug: for a degree-1
     variable the reference's exclusion reads the byte before its scratch
     buffer (usually 0), so an erased degree-1 variable sends that byte
     instead of an erasure, a per-bit genie hint.  Set 0 to reproduce the
     reference's numbers; ``None`` runs the correct algorithm."""
+    symbols_in = as_u8_symbols(symbols_in)
     if symbols_in.device.type == "cpu" or iterations == 0:
         return bec_decode_plain(dcode, symbols_in, codeword, iterations, early_term,
                                 degree1_stale_byte)

@@ -148,6 +148,7 @@ def load() -> ctypes.CDLL:
                 P, P, P,  # llr cw lv2c
                 P, P, P, P, P,  # done iters age avail ctr
                 P, P, P, P, P,  # fresh_llr fresh_cw refill remaining grant
+                P, P, P, I,  # slot stage_llr stage_cw S
                 P, P,  # lc2v llr_post (scratch)
                 P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                 I, I, I, I, I,  # nc mc nnz nct B
@@ -164,6 +165,7 @@ def load() -> ctypes.CDLL:
                     P, P, P,  # llr cw lv2c
                     P, P, P, P, P,  # done iters age avail ctr
                     P, P, P, P, P,  # fresh_llr fresh_cw refill remaining grant
+                    P, P, P, I,  # slot stage_llr stage_cw S
                     P, P, P, P, P,  # row_ptr col_sorted vn_ptr perm_c2v bit_pos
                     I, I, I, I, I,  # nc mc nnz nct B
                     I, I, I, F, F,  # k cap cn_mode scale offset
@@ -298,6 +300,19 @@ def load() -> ctypes.CDLL:
                 P,  # stream
             ]
             lib.ldpc_pool_reload.restype = I
+            lib.ldpc_pool_reload_staged.argtypes = [
+                I, P, P, P, I, I, I,  # channel gtiles slab_tile0 col_src ksteps kwords kw
+                P, P, I, I,  # item_src item_dst n_items bpi
+                P, P, I, I,  # other_pos other_short n_other other_col0
+                P, P, P, P, I,  # points logp label_of point_of M
+                I, I, I, I,  # lane_tile items_per_slab others_per_slab slab_cols
+                P, P, I,  # stage_llr stage_cw S
+                P, P, P, P, P,  # lanes count key debug debug_info
+                I, F, F, F, F, F, F,  # B sigma inv_s2 two_s2 delta eps shorten
+                P, P, P, P,  # slot done age iters
+                P,  # stream
+            ]
+            lib.ldpc_pool_reload_staged.restype = I
             lib.ldpc_pool_draw_bytes.argtypes = [I, I, I, I]  # ksteps has_g lane_tile slab_cols
             lib.ldpc_pool_draw_bytes.restype = L
             lib.ldpc_stream_grant.argtypes = [P, P, P, P, P, I, P]  # done avail refill remaining grant B stream

@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from ..bec import BECDecodeOutput
+from ..bec import BECDecodeOutput, as_u8_symbols
 from ..bec_sorted import bec_decode_sorted, bec_pass, wrong_bits
 from ..channel import BEC_ERASURE
 from . import build
@@ -116,13 +116,14 @@ def bec_decode_fused_plain(
 
 def bec_decode_fused(
     tables: KernelTables,
-    symbols_in: torch.Tensor,  # u8 [nc, B] {0, 1, BEC_ERASURE}, sorted VN labelling
+    symbols_in: torch.Tensor,  # u8 or int8 [nc, B] {0, 1, BEC_ERASURE}, sorted VN labelling
     codeword: torch.Tensor,  # u8 [nc, B] true codeword, sorted VN labelling
     iterations: int = 50,
     early_term: bool = True,
     degree1_stale_byte: Optional[int] = None,
 ) -> BECDecodeOutput:
     """BEC peeling decode of a batch, all iterations in one kernel launch.
+    int8 symbols (the JAX package's) are read as u8; ``symbols_out`` is u8.
 
     Same outputs as :func:`..bec_sorted.bec_decode_sorted`: posterior
     symbols, decisions (the wrong bit where unresolved), break-before-
@@ -131,6 +132,7 @@ def bec_decode_fused(
     ``iterations == 0`` runs no pass (module docstring of the plain
     version).  Any ``B``: the last block is masked."""
     nc = tables.code.nc
+    symbols_in = as_u8_symbols(symbols_in)
     B = symbols_in.shape[1] if symbols_in.dim() == 2 else -1
     _check(symbols_in, "symbols_in", torch.uint8, (nc, B), tables.device)
     _check(codeword, "codeword", torch.uint8, (nc, B), tables.device)

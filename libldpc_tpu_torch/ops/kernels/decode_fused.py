@@ -312,6 +312,15 @@ def stream_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[i
         tables, message_dtype)
 
 
+def check_stage(stage, nc: int, B: int, device) -> None:
+    """A staging buffer of ``B`` columns for ``B`` lanes (its planes
+    ``[nc, B]``), on ``device``."""
+    for name, t, dtype, shape in (("stage.slot", stage.slot, torch.int32, (B,)),
+                                  ("stage.llr", stage.llr, torch.float32, (nc, B)),
+                                  ("stage.cw", stage.cw, torch.uint8, (nc, B))):
+        _check(t, name, dtype, shape, device)
+
+
 def stream_grant_plain(done: torch.Tensor, avail: torch.Tensor, refill: torch.Tensor,
                        remaining: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`stream_grant`."""
@@ -370,17 +379,29 @@ def chunk_launches(k: int, ordered: bool, done, avail, refill, remaining):
 
 def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
                        refill, remaining, k: int, cap: int, decode_pass, converged,
-                       bit_errors, reload=None) -> None:
+                       bit_errors, reload=None, stage=None) -> None:
     """The streaming chunk in plain PyTorch, pass for pass as
     ``kernel_stream``, for any decode pass: ``decode_pass(prior, cw, lv2c)
     -> (posterior, lv2c_new)``, ``converged(posterior)`` (bool ``[B]``),
     ``bit_errors(posterior, cw)`` (bool ``[nc, B]``) and ``reload(x)``, the
     first messages of a reloaded lane from its pool values gathered at the
     CN-space slots (the values themselves when None).  Starts are granted
-    in lane order (an inclusive scan against ``remaining``)."""
+    in lane order (an inclusive scan against ``remaining``).  With
+    ``stage`` (:class:`.pool_refill.ReloadStage`), a lane with ``slot >=
+    0`` first starts staged: its column of the staging buffer into ``llr``
+    and ``cw``, its first messages as a reload's, ``slot = -1``, not counted
+    in ``ctr[4]``."""
     sdc = tables.code
     is_tx = torch.zeros(sdc.nc, dtype=torch.bool, device=llr.device)
     is_tx[sdc.bit_pos.long()] = True
+    if stage is not None:
+        staged = stage.slot >= 0
+        x = stage.llr.index_select(1, stage.slot.clamp(min=0))
+        llr.copy_(torch.where(staged, x, llr))
+        cw.copy_(torch.where(staged, stage.cw.index_select(1, stage.slot.clamp(min=0)), cw))
+        first = x.index_select(0, sdc.col_sorted)
+        lv2c.copy_(torch.where(staged, first if reload is None else reload(first), lv2c))
+        stage.slot.fill_(-1)
     for _ in range(k):
         # ---- reload idle lanes from the pool, within the quota
         rs = stream_grant_plain(done, avail, refill, remaining) != 0
@@ -415,12 +436,13 @@ def stream_chunk_plain(tables, llr, cw, lv2c, done, iters, age, avail, ctr, fres
 def bp_stream_chunk_fused_plain(
     tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr, fresh_cw,
     refill, remaining, *, k: int, cap: int, minsum_mode=False, message_dtype: str = "float32",
-    quant_scale: float = DEFAULT_QUANT_SCALE, ordered: bool = False,
+    quant_scale: float = DEFAULT_QUANT_SCALE, ordered: bool = False, stage=None,
 ) -> None:
     """Plain version of :func:`bp_stream_chunk_fused`: the plain chunk with
     the BP pass in the message form, the syndrome of the stored
-    posterior's ``<= 0`` decisions, and reloads of ``store(prior(x))``.
-    It grants in lane order whatever ``ordered`` says."""
+    posterior's ``<= 0`` decisions, and reloads (and staged starts) of
+    ``store(prior(x))``.  It grants in lane order whatever ``ordered``
+    says."""
     sdc = tables.code
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode, "int8 streaming")
@@ -431,7 +453,7 @@ def bp_stream_chunk_fused_plain(
         converged=lambda post: syndrome_ok_from_posterior(
             sdc, form.load(post).index_select(0, sdc.col_sorted)),
         bit_errors=lambda post, cw_: (form.load(post) <= 0) != (cw_ != 0),
-        reload=lambda x: form.store(form.prior(x)),
+        reload=lambda x: form.store(form.prior(x)), stage=stage,
     )
 
 
@@ -456,6 +478,7 @@ def bp_stream_chunk_fused(
     message_dtype: str = "float32",
     quant_scale: float = DEFAULT_QUANT_SCALE,
     ordered: bool = False,
+    stage=None,
 ) -> None:
     """``k`` self-refilling BP passes per lane, updating the state in place.
 
@@ -473,6 +496,14 @@ def bp_stream_chunk_fused(
     The kernel's form (a block's frames on chip for the chunk, or every
     plane in device memory) follows :func:`stream_form`; both leave the same
     state.
+
+    ``stage`` (:class:`.pool_refill.ReloadStage`, the XLA super-step's
+    staged reload; None elsewhere): at the launch's entry every lane with
+    ``slot >= 0`` takes its frame from column ``slot`` of the staging
+    buffer and starts as a reload does (the plan already set it in flight
+    and counted it: ``ctr[4]`` is not raised), and ``slot`` becomes -1.
+    Both forms take it; launches given it are also counted in
+    ``bp_stream_chunk_fused.staged_launches``.
 
     The messages ``lv2c`` are stored in ``message_dtype`` (a reload stores
     ``store(prior(x))``, as the batch decode starts); the carried LLRs and
@@ -494,25 +525,30 @@ def bp_stream_chunk_fused(
         ("refill", refill, torch.int32, (1,)), ("remaining", remaining, torch.int32, (1,)),
     ):
         _check(t, name, dtype, shape, dev)
+    if stage is not None:
+        check_stage(stage, nc, B, dev)
     if k < 1 or cap < 1:
         raise ValueError(f"k ({k}) and cap ({cap}) must be >= 1")
     if llr.device.type == "cpu":
         return bp_stream_chunk_fused_plain(
             tables, llr, cw, lv2c, done, iters, age, avail, ctr, fresh_llr,
             fresh_cw, refill, remaining, k=k, cap=cap, minsum_mode=minsum_mode,
-            message_dtype=message_dtype, quant_scale=quant_scale,
+            message_dtype=message_dtype, quant_scale=quant_scale, stage=stage,
         )
     _require_cuda(llr)
     lib = build.load()
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
-    frames, stage = stream_form(tables, form.dtype)
+    frames, tile_stage = stream_form(tables, form.dtype)
     stream = ctypes.c_void_p(torch.cuda.current_stream(llr.device).cuda_stream)
     if frames == 0:
         lc2v = torch.empty((nnz, B), dtype=form.torch_dtype, device=llr.device)
         post = torch.empty((nc, B), dtype=form.torch_dtype, device=llr.device)
+    staged = ((None, None, None, 0) if stage is None else
+              (_p(stage.slot), _p(stage.llr), _p(stage.cw), stage.llr.shape[1]))
     for passes, grant in chunk_launches(k, ordered, done, avail, refill, remaining):
         state = (_p(llr), _p(cw), _p(lv2c), _p(done), _p(iters), _p(age), _p(avail), _p(ctr),
-                 _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p_or_null(grant))
+                 _p(fresh_llr), _p(fresh_cw), _p(refill), _p(remaining), _p_or_null(grant),
+                 *staged)
         code = (_p(tables.row_ptr), _p(tables.col_sorted), _p(tables.vn_ptr),
                 _p(tables.perm_c2v), _p(tables.bit_pos), nc, sdc.mc, nnz, sdc.nct, B, passes,
                 cap, mode, scale, offset, form.code, form.inv_q)
@@ -521,12 +557,15 @@ def bp_stream_chunk_fused(
         else:
             entry = {16: lib.ldpc_bp_stream_chunk_tile16, 8: lib.ldpc_bp_stream_chunk_tile8,
                      4: lib.ldpc_bp_stream_chunk_tile4}[frames]
-            err = entry(*state, *code, int(stage), stream)
+            err = entry(*state, *code, int(tile_stage), stream)
         _raise_on(lib, err, "bp_stream_chunk_fused")
         bp_stream_chunk_fused.launches[form.dtype] += 1
-    bp_stream_chunk_fused.last_form = (frames, stage)
+        bp_stream_chunk_fused.staged_launches += stage is not None
+    bp_stream_chunk_fused.last_form = (frames, tile_stage)
 
 
 bp_stream_chunk_fused.launches = dict.fromkeys(DTYPE_CODES, 0)
+#: launches given a staging buffer (the XLA super-step's one-pass launches)
+bp_stream_chunk_fused.staged_launches = 0
 #: ``(frames, stage)`` of the last launch (:func:`stream_form`)
 bp_stream_chunk_fused.last_form = None

@@ -18,7 +18,9 @@ batch, the channel of every batch step on the card
 (``parallel/mesh.py``).  :func:`stream_reload` is K8's reload form, the
 default sweep's reload at the end of every pass (``ops/streaming.py``): a
 plan that decides ``do_gen`` and grants the idle lanes on the device, then
-the same draw over the granted lanes straight into the stream state.
+the same draw over the granted lanes, either staged (into a
+:class:`ReloadStage`, column by the lane's rank in the plan; K2's next
+launch starts the lane from it) or straight into the stream state.
 
 :func:`pool_refill_plain` is the refill in plain PyTorch: the channel
 batch of :func:`..channel.simulate_channel`, merged under the same mask,
@@ -44,7 +46,9 @@ from ..channel import ChannelOutput, simulate_channel
 from ..sorted import TorchSortedCode
 from ..streaming import _INT32_SAFE
 from . import build
-from .decode_fused import SMEM_BLOCK_BYTES, _check, _p, _p_or_null, _raise_on, _require_cuda
+from .decode_fused import (
+    SMEM_BLOCK_BYTES, _check, _p, _p_or_null, _raise_on, _require_cuda, check_stage,
+)
 
 #: The channel's code in the kernel (``enum PoolChannel``).
 CHANNEL_CODES = {"AWGN": 0, "MASK": 1, "BSC": 2, "BEC": 3}
@@ -56,6 +60,14 @@ LANE_TILE = 64
 #: Columns of the codeword a draw block takes at most: items times bits a
 #: symbol, or positions no item writes (a multiple of 8).
 SLAB_COLS = 288
+#: The reload form's tiling (:func:`reload_tables`): a reload draws a burst
+#: of a few thousand of the B lanes, too few to fill the card in blocks of
+#: the pool's tiling.  In the default sweep of the 1152 code (B = 16384,
+#: BPSK 1.0-3.0 dB, 4-ASK 7.25-7.75 dB) the median burst is 1,176-3,163
+#: lanes and only a point's first fill passes 6,144; there a point's
+#: reloads draw in 0.52-0.61x the pool tiling's time, though the pool's is
+#: ahead from ~8 k lanes (``tests_gpu/reload_bursts.py``; ``PERF.md`` §6).
+RELOAD_SLAB_COLS, RELOAD_LANE_TILE = 144, 32
 
 
 def pool_watermark(batch: int) -> int:
@@ -185,14 +197,17 @@ def draw_slabs(G: Optional[np.ndarray], item_src: np.ndarray, other: np.ndarray,
     return np.concatenate(cols), np.asarray(tile0), col_src, slab_cols
 
 
-def pool_tables(sdc: TorchSortedCode, channel_type: str, modulation=None) -> PoolTables:
+def pool_tables(sdc: TorchSortedCode, channel_type: str, modulation=None,
+                slab_cols: int = SLAB_COLS, lane_tile: int = LANE_TILE) -> PoolTables:
     """The draw's tables for ``sdc`` and the channel: an item is a
     transmitted bit (its one draw: a normal for AWGN, a uniform for the BSC
     and the BEC) or, with a constellation, a symbol (a normal) whose bits
     the mapper names.  The positions no item writes are the others:
     shortened (a known bit) or punctured (an erased one), and with a
     constellation, the positions the mapper does not name.  The generator
-    goes to the device once, as :func:`g_tiles` in the draw's column order."""
+    goes to the device once, as :func:`g_tiles` in the draw's column order.
+    A block draws at most ``lane_tile`` lanes of a slab of at most
+    ``slab_cols`` columns, both shrunk until its shared memory fits."""
     if channel_type not in ("AWGN", "BSC", "BEC"):
         raise ValueError(f"No channel selected: {channel_type!r}")
     dev, nc = sdc.device, sdc.nc
@@ -232,10 +247,10 @@ def pool_tables(sdc: TorchSortedCode, channel_type: str, modulation=None) -> Poo
         label_of, point_of = cstl.labels, cstl.labels_rev
     kc = 0 if G is None else G.shape[0]
     ksteps = -(-kc // 256)
-    # the tiling: slabs of at most SLAB_COLS columns (whole groups of 8
-    # items) and LANE_TILE lanes a block, the slab halved (to 64 columns)
+    # the tiling: slabs of at most slab_cols columns (whole groups of 8
+    # items) and lane_tile lanes a block, the slab halved (to 64 columns)
     # and then the lanes (to 16) while a block's shared memory does not fit
-    target, lane_tile = SLAB_COLS, LANE_TILE
+    target = slab_cols
     while True:
         ips = max(8, target // src.shape[1] // 8 * 8)
         ops = max(8, target // 8 * 8)
@@ -274,6 +289,14 @@ def _draw_bytes(ksteps: int, has_g: bool, lane_tile: int, slab_cols: int) -> int
     if not has_g:
         return 0
     return 8 * ksteps * (lane_tile + 8) * 4 + slab_cols // 8 * ksteps * 256 + slab_cols * lane_tile
+
+
+def reload_tables(pt: PoolTables) -> PoolTables:
+    """``pt``'s code and channel in the reload form's tiling
+    (:data:`RELOAD_SLAB_COLS` columns x :data:`RELOAD_LANE_TILE` lanes a
+    block): the same draws, lane for lane."""
+    return pool_tables(pt.code, pt.channel_type, pt.modulation, RELOAD_SLAB_COLS,
+                       RELOAD_LANE_TILE)
 
 
 def draw_bytes(pt: PoolTables) -> int:
@@ -478,7 +501,27 @@ channel_batch.launches = 0
 # ------------------------------------------------------------- reload form
 
 
-def _check_reload(pt: PoolTables, refill, done, llr, cw, lv2c, age, iters, started) -> int:
+@dataclasses.dataclass
+class ReloadStage:
+    """The staged reload's buffer: a granted lane's frame waits in column
+    ``r`` of ``llr`` and ``cw`` (``r`` its rank in the plan's list of
+    granted lanes, ``slot[lane] = r``) until the lane's next K2 launch
+    copies it into the planes and sets ``slot`` back to -1.  ``S = B``
+    columns, so any plan fits."""
+
+    slot: torch.Tensor  # int32 [B]: the lane's column, or -1
+    llr: torch.Tensor  # f32 [nc, B] staged LLRs (sorted VN labelling)
+    cw: torch.Tensor  # u8 [nc, B] staged codewords
+
+    @classmethod
+    def empty(cls, nc: int, batch: int, device) -> "ReloadStage":
+        return cls(slot=torch.full((batch,), -1, dtype=torch.int32, device=device),
+                   llr=torch.zeros((nc, batch), dtype=torch.float32, device=device),
+                   cw=torch.zeros((nc, batch), dtype=torch.uint8, device=device))
+
+
+def _check_reload(pt: PoolTables, refill, done, llr, cw, lv2c, age, iters, started,
+                  stage=None) -> int:
     sdc, B = pt.code, done.shape[0] if done.dim() == 1 else -1
     if pt.channel_type == "BEC":
         raise ValueError("the reload form draws float LLRs: not the BEC")
@@ -489,28 +532,40 @@ def _check_reload(pt: PoolTables, refill, done, llr, cw, lv2c, age, iters, start
         ("iters", iters, torch.int32, (B,)), ("started", started, torch.int32, (1,)),
     ):
         _check(t, name, dtype, shape, pt.device)
+    if stage is not None:
+        check_stage(stage, sdc.nc, B, pt.device)
     return B
 
 
 def stream_reload_plain(pt: PoolTables, draw, refill: torch.Tensor, done: torch.Tensor,
                         llr: torch.Tensor, cw: torch.Tensor, lv2c: torch.Tensor,
                         age: torch.Tensor, iters: torch.Tensor, started: torch.Tensor,
-                        quota: int, gen_threshold: int) -> None:
+                        quota: int, gen_threshold: int,
+                        stage: Optional[ReloadStage] = None) -> None:
     """Plain version of :func:`stream_reload` (on any device): ``do_gen``
     read on the host; when it holds, ``draw()`` gives a channel batch
     (:class:`~..channel.ChannelOutput` of ``B`` frames) and the granted
-    lanes take theirs, as ``_superstep_body`` merges its fresh batch.  On
-    the card's checks ``draw`` is K8's full batch on the reload's key
-    (:func:`channel_batch`), whose lane ``b`` is the reload's lane ``b``."""
-    _check_reload(pt, refill, done, llr, cw, lv2c, age, iters, started)
+    lanes take theirs, as ``_superstep_body`` merges its fresh batch, or,
+    with ``stage``, the granted lane of rank ``r`` puts its frame in column
+    ``r`` of the staging buffer (``slot[lane] = r``).  On the card's checks
+    ``draw`` is K8's full batch on the reload's key (:func:`channel_batch`),
+    whose lane ``b`` is the reload's lane ``b``."""
+    _check_reload(pt, refill, done, llr, cw, lv2c, age, iters, started, stage)
     idle = done != 0
     if not (int(refill[0]) > 0 and int(idle.sum()) >= gen_threshold):
         return
     ch = draw()
     rs = idle & (int(started[0]) + torch.cumsum(idle.to(torch.int64), 0) <= quota)
-    llr.copy_(torch.where(rs, ch.llr, llr))
-    cw.copy_(torch.where(rs, ch.codeword, cw))
-    lv2c.copy_(torch.where(rs, ch.llr.index_select(0, pt.code.col_sorted), lv2c))
+    if stage is None:
+        llr.copy_(torch.where(rs, ch.llr, llr))
+        cw.copy_(torch.where(rs, ch.codeword, cw))
+        lv2c.copy_(torch.where(rs, ch.llr.index_select(0, pt.code.col_sorted), lv2c))
+    else:
+        lanes = torch.nonzero(rs).flatten()
+        n = lanes.numel()
+        stage.llr[:, :n] = ch.llr.index_select(1, lanes)
+        stage.cw[:, :n] = ch.codeword.index_select(1, lanes)
+        stage.slot[lanes] = torch.arange(n, dtype=torch.int32, device=done.device)
     done.copy_(torch.where(rs, 0, done))
     age.copy_(torch.where(rs, 1, age))
     iters.copy_(torch.where(rs, 0, iters))
@@ -543,7 +598,8 @@ def stream_reload(pt: PoolTables, gen: Optional[torch.Generator], x_value: float
                   started: torch.Tensor, quota: int, gen_threshold: int, vn_ptr=None,
                   perm_c2v=None, key: Optional[torch.Tensor] = None,
                   debug: Optional[torch.Tensor] = None,
-                  debug_info: Optional[torch.Tensor] = None) -> None:
+                  debug_info: Optional[torch.Tensor] = None,
+                  stage: Optional[ReloadStage] = None) -> None:
     """The XLA streaming super-step's reload at the end of a pass
     (``libldpc_tpu/ops/streaming.py:176-209``), in place: when ``refill``
     (int32 ``[1]``) holds and at least ``gen_threshold`` lanes are idle
@@ -555,33 +611,52 @@ def stream_reload(pt: PoolTables, gen: Optional[torch.Generator], x_value: float
     ``started`` (int32 ``[1]``) counts them.  Float channels only (AWGN,
     with or without a constellation, and the BSC).
 
+    With ``stage`` the staged form: the granted lane of rank ``r`` in lane
+    order puts its LLRs and codeword in column ``r`` of the staging buffer
+    and ``slot[lane] = r``; ``llr``, ``cw`` and ``lv2c`` are left alone
+    until the lane's next K2 launch (:func:`.decode_fused.bp_stream_chunk_fused`
+    with the same ``stage``) starts it.  ``done``, ``age``, ``iters`` and
+    ``started`` are set as above either way.
+
     On CUDA, K8's reload form: :func:`reload_plan` on the device, then one
     draw launch over the granted lanes alone, keyed and computed as
     :func:`pool_refill`'s draw (``key``: int64 ``[1]``, drawn from ``gen``
     when None; ``vn_ptr``/``perm_c2v`` the kernel tables' VN-space slot
-    lists; ``debug``/``debug_info`` as there), with no host read; counted
-    in ``stream_reload.launches`` (one per reload).  On the CPU
-    :func:`stream_reload_plain`, drawing a channel batch from ``gen``
-    (:func:`simulate_channel`)."""
-    B = _check_reload(pt, refill, done, llr, cw, lv2c, age, iters, started)
+    lists, needed by the form into the state; ``debug``/``debug_info`` as
+    there), with no host read; counted in ``stream_reload.launches`` (into
+    the state) or ``stream_reload.staged_launches`` (staged), one per
+    reload.  On the CPU :func:`stream_reload_plain`, drawing a channel batch
+    from ``gen`` (:func:`simulate_channel`)."""
+    B = _check_reload(pt, refill, done, llr, cw, lv2c, age, iters, started, stage)
     if done.device.type == "cpu":
         return stream_reload_plain(
             pt, lambda: simulate_channel(pt.code, pt.channel_type, gen, B, x_value, pt.modulation),
-            refill, done, llr, cw, lv2c, age, iters, started, quota, gen_threshold)
+            refill, done, llr, cw, lv2c, age, iters, started, quota, gen_threshold, stage)
     _require_cuda(done)
-    if vn_ptr is None or perm_c2v is None:
+    if stage is None and (vn_ptr is None or perm_c2v is None):
         raise ValueError("the reload form needs the kernel tables' vn_ptr and perm_c2v")
     if key is None:
         key = draw_keys(gen, 1, done.device)
     count, lanes = reload_plan(refill, done, started, quota, gen_threshold)
     head, tail = _draw_args(pt, x_value, llr, B, key, debug, debug_info)
     lib = build.load()
-    err = lib.ldpc_pool_reload(
-        *head, _p(llr), _p(cw), _p(lanes), _p(count), _p(key), _p_or_null(debug),
-        _p_or_null(debug_info), *tail, _p(lv2c), _p(vn_ptr), _p(perm_c2v), _p(done), _p(age),
-        _p(iters), ctypes.c_void_p(torch.cuda.current_stream(done.device).cuda_stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(done.device).cuda_stream)
+    if stage is None:
+        err = lib.ldpc_pool_reload(
+            *head, _p(llr), _p(cw), _p(lanes), _p(count), _p(key), _p_or_null(debug),
+            _p_or_null(debug_info), *tail, _p(lv2c), _p(vn_ptr), _p(perm_c2v), _p(done), _p(age),
+            _p(iters), stream)
+    else:
+        err = lib.ldpc_pool_reload_staged(
+            *head, _p(stage.llr), _p(stage.cw), B, _p(lanes), _p(count), _p(key),
+            _p_or_null(debug), _p_or_null(debug_info), *tail, _p(stage.slot), _p(done), _p(age),
+            _p(iters), stream)
     _raise_on(lib, err, "stream_reload")
-    stream_reload.launches += 1
+    if stage is None:
+        stream_reload.launches += 1
+    else:
+        stream_reload.staged_launches += 1
 
 
 stream_reload.launches = 0
+stream_reload.staged_launches = 0

@@ -27,11 +27,13 @@ reloads from pool entry ``i`` of a pool refilled between chunks.
 **Engines.**  On the CPU the super-step is :func:`_superstep_body`, a
 line-for-line torch version of the JAX one.  On the card each pass is two
 launches, with no host read: K2 (:func:`.kernels.decode_fused.bp_stream_chunk_fused`)
-as one pass with no starts (decode, count the finished frames, freeze
-them), then K8's reload form (:func:`.kernels.pool_refill.stream_reload`:
-``do_gen``, the lane-order grants and the draw of the granted lanes
-straight into the state, on the device).  The messages are float32, as the
-JAX super-step's.
+as one pass (start the lanes the last pass staged, decode, count the
+finished frames, freeze them), then K8's reload form
+(:func:`.kernels.pool_refill.stream_reload`: ``do_gen``, the lane-order
+grants and the draw of the granted lanes, on the device), staged in every
+pass of a super-step but its last, into the state in the last
+(:func:`_card_superstep`).  The messages are float32, as the JAX
+super-step's.
 """
 
 from __future__ import annotations
@@ -197,10 +199,21 @@ def _card_superstep(tables, pool, iterations: int, cn_mode, quota: int, gen_thre
                     scratch: dict, gen, x_value: float, refill: bool, state: StreamState,
                     n_iters: int):
     """The super-step as the card runs it, in place: per pass a one-pass
-    K2 launch with no starts, then K8's reload form, each pass's draw on
-    its own key.  On the CPU the two wrappers run their plain versions (the
-    reload's draw a channel batch from ``gen``): the CPU tests hold that
-    sequence to the JAX super-step, the card's checks hold the launches to
+    K2 launch, then K8's reload form, each pass's draw on its own key.
+
+    A fixed rule of the super-step: every pass's reload but the last one's
+    is staged (``scratch["stage"]``, a :class:`.kernels.pool_refill.ReloadStage`:
+    the granted lanes' frames drawn into a staging buffer, in whole
+    sectors, with no first message), and the next pass's K2 launch starts
+    those lanes from it as an in-chunk reload starts (the same first
+    messages, bit for bit); the last pass reloads straight into the state,
+    so the staging buffer is empty (``slot`` all -1) between super-steps
+    and the :class:`StreamState` a super-step returns is the one
+    :func:`_superstep_body` gives.
+
+    On the CPU the two wrappers run their plain versions (the reload's draw
+    a channel batch from ``gen``): the CPU tests hold that sequence to the
+    JAX super-step, the card's checks hold the launches to
     :func:`_superstep_body` on the same keys."""
     from .kernels.decode_fused import bp_stream_chunk_fused
     from .kernels.pool_refill import draw_keys, stream_reload
@@ -212,19 +225,35 @@ def _card_superstep(tables, pool, iterations: int, cn_mode, quota: int, gen_thre
     ctr.zero_()
     keys = draw_keys(gen, n_iters, dev) if dev.type == "cuda" else None
     refill_t = scratch["refill"][bool(refill)]
+    stage = scratch["stage"]
     for i in range(n_iters):
-        # decode, count and freeze (the lane's pool is its own planes: no
-        # starts, so never read)
+        # start the staged lanes, decode, count and freeze (the lane's pool
+        # is its own planes: no pool starts, so never read)
         bp_stream_chunk_fused(
             tables, st.llr_in, st.codeword, st.lv2c, done, st.iters, st.age, scratch["avail"],
             ctr, st.llr_in, st.codeword, scratch["refill"][False], scratch["remaining"], k=1,
-            cap=iterations, minsum_mode=cn_mode)
+            cap=iterations, minsum_mode=cn_mode, stage=stage)
         stream_reload(pool, gen, x_value, refill_t, done, st.llr_in, st.codeword, st.lv2c,
                       st.age, st.iters, st.started, quota, gen_threshold, vn_ptr=tables.vn_ptr,
-                      perm_c2v=tables.perm_c2v, key=None if keys is None else keys[i:i + 1])
+                      perm_c2v=tables.perm_c2v, key=None if keys is None else keys[i:i + 1],
+                      stage=stage if i < n_iters - 1 else None)
     st.active = done == 0
     sums = ctr.sum(dim=1, dtype=torch.int64)
     return st, StreamDeltas(sums[0], sums[1], sums[2], sums[3], st.active.sum())
+
+
+def card_scratch(nc: int, batch: int, device) -> dict:
+    """The buffers :func:`_card_superstep` keeps between calls for one
+    shard of ``batch`` lanes: K2's unused pool flags, counters and start
+    budget, the two refill flags, and the staging buffer of the staged
+    reload (empty)."""
+    from .kernels.pool_refill import ReloadStage
+
+    i32 = dict(dtype=torch.int32, device=device)
+    return dict(avail=torch.zeros(batch, **i32), ctr=torch.zeros((5, batch), **i32),
+                remaining=torch.zeros(1, **i32),
+                refill={f: torch.full((1,), int(f), **i32) for f in (False, True)},
+                stage=ReloadStage.empty(nc, batch, device))
 
 
 def _runs_kernels(device: torch.device) -> bool:
@@ -269,12 +298,11 @@ def _shard_stepper(sdc_or_tables, channel_type: str, dec, batch: int, chunk_iter
         # the card draws with K8 in either super-step
         pool = replicas.pool(device) if kernels or device.type == "cuda" else None
         if kernels:
-            i32 = dict(dtype=torch.int32, device=device)
-            scratch = dict(avail=torch.zeros(batch, **i32), ctr=torch.zeros((5, batch), **i32),
-                           remaining=torch.zeros(1, **i32),
-                           refill={f: torch.full((1,), int(f), **i32) for f in (False, True)})
-            body = functools.partial(_card_superstep, tables, pool, iterations, cn_mode, quota,
-                                     gen_threshold, scratch)
+            from .kernels.pool_refill import reload_tables
+
+            body = functools.partial(_card_superstep, tables, reload_tables(pool), iterations,
+                                     cn_mode, quota, gen_threshold,
+                                     card_scratch(sdc.nc, batch, device))
         else:
             body = functools.partial(_superstep_body, sdc, channel_type, iterations, cn_mode,
                                      batch, replicas.modulation(device), quota, fast_rng,

@@ -45,7 +45,7 @@ def test_matches_pallas_kernel(setup, form, early_term):
     jout = bp_decode_pallas(pdc, jnp.asarray(llr), iterations=12, early_term=early_term,
                             minsum_mode=form, batch_tile=128, interpret=True)
     tout = df.bp_decode_fused(tables, torch.from_numpy(llr), 12, early_term, form)
-    compare(jout, tout, exact=form == "BP_MS", rtol=1e-5 if form == "BP_MS" else 1e-4)
+    compare(jout, tout, exact=form == "BP_MS", rtol=0 if form == "BP_MS" else 1e-4)
     assert df.bp_decode_fused.launches == launches  # CPU: plain version, no launch
 
 

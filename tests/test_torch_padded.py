@@ -210,6 +210,25 @@ def test_bec_decode_equals_jax(name, stale, iterations, early_term):
     assert tbec.bec_decode_jit is tbec.bec_decode
 
 
+@pytest.mark.parametrize("name", ["regular", "irregular"])
+@pytest.mark.parametrize("iterations", [20, 0])
+def test_bec_decode_takes_jax_int8_symbols(name, iterations):
+    """The JAX package's int8 symbols in: u8 ``symbols_out``, the values of
+    ``bec_decode_jit`` (the CPU path once promoted u8 and int8 to int16)."""
+    jc = CODES[name]
+    sym, cw = _bec_frames(jc, 40, 0.4, seed=6)
+    sym8 = sym.astype(np.int8)
+    ref = jbec.bec_decode_jit(jdevice.to_device(jc), jnp.asarray(sym8), jnp.asarray(cw),
+                              iterations=iterations)
+    dc = tdevice.to_device(code_from_jax(jc), device="cpu")
+    for decode in (tbec.bec_decode, tbec.bec_decode_plain):
+        got = decode(dc, torch.from_numpy(sym8), torch.from_numpy(cw), iterations=iterations)
+        assert got.symbols_out.dtype == torch.uint8
+        np.testing.assert_array_equal(got.symbols_out.numpy(), np.asarray(ref.symbols_out))
+        np.testing.assert_array_equal(got.hard.numpy(), np.asarray(ref.hard))
+        np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+
+
 @pytest.mark.parametrize("channel_type,x", [("AWGN", 2.0), ("BEC", 0.35)])
 @pytest.mark.parametrize("layered", [False, True])
 def test_sim_step_on_a_device_code_reaches_the_padded_decoders(monkeypatch, channel_type, x,

@@ -2,9 +2,11 @@
 :mod:`libldpc_tpu.ops.sorted` on the same numpy LLRs.
 
 Tables are equal entry for entry.  Decoding: the min-sum family agrees
-exactly on decisions, iteration counts and codeword flags, with posteriors
-within 1e-5 (the XLA decoder may sum a node's messages in another order);
-the transcendental forms agree on >= 99% of frames (all at these seeds) and
+exactly on decisions, iteration counts and codeword flags; ``BP_MS`` and
+``BP_OMS`` posteriors bit for bit, ``BP_NMS`` posteriors within 1e-5 of the
+jitted JAX decoder (compiled, XLA rounds the scaled messages' sums
+otherwise) and bit for bit against the JAX decoder run op by op
+(``jax.disable_jit``); the transcendental forms agree on >= 99% of frames (all at these seeds) and
 within 1e-4 on those, the discipline of tests/test_pallas.py.  The tanh
 form is the exception for posteriors: its extrinsics sit near the
 2*atanh(TANH_CLIP) ~ 17.3 cap, where one ulp of a tanh-domain product moves
@@ -71,9 +73,11 @@ def compare(jout, tout, exact, rtol):
         np.testing.assert_array_equal(tout.is_codeword.numpy(), np.asarray(jout.is_codeword))
     else:
         assert agree.mean() >= 0.99
-    np.testing.assert_allclose(
-        tout.llr_out.numpy()[:, agree], np.asarray(jout.llr_out)[:, agree], rtol=rtol, atol=rtol
-    )
+    got, want = tout.llr_out.numpy()[:, agree], np.asarray(jout.llr_out)[:, agree]
+    if rtol == 0:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol)
 
 
 def test_tables_equal_jax(setup):
@@ -101,8 +105,27 @@ def test_decoder_matches_jax(setup, form, early_term):
     jout = jax.jit(lambda l: jsorted.bp_decode_sorted(jsdc, l, 12, early_term, mode))(
         jnp.asarray(llr))
     tout = tsorted.bp_decode_sorted(tsdc, torch.from_numpy(llr), 12, early_term, mode)
-    rtol = 1e-5 if form in MINSUM else (5e-2 if form == "BP_TANH" else 1e-4)
+    rtol = {"BP_MS": 0, "BP_OMS": 0, "BP_NMS": 1e-5, "BP_TANH": 5e-2}.get(form, 1e-4)
     compare(jout, tout, exact=form in MINSUM, rtol=rtol)
+
+
+@pytest.mark.parametrize("early_term", [True, False])
+@pytest.mark.parametrize("name", ["bench96", "wifi648"])
+def test_nms_bit_exact_against_jax_op_by_op(setup, name, early_term):
+    """``BP_NMS`` on the main path's decoder: the JAX decoder run op by op
+    (each op rounded on its own) gives the port's posteriors bit for bit."""
+    if name == "bench96":
+        code, jsdc, tsdc = setup
+    else:
+        code = wifi_code(648)
+        jsdc = jsorted.to_sorted_device(code)
+        tsdc = tsorted.to_sorted_device(code_from_jax(code), "cpu")
+    mode = DecoderParams(type="BP_NMS").cn_mode
+    llr = awgn_llrs(code, jsdc.vn_perm, 32, 1.0, seed=4)
+    with jax.disable_jit():
+        jout = jsorted.bp_decode_sorted(jsdc, jnp.asarray(llr), 12, early_term, mode)
+    tout = tsorted.bp_decode_sorted(tsdc, torch.from_numpy(llr), 12, early_term, mode)
+    compare(jout, tout, exact=True, rtol=0)
 
 
 def test_wifi_648_xla_only(setup):

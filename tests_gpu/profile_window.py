@@ -36,8 +36,9 @@ the labels' packing and the bitwise LLRs' logsumexps) and its elementwise
 work.  Outside it: the streaming kernel K2, the grants in lane order, the
 draw of K8's keys, the elementwise work (before K8: the pool merge) and
 the counters' reductions; in the XLA super-step's window the reload's
-plan (``reload_plan``) is a part of its own, its draw is K8's, and the
-elementwise work is the super-step's own.  The JSON is also written to
+plan (``reload_plan``) is a part of its own, its draw is K8's (its staged
+form, where the tree has it, ``channel_k8_staged``: the draw into the
+staging buffer), and the elementwise work is the super-step's own.  The JSON is also written to
 ``OUT.json`` when given.  Card name and power limit are
 printed with it.
 """
@@ -70,6 +71,8 @@ def part_of(name: str, in_channel: bool) -> str:
         return "k2_stream_chunk"
     if "reload_plan" in low:
         return "reload_plan"
+    if "stagesink" in low:
+        return "channel_k8_staged"
     if "pool_draw" in low or "pool_plan" in low:
         return "channel_k8"
     if "stream_grant" in low:
@@ -107,9 +110,9 @@ def traced_channel():
             with torch.profiler.record_function(CHANNEL_RANGE):
                 return _draw(*args, **kwargs)
 
-        # a wrapper counts its launches in its own attribute (the function's
+        # a wrapper counts its launches in its own attributes (the function's
         # global name is the wrapper now)
-        traced.launches = getattr(draw, "launches", 0)
+        traced.__dict__.update(draw.__dict__)
         setattr(mod, attr, traced)
 
 

@@ -3,13 +3,16 @@
     python3 tests_gpu/reload_tiling.py
 
 The 1152 (3,6) code, BPSK at 2.0 dB, B = 16384: ``stream_reload`` timed
-(CUDA events, the card kept busy ahead of the start event) with 1,536
-granted lanes spread at random over the batch (as finished frames are) and
-with 13,000, for each tiling of the draw (``pool_refill.SLAB_COLS``, the
-columns a block draws, and ``LANE_TILE``, its lanes), and the plan alone.
-Each tiling's reloaded planes must equal the default tiling's (a lane's
-numbers depend on the key and the lane only).  One ``tiling`` line per
-case.
+(CUDA events, the card kept busy ahead of the start event) in its two
+forms, into the state and staged (``stage=``), with 1,536 granted lanes
+spread at random over the batch (as finished frames are) and with 13,000,
+for each tiling of the draw (``pool_tables``' ``slab_cols``, the columns a
+block draws, and ``lane_tile``, its lanes; the pool's is ``SLAB_COLS`` x
+``LANE_TILE``, the reload's ``RELOAD_SLAB_COLS`` x ``RELOAD_LANE_TILE``), and
+the plan alone.  Each tiling's
+reloaded planes and staged columns must equal the default tiling's (a
+lane's numbers depend on the key and the lane only).  One ``tiling`` line
+per case and form.
 """
 
 import pathlib
@@ -62,6 +65,7 @@ def main() -> int:
                   age=torch.zeros(B, dtype=torch.int32, device=dev),
                   iters=torch.zeros(B, dtype=torch.int32, device=dev),
                   started=torch.zeros(1, dtype=torch.int32, device=dev))
+    stage = pr.ReloadStage.empty(sdc.nc, B, dev)
     on = torch.ones(1, dtype=torch.int32, device=dev)
     key = torch.tensor([99], dtype=torch.int64, device=dev)
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -74,35 +78,36 @@ def main() -> int:
             planes["done"].zero_()
             planes["done"][idle] = 1
             planes["started"].zero_()
+            stage.slot.fill_(-1)
 
         plan = timed(lambda: pr.reload_plan(on, planes["done"], planes["started"], 10**9, 1024),
                      reset)
         for slab_cols, lane_tile in (default, (144, 64), (72, 64), (288, 32), (144, 32),
                                      (72, 32), (288, 16), (72, 16)):
-            pr.SLAB_COLS, pr.LANE_TILE = slab_cols, lane_tile
-            pt = pr.pool_tables(sdc, "AWGN")
-            pr.SLAB_COLS, pr.LANE_TILE = default
+            pt = pr.pool_tables(sdc, "AWGN", slab_cols=slab_cols, lane_tile=lane_tile)
 
-            def run():
+            def run(staged=False):
                 pr.stream_reload(pt, None, 2.0, on, planes["done"], planes["llr"], planes["cw"],
                                  planes["lv2c"], planes["age"], planes["iters"],
                                  planes["started"], 10**9, 1024, vn_ptr=tb.vn_ptr,
-                                 perm_c2v=tb.perm_c2v, key=key)
+                                 perm_c2v=tb.perm_c2v, key=key, stage=stage if staged else None)
 
-            ms = timed(run, reset)
-            reset()
-            run()
-            got = (planes["llr"].clone(), planes["lv2c"].clone(), planes["cw"].clone())
-            if n not in ref:
-                ref[n] = got
-            same = all(torch.equal(a, b) for a, b in zip(got, ref[n]))
             blocks = -(-n // pt.lane_tile) * (-(-pt.item_src.shape[0] // pt.items_per_slab))
-            print(f"tiling {n} lanes granted of {B}: slab {pt.items_per_slab} items x "
-                  f"{pt.lane_tile} lanes ({blocks} working blocks): {ms:.4f} ms (plan "
-                  f"{plan:.4f}); planes equal to the default tiling's: {same} [{card}]",
-                  flush=True)
-            if not same:
-                return 1
+            for form, staged in (("into the state", False), ("staged", True)):
+                ms = timed(lambda: run(staged), reset)
+                reset()
+                run(staged)
+                got = ((stage.slot.clone(), stage.llr[:, :n].clone(), stage.cw[:, :n].clone())
+                       if staged else
+                       (planes["llr"].clone(), planes["lv2c"].clone(), planes["cw"].clone()))
+                if (n, form) not in ref:
+                    ref[n, form] = got
+                same = all(torch.equal(a, b) for a, b in zip(got, ref[n, form]))
+                print(f"tiling {n} lanes granted of {B}, {form}: slab {pt.items_per_slab} items "
+                      f"x {pt.lane_tile} lanes ({blocks} working blocks): {ms:.4f} ms (plan "
+                      f"{plan:.4f}); equal to the default tiling's: {same} [{card}]", flush=True)
+                if not same:
+                    return 1
     return 0
 
 

@@ -307,3 +307,31 @@ def test_bec_simulator_on_card(cuda_device, tmp_path):
     assert res.fer[0] > res.fer[-1] and (res.frames > 0).all()
     head = (tmp_path / "r.txt").read_text().splitlines()[0]
     assert head.startswith("# kernel=cuda-bec") and "schedule=flooding streaming=off" in head
+
+
+@pytest.mark.parametrize("entry", ["bec_decode", "bec_decode_fused"])
+def test_int8_symbols_decode_as_u8(entry):
+    """int8 symbols (the JAX package's dtype) on the card: K6 runs, and
+    ``symbols_out`` is u8 and equal to the u8 input's, output for output,
+    through the padded entry and the K6 wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from libldpc_tpu_torch.ops import bec, channel
+    from libldpc_tpu_torch.ops.device import to_device
+
+    code = make_benchmark_code(1152, 3, 6, seed=0, with_G=True)
+    if entry == "bec_decode":
+        target = to_device(code)
+        decode = bec.bec_decode
+    else:
+        target = kernel_tables(to_sorted_device(code, torch.device("cuda")))
+        decode = db.bec_decode_fused
+    ch = channel.bec_channel(target if entry == "bec_decode" else target.code,
+                             make_generator("cuda", 5), 4096, 0.40)
+    n = db.bec_decode_fused.launches
+    want = decode(target, ch.llr, ch.codeword, 50)
+    got = decode(target, ch.llr.to(torch.int8), ch.codeword, 50)
+    assert db.bec_decode_fused.launches == n + 2
+    assert got.symbols_out.dtype == torch.uint8
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -10,6 +10,15 @@ padded decoders on K1, K5 and K6.
   LLRs, codewords, first messages (each edge's prior), ``done``/``age``/
   ``iters`` and ``started`` bit-equal, every other lane untouched; a binding
   quota; ``do_gen`` false (too few idle lanes, or no refill) draws nothing.
+* The staged reload (``stream_reload(..., stage=)``) against its plain
+  version at 1,536 granted lanes on the 1152 code and wifi 1944: ``slot``,
+  the staged columns, ``done``/``age``/``iters`` and ``started`` bit-equal,
+  the planes untouched; a staged column equal to the lane's column of the
+  reload into the state on the same key.  Then K2's one-pass launch with
+  those pending starts against the plain chunk (``BP_MS``, every plane, the
+  counters, ``slot`` back to -1), in the form the size rule picks and in
+  the HBM-plane form, and against the sequence it replaces (a reload into
+  the state, then K2 with no starts): the same state, bit for bit.
 * The card's super-step (``_card_superstep``: the launches) against the
   plain super-step on the card (``_superstep_body``, selected by replacing
   ``streaming._runs_kernels``, its draws K8's full batch on each pass's
@@ -118,9 +127,132 @@ def test_reload_against_plain(bench_tables, kind, idle, quota, thr, refill_on):
     assert pr.stream_reload.launches > 0
 
 
+@pytest.fixture(scope="module")
+def wifi_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return kernel_tables(to_sorted_device(wifi_code(1944, with_layers=False), "cuda"))
+
+
+STAGED_IDLE = 1536
+
+
+def staged_case(tables, pt, x, key, plain):
+    """A state of ``STAGED_IDLE`` idle lanes (the rest in flight, on
+    sentinel values) and the staged reload of them: ``(state, stage)``."""
+    s = state(tables, STAGED_IDLE, seed=5)
+    stage = pr.ReloadStage.empty(tables.code.nc, B, tables.device)
+    refill = torch.ones(1, dtype=torch.int32, device=tables.device)
+    planes = (refill, s["done"], s["llr"], s["cw"], s["lv2c"], s["age"], s["iters"],
+              s["started"], 10**9, B // 16)
+    if plain:
+        pr.stream_reload_plain(pt, lambda: pr.channel_batch(pt, None, B, x, key=key), *planes,
+                               stage=stage)
+    else:
+        pr.stream_reload(pt, None, x, *planes, key=key, stage=stage)
+    return s, stage
+
+
+@pytest.mark.parametrize("case", ["bench1152 BPSK", "bench1152 4-ASK", "bench1152 BSC",
+                                  "wifi1944 BPSK"])
+def test_staged_reload_against_plain(bench_tables, wifi_tables, case):
+    name, kind = case.split()
+    tables = bench_tables if name == "bench1152" else wifi_tables
+    pt, x = pool_of(tables, kind)
+    key = torch.tensor([0x5151 + len(case)], dtype=torch.int64, device="cuda")
+    n = pr.stream_reload.staged_launches
+    (a, sa), (b, sb) = (staged_case(tables, pt, x, key, plain) for plain in (False, True))
+    assert pr.stream_reload.staged_launches == n + 1
+    before = state(tables, STAGED_IDLE, seed=5)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    granted = torch.nonzero(before["done"]).flatten()
+    assert torch.equal(sa.slot, sb.slot)
+    assert torch.equal(sa.slot[granted], torch.arange(STAGED_IDLE, dtype=torch.int32,
+                                                      device="cuda"))
+    assert int((sa.slot >= 0).sum()) == STAGED_IDLE and int(a["started"]) == 1000 + STAGED_IDLE
+    assert torch.equal(sa.llr[:, :STAGED_IDLE], sb.llr[:, :STAGED_IDLE])
+    assert torch.equal(sa.cw[:, :STAGED_IDLE], sb.cw[:, :STAGED_IDLE])
+    for k in ("llr", "cw", "lv2c"):  # nothing written into the planes
+        assert torch.equal(a[k], before[k]), k
+    assert not a["done"][granted].any() and bool((a["age"][granted] == 1).all())
+    # the same frames as the reload into the state on the same key
+    c = state(tables, STAGED_IDLE, seed=5)
+    reload(tables, pt, x, c, True, 10**9, B // 16, key, plain=False)
+    assert torch.equal(sa.llr[:, :STAGED_IDLE], c["llr"][:, granted])
+    assert torch.equal(sa.cw[:, :STAGED_IDLE], c["cw"][:, granted])
+
+
+def _k2_state(tables, seed):
+    """Every lane in flight after one pass, from a channel batch: the state
+    a one-pass launch of the XLA super-step sees."""
+    sdc, dev = tables.code, tables.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    ch = channel.awgn_channel(sdc, channel.make_generator(dev, seed), B, 1.5)
+    st = dict(llr=ch.llr.clone(), cw=ch.codeword.clone(),
+              lv2c=ch.llr.index_select(0, sdc.col_sorted).contiguous(),
+              done=torch.zeros(B, **i32), iters=torch.zeros(B, **i32), age=torch.ones(B, **i32),
+              avail=torch.zeros(B, **i32), ctr=torch.zeros((5, B), **i32))
+    one_pass(tables, st, None, plain=False)
+    return st
+
+
+def one_pass(tables, st, stage, plain):
+    zero = torch.zeros(1, dtype=torch.int32, device=tables.device)
+    fn = df.bp_stream_chunk_fused_plain if plain else df.bp_stream_chunk_fused
+    fn(tables, st["llr"], st["cw"], st["lv2c"], st["done"], st["iters"], st["age"], st["avail"],
+       st["ctr"], st["llr"], st["cw"], zero, zero.clone(), k=1, cap=50, minsum_mode="BP_MS",
+       stage=stage)
+
+
+@pytest.mark.parametrize("hbm", [False, True])
+@pytest.mark.parametrize("name", ["bench1152", "wifi1944"])
+def test_k2_staged_start_against_plain(bench_tables, wifi_tables, name, hbm, monkeypatch):
+    tables = bench_tables if name == "bench1152" else wifi_tables
+    if hbm:
+        monkeypatch.setattr(df, "STREAM_FORM_OVERRIDE", (0, False))
+    pt, x = pool_of(tables, "BPSK")
+    key = torch.tensor([777], dtype=torch.int64, device="cuda")
+    base = _k2_state(tables, 21)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    idle = torch.randperm(B, generator=g)[:STAGED_IDLE].to("cuda")
+    base["done"].zero_()  # every other lane in flight
+    base["done"][idle] = 1
+    i32 = dict(dtype=torch.int32, device="cuda")
+    refill = torch.ones(1, **i32)
+    runs = []
+    for staged, plain in ((True, False), (True, True), (False, False)):
+        st = {k: v.clone() for k, v in base.items()}
+        started = torch.zeros(1, **i32)
+        stage = pr.ReloadStage.empty(tables.code.nc, B, "cuda")
+        planes = (refill, st["done"], st["llr"], st["cw"], st["lv2c"], st["age"], st["iters"],
+                  started, 10**9, B // 16)
+        if staged:
+            pr.stream_reload(pt, None, x, *planes, key=key, stage=stage)
+        else:
+            pr.stream_reload(pt, None, x, *planes, vn_ptr=tables.vn_ptr,
+                             perm_c2v=tables.perm_c2v, key=key)
+        assert int(started) == STAGED_IDLE
+        n = df.bp_stream_chunk_fused.staged_launches
+        one_pass(tables, st, stage if staged else None, plain)
+        if staged and not plain:
+            assert df.bp_stream_chunk_fused.staged_launches == n + 1
+            assert df.bp_stream_chunk_fused.last_form[0] == (0 if hbm else
+                                                             df.flood_form(tables)[0])
+        assert not bool((stage.slot >= 0).any())
+        runs.append(st)
+    kernel, plain_run, present = runs
+    for ref in (plain_run, present):  # every lane ran the pass, so lv2c is whole
+        for k in ("llr", "cw", "lv2c", "done", "iters", "age", "avail", "ctr"):
+            assert torch.equal(kernel[k], ref[k]), k
+    assert int(kernel["ctr"][4].sum()) == 0  # the plan counted the starts, not K2
+
+
 @pytest.mark.parametrize("form", ["BP_MS", "BP"])
 def test_superstep_on_the_card_against_its_plain_sequence(bench_tables, form, monkeypatch):
     dec = DecoderParams(iterations=50, type=form)
+    monkeypatch.setattr(pr.stream_reload, "launches", 0)
+    monkeypatch.setattr(pr.stream_reload, "staged_launches", 0)
     runs = []
     for plain in (False, True):
         if plain:
@@ -143,6 +275,9 @@ def test_superstep_on_the_card_against_its_plain_sequence(bench_tables, form, mo
     else:
         assert abs(sum(d[2] for d in kd) - sum(d[2] for d in pd)) <= B // 1000
     assert sum(d[2] for d in kd) > B
+    # 49 of a super-step's 50 reloads were staged (the last one's into the
+    # state, so none is left pending)
+    assert (pr.stream_reload.launches, pr.stream_reload.staged_launches) == (12, 12 * 49)
 
 
 @pytest.fixture(scope="module")
