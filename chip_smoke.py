@@ -54,7 +54,11 @@ super-step against the plain super-step on the card, the reload and K2's one-pas
 timed, the CLI sweep of the 1152 code beside phase 8's ``--pallas`` sweep,
 a ``max_frames``-ended point run five times), the padded-layout library
 (phase 17: ``bp_decode`` on K1 and K5, ``bec_decode`` on K6, each against
-its plain padded version, timed), and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
+its plain padded version, timed), the native host runtime and the examples
+(phase 18: ``native.available()`` asserted, the codefile parse and the
+GF(2) rank timed natively and on the NumPy paths, equal; each
+``examples/torch_*.py`` run through its ``main`` at a reduced depth, its
+engine and launches checked), and, last, an ``{"ok": true, ...}`` line.  Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
 """
@@ -1916,6 +1920,156 @@ def run_padded(dev, codes, name_power, zero_counts, read_counts) -> dict:
     return out
 
 
+#: phase 18: the codefile the native parser reads and the H it ranks
+#: (``make_benchmark_code(n, 3, 6)``: 196,608 edges; 8192 x 16384)
+PARSE_NC, RANK_NC = 65536, 16384
+
+
+@contextlib.contextmanager
+def numpy_paths(native):
+    """The port's NumPy parse and rank: the runtime reported unavailable
+    inside the block."""
+    saved = vars(native)["available"]
+    native.available = staticmethod(lambda: False)
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def best_s(fn, reps: int) -> float:
+    """The least host-clock seconds of ``reps`` calls of ``fn()``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def run_host_runtime(name_power, parse_nc: int = PARSE_NC, rank_nc: int = RANK_NC) -> dict:
+    """Phase 18a: the native host runtime on this machine's host.  It must
+    build (``native.available()``; a failed build prints the compiler's
+    output and fails the run), and the codefile parse of
+    ``make_benchmark_code(parse_nc, 3, 6)`` and the GF(2) rank of
+    ``make_benchmark_code(rank_nc, 3, 6)``'s H are timed natively and on
+    the NumPy paths, with equal results.  The file is read warm (written
+    just before, the page cache kept)."""
+    from libldpc_tpu_torch import runtime
+    from libldpc_tpu_torch.models import gf2, io, make_benchmark_code, write_codefile
+    from libldpc_tpu_torch.runtime import native
+
+    built = native.available()  # built at the run's first parse (phase 8's CLI) or here
+    if not built:
+        print(f"phase 18: the native runtime did not build:\n{runtime.last_build_error}")
+    check(built, "phase 18: native.available() is False")
+    print(f"phase 18: native runtime {pathlib.Path(runtime._lib._name).name} loaded"
+          + (f"; refused first:\n{runtime.last_build_error}" if runtime.last_build_error else ""))
+    out = {}
+    code = make_benchmark_code(parse_nc, 3, 6, seed=0)
+    path = str(WORK / f"runtime_h{parse_nc}.txt")
+    write_codefile(path, code.rows, code.cols, code.nc, code.mc)
+    got = io.parse_codefile(path)
+    with numpy_paths(native):
+        want = io.parse_codefile(path)
+        out["parse_numpy_s"] = best_s(lambda: io.parse_codefile(path), 3)
+        out["pairs_numpy_s"] = best_s(lambda: io._pairs(path), 3)
+    check(all((getattr(got, f) == getattr(want, f)).all() for f in ("rows", "cols", "puncture",
+                                                                  "shorten"))
+          and (got.nc, got.mc) == (want.nc, want.mc) == (code.nc, code.mc)
+          and (got.rows == code.rows).all() and (got.cols == code.cols).all(),
+          "phase 18: the native parse differs from the NumPy parse")
+    out["parse_native_s"] = best_s(lambda: io.parse_codefile(path), 3)
+    out["pairs_native_s"] = best_s(lambda: native.parse_pairs(path), 3)
+    print(f"time phase 18 parse_codefile of the {parse_nc}-column codefile ({code.nnz} edges, "
+          f"warm page cache, best of 3): native {out['parse_native_s'] * 1e3:.2f} ms, NumPy "
+          f"{out['parse_numpy_s'] * 1e3:.2f} ms ({out['parse_numpy_s'] / out['parse_native_s']:.1f}"
+          f"x); the pairs alone: native {out['pairs_native_s'] * 1e3:.2f} ms, NumPy "
+          f"{out['pairs_numpy_s'] * 1e3:.2f} ms [{name_power}]")
+    H = make_benchmark_code(rank_nc, 3, 6, seed=0).H_dense
+    out["pack_s"] = best_s(lambda: gf2.pack_rows(H), 1)
+    t0 = time.perf_counter()
+    r_native = gf2.rank(H)
+    out["rank_native_s"] = time.perf_counter() - t0
+    with numpy_paths(native):
+        t0 = time.perf_counter()
+        r_numpy = gf2.rank(H)
+        out["rank_numpy_s"] = time.perf_counter() - t0
+    check(r_native == r_numpy, f"phase 18: rank native {r_native}, NumPy {r_numpy}")
+    print(f"time phase 18 GF(2) rank of the {H.shape[0]} x {H.shape[1]} H (rank {r_native}): "
+          f"native {out['rank_native_s']:.3f} s, NumPy {out['rank_numpy_s']:.3f} s "
+          f"({out['rank_numpy_s'] / out['rank_native_s']:.1f}x), each with its "
+          f"{out['pack_s']:.3f} s pack [{name_power}]")
+    return out
+
+
+#: phase 18b: each example at its full width and a reduced depth (fewer
+#: points or frames), its results file under the smoke's work directory
+EXAMPLE_ARGS = {
+    "basic_sweep": ["--snr", "1.0", "3.01", "1.0", "--max-frames", "100000"],
+    "pyldpc_style": ["--snr", "1.0", "3.01", "1.0", "--max-frames", "100000", "--polls", "2",
+                     "--poll-seconds", "1.0", "--decode-snr", "3.0"],
+    "qc_code_sweep": ["--max-frames", "100000"],
+    "wifi_sweep": ["--max-frames", "100000"],
+    "wide_streaming_sweep": [],
+    "multihost_sweep": ["--max-frames", "20000"],
+}
+
+
+def run_examples(name_power, zero_counts, read_counts) -> dict:
+    """Phase 18b: each ``examples/torch_*.py`` through its ``main`` on the
+    card, its launches counted from zero, and the engine or route it must
+    reach: the XLA super-step (K2 one pass a launch, K8's reload) for
+    ``basic_sweep``, ``wide_streaming_sweep`` and ``multihost_sweep`` (one
+    rank); K1 for ``pyldpc_style``'s ``LDPC.decode`` (its threaded sweep
+    runs no K1); the fused pool with bf16 messages (K2 on ``Bf16Msg``) for
+    ``qc_code_sweep``; K4 on ``Int8Msg`` for ``wifi_sweep``.  Returns each
+    example's wall seconds."""
+    import importlib.util
+
+    walls = {}
+    for name, args in EXAMPLE_ARGS.items():
+        spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                      ROOT / "examples" / f"torch_{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        if name in ("basic_sweep", "multihost_sweep"):
+            args = args + ["--result-file", str(WORK / f"example_{name}.txt")]
+        print(f"--- phase 18 example {name} {' '.join(args)}", flush=True)
+        zero_counts()
+        t0 = time.perf_counter()
+        ret = module.main(args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches = {k: v for k, v in read_counts().items() if v}
+        if name == "pyldpc_style":
+            check(ret["bit_errors"] == 0, "phase 18 pyldpc_style: the 3 dB frame has bit errors")
+            check(launches.get("bp_decode_fused", 0) > 0, "phase 18: LDPC.decode ran no K1")
+            res = ret["ldpc"].get_results()
+            route = f"LDPC.decode on K1, rank {ret['rank']}"
+        else:
+            sim = ret
+            check(sim.device.type == "cuda", f"phase 18 {name} ran on {sim.device}")
+            res = sim.results.as_dict()
+            want = {"qc_code_sweep": ("fused-pool", "flooding", "bfloat16",
+                                      "bp_stream_chunk_fused_bf16"),
+                    "wifi_sweep": ("fused-pool", "layered-fast", "int8",
+                                   "bp_stream_chunk_layered_fast_int8")}.get(
+                name, ("xla-superstep", "flooding", "float32", "bp_stream_chunk_fused"))
+            check((sim.engine, sim.schedule, sim.message_dtype) == want[:3],
+                  f"phase 18 {name}: {sim.engine} {sim.schedule} {sim.message_dtype}")
+            check(launches.get(want[3], 0) > 0, f"phase 18 {name} did not launch {want[3]}")
+            if sim.engine == "xla-superstep":
+                check(launches.get("stream_reload", 0) > 0 and "bp_decode_fused" not in launches,
+                      f"phase 18 {name}: launches {launches}")
+            route = f"engine {sim.engine}, schedule {sim.schedule}, dtype {sim.message_dtype}"
+        check(len(res["frames"]) > 0 and all(f > 0 for f in res["frames"])
+              and all(0.0 <= v <= 1.0 for v in res["fer"]), f"phase 18 {name}: rows {res}")
+        print(f"time phase 18 example {name}: {walls[name]:.2f} s wall (host clock, setup "
+              f"included), {route}, launches {launches} [{name_power}]")
+    return walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3019,6 +3173,10 @@ def main() -> int:
     # ---- 17. the padded-layout library on K1, K5 and K6
     run_padded(dev, codes, name_power, zero_counts, read_counts)
     mark("padded decoders done")
+    # ---- 18. the native host runtime, then the six examples on the card
+    run_host_runtime(name_power)
+    run_examples(name_power, zero_counts, read_counts)
+    mark("host runtime and examples done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],

@@ -1,25 +1,25 @@
-"""Dense bit-packed GF(2) linear algebra on the host (NumPy).
+"""Dense bit-packed GF(2) linear algebra on the host.
 
-A copy of the NumPy paths of :mod:`libldpc_tpu.models.gf2`: 64 GF(2)
-elements per ``uint64`` word, XOR for row addition (the JAX package's
-optional native rank kernel is not copied; this is its fallback).
+A copy of :mod:`libldpc_tpu.models.gf2`: 64 GF(2) elements per ``uint64``
+word, XOR for row addition.  :func:`rank` runs on the native runtime
+(:mod:`..runtime`) where it is built, else in NumPy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..runtime import native
+
 
 def pack_rows(mat: np.ndarray) -> np.ndarray:
-    """Pack a binary matrix ``[m, n]`` (0/1) into ``[m, ceil(n/64)]`` uint64."""
+    """Pack a binary matrix ``[m, n]`` (0/1) into ``[m, ceil(n/64)]`` uint64:
+    bit ``j`` of word ``w`` is column ``64 w + j``."""
     mat = np.asarray(mat, dtype=np.uint8) & 1
     m, n = mat.shape
-    pad = (-n) % 64
-    if pad:
-        mat = np.concatenate([mat, np.zeros((m, pad), dtype=np.uint8)], axis=1)
-    bits = mat.reshape(m, -1, 64).astype(np.uint64)
-    weights = (np.uint64(1) << np.arange(64, dtype=np.uint64))[None, None, :]
-    return (bits * weights).sum(axis=2, dtype=np.uint64)
+    packed = np.zeros((m, 8 * (-(-n // 64))), dtype=np.uint8)
+    packed[:, : -(-n // 8)] = np.packbits(mat, axis=1, bitorder="little")
+    return packed.view("<u8").astype(np.uint64)
 
 
 def unpack_rows(packed: np.ndarray, n: int) -> np.ndarray:
@@ -31,10 +31,12 @@ def unpack_rows(packed: np.ndarray, n: int) -> np.ndarray:
 
 def rank(mat: np.ndarray) -> int:
     """Rank of a binary matrix over GF(2): Gaussian elimination on packed
-    words, a pivot per column."""
+    words, a pivot per column (the native runtime's where it is built)."""
     mat = np.asarray(mat)
     packed = pack_rows(mat)
     m, n = packed.shape[0], mat.shape[1]
+    if native.available():
+        return native.gf2_rank(packed, n)
     r = 0
     for col in range(n):
         if r == m:

@@ -1,7 +1,8 @@
 """The reference's on-disk formats, parsed and written on the host.
 
-A copy of the NumPy paths of :mod:`libldpc_tpu.models.io` that the port
-uses, plus :func:`write_layerfile`:
+A copy of the parts of :mod:`libldpc_tpu.models.io` that the port uses,
+plus :func:`write_layerfile`; the pairs of a codefile or generator file are
+read by the native runtime (:mod:`..runtime`) where it is built:
 
 * **codefile**: one ``row col`` pair per nonzero of H; any line holding
   ``:`` is a header, from which ``puncture``/``shorten`` lists and the
@@ -27,6 +28,8 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+from ..runtime import native
 
 
 @dataclasses.dataclass
@@ -58,23 +61,30 @@ def _parse_header_line(line: str, puncture: list, shorten: list, counts: dict) -
                 pass
 
 
+def _header_lines(text: str) -> list[str]:
+    """Every line of ``text`` holding ``:`` (found from the colons, so a
+    file of pairs is not split into lines)."""
+    lines = []
+    pos = text.find(":")
+    while pos >= 0:
+        end = text.find("\n", pos)
+        end = len(text) if end < 0 else end
+        lines.append(text[text.rfind("\n", 0, pos) + 1:end])
+        pos = text.find(":", end)
+    return lines
+
+
 def parse_codefile(path: str) -> ParsedCode:
-    """Parse a parity-check codefile (either dialect)."""
+    """Parse a parity-check codefile (either dialect).  The header lines
+    are read here; the pairs by the native runtime where it is built."""
     puncture: list[int] = []
     shorten: list[int] = []
     counts: dict[str, int] = {}
-    data_lines: list[str] = []
     with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            if ":" in line:
-                _parse_header_line(line, puncture, shorten, counts)
-            else:
-                data_lines.append(line)
-    pairs = np.array([ln.split()[:2] for ln in data_lines], dtype=np.int32).reshape(-1, 2)
-    rows, cols = pairs[:, 0].copy(), pairs[:, 1].copy()
+        text = f.read()
+    for line in _header_lines(text):
+        _parse_header_line(line.strip(), puncture, shorten, counts)
+    rows, cols = _pairs(path, text)
     if rows.size == 0:
         raise ValueError(f"{path}: no matrix entries found")
     # declared nc:/mc: win if larger: trailing all-zero rows/columns are
@@ -93,19 +103,24 @@ def parse_codefile(path: str) -> ParsedCode:
     )
 
 
+def _pairs(path: str, text: Optional[str] = None) -> tuple[np.ndarray, np.ndarray]:
+    """The ``row col`` pairs of every non-empty line without ``:``, as
+    int32 ``(rows, cols)``: the native parser's where it is built, else
+    NumPy's on ``text`` (the file read when not given)."""
+    if native.available():
+        return native.parse_pairs(path)
+    if text is None:
+        with open(path) as f:
+            text = f.read()
+    data = [ln.split()[:2] for ln in text.split("\n") if ln.strip() and ":" not in ln]
+    pairs = np.array(data, dtype=np.int32).reshape(-1, 2)
+    return pairs[:, 0].copy(), pairs[:, 1].copy()
+
+
 def parse_genfile(path: str, nc: Optional[int] = None) -> np.ndarray:
     """Parse a generator-matrix file into a dense uint8 ``[kc, nc]`` array,
     widened to ``nc`` columns when given."""
-    pairs = []
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line or ":" in line:
-                continue
-            a = line.split()
-            pairs.append((int(a[0]), int(a[1])))
-    arr = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
-    rows, cols = arr[:, 0], arr[:, 1]
+    rows, cols = _pairs(path)
     kc = int(rows.max()) + 1
     n = int(cols.max()) + 1
     if nc is not None:

@@ -186,6 +186,15 @@ def exclusion_combine(M: torch.Tensor, op: PairwiseOp) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
+def total_combine(M: torch.Tensor, op: PairwiseOp) -> torch.Tensor:
+    """Combine of all slots along axis 1 (``[count, dc, B] -> [count, B]``),
+    left to right."""
+    acc = M[:, 0]
+    for j in range(1, M.shape[1]):
+        acc = op(acc, M[:, j])
+    return acc
+
+
 def exclusion_combine_tanh(M: torch.Tensor) -> torch.Tensor:
     """All-but-one combine in the tanh domain (``BP_TANH``)."""
     dc = M.shape[1]

@@ -85,6 +85,16 @@ class TorchSortedCode:
         return dataclasses.replace(self, **moved)
 
 
+def sorted_vn_inv(code: LDPCCode) -> np.ndarray:
+    """The sorted layout's VN relabelling (original label -> sorted label)
+    on the host, for relabelling host-side per-bit tables without reading
+    the device's ``vn_inv``."""
+    vn_deg = np.bincount(code.cols.astype(np.int64), minlength=code.nc)
+    vn_inv = np.empty(code.nc, dtype=np.int64)
+    vn_inv[np.argsort(vn_deg, kind="stable")] = np.arange(code.nc)
+    return vn_inv
+
+
 def to_sorted_device(code: LDPCCode, device="cuda", with_layers: bool = False) -> TorchSortedCode:
     """Build the sorted-layout tables of ``code`` on ``device`` (the card
     unless the caller names another, as the ``Simulator`` and the CLI
@@ -100,8 +110,7 @@ def to_sorted_device(code: LDPCCode, device="cuda", with_layers: bool = False) -
     vn_perm, vn_classes = _degree_classes(vn_deg)
     cn_inv = np.empty(mc, dtype=np.int64)
     cn_inv[cn_perm] = np.arange(mc)
-    vn_inv = np.empty(nc, dtype=np.int64)
-    vn_inv[vn_perm] = np.arange(nc)
+    vn_inv = sorted_vn_inv(code)
 
     # CN-major edge order: (sorted CN label, file order); the stable sort
     # keeps each row's file order, which fixes the combine's association order

@@ -44,6 +44,7 @@ MODULES = [
     "libldpc_tpu_torch.ops.tuning",
     "libldpc_tpu_torch.parallel.distributed",
     "libldpc_tpu_torch.parallel.mesh",
+    "libldpc_tpu_torch.runtime",
     "libldpc_tpu_torch.sim.driver",
     "libldpc_tpu_torch.sim.gpu_compat",
     "libldpc_tpu_torch.sim.results",
@@ -65,6 +66,8 @@ def test_import_is_jax_free_and_builds_nothing(module):
         "assert not jax_pkg, f'the JAX package was imported: {jax_pkg}'\n"
         "b = sys.modules.get('libldpc_tpu_torch.ops.kernels.build')\n"
         "assert b is None or (b._lib is None and b.last_build_log is None), 'built'\n"
+        "r = sys.modules.get('libldpc_tpu_torch.runtime')\n"
+        "assert r is None or (r._lib is None and not r._tried), 'the native runtime was built'\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
