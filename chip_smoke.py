@@ -24,7 +24,11 @@ over the HBM rate and its operations over the float32 rate
 (``libldpc_tpu_torch/utils/roofline.py``), and the form
 of the kernel that ran; the kernels with a tile form, K1 to K5, are held
 against their plain versions and timed in each form side by side, K5 on
-wifi 648 and wifi 1296), the fixed-iteration ``Simulator`` frames/s of the
+wifi 648, and on wifi 1296 and wifi 1944 in every form (its tiles of 16, 8
+and 4 frames and its plane form), each held against the plain version and
+its size rule's form checked the fastest), the default command
+line on the exact schedule (phase 9c: ``--layer-file`` on wifi 1944
+without ``--pallas``, batch-stepped on K8 and K5), the fixed-iteration ``Simulator`` frames/s of the
 1152 flooding and the wifi 1944 layered-fast points in each message form,
 the checkpoint / error-log / ``LDPC`` slice (phase 11: sweeps stopped and
 resumed against the uninterrupted ones on K2 and K4, a streaming point
@@ -66,6 +70,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -82,6 +87,9 @@ WORK = ROOT / "build" / "smoke"
 BATCH = 16384
 ITERS = 50
 COMPARE_SNR_DB = 1.5  # inside the waterfall of every code here (sigma^2 = 10^(-snr/10))
+#: phase 10: the frames and iterations each K5 form is held to plain on
+#: before it is timed (no multiple of 16)
+K5_CHECK_B, K5_CHECK_ITERS = 1000, 12
 SWEEP = ["1.0", "3.01", "0.5"]  # 1.0 .. 3.0 dB: the 1152 code's waterfall
 LAYERED_SWEEP = ["1.0", "2.51", "0.5"]  # 1.0 .. 2.5 dB: wifi 1944's waterfall
 FORMS = ("BP_MS", ("BP_NMS", 0.75, 0.15), "BP")
@@ -595,10 +603,11 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
           f"{ask4.avg_iter[0]:.4f}, {1.0 / ask4.time[0]:.0f} frames/s = "
           f"{bpsk.time[0] / ask4.time[0]:.3f}x BPSK at 2.0 dB (avg_iter {bpsk.avg_iter[0]:.4f}) "
           f"[{name_power}]")
-    counts = read_counts()
-    check(counts["pool_refill"] > 0 and counts["stream_reload"] == 0
-          and counts["stream_reload_staged"] == 0,
-          f"the use_pallas sweeps (BPSK, M = 2, 4-ASK) did not run the fused step: {counts}")
+    fused_counts = read_counts()
+    check(fused_counts["pool_refill"] > 0 and fused_counts["stream_reload"] == 0
+          and fused_counts["stream_reload_staged"] == 0,
+          f"the use_pallas sweeps (BPSK, M = 2, 4-ASK) did not run the fused step: "
+          f"{fused_counts}")
 
     # -- a modulated --error-log point, dE recomputed on the host
     log = work / "errors_4ask.txt"
@@ -657,32 +666,42 @@ bfloat16 form that it runs against the plain chunk at its shape.  Last,
                                                 float(BIG_SWEEP[0])), df)
     check(df.bp_stream_chunk_fused.last_form == rule, "the drains did not run the rule's K2 form")
 
-    # -- K5 on wifi 1944 against its plain version, then timed (phase 10's manner)
+    # -- K5 on wifi 1944 against its plain version, in the rule's form and in
+    # the plane form on the same frames, then timed (phase 10's manner)
     tb = tables["wifi1944"]
     ch = awgn_channel(tb.code, make_generator(dev, 7, 8, 0), BATCH, COMPARE_SNR_DB)
     err = plain_ms = 0.0
+    rule = dl.exact_form(tb)
     for form, et in (("BP_MS", True), ("BP", False)):
         got = dl.bp_decode_layered(tb, ch.llr, ITERS, et, form)
+        check(dl.bp_decode_layered.last_form == rule, "K5 wifi1944 did not run the rule's form")
+        try:
+            dl.EXACT_FORM_OVERRIDE = (0, False)
+            got_plane = dl.bp_decode_layered(tb, ch.llr, ITERS, et, form)
+        finally:
+            dl.EXACT_FORM_OVERRIDE = None
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         want_ = dl.bp_decode_layered_plain(tb, ch.llr, ITERS, et, form)
         end.record()
         torch.cuda.synchronize()
-        same_ = (got.hard == want_.hard).all(0) & (got.iterations == want_.iterations)
-        if form == "BP":
-            plain_ms = start.elapsed_time(end)
-            check(same_.float().mean().item() >= 0.999, "K5 wifi1944 BP: decisions disagree")
-            torch.testing.assert_close(got.llr_out[:, same_], want_.llr_out[:, same_], rtol=1e-4,
-                                       atol=1e-4)
-            err = (got.llr_out - want_.llr_out)[:, same_].abs().max().item()
-        else:
-            check(bool(same_.all()) and torch.equal(got.llr_out, want_.llr_out),
-                  "K5 wifi1944 BP_MS not bit-exact")
-        print(f"K5 wifi1944 {form} et={int(et)}: frames agreeing {same_.float().mean().item():.6f}"
-              f" (form {dl.exact_form(tb)})")
+        for what, out_ in (("rule's form", got), ("plane form", got_plane)):
+            same_ = (out_.hard == want_.hard).all(0) & (out_.iterations == want_.iterations)
+            if form == "BP":
+                check(same_.float().mean().item() >= 0.999,
+                      f"K5 wifi1944 BP {what}: decisions disagree")
+                torch.testing.assert_close(out_.llr_out[:, same_], want_.llr_out[:, same_],
+                                           rtol=1e-4, atol=1e-4)
+                if out_ is got:
+                    plain_ms = start.elapsed_time(end)
+                    err = (out_.llr_out - want_.llr_out)[:, same_].abs().max().item()
+            else:
+                check(bool(same_.all()) and torch.equal(out_.llr_out, want_.llr_out),
+                      f"K5 wifi1944 BP_MS {what} not bit-exact")
+            print(f"K5 wifi1944 {form} et={int(et)} {what}: frames agreeing "
+                  f"{same_.float().mean().item():.6f} (the rule's form {rule})")
     ms = cuda_ms(lambda: dl.bp_decode_layered(tb, ch.llr, ITERS, False, "BP"), 3)
-    return counts, {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                    "form": dl.exact_form(tb)}
+    return counts, {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "form": rule}
 
 
 #: phases 13-14: the stopping rule of the wide sweeps (max_frames binds at
@@ -2161,6 +2180,20 @@ def main() -> int:
             return "HBM planes, 32 frames x 8 warps"
         return f"tile, {frames_} frames a block{', tables staged' if stage else ''}"
 
+    def k5_name(tb, dtype="float32", tile=None):
+        """K5's form as the kernels line names it: the rule's, or the one forced."""
+        tile = dl.exact_form(tb, dtype) if tile is None else tile
+        if tile[0]:
+            return form_name(tile)
+        return "plane, lc2v and the posterior in device memory, 16 frames a block"
+
+    def k5_forms(tb, dtype):
+        """Every form of K5 that fits a block: ``(name, forced form)``."""
+        return [(k5_name(tb, dtype, f), f)
+                for f in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False),
+                          (0, False))
+                if f[0] == 0 or dl.exact_tile_bytes(tb, f[0], dtype, f[1]) <= dl.SMEM_BLOCK_BYTES]
+
     def k1_forms(key, dtype="float32"):
         """Kernel 1's other forms that fit, as ``also`` pairs: every tile
         size and staging beside the rule's, and the HBM-plane form."""
@@ -2368,20 +2401,21 @@ def main() -> int:
         err_form[f"k4 {dtype}"] = err
 
     # ---- 7. K5 (exact layered schedule) against its plain version, in the
-    # rule's form and in the HBM-plane form (the rule's for a code whose
-    # tile does not fit) on the same frames
-    k5_hbm = ("HBM planes", in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", (0, False)))
+    # rule's form and, on the same frames, in the 4-frame tile and the plane
+    # form (the rule's for a code whose tile does not fit)
+    k5_also = tuple((name, in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", f))
+                    for name, f in (("tile4", (4, True)), ("plane", (0, False))))
     err5 = compare_batch("K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain,
-                         tables["wifi648"], llrs("wifi648", 5).llr, also=(k5_hbm,))
+                         tables["wifi648"], llrs("wifi648", 5).llr, also=k5_also)
     print(f"K5 form chosen for wifi 648: {dl.exact_form(tables['wifi648'])}")
 
-    # ---- 7a. K5's forms (lv2c, lc2v and the posterior in the form); bf16 BP's
+    # ---- 7a. K5's message forms (lc2v and the posterior in the form); bf16 BP's
     # posterior within eight bf16 steps: it is recomputed from every stored
     # message after each of the 12 layers
     for dtype in ("bfloat16", "int8"):
         err_form[f"k5 {dtype}"] = compare_batch(
             "K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain, tables["wifi648"],
-            llrs("wifi648", 5).llr, dtype, tol=2 ** -4, also=(k5_hbm,))
+            llrs("wifi648", 5).llr, dtype, tol=2 ** -4, also=k5_also)
 
     mark("K3, K4 and K5 held against plain")
     # ---- 7b. K6 (BEC peeling, batch) against its plain version: integer
@@ -2553,11 +2587,11 @@ def main() -> int:
             write_layerfile(str(WORK / f"{key}_layers.txt"), code.layers)
         return files
 
-    def run_cli(key, out, snrs, *flags, layered=False):
+    def run_cli(key, out, snrs, *flags, layered=False, pallas=True):
         files = write_files(key)
         h, g = files[0], files[1:]
         args = [h, str(WORK / out), *snrs, *g, "-i", str(ITERS), "--batch-size", str(BATCH),
-                "--pallas", *flags]
+                *(["--pallas"] if pallas else []), *flags]
         if layered:
             args += ["--layer-file", str(WORK / f"{key}_layers.txt")]
         t0 = time.perf_counter()
@@ -2743,6 +2777,44 @@ def main() -> int:
               f"{rows_648[0][4]:.3f}, {dtype} {cn} {r648[1]:.4e} / {r648[4]:.3f} [{name_power}]")
 
     mark("layered sweeps done")
+    # ---- 9c. the default command line on the exact schedule: --layer-file on
+    # wifi 1944 without --pallas (the JAX CLI's default: float32, the exact
+    # layered schedule, batch-stepped): each batch K8's channel, then K5 in
+    # its rule's form
+    zero_counts()
+    console = io.StringIO()
+    with contextlib.redirect_stdout(console):
+        head_d, rows_d = run_cli("wifi1944", "res_default_layered.txt", ["2.0", "2.01", "1"],
+                                 "--frame-error-count", "50", "--max-frames", str(16 * BATCH),
+                                 layered=True, pallas=False)
+    print(console.getvalue(), end="")
+    default_layered_launches = read_counts()
+    k5_1944_form = dl.bp_decode_layered.last_form
+    print(f"default --layer-file path launches: {default_layered_launches}")
+    check("Engine: batch" in console.getvalue(), "the default --layer-file sweep is not "
+                                                 "batch-stepped")
+    check(head_d.startswith("# kernel=cuda-fused dtype=float32 cn=BP schedule=layered "
+                            "streaming=off"), f"default --layer-file provenance: {head_d}")
+    check(default_layered_launches["bp_decode_layered"] > 0
+          and default_layered_launches["channel_batch"] > 0,
+          "the default --layer-file sweep did not run K8 and K5")
+    check(k5_1944_form == dl.exact_form(tables["wifi1944"]),
+          f"the default --layer-file sweep ran K5 in {k5_1944_form}, not the rule's form")
+    check(all(0 < r[4] <= ITERS for r in rows_d), "default --layer-file avg_iter out of range")
+    # its frames/s from the same sweep's Simulator (the CLI's seed 0): the
+    # results file keeps a frame's time to 1 us (and its row is the point's
+    # as of its last frame error)
+    res_d = Simulator(codes["wifi1944"], DecoderParams(iterations=ITERS, layered=True),
+                      ChannelParams(seed=0, x_range=(2.0, 2.01, 1.0)),
+                      SimulationParams(batch_size=BATCH, fec=50, max_frames=16 * BATCH),
+                      device=dev, verbose=False, use_pallas=False).start()
+    for i, r in enumerate(rows_d):
+        print(f"default --layer-file wifi1944 {r[0]} dB: results file FER {r[1]:.4e} frames "
+              f"{int(r[3])} avg_iter {r[4]:.3f}; its Simulator FER {res_d.fer[i]:.4e} frames "
+              f"{int(res_d.frames[i])} avg_iter {res_d.avg_iter[i]:.3f} frames/s "
+              f"{1.0 / res_d.time[i]:.0f} (K5 {k5_name(tables['wifi1944'])}, "
+              f"{default_layered_launches['bp_decode_layered']} launches on the CLI's run) "
+              f"[{name_power}]")
     # ---- 9b. the BEC slice: the CLI's --channel BEC sweep of the 1152 code,
     # a fixed-iteration point, the 802.11n code with --layer-file --pallas
     # (the peeling runs flooding), and the BEC streaming step
@@ -2888,8 +2960,8 @@ def main() -> int:
         print(f"time K4 form {form_of[forced]} wifi1944 6 passes from a full pool B={BATCH}, kernel "
               f"only: float32 BP {ms_bp:.3f} ms, float32 BP_MS {ms_ms:.3f} ms, int8 BP_MS "
               f"{ms_i8:.3f} ms [{name_power}]")
-    # K2 and K5: the form the size rule picks and the HBM-plane form
-    # (forced), on the same inputs, in turns (HBM, rule, rule, HBM)
+    # K2 and K5: the form the size rule picks and the HBM-plane form (K5's
+    # plane form), forced, on the same inputs, in turns (HBM, rule, rule, HBM)
     for dtype, form in (("float32", "BP"), ("bfloat16", "BP"), ("float32", "BP_MS"),
                         ("bfloat16", "BP_MS"), ("int8", "BP_MS")):
         for key in ("bench1152", "wifi1944"):
@@ -2910,8 +2982,8 @@ def main() -> int:
             ms[forced] = ms.get(forced, 0.0) + t / 2
         dl.EXACT_FORM_OVERRIDE = None
         print(f"time K5 wifi648 {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only: "
-              f"{form_name(dl.exact_form(tb5, dtype))} {ms[None]:.3f} ms, HBM planes "
-              f"{ms[(0, False)]:.3f} ms [{name_power}]")
+              f"{form_name(dl.exact_form(tb5, dtype))} {ms[None]:.3f} ms, "
+              f"{k5_name(tb5, dtype, (0, False))} {ms[(0, False)]:.3f} ms [{name_power}]")
         check(ms[None] < ms[(0, False)], f"K5 wifi648 {dtype} {form}: the rule's form is slower")
     # K1 and K3: every form that fits, the HBM-plane form first and last, on
     # the same inputs, in turns (HBM, forms, forms reversed, HBM), kernel only
@@ -2956,7 +3028,7 @@ def main() -> int:
         print(f"time K2 tile forms bench1152 {dtype} {form} 6 passes from a full pool "
               f"B={BATCH}: {'; '.join(row)} [{name_power}]")
         row = []
-        for forced in ((16, True), (16, False), (8, True), (8, False)):
+        for forced in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False)):
             if dl.exact_tile_bytes(tb5, forced[0], dtype, forced[1]) > dl.SMEM_BLOCK_BYTES:
                 continue
             dl.EXACT_FORM_OVERRIDE = forced
@@ -2965,27 +3037,70 @@ def main() -> int:
         dl.EXACT_FORM_OVERRIDE = None
         print(f"time K5 tile forms wifi648 {dtype} {form} {ITERS} it no-ET B={BATCH}: "
               f"{'; '.join(row)} [{name_power}]")
-    # K5 on wifi 1296 (Z = 54: the exact schedule, where its rule picks
-    # other tile forms than on wifi 648): every form that fits and the
-    # HBM-plane form, kernel only, on the same inputs
-    tb1296, llr1296 = tables["wifi1296"], llrs("wifi1296", 2).llr
-    for dtype, form in (("float32", "BP"), ("float32", "BP_MS"), ("bfloat16", "BP"),
-                        ("int8", "BP_MS")):
-        row, ms = [], {}
-        for forced in ((16, True), (16, False), (8, True), (8, False), (0, False)):
-            if forced[0] and dl.exact_tile_bytes(tb1296, forced[0], dtype,
-                                                 forced[1]) > dl.SMEM_BLOCK_BYTES:
-                continue
-            dl.EXACT_FORM_OVERRIDE = forced
-            ms[forced] = cuda_ms(
-                lambda: dl.bp_decode_layered(tb1296, llr1296, ITERS, False, form, dtype), 2)
-            row.append(f"{form_name(forced)} {ms[forced]:.3f} ms")
-        dl.EXACT_FORM_OVERRIDE = None
-        rule = dl.exact_form(tb1296, dtype)
-        print(f"time K5 forms wifi1296 {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only "
-              f"(the rule's: {form_name(rule)}; fastest: {form_name(min(ms, key=ms.get))}): "
-              f"{'; '.join(row)} [{name_power}]")
-        check(ms[rule] < ms[(0, False)], f"K5 wifi1296 {dtype} {form}: the rule's form is slower")
+    # K5 on wifi 1296 and wifi 1944 (Z = 54 and 81: the exact schedule where
+    # wifi 648's 16-frame tile does not fit): every form that fits, first
+    # held against the plain version on K5_CHECK_B frames, 12 iterations,
+    # early termination on and off (min-sum and int8 bit-exact, BP's
+    # decisions and counts on >= 99.9 % of frames), then timed, kernel only,
+    # on the same inputs, in turns (the forms, then reversed, twice).  Where
+    # the rule's form is not the fastest and the gap is within twice the
+    # larger spread (max - min over the mean) of the two forms' samples, the
+    # two take 16 more samples in turns.  The rule's form must be the
+    # fastest or within 0.3 % of it
+    k5_times = {}
+    for key in ("wifi1296", "wifi1944"):
+        tbk, llrk = tables[key], llrs(key, 2).llr
+        small = llrk[:, :K5_CHECK_B].contiguous()
+        for dtype, form in (("float32", "BP"), ("float32", "BP_MS"), ("bfloat16", "BP"),
+                            ("int8", "BP_MS")):
+            forms = k5_forms(tbk, dtype)
+            for et in (True, False):
+                want_ = dl.bp_decode_layered_plain(tbk, small, K5_CHECK_ITERS, et, form, dtype)
+                for name, forced in forms:
+                    got_ = in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", forced)(
+                        tbk, small, K5_CHECK_ITERS, et, form, dtype)
+                    torch.cuda.synchronize()
+                    same_ = (got_.hard == want_.hard).all(0) & (got_.iterations == want_.iterations)
+                    agree = same_.float().mean().item()
+                    exact = (bool(same_.all()) and torch.equal(got_.llr_out, want_.llr_out)
+                             and torch.equal(got_.is_codeword, want_.is_codeword))
+                    print(f"K5 {key} {dtype} {form} et={int(et)} {name} against plain, "
+                          f"B={K5_CHECK_B}, {K5_CHECK_ITERS} it: frames agreeing {agree:.6f}, "
+                          f"bit-exact {exact}")
+                    check(agree >= 0.999 if form == "BP" else exact,
+                          f"K5 {key} {dtype} {form} et={int(et)} {name} disagrees with plain")
+            samples = {name: [] for name, _ in forms}
+
+            def sample(which):
+                for name, forced in which:
+                    fn = in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", forced)
+                    samples[name].append(cuda_ms(lambda: fn(tbk, llrk, ITERS, False, form, dtype),
+                                                 1, warm=False))
+
+            for _, forced in forms:  # warm-up
+                in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", forced)(
+                    tbk, llrk, ITERS, False, form, dtype)
+            sample((forms + forms[::-1]) * 2)
+            rule = k5_name(tbk, dtype)
+            ms = {n: sum(v) / len(v) for n, v in samples.items()}
+            spread = {n: (max(v) - min(v)) / ms[n] for n, v in samples.items()}
+            fastest = min(ms, key=ms.get)
+            if fastest != rule and ms[rule] / ms[fastest] - 1 < 2 * max(spread[rule],
+                                                                        spread[fastest]):
+                pair = [f for f in forms if f[0] in (rule, fastest)]
+                sample((pair + pair[::-1]) * 8)
+                ms = {n: sum(v) / len(v) for n, v in samples.items()}
+                spread = {n: (max(v) - min(v)) / ms[n] for n, v in samples.items()}
+                fastest = min(ms, key=ms.get)
+            k5_times[f"{key} {dtype} {form}"] = {"rule": rule, "ms": ms, "spread": spread,
+                                                 "samples": {n: len(v) for n, v in samples.items()}}
+            print(f"time K5 forms {key} {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only "
+                  f"(the rule's: {rule}, {ms[rule] / ms[fastest] - 1:+.2%} on the fastest: "
+                  f"{fastest}): {'; '.join(f'{n} {t:.3f} ms (spread {spread[n]:.2%}, '
+                                           f'{len(samples[n])} samples)' for n, t in ms.items())} "
+                  f"[{name_power}]")
+            check(ms[rule] <= 1.003 * ms[fastest],
+                  f"K5 {key} {dtype} {form}: the rule's form {rule} is not the fastest")
     for dtype in SUFFIX:  # min-sum in each form, kernel only, for the forms side by side
         ms = time_chunk(df.bp_stream_chunk_fused, None, "bench1152", 0, "BP_MS", dtype)[0]
         ms4 = time_chunk(dl.bp_stream_chunk_layered_fast, None, "wifi1944", 0, "BP_MS", dtype)[0]
@@ -3179,6 +3294,7 @@ def main() -> int:
     mark("host runtime and examples done")
     # each kernel's count from the run of the path it belongs to
     launches = {**layered_launches,
+                "bp_decode_layered_wifi1944": default_layered_launches["bp_decode_layered"],
                 "bp_decode_fused": flooding_launches["bp_decode_fused"],
                 "bp_stream_chunk_fused": flooding_launches["bp_stream_chunk_fused"],
                 "bec_decode_fused": bec_launches["bec_decode_fused"],
@@ -3243,9 +3359,24 @@ def main() -> int:
     slots1944 = int(vdeg1944[tb1944.layer_vars.long()].sum())
     b5 = bound(batch_bytes("wifi1944", 4, 4),
                BATCH * ITERS * (dims("wifi1944")[1] * (3 * 10 + 1) + slots1944))
+    # K5's bound on wifi 1296 and wifi 1944 in each message form (phase 10's
+    # times beside it: the rule's form and the fastest plane form)
+    for key in ("wifi1296", "wifi1944"):
+        tbk = tables[key]
+        slots = int((tbk.vn_ptr[1:] - tbk.vn_ptr[:-1])[tbk.layer_vars.long()].sum())
+        for dt, combine, form in (("float32", 3 * 10, "BP"), ("float32", 3 * 3, "BP_MS"),
+                                  ("bfloat16", 3 * 10, "BP"), ("int8", 3 * 3, "BP_MS")):
+            b_ = bound(batch_bytes(key, 4, MSG_BYTES[dt]),
+                       BATCH * ITERS * (dims(key)[1] * (combine + 1) + slots))
+            row = k5_times[f"{key} {dt} {form}"]
+            t_rule = row["ms"][row["rule"]]
+            t_plane = min(t for n, t in row["ms"].items() if n.startswith("plane"))
+            print(f"bound K5 {key} {dt} {form}: {b_[0]:.4f} ms by {b_[1]}, the rule's form "
+                  f"{t_rule:.3f} ms ({b_[0] / t_rule:.1%} of the bound), the fastest plane form "
+                  f"{t_plane:.3f} ms ({b_[0] / t_plane:.1%}) [{name_power}]")
     print(f"time K5 wifi1944 BP {ITERS} it no-ET B={BATCH}: kernel {k5_1944['ms']:.3f} ms, plain "
           f"{k5_1944['plain_ms']:.3f} ms, max_abs_err {k5_1944['max_abs_err']:.3e}, form "
-          f"{form_name(k5_1944['form'])}; bound {b5[0]:.4f} ms by {b5[1]} "
+          f"{k5_name(tb1944)}; bound {b5[0]:.4f} ms by {b5[1]} "
           f"({b5[0] / k5_1944['ms']:.1%} of the bound); launches on the modulation path "
           f"{mod_launches['bp_decode_layered']} [{name_power}]")
     # K3's tile moves lc2v through device memory: read and written at every
@@ -3265,6 +3396,7 @@ def main() -> int:
             stream_bytes("wifi1944", 4), passes["K4 wifi1944"] * dims("wifi1944")[1]
             * OPS_BP_FAST_SLOT),
         "bp_decode_layered": bound(batch_bytes("wifi648", 4, 4), k5_needed(3 * 10)),
+        "bp_decode_layered_wifi1944": b5,
         "bec_decode_fused": bound(batch_bytes("bench1152", 2, 2),
                                   BATCH * ITERS * dims("bench1152")[1] * OPS_BEC_SLOT),
         "bec_stream_chunk_fused": bound(stream_bytes("bench1152", 1),
@@ -3329,6 +3461,9 @@ def main() -> int:
     exact_src = {dt: "libldpc_tpu_torch/csrc/layered_exact_tile.cuh"
                  if dl.exact_form(tb648, dt)[0] else
                  "libldpc_tpu_torch/csrc/decode_layered_exact.cu" for dt in SUFFIX}
+    exact_src_1944 = ("libldpc_tpu_torch/csrc/layered_exact_tile.cuh"
+                      if dl.exact_form(tb1944)[0] else
+                      "libldpc_tpu_torch/csrc/decode_layered_exact.cu")
     layered_src = ("libldpc_tpu_torch/csrc/layered_stream.cuh"
                    if dl.batch_form(tables["wifi1944"])[0] else
                    "libldpc_tpu_torch/csrc/decode_layered.cu")
@@ -3368,7 +3503,8 @@ def main() -> int:
         forms_run["bp_decode_fused" + SUFFIX[dt]] = form_name(df.batch_form(tables["bench1152"], dt))
         forms_run["bp_stream_chunk_fused" + SUFFIX[dt]] = form_name(
             df.stream_form(tables["bench1152"], dt))
-        forms_run["bp_decode_layered" + SUFFIX[dt]] = form_name(dl.exact_form(tb648, dt))
+        forms_run["bp_decode_layered" + SUFFIX[dt]] = k5_name(tb648, dt)
+    forms_run["bp_decode_layered_wifi1944"] = k5_name(tb1944)
     rows_json = [
         ("bp_decode_fused", fused["float32"], "libldpc_tpu/ops/pallas/decode_fused.py:617", err1,
          times["k1 bench1152"]),
@@ -3380,6 +3516,11 @@ def main() -> int:
          "libldpc_tpu/ops/pallas/decode_lanes.py:753", err4, times["K4 wifi1944"]),
         ("bp_decode_layered", exact_src["float32"], "libldpc_tpu/ops/pallas/decode_fused.py:544",
          err5, times["K5 wifi648"]),
+        # K5 on wifi 1944, where no 16- or 8-frame tile fits in float32: the
+        # default --layer-file command line's decoder (phase 9c)
+        ("bp_decode_layered_wifi1944", exact_src_1944,
+         "libldpc_tpu/ops/pallas/decode_fused.py:544", k5_1944["max_abs_err"],
+         (k5_1944["ms"], k5_1944["plain_ms"])),
         ("bec_decode_fused", bec_src, "libldpc_tpu/ops/pallas/decode_lanes.py:1235", err6,
          times["K6 bench1152"]),
         ("bec_stream_chunk_fused", k7_src, "libldpc_tpu/ops/pallas/decode_lanes.py:590", err7,
@@ -3430,6 +3571,12 @@ def main() -> int:
     for name, _, _, _, t in rows_json:
         print(f"bound {name}: {bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {t[0]:.3f} ms "
               f"({bounds[name][0] / t[0]:.1%} of the bound) [{name_power}]")
+    # every form of K5 timed in phase 10, per message form
+    k5_forms_of = {name: {k: v for k, v in k5_times.items() if f" {dt} " in k}
+                   for name, dt in (("bp_decode_layered", "float32"),
+                                    ("bp_decode_layered_wifi1944", "float32"),
+                                    ("bp_decode_layered_bf16", "bfloat16"),
+                                    ("bp_decode_layered_int8", "int8"))}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
@@ -3438,7 +3585,8 @@ def main() -> int:
          # frame or grants starts in lane order against a quota
          "library_ms": None,
          "form": forms_run.get(name, forms_run.get(name.replace("_bf16", "").replace("_int8", ""),
-                                                   "HBM planes, 32 frames x 8 warps"))}
+                                                   "HBM planes, 32 frames x 8 warps")),
+         **({"forms": k5_forms_of[name]} if name in k5_forms_of else {})}
         for name, src, rep, err, t in rows_json
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

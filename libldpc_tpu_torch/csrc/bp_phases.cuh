@@ -198,32 +198,66 @@ __device__ __forceinline__ TileCode tile_code(const Code& c, int*& dst, bool sta
   return s;
 }
 
+// A frame's slots of a plane of messages (lc2v, or the stored posterior):
+// slot r at p[r * F] in a tile of F frames in shared memory, p[r * B] in a
+// plane [rows, B] in device memory (p at the frame's column).
+template <class T, int F, bool DEV>
+struct FrameSlots {
+  T* p;
+  size_t B;
+  __device__ __forceinline__ T& operator[](int r) const { return DEV ? p[r * B] : p[r * F]; }
+};
+
 // The variable phase of variable v (< 0: none) for frame f, and the packed
 // decisions.  In flight (`run`), post = store(prior(x) + (m_s0 + m_s1 +
-// ...)), the messages summed in perm_c2v order from the first, with x =
+// ...)), the messages q summed in perm_c2v order from the first, with x =
 // prior(v); then the decisions post <= 0 of the warp are packed one F-bit
 // word per variable into hard (__ballot_sync; a frame not in flight adds
-// 0).  Every thread of the warp calls it.
-template <int F, class Msg, class Prior>
-__device__ __forceinline__ void tile_variable(const TileCode& c, const Msg& m,
-                                              Tile<typename Msg::T> t, int v, bool run, int f,
-                                              int tid, Prior prior) {
+// 0).  Every thread of the warp calls it.  W > 1 loads W slots before it
+// sums them (q in device memory: W loads in flight a thread).
+template <int F, int W = 1, class Msg, class Q, class P, class Prior>
+__device__ __forceinline__ void frame_variable(const TileCode& c, const Msg& m, Q q, P post,
+                                               uint16_t* hard, int v, bool run, int f, int tid,
+                                               Prior prior) {
   bool bit = false;
   if (run && v >= 0) {
     const int s0 = c.vn_ptr[v];
     const int s1 = c.vn_ptr[v + 1];
     float llr = m.prior(prior(v));
     if (s1 > s0) {
-      float tot = m.load(t.q[c.perm_c2v[s0] * F + f]);
-      for (int s = s0 + 1; s < s1; ++s) tot = tot + m.load(t.q[c.perm_c2v[s] * F + f]);
+      float tot = 0.0f;
+      if constexpr (W == 1) {
+        tot = m.load(q[c.perm_c2v[s0]]);
+        for (int s = s0 + 1; s < s1; ++s) tot = tot + m.load(q[c.perm_c2v[s]]);
+      } else {
+        for (int base = s0; base < s1; base += W) {
+          typename Msg::T x[W];
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            if (base + i < s1) x[i] = q[c.perm_c2v[base + i]];
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            if (base + i < s1) tot = base + i == s0 ? m.load(x[i]) : tot + m.load(x[i]);
+        }
+      }
       llr = llr + tot;
     }
     const typename Msg::T pv = m.store(llr);
-    t.post[v * F + f] = pv;
+    post[v] = pv;
     bit = m.load(pv) <= 0.0f;
   }
   const unsigned word = __ballot_sync(0xffffffffu, bit);
-  if (f == 0 && v >= 0) t.hard[v] = (uint16_t)((word >> (tid & 31)) & ((1u << F) - 1));
+  if (f == 0 && v >= 0) hard[v] = (uint16_t)((word >> (tid & 31)) & ((1u << F) - 1));
+}
+
+// frame_variable on a tile's lc2v and posterior in shared memory
+template <int F, class Msg, class Prior>
+__device__ __forceinline__ void tile_variable(const TileCode& c, const Msg& m,
+                                              Tile<typename Msg::T> t, int v, bool run, int f,
+                                              int tid, Prior prior) {
+  using T = typename Msg::T;
+  using S = FrameSlots<T, F, false>;
+  frame_variable<F>(c, m, S{t.q + f, 0}, S{t.post + f, 0}, t.hard, v, run, f, tid, prior);
 }
 
 // The syndrome of the tile's F frames, checks tid, tid + nt, ...: each the

@@ -36,11 +36,12 @@
 //
 // The exact schedule (second kernel) mirrors the XLA layered decoder: per
 // layer, the layer's checks refresh their messages (the CN phase may skip
-// the other checks, whose outputs the JAX version masks away), then every
-// variable recomputes its posterior from all current messages and every
-// slot its extrinsic, and with early termination a frame whose syndrome is
-// satisfied after any layer is frozen for the rest of the decode.  An
-// iteration counts for a frame unconverged at its start and at its end.
+// the other checks, whose outputs the JAX version masks away), then the
+// posteriors follow (decode_layered_exact.cu and layered_exact_tile.cuh
+// recompute only the layer's own variables, which is the same bits), and
+// with early termination a frame whose syndrome is satisfied after any
+// layer is frozen for the rest of the decode.  An iteration counts for a
+// frame unconverged at its start and at its end.
 //
 // Message forms: each kernel is instantiated for float32, bfloat16 and int8
 // message storage (the TPU kernels' `message_dtype`; traits in
@@ -49,9 +50,9 @@
 // the APP float32, in decoder units (lattice units for int8: it starts at
 // prior(llr) = llr * float32(1/quant_scale)) and never rounded; lv and o are
 // rounded into the message domain (Msg::round) before and after the
-// combine, as `_qc_engine`'s to_msg does.  The exact schedule stores lv2c,
-// lc2v and the posterior in the form, with the store points of the flooding
-// kernels (bp_phases.cuh), and starts lv2c at store(prior(llr)).
+// combine, as `_qc_engine`'s to_msg does.  The exact schedule stores lc2v
+// and the posterior in the form, with the store points of the flooding
+// kernels (bp_phases.cuh), and recomputes each extrinsic from them.
 //
 // Layout, block shape and exactness as in decode_fused.cu: planes are
 // [rows, B] with frames fastest, a block holds 32 frames (one per lane)
@@ -66,11 +67,10 @@
 // at every slot once per iteration (~16 B per slot and frame in float32) and
 // the syndrome re-reads the APP; for the 802.11n n=1944 code at B = 16384
 // the APP plane is 127 MB and lc2v 456 MB (228 MB in bfloat16, 114 MB in
-// int8), far past the 50 MB L2.  The exact schedule pays a full VN phase
-// (and a syndrome) per layer: ~n_layers flooding passes per iteration.  Both
-// take the same time with 4-, 2- and 1-byte messages within 10 %, so what
-// they wait on is each slot's chain of index load, message load and
-// combine.  The combine keeps its values in registers (cn_forms.cuh) and the
+// int8), far past the 50 MB L2.  It takes the same time with 4-, 2- and
+// 1-byte messages within 10 %, so what it waits on is each slot's chain of
+// index load, message load and combine (decode_layered_exact.cu says what
+// bounds the exact schedule).  The combine keeps its values in registers (cn_forms.cuh) and the
 // fast engine reads each slot's index and message once; the kernels here
 // keep every plane in HBM (the tile forms hold the APP in shared memory,
 // layered_stream.cuh).

@@ -3,10 +3,9 @@
 // in its HBM-plane form (32 frames x 8 warps, APP and lc2v planes, a block
 // barrier per layer; layered_stream.cuh), the BEC peeling decode on byte
 // planes (the phases of the BEC streaming kernel, decode_bec.cu, run as a
-// batch decode), the flooding streaming chunk (stream_chunk.cuh with the BP
-// pass of decode_stream.cu) and the exact layered batch decode
-// (decode_layered_exact.cu), the last two in float32.  Built and run only
-// by tests_gpu/phase_breakdown.py; not part of the kernel library.
+// batch decode) and the flooding streaming chunk (stream_chunk.cuh with the
+// BP pass of decode_stream.cu), in float32.  Built and run only by
+// tests_gpu/phase_breakdown.py; not part of the kernel library.
 //
 // Lane 0 of every warp reads clock64() at each phase boundary and adds the
 // difference to the phase it leaves; at the end the warp's sums are added
@@ -385,84 +384,6 @@ stamped_stream_chunk_flooding(Code c, CnParams cp, float* __restrict__ prior,
     for (int i = 0; i < F_N; ++i) atomicAdd(stamps + i, (unsigned long long)acc[i]);
 }
 
-// Phases of the exact layered batch decode (K5's HBM-plane design,
-// decode_layered_exact.cu, float32 messages); a barrier's wait is its own
-// phase
-enum { X_INIT = 0, X_CHECKS, X_VARIABLE, X_SYNDROME, X_BARRIER, X_N };
-
-template <int FAM>
-__global__ void __launch_bounds__(LDPC_FRAMES * LDPC_WARPS)
-stamped_decode_layered_exact(Code c, Layers L, CnParams cp, const float* __restrict__ llr_in,
-                             float* __restrict__ post, int* __restrict__ iters_out,
-                             int* __restrict__ iscw_out, float* __restrict__ lv2c,
-                             float* __restrict__ lc2v, int B_, int iterations, int early_term,
-                             unsigned long long* stamps) {
-  __shared__ int bad[LDPC_FRAMES];
-  long long acc[X_N] = {0, 0, 0, 0, 0};
-  long long t0 = clock64();
-  const F32Msg m{};
-  const size_t B = B_;
-  const size_t b = (size_t)blockIdx.x * LDPC_FRAMES + threadIdx.x;
-  const bool valid = b < B;
-  const bool lead = threadIdx.y == 0;
-  if (valid)
-    for (int e = threadIdx.y; e < c.nnz; e += blockDim.y) {
-      lv2c[e * B + b] = llr_in[__ldg(c.col_sorted + e) * B + b];
-      lc2v[e * B + b] = 0.0f;
-    }
-  bool done = !valid;
-  int iters = 0, iscw = 0;
-  STAMP(X_INIT)
-  __syncthreads();
-  STAMP(X_BARRIER)
-  for (int it = 0; it < iterations; ++it) {
-    if (early_term && !__syncthreads_or(!done)) break;
-    STAMP(X_BARRIER)
-    const bool done_start = done;
-    for (int l = 0; l < L.nl; ++l) {
-      const bool check = !done && (early_term || (it == iterations - 1 && l == L.nl - 1));
-      if (!done) {
-        const int k1 = __ldg(L.ptr + l + 1);
-        for (int kk = __ldg(L.ptr + l) + threadIdx.y; kk < k1; kk += blockDim.y) {
-          const int r = __ldg(L.checks + kk);
-          const int e0 = __ldg(c.row_ptr + r);
-          const int d = __ldg(c.row_ptr + r + 1) - e0;
-          if (d > 0) check_update<FAM>(cp, m, lv2c, lc2v, e0, d, B, b);
-        }
-      }
-      STAMP(X_CHECKS)
-      __syncthreads();
-      STAMP(X_BARRIER)
-      if (lead) bad[threadIdx.x] = 0;
-      if (!done) vn_phase(c, m, llr_in, lv2c, lc2v, post, B, b);
-      STAMP(X_VARIABLE)
-      __syncthreads();
-      STAMP(X_BARRIER)
-      if (check) syndrome_part(c, m, post, B, b, bad);
-      STAMP(X_SYNDROME)
-      __syncthreads();
-      STAMP(X_BARRIER)
-      if (check) {
-        const bool ok = !bad[threadIdx.x];
-        if (!early_term) {
-          iscw = ok;
-        } else if (ok) {
-          done = true;
-          iscw = 1;
-        }
-      }
-    }
-    if (early_term && !done_start && !done) ++iters;
-  }
-  if (valid && lead) {
-    iters_out[b] = early_term ? iters : iterations;
-    iscw_out[b] = iscw;
-  }
-  STAMP(X_INIT)
-  if (threadIdx.x == 0)
-    for (int i = 0; i < X_N; ++i) atomicAdd(stamps + i, (unsigned long long)acc[i]);
-}
-
 // The launch of a kernel templated on the CN family, by cn_mode
 #define LDPC_BY_FAMILY(KERNEL, GRID, ...)                                         \
   switch (cn_family(cn_mode)) {                                                   \
@@ -483,7 +404,6 @@ extern "C" {
 int dev_n_layered_phases() { return L_N; }
 int dev_n_bec_phases() { return P_N; }
 int dev_n_flooding_stream_phases() { return F_N; }
-int dev_n_exact_phases() { return X_N; }
 
 int dev_stamped_stream_chunk_flooding(
     float* prior, uint8_t* cw, float* lv2c, float* lc2v, float* post, int* done, int* iters,
@@ -497,22 +417,6 @@ int dev_stamped_stream_chunk_flooding(
   LDPC_BY_FAMILY(stamped_stream_chunk_flooding, grid_for(B), c, cp, prior, cw, lv2c, lc2v, post,
                  done, iters, age, avail, ctr, fresh_prior, fresh_cw, refill, remaining, bit_pos,
                  nct, B, k, cap, stamps)
-  return (int)cudaGetLastError();
-}
-
-int dev_stamped_decode_layered_exact(const float* llr_in, float* post, int* iters, int* iscw,
-                                     float* lv2c, float* lc2v, const int* row_ptr,
-                                     const int* col_sorted, const int* vn_ptr,
-                                     const int* perm_c2v, const int* layer_ptr,
-                                     const int* layer_checks, int nc, int mc, int nnz, int nl,
-                                     int B, int iterations, int early_term, int cn_mode,
-                                     float scale, float offset, unsigned long long* stamps,
-                                     void* stream) {
-  Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
-  Layers L{layer_ptr, layer_checks, nl};
-  CnParams cp{cn_mode, scale, offset};
-  LDPC_BY_FAMILY(stamped_decode_layered_exact, grid_for(B), c, L, cp, llr_in, post, iters, iscw,
-                 lv2c, lc2v, B, iterations, early_term, stamps)
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-// The exact layered schedule's tile form for Hopper (sm_90a): the kernels
-// of decode_layered_exact_tile*.cu, one source file per frames-a-block.
+// The exact layered schedule's decode for Hopper (sm_90a), the body of its
+// tile form's kernels (decode_layered_exact_tile*.cu, one source file per
+// frames-a-block) and, at PLANE, of its plane form's (decode_layered_exact.cu).
 //
-// Replaces, like decode_layered_exact.cu (the HBM-plane form), the TPU
+// Replaces, like decode_layered_exact.cu (the plane form), the TPU
 // kernel of libldpc_tpu/ops/pallas/decode_fused.py `kernel_layered` (via
 // bp_decode_pallas(layered=True); decode_lanes.py `kernel_layered` is the
 // same function): the whole decode of a batch, all iterations in one
@@ -9,12 +10,12 @@
 // follow, and (with early termination) a converged frame freezes.  The
 // wrapper (ops/kernels/decode_layered.py exact_form) picks the form by size.
 //
-// A block owns F frames (8 or 16) for the whole decode and keeps, in the
+// A block owns F frames (16, 8 or 4) for the whole decode and keeps, in the
 // message form, their stored check-to-variable messages lc2v [nnz, F] and
 // stored posterior post [nc, F] in shared memory: it reads the prior at
 // the start and writes the stored posterior at the end, and no lv2c plane
-// exists.  A check recomputes the extrinsic bit for bit as the HBM-plane
-// form's variable phase stores it, lv2c = store(load(post[v]) -
+// exists.  A check recomputes the extrinsic bit for bit as the plain
+// version's variable phase stores it, lv2c = store(load(post[v]) -
 // load(lc2v[e])).  Per layer:
 //
 // 1. the layer's checks: thread (f, y) runs checks y, y + NTY, ... of the
@@ -25,7 +26,7 @@
 //    layer_var_ptr / layer_vars; every variable at the first layer of a
 //    decode): post = store(prior(x) + (m_s0 + m_s1 + ...)) in perm_c2v
 //    order; a variable outside the layer keeps every lc2v, so the full
-//    variable phase of the HBM-plane form recomputes the same bits for it;
+//    variable phase of the plain version recomputes the same bits for it;
 //    the decisions post <= 0 are packed one F-bit word per variable
 //    (__ballot_sync);
 // 4. a barrier; the syndrome of all F frames, one check per thread, the
@@ -82,14 +83,21 @@ inline size_t exact_tile_bytes(int nc, int mc, int nnz, int nl, int nlc, int nlv
   return tile_layout_bytes(nc, nnz, frames, msg, stage ? tables : 0);
 }
 
-// Every thread of a frame keeps the frame's state in registers and updates
-// it identically; every barrier is reached by the whole block.
-template <class Msg, int FAM, int F>
-__global__ void __launch_bounds__(F * exact_rows(F), sizeof(typename Msg::T) == 1 ? 2 : 1)
-bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams cp, Msg m,
-                              const float* __restrict__ llr_in, typename Msg::T* __restrict__ out,
-                              int* __restrict__ iters_out, int* __restrict__ iscw_out, int stage,
-                              int B_, int iterations, int early_term) {
+// The decode of both forms, the body of their kernels.  PLANE: lc2v [nnz,
+// B] and the stored posterior (the output plane itself) in device memory,
+// the packed decisions in a row of hard_scratch [ceil(B / F), nc] per
+// block, nothing staged, and a variable's slots loaded eight at a time;
+// else the tile.  Every thread of a frame keeps the frame's state in
+// registers and updates it identically; every barrier is reached by the
+// whole block.
+template <class Msg, int FAM, int F, bool PLANE>
+__device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int nlc, CnParams cp,
+                                             Msg m, const float* __restrict__ llr_in,
+                                             typename Msg::T* __restrict__ out,
+                                             typename Msg::T* __restrict__ lc2v,
+                                             uint16_t* hard_scratch, int* __restrict__ iters_out,
+                                             int* __restrict__ iscw_out, int stage, int B_,
+                                             int iterations, int early_term) {
   using T = typename Msg::T;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned badmask[2];  // per layer parity: bit f, frame f has an unsatisfied check
@@ -100,6 +108,10 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
   const size_t B = B_;
   const size_t b = (size_t)blockIdx.x * F + f;
   const bool valid = b < B;
+  // this frame's lc2v and stored posterior
+  const FrameSlots<T, F, PLANE> q{PLANE ? lc2v + b : t.q + f, B};
+  const FrameSlots<T, F, PLANE> post{PLANE ? out + b : t.post + f, B};
+  uint16_t* const hard = PLANE ? hard_scratch + (size_t)blockIdx.x * c.nc : t.hard;
   int* staged = t.tables;
   const TileCode tc = tile_code(c, staged, stage, tid, nt);
   const int* lptr = stage ? stage_table(staged, L.ptr, L.nl + 1, tid, nt) : L.ptr;
@@ -109,8 +121,8 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
   // the first messages: post = store(prior(x)) (so that a check's first
   // extrinsic is store(prior(x))), lc2v = store(0)
   if (valid) {
-    for (int v = ty; v < c.nc; v += NTY) t.post[v * F + f] = m.store(m.prior(llr_in[v * B + b]));
-    for (int e = ty; e < c.nnz; e += NTY) t.q[e * F + f] = m.store(0.0f);
+    for (int v = ty; v < c.nc; v += NTY) post[v] = m.store(m.prior(llr_in[v * B + b]));
+    for (int e = ty; e < c.nnz; e += NTY) q[e] = m.store(0.0f);
   }
   if (tid == 0) badmask[0] = badmask[1] = 0;
   bool done = !valid;
@@ -135,10 +147,10 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
                 cp, d,
                 [&](int j) {
                   const int e = e0 + j;
-                  const float x = m.load(t.post[tc.col_sorted[e] * F + f]);
-                  return m.round(x - m.load(t.q[e * F + f]));
+                  const float x = m.load(post[tc.col_sorted[e]]);
+                  return m.round(x - m.load(q[e]));
                 },
-                [&](int j, float o) { t.q[(e0 + j) * F + f] = m.store(o); });
+                [&](int j, float o) { q[e0 + j] = m.store(o); });
         }
       }
       __syncthreads();
@@ -148,13 +160,14 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
       const int rounds = (n + NTY - 1) / NTY;
       for (int i = 0; i < rounds; ++i) {
         const int j = i * NTY + ty;
-        tile_variable<F>(tc, m, t, j < n ? (first ? j : lvars[i0 + j]) : -1, !done, f, tid,
-                         [&](int v) { return __ldg(llr_in + v * B + b); });
+        frame_variable<F, PLANE ? 8 : 1>(tc, m, q, post, hard,
+                                         j < n ? (first ? j : lvars[i0 + j]) : -1, !done, f, tid,
+                                         [&](int v) { return __ldg(llr_in + v * B + b); });
       }
       first = false;
       // ---- 4. the syndrome of all F frames, one check per thread
       if (__syncthreads_or(check)) {
-        tile_syndrome(tc, t.hard, tid, nt, &badmask[parity]);
+        tile_syndrome(tc, hard, tid, nt, &badmask[parity]);
         __syncthreads();
         if (check) {
           const bool ok = !((badmask[parity] >> f) & 1u);
@@ -173,7 +186,8 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
     if (early_term && !done_start && !done) ++iters;
   }
   if (valid) {
-    for (int v = ty; v < c.nc; v += NTY) out[v * B + b] = t.post[v * F + f];
+    if (!PLANE)
+      for (int v = ty; v < c.nc; v += NTY) out[v * B + b] = post[v];
     if (ty == 0) {
       iters_out[b] = early_term ? iters : iterations;
       iscw_out[b] = iscw;
@@ -181,14 +195,25 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
   }
 }
 
+// The tile form's kernel (the int8 tiles run two blocks an SM).
+template <class Msg, int FAM, int F>
+__global__ void __launch_bounds__(F * exact_rows(F), sizeof(typename Msg::T) == 1 ? 2 : 1)
+bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams cp, Msg m,
+                              const float* __restrict__ llr_in, typename Msg::T* __restrict__ out,
+                              int* __restrict__ iters_out, int* __restrict__ iscw_out, int stage,
+                              int B_, int iterations, int early_term) {
+  exact_decode<Msg, FAM, F, false>(c, L, V, nlc, cp, m, llr_in, out, nullptr, nullptr, iters_out,
+                                   iscw_out, stage, B_, iterations, early_term);
+}
+
 }  // namespace
 
 // The extern "C" entry of one tile form (F frames a block), defined by the
 // form's source file.  It returns the launch's cudaGetLastError() (0 =
 // launched).  The arguments are those of ldpc_bp_decode_layered
-// (decode_layered_exact.cu) without its lv2c and lc2v scratch, plus each
-// layer's variables (CSR) and `stage`: the index tables staged in shared
-// memory.  `post` is of the type of `msg_dtype`.
+// (decode_layered_exact.cu) without its lc2v and decision scratch, plus
+// `stage`: the index tables staged in shared memory.  `post` is of the type
+// of `msg_dtype`.
 #define LDPC_EXACT_TILE_ENTRY(NAME, FRAMES)                                                     \
   extern "C" int NAME(const float* llr_in, void* post, int* iters, int* iscw,                   \
                       const int* row_ptr, const int* col_sorted, const int* vn_ptr,             \

@@ -214,17 +214,21 @@ def load() -> ctypes.CDLL:
                     P,  # stream
                 ]
                 entry.restype = I
+            # the exact layered kernel: the plane form (lc2v, the posterior
+            # and the packed decisions in device memory) and the tile form,
+            # one entry per frames-a-block; both take each layer's variables
+            # (CSR)
             lib.ldpc_bp_decode_layered.argtypes = [
-                P, P, P, P, P, P,  # llr_in post iters iscw lv2c lc2v
-                *tables,
-                I, I, I, I, I,  # nc mc nnz nl B
+                P, P, P, P, P, P,  # llr_in post iters iscw lc2v hard_scratch
+                *tables, P, P,  # ..., layer_var_ptr layer_vars
+                I, I, I, I, I, I, I,  # nc mc nnz nl nlc nlv B
                 I, I, I, F, F,  # iterations early_term cn_mode scale offset
                 I, F,  # msg_dtype inv_q
                 P,  # stream
             ]
             lib.ldpc_bp_decode_layered.restype = I
-            # its tile form, one entry per frames-a-block
-            for entry in (lib.ldpc_bp_decode_layered_tile16, lib.ldpc_bp_decode_layered_tile8):
+            for entry in (lib.ldpc_bp_decode_layered_tile16, lib.ldpc_bp_decode_layered_tile8,
+                          lib.ldpc_bp_decode_layered_tile4):
                 entry.argtypes = [
                     P, P, P, P,  # llr_in post iters iscw
                     *tables, P, P,  # ..., layer_var_ptr layer_vars

@@ -264,8 +264,9 @@ def tile_form(bytes_of, frames_choices, blocks_per_sm=lambda frames: 1,
     34 KB of K5 tables fit the 60 KB of L1 beside a 16-frame tile, 16
     frames staged; unstaged they still beat 8 staged in bf16 BP (30.8
     against 39.7 ms).  On wifi 1296, whose 66 KB do not: bf16 BP 8 staged
-    59.8 ms against 72.0 at 16 unstaged; int8 BP_MS (two blocks an SM) 8
-    unstaged 34.6 ms against 42.8 at 16 staged (one block an SM)."""
+    59.8 ms against 72.0 at 16 unstaged; int8 BP_MS (two blocks an SM,
+    ``tables_in_l1=False``: :func:`.decode_layered.exact_form`) 16 unstaged
+    34.4 ms against 34.8 at 8 unstaged and 42.7 at 16 staged."""
     for frames in frames_choices:
         tile = bytes_of(frames, False)
         if tile > SMEM_BLOCK_BYTES:

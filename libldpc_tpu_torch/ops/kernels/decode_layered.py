@@ -20,10 +20,11 @@
   layer's checks refresh, the posterior and the extrinsics follow, and a
   converged frame freezes.  The kernel has two forms, chosen by
   :func:`exact_form` from the code's size and the message form: the tile
-  form (``csrc/layered_exact_tile.cuh``: a block's frames keep their
-  messages and posteriors in shared memory for the whole decode, and after
-  a layer only that layer's variables recompute) and, for a code whose tile
-  does not fit, the HBM-plane form (``csrc/decode_layered_exact.cu``).
+  form (``csrc/layered_exact_tile.cuh``: a block's 16, 8 or 4 frames keep
+  their messages and posteriors in shared memory for the whole decode, and
+  after a layer only that layer's variables recompute) and the plane form
+  (``csrc/decode_layered_exact.cu``: the same kernel and schedule with
+  ``lc2v``, the posterior and the decisions in device memory).
 
 All three take a message storage form (``message_dtype`` float32,
 bfloat16 or int8, and the int8 lattice step ``quant_scale``;
@@ -50,8 +51,9 @@ from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, TORCH_DTYPES, MessageFo
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
 from . import build
 from .decode_fused import (
-    SMEM_BLOCK_BYTES, _check, _p, _p_or_null, _raise_on, _require_cuda, _zero_output,
-    chunk_launches, cn_mode_args, code_table_ints, stream_grant_plain, tile_bytes, tile_form,
+    SMEM_BLOCK_BYTES, SMEM_SM_BYTES, _align4, _check, _p, _p_or_null, _raise_on, _require_cuda,
+    _zero_output, chunk_launches, cn_mode_args, code_table_ints, stream_grant_plain, tile_bytes,
+    tile_form,
 )
 from .layout import KernelTables
 
@@ -354,11 +356,18 @@ bp_stream_chunk_layered_fast.last_form = None
 
 
 #: Frames a block of the exact layered kernel's tile form may own, largest first.
-EXACT_TILE_FRAMES = (16, 8)
+EXACT_TILE_FRAMES = (16, 8, 4)
 #: Force a form of the exact layered kernel (the card tests and the smoke
 #: run's side-by-side times do): None follows :func:`exact_form`; else
-#: ``(frames, stage)`` with frames 0 (the HBM-plane form), 8 or 16.
+#: ``(frames, stage)`` with frames 16, 8 or 4 (a tile) or 0 (the plane form).
 EXACT_FORM_OVERRIDE = None
+
+
+def _exact_table_ints(tables: KernelTables) -> int:
+    """int32 entries the exact kernel stages: the code's four tables and
+    each layer's checks and variables (CSR)."""
+    return (code_table_ints(tables) + 2 * (tables.n_layers + 1) + tables.layer_checks.shape[0]
+            + tables.layer_vars.shape[0])
 
 
 def exact_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
@@ -366,25 +375,50 @@ def exact_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stag
     (``csrc/layered_exact_tile.cuh`` ``exact_tile_bytes``, exported by the
     library as ``ldpc_exact_tile_bytes``): the tile and, staged, the code's
     four tables and each layer's checks and variables (CSR)."""
-    ints = (code_table_ints(tables) + 2 * (tables.n_layers + 1) + tables.layer_checks.shape[0]
-            + tables.layer_vars.shape[0])
-    return tile_bytes(tables, frames, message_dtype, ints if stage else 0)
+    return tile_bytes(tables, frames, message_dtype, _exact_table_ints(tables) if stage else 0)
 
 
 def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
     """``(frames, stage)`` of the exact layered kernel for this code and
-    message form, by size alone (:func:`.decode_fused.tile_form`): for the
-    802.11n n=648 code 16 frames a block, staged, in every form (228,640
-    bytes in float32); for n=1296 8 frames, unstaged in float32 and int8
-    and staged in bfloat16.  ``PERF.md`` section 6 has the times of every
-    form at both; at any other shape the rule extrapolates."""
+    message form, by size alone: a tile of :data:`EXACT_TILE_FRAMES` frames
+    a block where one fits, else ``(0, False)``, the plane form (``lc2v``,
+    the posterior and the decisions in device memory, 16 frames a block),
+    which every tile beat where both fit.
+
+    float32 and bfloat16 (one block an SM) take
+    :func:`.decode_fused.tile_form`'s tile: the most frames whose tables
+    stay on chip, staged or in the L1 the tile leaves, else the most frames
+    that fit.  The int8 tiles run two blocks an SM
+    (``csrc/layered_exact_tile.cuh`` ``__launch_bounds__``): the most frames
+    whose unstaged tile lets two blocks share an SM, staged if the staged
+    tile does too, whatever the L1 holds.
+
+    The choices and their times on the card (``PERF.md`` section 6; 50
+    iterations at B = 16384, BP, int8 BP_MS): wifi 648 16 frames staged in
+    every form (228,640 bytes in float32); wifi 1296 4 staged in float32
+    (74.2 ms against 79.2 at 8 unstaged and 111.5 in the plane form), 8
+    staged in bfloat16 (59.9 against 70.8 at 8 unstaged), 16 unstaged in
+    int8 (34.4 against 34.8 at 8 unstaged); wifi 1944 4 unstaged in float32
+    (134.0 ms against 170.2 in the plane form and 374.2 in the HBM-plane
+    design before it), 4 staged in bfloat16 (100.2 against 120.4 at 8
+    unstaged), 8 unstaged in int8 (57.0 against 63.6 at 4 unstaged and 87.6
+    at 16 unstaged).  Past the tiles, on (3,6) QC codes of 4,800 (float32)
+    and 8,000 (bfloat16) variables, the plane form took 0.68 and 0.93 times
+    the time of a plane form keeping the posterior of 8 frames a block on
+    chip, on 16,000 (int8) 1.10 times: that form was not kept.  At any
+    other shape the rule extrapolates."""
     if EXACT_FORM_OVERRIDE is not None:
         return EXACT_FORM_OVERRIDE
-    # the int8 tiles run two blocks an SM (csrc/layered_exact_tile.cuh
-    # __launch_bounds__), the others one
-    per_sm = 2 if TORCH_DTYPES[message_dtype].itemsize == 1 else 1
-    return tile_form(lambda frames, stage: exact_tile_bytes(tables, frames, message_dtype, stage),
-                     EXACT_TILE_FRAMES, blocks_per_sm=lambda frames: per_sm)
+
+    def bytes_of(frames, stage):
+        return exact_tile_bytes(tables, frames, message_dtype, stage)
+
+    if TORCH_DTYPES[message_dtype].itemsize > 1:
+        return tile_form(bytes_of, EXACT_TILE_FRAMES)
+    two = SMEM_SM_BYTES // 2 - 1024
+    shared = tuple(f for f in EXACT_TILE_FRAMES if bytes_of(f, False) <= two)
+    return tile_form(bytes_of, shared or EXACT_TILE_FRAMES, blocks_per_sm=lambda frames: 2,
+                     tables_in_l1=False)
 
 
 def bp_decode_layered_plain(
@@ -427,8 +461,8 @@ def bp_decode_layered(
     int8 takes a min-sum-family ``minsum_mode`` only.  Needs at least two
     layers (with fewer the schedule is flooding:
     :func:`.decode_fused.bp_decode_fused`).  The kernel's form (a block's
-    frames on chip for the decode, or every plane in device memory)
-    follows :func:`exact_form`; both compute the same."""
+    frames on chip for the decode, or its messages and posterior in device
+    memory) follows :func:`exact_form`; all compute the same."""
     form = MessageForm(message_dtype, quant_scale)
     form.check_cn_mode(minsum_mode)
     nc = tables.code.nc
@@ -452,21 +486,21 @@ def bp_decode_layered(
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     run = (iterations, int(bool(early_term)), mode, scale, offset, form.code, form.inv_q)
     frames, stage = exact_form(tables, form.dtype)
+    layer_args = (_p(tables.layer_var_ptr), _p(tables.layer_vars), nc, sdc.mc, sdc.nnz,
+                  tables.n_layers, tables.layer_checks.shape[0], tables.layer_vars.shape[0], B)
     if frames == 0:
-        lv2c = torch.empty((sdc.nnz, B), **msgs)
         lc2v = torch.empty((sdc.nnz, B), **msgs)
+        # the packed decisions, a row per block of 16 frames
+        hard = torch.empty(((B + 15) // 16, nc), dtype=torch.int16, device=dev)
         err = lib.ldpc_bp_decode_layered(
-            _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lv2c), _p(lc2v), *_tables_args(tables),
-            nc, sdc.mc, sdc.nnz, tables.n_layers, B, *run, _stream(llr_in),
+            _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lc2v), _p(hard),
+            *_tables_args(tables), *layer_args, *run, _stream(llr_in),
         )
     else:
-        entry = {16: lib.ldpc_bp_decode_layered_tile16, 8: lib.ldpc_bp_decode_layered_tile8}[frames]
-        err = entry(
-            _p(llr_in), _p(post), _p(iters), _p(iscw), *_tables_args(tables),
-            _p(tables.layer_var_ptr), _p(tables.layer_vars), nc, sdc.mc, sdc.nnz,
-            tables.n_layers, tables.layer_checks.shape[0], tables.layer_vars.shape[0], B, *run,
-            int(stage), _stream(llr_in),
-        )
+        entry = {16: lib.ldpc_bp_decode_layered_tile16, 8: lib.ldpc_bp_decode_layered_tile8,
+                 4: lib.ldpc_bp_decode_layered_tile4}[frames]
+        err = entry(_p(llr_in), _p(post), _p(iters), _p(iscw), *_tables_args(tables),
+                    *layer_args, *run, int(stage), _stream(llr_in))
     _raise_on(lib, err, "bp_decode_layered")
     bp_decode_layered.launches[form.dtype] += 1
     bp_decode_layered.last_form = (frames, stage)

@@ -14,7 +14,12 @@ termination on and off, on a code split into two halves of its checks and
 on one split into even and odd checks, whose layers reach a variable
 through two checks; and, in every form, against the port's plain version,
 which recomputes every posterior and extrinsic after each layer (itself
-held against the JAX kernels in ``tests/test_torch_layered_messages.py``).
+held against the JAX kernels in ``tests/test_torch_layered_messages.py``),
+on those codes and on the 802.11n n=1944 code's own 12 layers at B = 6.
+The plane form (``csrc/decode_layered_exact.cu``: the tiles' decode with
+``lc2v``, the posterior and the decisions in device memory) runs the same
+schedule, so the identity holds it too; on wifi 1944 the min-sum family is also held
+bit for bit against the JAX sorted decoder's exact layered schedule.
 
 Tolerances: the min-sum family in float32 and bfloat16 and the int8
 lattice bit-exact in ``llr_out``, ``iterations`` and ``is_codeword``; BP
@@ -32,7 +37,8 @@ import torch
 
 import jax.numpy as jnp
 
-from libldpc_tpu.models import make_benchmark_code
+from libldpc_tpu.models import make_benchmark_code, wifi_code
+from libldpc_tpu.ops import sorted as jsorted
 from libldpc_tpu.ops.pallas.decode_fused import bp_decode_pallas
 from libldpc_tpu.ops.pallas.layout import to_pallas_device
 from libldpc_tpu_torch.convert import code_from_jax
@@ -159,3 +165,37 @@ def test_tile_schedule_matches_plain_version(setup, dtype, form, early_term):
     post, iters, iscw = tile_schedule(tables, x, 8, early_term, form, MessageForm(dtype, SCALE))
     assert torch.equal(post, want.llr_out)
     assert torch.equal(iters, want.iterations) and torch.equal(iscw, want.is_codeword)
+
+
+@pytest.fixture(scope="module")
+def wifi1944():
+    code = wifi_code(1944)
+    jsdc = jsorted.to_sorted_device(code, with_layers=True)
+    tables = kernel_tables(to_sorted_device(code_from_jax(code), "cpu", with_layers=True))
+    assert tables.n_layers == 12 and tables.layers_disjoint
+    return jsdc, tables, awgn_llrs(code, np.asarray(jsdc.vn_perm), 6, 1.5, seed=5)
+
+
+@pytest.mark.parametrize("early_term", [True, False])
+@pytest.mark.parametrize("dtype,form", EXACT + [("float32", "BP"), ("bfloat16", "BP")])
+def test_tile_schedule_matches_plain_version_on_wifi1944(wifi1944, dtype, form, early_term):
+    """The schedule of the 4-frame tile and of the plane form on the code
+    whose 8-frame tile does not fit, on its own layers (12 of 81 checks,
+    variables of degree 2-11)."""
+    _, tables, llr = wifi1944
+    x = torch.from_numpy(llr)
+    want = dl.bp_decode_layered_plain(tables, x, 8, early_term, form, dtype, SCALE)
+    post, iters, iscw = tile_schedule(tables, x, 8, early_term, form, MessageForm(dtype, SCALE))
+    assert torch.equal(post, want.llr_out)
+    assert torch.equal(iters, want.iterations) and torch.equal(iscw, want.is_codeword)
+
+
+@pytest.mark.parametrize("form,early_term", [("BP_MS", True), (NMS, False)])
+def test_tile_schedule_matches_jax_exact_layered_on_wifi1944(wifi1944, form, early_term):
+    jsdc, tables, llr = wifi1944
+    jout = jsorted.bp_decode_sorted(jsdc, jnp.asarray(llr), 8, early_term, form, layered=True)
+    post, iters, iscw = tile_schedule(tables, torch.from_numpy(llr), 8, early_term, form,
+                                      MessageForm("float32", SCALE))
+    np.testing.assert_array_equal(post.numpy(), np.asarray(jout.llr_out))
+    np.testing.assert_array_equal(iters.numpy(), np.asarray(jout.iterations))
+    np.testing.assert_array_equal(iscw.numpy(), np.asarray(jout.is_codeword))

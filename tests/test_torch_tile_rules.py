@@ -8,6 +8,8 @@ arithmetic, no kernel runs.
   codes of the smoke run (``PERF.md`` section 4) in every message form, and
   on a code too large for any tile, which keeps the HBM-plane form; the
   byte counts match the kernels' shared-memory layouts.
+* ``decode_layered.exact_form`` past the tiles: the plane form exactly
+  where no 4-frame tile fits, on the (3,6) QC codes it was timed on.
 * ``decode_fused.tile_form``, the rule all three tile kernels share (K2,
   K4, K5): the most frames whose tile keeps its tables on chip, staged or
   in the L1 left beside it; K4's ``stream_form`` through it picks what its
@@ -22,7 +24,7 @@ import pytest
 from libldpc_tpu.models import make_benchmark_code, wifi_code
 from libldpc_tpu.ops import sorted as jsorted
 from libldpc_tpu_torch.convert import code_from_jax
-from libldpc_tpu_torch.models import LDPCCode
+from libldpc_tpu_torch.models import LDPCCode, make_qc_benchmark_code, qc_natural_layers
 from libldpc_tpu_torch.ops.kernels import decode_fused as df
 from libldpc_tpu_torch.ops.kernels import decode_layered as dl
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
@@ -77,8 +79,8 @@ K2_RULE = {
 }
 K5_RULE = {
     "wifi648": [(16, True), (16, True), (16, True)],
-    "wifi1296": [(8, False), (8, True), (8, False)],
-    "wifi1944": [(0, False), (8, False), (16, False)],
+    "wifi1296": [(4, True), (8, True), (16, False)],
+    "wifi1944": [(4, False), (4, True), (8, False)],
 }
 
 
@@ -106,6 +108,40 @@ def test_exact_form_rule(smoke_codes, name):
     tables = smoke_codes[name]
     assert [dl.exact_form(tables, dt) for dt in DTYPES] == K5_RULE[name]
     assert dl.exact_tile_bytes(smoke_codes["wifi648"], 16, "float32", True) == 228640
+
+
+def test_exact_form_int8_takes_two_blocks_an_sm(smoke_codes):
+    """int8 (two blocks an SM): the most frames whose unstaged tile lets two
+    blocks share an SM, whatever the L1 holds; float32 and bfloat16 keep
+    ``tile_form``'s tables-on-chip rule over 16, 8 and 4 frames."""
+    two = df.SMEM_SM_BYTES // 2 - 1024
+    for name, (frames, stage) in zip(("wifi648", "wifi1296", "wifi1944"),
+                                     ((16, True), (16, False), (8, False))):
+        t = smoke_codes[name]
+        assert dl.exact_form(t, "int8") == (frames, stage)
+        assert dl.exact_tile_bytes(t, frames, "int8", stage) <= two
+        if frames < 16:
+            assert dl.exact_tile_bytes(t, 2 * frames, "int8", False) > two
+    t = smoke_codes["wifi1944"]
+    for dt in ("float32", "bfloat16"):
+        assert dl.exact_form(t, dt) == df.tile_form(
+            lambda frames, stage: dl.exact_tile_bytes(t, frames, dt, stage), (16, 8, 4))
+
+
+@pytest.mark.parametrize("nc,dtype,frames", [
+    (4800, "float32", 0), (4800, "bfloat16", 4), (8000, "bfloat16", 0), (8000, "int8", 4),
+    (16000, "int8", 0)])
+def test_exact_form_past_the_tiles_is_the_plane_form(nc, dtype, frames):
+    """The (3,6) QC codes of ``tests_gpu/k5_forms.py`` (N variables in 50
+    columns of circulants, 25 layers): the 4-frame tile where it fits, else
+    the plane form, which keeps nothing in shared memory."""
+    code = make_qc_benchmark_code(nc, nc // 50, seed=0)
+    qc_natural_layers(code)
+    t = kernel_tables(to_sorted_device(code, "cpu", with_layers=True))
+    assert t.n_layers == 25
+    assert dl.exact_form(t, dtype) == (frames, False)
+    assert (dl.exact_tile_bytes(t, 4, dtype, False) <= df.SMEM_BLOCK_BYTES) == (frames == 4)
+    assert dl.exact_tile_bytes(t, 8, dtype, False) > df.SMEM_BLOCK_BYTES
 
 
 @pytest.mark.parametrize("tile16_kb,table_kb,per_sm,want", [

@@ -1,7 +1,7 @@
 """The smoke run's CLI sweeps from any checkout of the port, for comparing
 two commits on one card in one call.
 
-    python3 tests_gpu/cli_sweeps.py <root of a checkout>
+    python3 tests_gpu/cli_sweeps.py <root of a checkout> [default-layered]
 
 It imports ``libldpc_tpu_torch`` from that root, writes the code files
 under ``<root>/build/sweeps/`` and runs, with ``--pallas -i 50
@@ -12,8 +12,11 @@ sweep (eps 0.30-0.45), the flooding sweep of the 1152 (3,6) code
 (1.0-3.0 dB in float32 BP; 2.0 and 2.5 dB in bfloat16 BP and int8
 BP_OMS), and the fixed-iteration points (``--no-early-term``, 2.0 dB) of
 the 1152 code's flooding decode and the n=1944 layered decode, each in
-float32 BP, bfloat16 BP and int8 BP_OMS.  Each results file is printed
-after its run time.  The channel
+float32 BP, bfloat16 BP and int8 BP_OMS; then the default command line on
+the exact schedule: ``--layer-file`` on n=1944 without ``--pallas`` (float32
+BP, batch-stepped, 1.5-2.5 dB), its results file and one ``rate`` line a
+point (frames/s, avg_iter, FER).  Each results file is printed after its
+run time.  With ``default-layered`` only that last sweep runs.  The channel
 draws come from seeded generators, so two commits that decode alike print
 the same rows (the ``frame_time`` column aside).
 
@@ -60,13 +63,13 @@ def main() -> int:
     codes = {"bench1152": make_benchmark_code(1152, 3, 6, seed=0, with_G=True),
              "wifi1944": wifi_code(1944), "wifi648": wifi_code(648)}
 
-    def run(key, out, snrs, *flags, layered=False):
+    def run(key, out, snrs, *flags, layered=False, pallas=True):
         code = codes[key]
         write_codefile(str(work / f"{key}_h.txt"), code.rows, code.cols, code.nc, code.mc)
         r, c = code.G.nonzero()
         (work / f"{key}_g.txt").write_text("".join(f"{i} {j}\n" for i, j in zip(r, c)))
         args = [str(work / f"{key}_h.txt"), str(work / out), *snrs, "-G", str(work / f"{key}_g.txt"),
-                "-i", "50", "--batch-size", "16384", "--pallas", *flags]
+                "-i", "50", "--batch-size", "16384", *(["--pallas"] if pallas else []), *flags]
         if layered:
             write_layerfile(str(work / f"{key}_layers.txt"), code.layers)
             args += ["--layer-file", str(work / f"{key}_layers.txt")]
@@ -76,6 +79,28 @@ def main() -> int:
         print(f"--- {out} ({time.perf_counter() - t0:.1f} s)\n{(work / out).read_text()}", end="",
               flush=True)
 
+    def default_layered():
+        out = "res_default_layered.txt"
+        run("wifi1944", out, ["1.5", "2.51", "0.5"], "--frame-error-count", "50", "--max-frames",
+            "1000000", layered=True, pallas=False)
+        # the rates from the same sweep's Simulator (the CLI's defaults: seed
+        # 0, no --pallas): the results file keeps a frame's time to 1 us, and
+        # its row is the point's as of its last frame error
+        res = Simulator(
+            codes["wifi1944"], DecoderParams(iterations=50, layered=True),
+            ChannelParams(seed=0, x_range=(1.5, 2.51, 0.5)),
+            SimulationParams(batch_size=16384, fec=50, max_frames=1_000_000),
+            device=torch.device("cuda"), verbose=False, use_pallas=False,
+        ).start()
+        for i, snr in enumerate(res.x_values):
+            print(f"rate wifi1944 default --layer-file (exact layered, batch) BP float32 ET "
+                  f"{snr:.1f} dB: {1.0 / res.time[i]:.0f} frames/s (avg_iter "
+                  f"{res.avg_iter[i]:.3f}, FER {res.fer[i]:.3e}, {int(res.frames[i])} frames)",
+                  flush=True)
+
+    if sys.argv[2:] == ["default-layered"]:
+        default_layered()
+        return 0
     sweep = ["1.0", "2.51", "0.5"]
     cap = ["--frame-error-count", "50", "--max-frames", "1000000"]
     run("wifi1944", "res_layered.txt", sweep, "--qc-z", "81", "--frame-error-count", "50",
@@ -151,6 +176,7 @@ def main() -> int:
         n = int(frames)
         print(f"rate bench1152 BEC streaming ET eps {eps}: {n / (time.perf_counter() - t0):.0f} "
               f"frames/s ({n} frames in 8 super-steps)", flush=True)
+    default_layered()
     return 0
 
 

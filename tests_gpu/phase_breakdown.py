@@ -1,24 +1,21 @@
 """Per-phase breakdown of the kernel designs that keep every message in HBM
 planes (the layered streaming chunk's HBM-plane form, the byte-plane BEC
-peeling decode, the flooding streaming chunk and the exact layered batch
-decode), on the card.
+peeling decode and the flooding streaming chunk), on the card.
 
 Run from the repo root on a machine with one NVIDIA H100:
 
     python3 tests_gpu/phase_breakdown.py [OUT.json]
 
-It builds ``libldpc_tpu_torch/csrc/dev/phase_stamps.cu`` (copies of the two
+It builds ``libldpc_tpu_torch/csrc/dev/phase_stamps.cu`` (copies of the three
 designs with ``clock64()`` stamps at every phase boundary) into
 ``build/dev/``, runs
 
 * the layered chunk on wifi 1944, BP and BP_MS, float32, 6 passes from a
-  full pool at 1.5 dB, B = 16384, and
+  full pool at 1.5 dB, B = 16384,
 * the peeling decode on the 1152 (3,6) code at eps 0.40, 50 iterations
-  without early termination, B = 16384,
+  without early termination, B = 16384, and
 * the flooding streaming chunk on the 1152 (3,6) code, BP and BP_MS,
-  float32, 6 passes from a full pool at 1.5 dB, B = 16384, and
-* the exact layered decode on the 802.11n n=648 code, BP and BP_MS,
-  float32, 50 iterations without early termination, B = 16384,
+  float32, 6 passes from a full pool at 1.5 dB, B = 16384,
 
 and prints each phase's share of the summed warp time (a warp's wait at a
 barrier is a phase of its own), the stamped kernel's time and the library
@@ -45,7 +42,6 @@ ITERS = 50
 LAYERED_PHASES = ("entry_exit", "reload", "layer_checks", "layer_barriers", "syndrome", "counting")
 BEC_PHASES = ("init", "cn_phase", "vn_phase", "barriers", "decisions")
 FLOOD_PHASES = ("entry_exit", "reload", "check_phase", "variable_phase", "syndrome", "counting")
-EXACT_PHASES = ("init_exit", "layer_checks", "variable_phase", "syndrome", "barriers")
 
 
 def build_stamps(build):
@@ -111,8 +107,6 @@ def main() -> int:
     lib.dev_stamped_bec_decode_bytes.restype = I
     lib.dev_stamped_stream_chunk_flooding.argtypes = [P] * 19 + [I] * 8 + [F, F, P, P]
     lib.dev_stamped_stream_chunk_flooding.restype = I
-    lib.dev_stamped_decode_layered_exact.argtypes = [P] * 12 + [I] * 8 + [F, F, P, P]
-    lib.dev_stamped_decode_layered_exact.restype = I
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     result = {"card": card, "batch": BATCH}
 
@@ -241,42 +235,6 @@ def main() -> int:
         row["frame_passes"] = int(box["st"].age.sum()) - int(box["st"].ctr[4].sum())
         row["library_form"] = df.bp_stream_chunk_fused.last_form
         result[f"flooding_chunk bench1152 {form} f32 6 passes 1.5 dB"] = row
-
-    # ---- the exact layered decode: wifi 648, 50 it, no ET
-    tb5 = kernel_tables(to_sorted_device(wifi_code(648), dev, with_layers=True))
-    c5 = tb5.code
-    llr5 = awgn_channel(c5, make_generator(dev, 7, 2, 0), BATCH, 1.5).llr
-    out5 = {"post": torch.empty((c5.nc, BATCH), device=dev),
-            "lv2c": torch.empty((c5.nnz, BATCH), device=dev),
-            "lc2v": torch.empty((c5.nnz, BATCH), device=dev),
-            "iters": torch.empty(BATCH, dtype=torch.int32, device=dev),
-            "iscw": torch.empty(BATCH, dtype=torch.int32, device=dev)}
-    for form in ("BP", "BP_MS"):
-        mode, scale, offset = cn_mode_args(form)
-
-        def reset5():
-            box["stamps"] = torch.zeros(len(EXACT_PHASES), dtype=torch.int64, device=dev)
-
-        def stamped5():
-            err = lib.dev_stamped_decode_layered_exact(
-                _p(llr5), _p(out5["post"]), _p(out5["iters"]), _p(out5["iscw"]), _p(out5["lv2c"]),
-                _p(out5["lc2v"]), _p(tb5.row_ptr), _p(tb5.col_sorted), _p(tb5.vn_ptr),
-                _p(tb5.perm_c2v), _p(tb5.layer_ptr), _p(tb5.layer_checks), c5.nc, c5.mc,
-                c5.nnz, tb5.n_layers, BATCH, ITERS, 0, mode, scale, offset, _p(box["stamps"]),
-                stream)
-            if err:
-                raise RuntimeError(f"stamped exact layered decode: CUDA error {err}")
-
-        ms = event_ms(stamped5, 3, reset5)
-        want = dl.bp_decode_layered(tb5, llr5, ITERS, False, form)
-        if form == "BP_MS" and not torch.equal(out5["post"], want.llr_out):
-            raise RuntimeError("the stamped exact layered decode and the library kernel differ")
-        result[f"exact_layered wifi648 {form} f32 {ITERS} it no-ET"] = {
-            "stamped_ms": ms, "shares": shares(box["stamps"], EXACT_PHASES),
-            "library_kernel_ms": event_ms(
-                lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, form), 3, lambda: None),
-            "library_form": dl.bp_decode_layered.last_form,
-        }
 
     text = json.dumps(result, indent=1)
     print(text)

@@ -7,7 +7,15 @@ operation order); the other forms are held to identical decisions and
 iteration counts on >= 99.9% of frames and, on their posteriors, 1e-4 in
 float32, one bf16 step (2^-8) on the fast engine's float32 APP and eight
 (2^-4) on the exact schedule's bf16 posterior, which is recomputed from
-every stored message after each layer."""
+every stored message after each layer.
+
+The exact schedule's every form is forced in turn on wifi 1944 and on the
+1152 (3,6) code in four layers of uneven size (50, 150, 220 and 156
+checks), at a batch that is no multiple of 4, 16 or 32: the tiles of 16, 8
+and 4 frames a block (tables staged or not), and the plane form (its
+messages, posterior and decisions in device memory).  A tile forced past a
+block's shared memory raises; the tile's Python byte counts are held to
+the library's."""
 
 import dataclasses
 
@@ -16,8 +24,10 @@ import pytest
 import torch
 
 from libldpc_tpu_torch.models import make_benchmark_code, make_qc_benchmark_code, qc_natural_layers, wifi_code
+from libldpc_tpu_torch.ops.kernels import build
 from libldpc_tpu_torch.ops.kernels import decode_layered as dl
 from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+from libldpc_tpu_torch.ops.messages import TORCH_DTYPES
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 from libldpc_tpu_torch.ops.streaming_fused import init_state
 from libldpc_tpu_torch.sim.driver import ChannelParams, DecoderParams, SimulationParams, Simulator
@@ -44,8 +54,16 @@ def _two_layer_code():
     return code
 
 
+def _uneven_layers():
+    """The 1152 (3,6) code in four layers of 50, 150, 220 and 156 checks."""
+    code = make_benchmark_code(1152, 3, 6, seed=0, with_G=True)
+    code.layers = [np.arange(a, b, dtype=np.int32) for a, b in ((0, 50), (50, 200), (200, 420),
+                                                               (420, code.mc))]
+    return code
+
+
 CODES = {"wifi1944": lambda: wifi_code(1944), "qc1024": _qc_code, "wifi648": lambda: wifi_code(648),
-         "two_layer96": _two_layer_code}
+         "two_layer96": _two_layer_code, "uneven": _uneven_layers}
 
 
 @pytest.fixture(scope="module")
@@ -222,3 +240,92 @@ def test_simulator_on_card(tables_of, cuda_device, tmp_path, name, schedule, str
     assert res.fer[0] > res.fer[-1] and (res.frames > 0).all()
     assert (tmp_path / "r.txt").read_text().startswith(
         f"# kernel=cuda-fused dtype={dtype} cn={form} schedule={schedule}")
+
+
+#: every form of the exact kernel: (label, EXACT_FORM_OVERRIDE); frames 0
+#: is the plane form (lc2v, the posterior and the decisions in device memory)
+EXACT_FORMS = ([(f"tile{f}{'s' if s else ''}", (f, s)) for f in (16, 8, 4)
+                for s in (True, False)] + [("plane", (0, False))])
+B_RAGGED = 301  # no multiple of 4, 16 or 32
+
+
+@pytest.fixture
+def force_exact():
+    def set_form(tile):
+        dl.EXACT_FORM_OVERRIDE = tile
+
+    yield set_form
+    dl.EXACT_FORM_OVERRIDE = None
+
+
+def _fits(tables, tile, dtype):
+    return tile[0] == 0 or dl.exact_tile_bytes(tables, tile[0], dtype, tile[1]) <= dl.SMEM_BLOCK_BYTES
+
+
+@pytest.mark.parametrize("early_term", [True, False])
+@pytest.mark.parametrize("dtype,form", DTYPE_FORMS)
+@pytest.mark.parametrize("label,tile", EXACT_FORMS, ids=[f[0] for f in EXACT_FORMS])
+@pytest.mark.parametrize("name", ["wifi1944", "uneven"])
+def test_exact_kernel_every_form(tables_of, built, force_exact, name, label, tile, dtype, form,
+                                 early_term):
+    code, tables = tables_of(name)
+    llr, _ = frames(code, tables.code.vn_perm.cpu(), B_RAGGED, 1.5 if name == "uneven" else 1.8,
+                    seed=21)
+    x = torch.from_numpy(llr).to(tables.device)
+    force_exact(tile)
+    if not _fits(tables, tile, dtype):  # forced past shared memory: the launch raises
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dl.bp_decode_layered(tables, x, 12, early_term, form, dtype)
+        return
+    launches = dl.bp_decode_layered.launches[dtype]
+    got = dl.bp_decode_layered(tables, x, 12, early_term, form, dtype)
+    assert dl.bp_decode_layered.launches[dtype] == launches + 1
+    assert dl.bp_decode_layered.last_form == tile
+    key = ("exact plain", name, dtype, str(form), early_term)
+    if key not in built:
+        built[key] = dl.bp_decode_layered_plain(tables, x, 12, early_term, form, dtype)
+    torch.cuda.synchronize()
+    assert_matches(got, built[key], form, 1e-4 if dtype == "float32" else 2 ** -4)
+
+
+def test_exact_rules_on_wifi1944(tables_of):
+    _, tables = tables_of("wifi1944")
+    dts = ("float32", "bfloat16", "int8")
+    assert [dl.exact_form(tables, dt) for dt in dts] == [(4, False), (4, True), (8, False)]
+
+
+@pytest.mark.parametrize("name", ["wifi1944", "uneven", "wifi648"])
+def test_exact_bytes_match_the_library(tables_of, name):
+    """The tile form's shared memory, counted in Python as the launchers
+    count it, in every message form, frames a block and staging."""
+    lib = build.load()
+    _, t = tables_of(name)
+    c = t.code
+    shape = (c.nc, c.mc, c.nnz, t.n_layers, t.layer_checks.shape[0], t.layer_vars.shape[0])
+    for dtype in ("float32", "bfloat16", "int8"):
+        msg = TORCH_DTYPES[dtype].itemsize
+        for stage in (True, False):
+            for f in (16, 8, 4):
+                assert dl.exact_tile_bytes(t, f, dtype, stage) == lib.ldpc_exact_tile_bytes(
+                    *shape, f, msg, int(stage))
+
+
+def test_exact_plane_form_allocates_no_lv2c(tables_of, force_exact):
+    """The plane form's device memory: the posterior out, ``lc2v`` and the
+    packed decisions, no ``lv2c`` plane."""
+    code, tables = tables_of("wifi1944")
+    B = 4096
+    x = torch.randn(code.nc, B, device=tables.device) * 2 + 1.5
+    force_exact((0, False))
+    dl.bp_decode_layered(tables, x, 2, False, "BP_MS")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dl.bp_decode_layered(tables, x, 2, False, "BP_MS")
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    # at most: post, lc2v, iters, iscw, a widened llr_out, the hard
+    # decisions and the packed ones; an lv2c plane would add nnz * B * 4
+    # bytes (114 MB)
+    want = (code.nc + tables.code.nnz) * B * 4 + 2 * B * 4 + code.nc * B * 4 + B * code.nc
+    assert grown <= want + (B + 15) // 16 * code.nc * 2 + (1 << 20)

@@ -48,7 +48,7 @@ pytestmark = pytest.mark.cuda
 #: frames is the HBM-plane form
 K2_FORMS = [(16, True), (8, True), (4, True), (8, False), (0, False)]
 #: the same for the exact layered kernel
-K5_FORMS = [(16, True), (16, False), (8, True), (8, False), (0, False)]
+K5_FORMS = [(16, True), (16, False), (8, True), (8, False), (4, True), (4, False), (0, False)]
 B_RAGGED = 301  # no multiple of 4, 8 or 16
 
 
@@ -281,7 +281,7 @@ def test_exact_form_rule(tables_of):
     assert dl.exact_tile_bytes(wifi, 16, "float32", True) == 228640
     _, wifi1296 = tables_of("wifi1296")
     assert [dl.exact_form(wifi1296, dt) for dt in ("float32", "bfloat16", "int8")] == [
-        (8, False), (8, True), (8, False)]
+        (4, True), (8, True), (16, False)]
 
 
 @pytest.mark.parametrize("name", ["bench1152", "wifi648", "wifi1296", "wifi1944", "regular36",
