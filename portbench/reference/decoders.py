@@ -1,0 +1,260 @@
+"""Belief propagation in float64, in the code's own labels: the flooding
+streaming engine of the default sweep and the exact layered schedule of a
+batch step, with the semantics the sweep states.
+
+* A check's message is the box-plus of its other inputs (computed in
+  Gallager's ``phi`` form), a variable's posterior its prior plus every
+  incoming message.
+* Early termination: a frame stops at the first check of its decisions
+  (``posterior <= 0`` decides 1) that satisfies every parity check; its
+  decisions are those of that check.  Iterations count break before
+  increment: a frame whose first check passes reports 0, one that never
+  passes reports the cap.
+* The streaming engine (``StreamReference``): ``B`` lanes, each an
+  independent stream of frames.  Every pass runs one flooding iteration on
+  every lane in flight, counts the frames that stop (converged, or at the
+  cap), and then, when refilling and at least ``gen_threshold`` lanes are
+  idle, gives the idle lanes in lane order (at most ``quota - started``)
+  fresh frames drawn on the pass's key; a fresh lane starts from its prior
+  as every edge's first message.  A super-step is a run of passes, each
+  with its own key, and reports the counts of the frames that stopped in
+  it and the lanes in flight after it.
+* The exact layered schedule (``decode_layered``): per layer, the layer's
+  checks update from the messages ``posterior - own message``, the
+  posteriors take the new messages, and a frame whose decisions then
+  satisfy every check stops, mid-iteration; an iteration counts for a
+  frame that was running both at its start and at its end.
+
+``store`` is the rounding applied where a decoder stores a message or a
+posterior: none for the reference, bfloat16 for the control.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .channel import FrameSource
+
+
+def identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def bfloat16_store(x: torch.Tensor) -> torch.Tensor:
+    """The control's storage: every stored message rounded to bfloat16."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+#: the identity of the box-plus: a slot past a check's degree holds it
+PAD = 1e30
+
+
+def boxplus(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sign(x) sign(y) min(|x|, |y|) + log(1 + e^-|x+y|) - log(1 + e^-|x-y|)``
+    (the signs of signed zeros count)."""
+    m = torch.copysign(torch.minimum(torch.abs(x), torch.abs(y)), x * y)
+    return m + F.softplus(-torch.abs(x + y)) - F.softplus(-torch.abs(x - y))
+
+
+def exclusion(M: torch.Tensor) -> torch.Tensor:
+    """All-but-one box-plus along axis 1 of ``[checks, degree, B]``, from
+    forward and backward prefixes (scanned together) and one box-plus of
+    the pairs between them."""
+    d = M.shape[1]
+    if d == 1:
+        return torch.full_like(M, PAD)
+    acc = torch.stack([M[:, 0], M[:, d - 1]])
+    fw, bw = [acc[0]], [acc[1]]
+    for j in range(1, d - 1):
+        acc = boxplus(acc, torch.stack([M[:, j], M[:, d - 1 - j]]))
+        fw.append(acc[0])
+        bw.append(acc[1])
+    # fw[k] combines slots 0..k, bw[k] slots d-1-k..d-1
+    parts = [bw[d - 2][:, None]]
+    if d > 2:
+        parts.append(boxplus(torch.stack(fw[:d - 2], dim=1),
+                             torch.stack(bw[d - 3::-1], dim=1)))
+    parts.append(fw[d - 2][:, None])
+    return torch.cat(parts, dim=1)
+
+
+class Graph:
+    """The Tanner graph on a device: edges in (check, variable) order; a
+    set of checks is held as ``[count, max degree]`` edge indices and a
+    mask of the slots that exist."""
+
+    def __init__(self, rows: np.ndarray, cols: np.ndarray, nc: int, mc: int, device):
+        self.device = torch.device(device)
+        order = np.lexsort((cols, rows))
+        rows, cols = np.asarray(rows)[order], np.asarray(cols)[order]
+        self.nc, self.mc, self.nnz = nc, mc, rows.size
+        self.cols = torch.as_tensor(cols, dtype=torch.int64, device=self.device)
+        self.row_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=mc))])
+        self.all = self.checks(np.arange(mc))
+
+    def checks(self, checks: np.ndarray):
+        """``(slots, mask)`` of ``checks``: int64 ``[count, d]`` edge
+        indices (0 past a check's degree) and bool ``[count, d]``."""
+        deg = self.row_ptr[checks + 1] - self.row_ptr[checks]
+        d = max(1, int(deg.max()))
+        mask = np.arange(d)[None, :] < deg[:, None]
+        slots = np.where(mask, self.row_ptr[checks][:, None] + np.arange(d)[None, :], 0)
+        return (torch.as_tensor(slots, dtype=torch.int64, device=self.device),
+                torch.as_tensor(mask, device=self.device))
+
+    def messages(self, lv2c: torch.Tensor, group) -> torch.Tensor:
+        """The check messages of ``group`` from the variables' messages at
+        its slots (``[count, d, B]``; padding slots meaningless)."""
+        slots, mask = group
+        return exclusion(torch.where(mask[:, :, None], lv2c[slots], PAD))
+
+    def cn_update(self, lv2c: torch.Tensor) -> torch.Tensor:
+        slots, mask = self.all
+        out = torch.empty_like(lv2c)
+        out[slots[mask]] = self.messages(lv2c, self.all)[mask]
+        return out
+
+    def posterior(self, prior: torch.Tensor, lc2v: torch.Tensor) -> torch.Tensor:
+        return prior.clone().index_add_(0, self.cols, lc2v)
+
+    def syndrome_ok(self, post: torch.Tensor) -> torch.Tensor:
+        """bool ``[B]``: the decisions of ``post`` satisfy every check."""
+        slots, mask = self.all
+        bits = (post <= 0).index_select(0, self.cols)[slots] & mask[:, :, None]
+        return ~(bits.sum(dim=1, dtype=torch.int32) % 2).bool().any(dim=0)
+
+
+class StreamReference:
+    """The default sweep's streaming engine on ``B`` lanes, from empty (or
+    from lanes started again by :meth:`restore`)."""
+
+    def __init__(self, graph: Graph, frames: FrameSource, batch: int, iterations: int,
+                 gen_threshold: int, quota: int, store: Callable = identity):
+        dev = graph.device
+        self.g, self.frames, self.B = graph, frames, batch
+        self.iterations, self.gen_threshold, self.quota = iterations, gen_threshold, quota
+        self.store = store
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.llr = torch.zeros((graph.nc, batch), **f64)
+        self.cw = torch.zeros((graph.nc, batch), dtype=torch.bool, device=dev)
+        self.lv2c = torch.zeros((graph.nnz, batch), **f64)
+        self.active = torch.zeros(batch, dtype=torch.bool, device=dev)
+        self.age = torch.zeros(batch, dtype=torch.int32, device=dev)
+        self.iters = torch.zeros(batch, dtype=torch.int32, device=dev)
+        self.started = 0
+
+    def _pass(self) -> list:
+        """One flooding iteration on the lanes in flight (gathered where
+        not every lane is): ``[bit_errors, frame_errors, frames,
+        iter_sum]`` of the frames that stop in it."""
+        g, st = self.g, self.store
+        lanes = self.active.nonzero().flatten()
+        if lanes.numel() == 0:
+            return [0, 0, 0, 0]
+        every = lanes.numel() == self.B
+        lv2c = self.lv2c if every else self.lv2c[:, lanes]
+        llr = self.llr if every else self.llr[:, lanes]
+        cw = self.cw if every else self.cw[:, lanes]
+        lc2v = st(g.cn_update(lv2c))
+        post = st(g.posterior(llr, lc2v))
+        age = self.age[lanes]
+        checking = age >= 1
+        ok = g.syndrome_ok(post)
+        iters = self.iters[lanes] + (checking & ~ok).to(torch.int32)
+        age = age + 1
+        finished = (checking & ok) | (age >= self.iterations + 1)
+        biterr = ((post <= 0) != cw).sum(dim=0)[finished]
+        self.iters[lanes] = iters
+        self.age[lanes] = age
+        self.active[lanes[finished]] = False
+        out = st(post.index_select(0, g.cols) - lc2v)
+        if every:
+            self.lv2c = out
+        else:
+            self.lv2c[:, lanes] = out
+        return [int(biterr.sum()), int((biterr > 0).sum()), int(biterr.numel()),
+                int(iters[finished].sum())]
+
+    def _start(self, lanes: torch.Tensor, key: int) -> None:
+        """Fresh frames into ``lanes``, drawn on ``key``: each starts from
+        its prior as every edge's first message."""
+        llr, cw = self.frames.draw(key, lanes)
+        self.llr[:, lanes] = llr
+        self.cw[:, lanes] = cw
+        self.lv2c[:, lanes] = self.store(llr.index_select(0, self.g.cols))
+        self.active[lanes] = True
+        self.age[lanes] = 1
+        self.iters[lanes] = 0
+        self.started += int(lanes.numel())
+
+    def superstep(self, keys: list, refill: bool) -> list:
+        """One super-step of ``len(keys)`` passes: ``[bit_errors,
+        frame_errors, frames, iter_sum, in_flight]``."""
+        counts = np.zeros(4, dtype=np.int64)
+        for key in keys:
+            counts += self._pass()
+            idle = ~self.active
+            if refill and int(idle.sum()) >= self.gen_threshold:
+                rank = torch.cumsum(idle.to(torch.int64), 0)
+                self._start((idle & (self.started + rank <= self.quota)).nonzero().flatten(),
+                            key)
+        return [int(v) for v in counts] + [int(self.active.sum())]
+
+    def restore(self, draws: dict, upto: int, key_of: Callable) -> None:
+        """The lanes in flight at the start of pass ``upto``, started again
+        from their draws: ``draws`` maps a pass to the lanes whose frame was
+        drawn at its end (on ``key_of(pass)``), and each is decoded from
+        there to ``upto``, nothing counted.  A lane that stops on the way
+        is left idle."""
+        for p in range(min(draws, default=upto), upto):
+            self._pass()
+            if p in draws:
+                self._start(draws[p], key_of(p))
+
+
+def decode_layered(graph: Graph, layers: list, prior: torch.Tensor, cw: torch.Tensor,
+                   iterations: int, store: Callable = identity) -> dict:
+    """The exact layered schedule with early termination on a batch of
+    frames (``prior`` float64 ``[nc, B]``, ``cw`` bool): ``{"bit_errors",
+    "frame_errors", "frames", "iter_sum"}``.  A layer's new messages change
+    the posterior of its variables by their difference from the old ones;
+    the frames still running are gathered after every iteration."""
+    g, st = graph, store
+    layer_groups = [g.checks(np.asarray(l, dtype=np.int64)) for l in layers]
+    B = prior.shape[1]
+    P, C = prior, cw
+    post = st(P.clone())
+    lc2v = torch.zeros((g.nnz, B), dtype=prior.dtype, device=prior.device)
+    be = fe = it = 0
+    for _ in range(iterations):
+        if P.shape[1] == 0:
+            break
+        done = torch.zeros(P.shape[1], dtype=torch.bool, device=prior.device)
+        for slots, mask in layer_groups:
+            V = g.cols[slots]
+            old = lc2v[slots]
+            lv = st(torch.where(mask[:, :, None], post[V] - old, PAD))
+            new = st(exclusion(lv))
+            delta = torch.where(mask[:, :, None], new - old, 0.0) * (~done).to(prior.dtype)
+            flat = delta.reshape(-1, delta.shape[-1])
+            lc2v.index_add_(0, slots.reshape(-1), flat)
+            post = st(post.index_add_(0, V.reshape(-1), flat))
+            done = done | g.syndrome_ok(post)
+        # an iteration counts for a frame running at its start and its end
+        it += int((~done).sum())
+        fin = done.nonzero().flatten()
+        if fin.numel():
+            err = ((post[:, fin] <= 0) != C[:, fin]).sum(dim=0)
+            be += int(err.sum())
+            fe += int((err > 0).sum())
+            keep = (~done).nonzero().flatten()
+            P, C, post, lc2v = P[:, keep], C[:, keep], post[:, keep], lc2v[:, keep]
+    if P.shape[1]:
+        err = ((post <= 0) != C).sum(dim=0)
+        be += int(err.sum())
+        fe += int((err > 0).sum())
+    return {"bit_errors": be, "frame_errors": fe, "frames": B, "iter_sum": it}
