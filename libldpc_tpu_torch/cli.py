@@ -1,7 +1,9 @@
 """Command-line simulator: the ``ldpcsim`` CLI of :mod:`libldpc_tpu.cli` on
 PyTorch, with the decode kernels on a CUDA device.
 
-Same flags as the JAX CLI plus ``--device`` (default ``cuda``).
+Same flags as the JAX CLI plus ``--device`` (default ``cuda``) and
+``--trace-dir DIR``, which traces the sweep (:func:`..utils.profiling.device_trace`:
+``DIR/trace.json`` and ``DIR/counters.json``).
 ``--channel`` takes AWGN, BSC and BEC.
 ``--layer-file`` loads the decoding layers and selects the layered
 schedule, ``--qc-z N|auto`` declares (or finds) the code's QC lifting, and
@@ -112,6 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA decode kernels, cpu "
                         "their plain PyTorch versions. (Default: cuda)")
+    p.add_argument("--trace-dir", default="",
+                   help="Trace the sweep with torch.profiler: its Chrome trace (trace.json) "
+                        "and the program's counters (counters.json) are written into this "
+                        "directory (by the primary process).")
     return p
 
 
@@ -127,6 +133,7 @@ def main(argv=None) -> int:
     from .parallel.mesh import POINT_AXIS, FRAME_AXIS, default_mesh, local_devices, make_mesh
     from .sim.driver import Simulator
     from .utils.params import ChannelParams, DecoderParams, SimulationParams
+    from .utils.profiling import device_trace
 
     primary, mesh = True, None
     if args.multihost:
@@ -229,10 +236,11 @@ def main(argv=None) -> int:
         f"Engine: {sim.engine}")
     out(bar)
     try:
-        if wide_mesh is not None:
-            sim.start_wide(wide_mesh, resume=args.resume)
-        else:
-            sim.start(resume=args.resume)
+        with device_trace(args.trace_dir if primary else None, sim.device):
+            if wide_mesh is not None:
+                sim.start_wide(wide_mesh, resume=args.resume)
+            else:
+                sim.start(resume=args.resume)
     except KeyboardInterrupt:
         # the checkpoint on disk is the last one written
         print("\ninterrupted — partial results written", file=sys.stderr)

@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from .sorted import (
     TorchSortedCode, cn_update_sorted, syndrome_ok_from_posterior, vn_posterior_sorted,
 )
@@ -229,14 +230,17 @@ def _card_superstep(tables, pool, iterations: int, cn_mode, quota: int, gen_thre
     for i in range(n_iters):
         # start the staged lanes, decode, count and freeze (the lane's pool
         # is its own planes: no pool starts, so never read)
-        bp_stream_chunk_fused(
-            tables, st.llr_in, st.codeword, st.lv2c, done, st.iters, st.age, scratch["avail"],
-            ctr, st.llr_in, st.codeword, scratch["refill"][False], scratch["remaining"], k=1,
-            cap=iterations, minsum_mode=cn_mode, stage=stage)
-        stream_reload(pool, gen, x_value, refill_t, done, st.llr_in, st.codeword, st.lv2c,
-                      st.age, st.iters, st.started, quota, gen_threshold, vn_ptr=tables.vn_ptr,
-                      perm_c2v=tables.perm_c2v, key=None if keys is None else keys[i:i + 1],
-                      stage=stage if i < n_iters - 1 else None)
+        with span("ldpc.decode"):
+            bp_stream_chunk_fused(
+                tables, st.llr_in, st.codeword, st.lv2c, done, st.iters, st.age,
+                scratch["avail"], ctr, st.llr_in, st.codeword, scratch["refill"][False],
+                scratch["remaining"], k=1, cap=iterations, minsum_mode=cn_mode, stage=stage)
+        with span("ldpc.channel"):
+            stream_reload(pool, gen, x_value, refill_t, done, st.llr_in, st.codeword, st.lv2c,
+                          st.age, st.iters, st.started, quota, gen_threshold,
+                          vn_ptr=tables.vn_ptr, perm_c2v=tables.perm_c2v,
+                          key=None if keys is None else keys[i:i + 1],
+                          stage=stage if i < n_iters - 1 else None)
     st.active = done == 0
     sums = ctr.sum(dim=1, dtype=torch.int64)
     return st, StreamDeltas(sums[0], sums[1], sums[2], sums[3], st.active.sum())
@@ -314,6 +318,7 @@ def _shard_stepper(sdc_or_tables, channel_type: str, dec, batch: int, chunk_iter
             return st
 
         def step_fn(state: StreamState, gen, x_value: float, refill: bool):
+            count("stream.lane_passes", n_iters * batch)
             return body(gen, float(x_value), bool(refill), state, n_iters)
 
         return init_fn, step_fn

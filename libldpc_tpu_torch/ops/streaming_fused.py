@@ -64,6 +64,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from .channel import BEC_ERASURE
 from .kernels.decode_bec import bec_stream_chunk_fused, bec_stream_chunk_fused_plain
 from .kernels.decode_fused import bp_stream_chunk_fused, bp_stream_chunk_fused_plain
@@ -332,17 +333,21 @@ def _shard_stepper(tables: KernelTables, channel_type: str, dec, batch: int, chu
             keys = draw_keys(gen, n_outer, dev) if cuda else None
             if cuda and st.watch is None:  # a state not made by init_fn: one read
                 st.watch = QuotaWatch(quota_frames, batch, int(st.started))
+            count("stream.lane_passes", n_outer * k * batch)
             for j in range(n_outer):
                 # refresh the consumed pool entries once the watermark is met;
                 # the chunk's start budget
-                pool_refill(pool, gen, x_value, refill_t, st.avail, st.fresh_llr, st.fresh_cw,
-                            st.ctr, st.started, quota_frames, remaining,
-                            key=keys[j:j + 1] if cuda else None)
-                chunk(
-                    tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
-                    st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_t, remaining,
-                    k=k, cap=iterations, ordered=bool(refill) and cuda and st.watch.may_bind(),
-                )
+                with span("ldpc.channel"):
+                    pool_refill(pool, gen, x_value, refill_t, st.avail, st.fresh_llr,
+                                st.fresh_cw, st.ctr, st.started, quota_frames, remaining,
+                                key=keys[j:j + 1] if cuda else None)
+                with span("ldpc.decode"):
+                    chunk(
+                        tables, st.llr_in, st.codeword, st.lv2c, st.done, st.iters, st.age,
+                        st.avail, st.ctr, st.fresh_llr, st.fresh_cw, refill_t, remaining,
+                        k=k, cap=iterations,
+                        ordered=bool(refill) and cuda and st.watch.may_bind(),
+                    )
                 if cuda:
                     st.watch.chunks += 1
             sums = st.ctr.sum(dim=1, dtype=torch.int64)

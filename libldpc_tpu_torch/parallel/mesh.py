@@ -40,6 +40,7 @@ from ..ops.kernels.decode_layered import (
 )
 from ..ops.kernels.layout import KernelTables
 from ..ops.kernels.pool_refill import PoolTables, channel_batch, pool_tables
+from ..utils.profiling import span
 
 FRAME_AXIS = "frames"
 POINT_AXIS = "points"
@@ -304,18 +305,22 @@ def _sim_and_count(
     decisions.  Bit errors count the transmitted bits (the drawn code's
     ``bit_pos``) only.  ``forensics`` returns
     :class:`ForensicStepCounters`, else :class:`StepCounters`."""
-    ch = channel_batch(pool, gen, batch, x_value)
-    out = decode(tables, ch)
-    bit_pos = pool.code.bit_pos
-    frame_errs = (
-        out.hard.index_select(0, bit_pos).bool() != ch.codeword.index_select(0, bit_pos).bool()
-    ).sum(0)
-    base = StepCounters(
-        bit_errors=frame_errs.sum(),
-        frame_errors=(frame_errs > 0).sum(),
-        frames=torch.full((), batch, dtype=torch.int64, device=ch.codeword.device),
-        iter_sum=out.iterations.sum(dtype=torch.int64),
-    )
+    with span("ldpc.channel"):
+        ch = channel_batch(pool, gen, batch, x_value)
+    with span("ldpc.decode"):
+        out = decode(tables, ch)
+    with span("ldpc.count"):
+        bit_pos = pool.code.bit_pos
+        frame_errs = (
+            out.hard.index_select(0, bit_pos).bool()
+            != ch.codeword.index_select(0, bit_pos).bool()
+        ).sum(0)
+        base = StepCounters(
+            bit_errors=frame_errs.sum(),
+            frame_errors=(frame_errs > 0).sum(),
+            frames=torch.full((), batch, dtype=torch.int64, device=ch.codeword.device),
+            iter_sum=out.iterations.sum(dtype=torch.int64),
+        )
     if forensics:
         return ForensicStepCounters(*base, frame_bit_errors=frame_errs,
                                     hard=out.hard.to(torch.uint8), codeword=ch.codeword)

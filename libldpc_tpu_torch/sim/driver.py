@@ -76,6 +76,7 @@ from ..parallel.mesh import (
     FRAME_AXIS, POINT_AXIS, make_multipoint_sim_step, make_sim_step, shard_generators,
 )
 from ..utils.params import ChannelParams, DecoderParams, SimulationParams
+from ..utils.profiling import span
 from . import tpu_layouts
 from .results import SimResults
 
@@ -465,12 +466,13 @@ class Simulator:
             # build the kernels and warm the device outside the frame clock;
             # the warm-up batch is discarded
             x0 = x_vals[start_point]
-            if self._streaming:
-                _, wacc = self._stream_step(
-                    self._stream_init(), self._gen(_WARMUP_BATCH, 0), x0, False)
-                int(wacc.frames)
-            else:
-                int(self._step(self._gen(_WARMUP_BATCH, 0), x0).frames)
+            with span("ldpc.warmup"):
+                if self._streaming:
+                    _, wacc = self._stream_step(
+                        self._stream_init(), self._gen(_WARMUP_BATCH, 0), x0, False)
+                    int(wacc.frames)
+                else:
+                    int(self._step(self._gen(_WARMUP_BATCH, 0), x0).frames)
 
         should_stop = self._should_stop
         for i in range(start_point, len(x_vals)):
@@ -525,27 +527,31 @@ class Simulator:
             c.frame_errors < self.sim.fec and c.frames < self.sim.max_frames and not should_stop()
         ) or inflight:
             while len(inflight) < depth and can_dispatch():
-                inflight.append(self._step(self._gen(i, c.next_batch), x_vals[i]))
+                with span("ldpc.loop.dispatch"):
+                    inflight.append(self._step(self._gen(i, c.next_batch), x_vals[i]))
                 c.next_batch += 1
             if not inflight:
                 break
             out = inflight.pop(0)
-            counts = self._read(torch.stack(
-                [out.bit_errors, out.frame_errors, out.frames, out.iter_sum]
-            ))  # one host read, waits for the batch
-            self._absorb_counts(i, c, results, [counts], t_point)
-            t_io = time.perf_counter()
-            if c.frame_errors != last_print_fec:
-                last_print_fec = c.frame_errors
-                result_rows[i] = self._row(results, i)
-                self._emit(results, i, x_vals[i], result_rows)
-            if self.sim.error_log_file and counts[0]:
-                # the planes are read only for a batch with a bit error
-                self._log_error_frames(*self._read_planes(out.frame_bit_errors, out.hard,
-                                                          out.codeword), x_vals[i], c.frames)
-            self._save_checkpoint(x_vals, results, i, c)
-            # printing and file IO are not charged to the frame clock
-            t_point += time.perf_counter() - t_io
+            with span("ldpc.loop.read"):
+                counts = self._read(torch.stack(
+                    [out.bit_errors, out.frame_errors, out.frames, out.iter_sum]
+                ))  # one host read, waits for the batch
+            with span("ldpc.loop.absorb"):
+                self._absorb_counts(i, c, results, [counts], t_point)
+            with span("ldpc.loop.io"):
+                t_io = time.perf_counter()
+                if c.frame_errors != last_print_fec:
+                    last_print_fec = c.frame_errors
+                    result_rows[i] = self._row(results, i)
+                    self._emit(results, i, x_vals[i], result_rows)
+                if self.sim.error_log_file and counts[0]:
+                    # the planes are read only for a batch with a bit error
+                    self._log_error_frames(*self._read_planes(out.frame_bit_errors, out.hard,
+                                                              out.codeword), x_vals[i], c.frames)
+                self._save_checkpoint(x_vals, results, i, c)
+                # printing and file IO are not charged to the frame clock
+                t_point += time.perf_counter() - t_io
 
     def _run_point_streaming(self, i, x_vals, c, results, result_rows, should_stop) -> None:
         """One sweep point on the streaming kernel.
@@ -576,26 +582,32 @@ class Simulator:
             if not can_refill and n_active_last == 0 and not pending:
                 break  # drained
             while (can_refill or n_active_last != 0) and len(pending) < window:
-                state, acc = self._stream_step(state, self._gen(i, c.next_batch), x, can_refill)
+                with span("ldpc.loop.dispatch"):
+                    state, acc = self._stream_step(state, self._gen(i, c.next_batch), x,
+                                                   can_refill)
+                    # snapshot: the next super-step reuses the counter planes
+                    pending.append(torch.stack(list(acc)))
                 c.next_batch += 1
-                # snapshot: the next super-step reuses the counter planes
-                pending.append(torch.stack(list(acc)))
             if not can_refill and n_active_last == 0:
                 n = len(pending)  # draining: flush everything
             else:
                 n = max(1, len(pending) - (window - 1) // 2)
-            rows = self._read(torch.stack(pending[:n]))  # one host read
+            first = c.next_batch - len(pending)
+            with span("ldpc.loop.read"):
+                rows = self._read(torch.stack(pending[:n]))  # one host read
             del pending[:n]
             frames_before = c.frames
-            self._absorb_counts(i, c, results, [r[:4] for r in rows], t_point)
-            n_active_last = int(rows[-1][4])
-            t_io = time.perf_counter()
-            if c.frame_errors != last_print_fec and c.frames:
-                last_print_fec = c.frame_errors
-                result_rows[i] = self._row(results, i)
-                self._emit(results, i, x, result_rows)
-            self._save_checkpoint(x_vals, results, i, c)
-            t_point += time.perf_counter() - t_io
+            with span("ldpc.loop.absorb"):
+                self._absorb_counts(i, c, results, [r[:4] for r in rows], t_point)
+                n_active_last = int(rows[-1][4])
+            with span("ldpc.loop.io"):
+                t_io = time.perf_counter()
+                if c.frame_errors != last_print_fec and c.frames:
+                    last_print_fec = c.frame_errors
+                    result_rows[i] = self._row(results, i)
+                    self._emit(results, i, x, result_rows)
+                self._save_checkpoint(x_vals, results, i, c)
+                t_point += time.perf_counter() - t_io
             # quota-exhaustion guard: refill requested, nothing in flight and
             # no progress means the start quota is spent; treat max_frames as
             # reached instead of spinning no-op super-steps
@@ -673,13 +685,14 @@ class Simulator:
         if group_start < len(x_vals):
             # build the kernels and warm the devices outside the frame clock
             xw = [x_vals[group_start]] * n_pts_parallel
-            if stream_bundle is not None:
-                init_fn, step_fn = stream_bundle
-                _, wacc = step_fn(init_fn(), gens(_WARMUP_BATCH, 0), xw,
-                                  [False] * n_pts_parallel)
-                wacc.frames.tolist()
-            else:
-                step(gens(_WARMUP_BATCH, 0), xw).frames.tolist()
+            with span("ldpc.warmup"):
+                if stream_bundle is not None:
+                    init_fn, step_fn = stream_bundle
+                    _, wacc = step_fn(init_fn(), gens(_WARMUP_BATCH, 0), xw,
+                                      [False] * n_pts_parallel)
+                    wacc.frames.tolist()
+                else:
+                    step(gens(_WARMUP_BATCH, 0), xw).frames.tolist()
 
         for g0 in range(group_start, len(x_vals), n_pts_parallel):
             group = list(range(g0, min(g0 + n_pts_parallel, len(x_vals))))
@@ -713,40 +726,44 @@ class Simulator:
                         self._print_rows(results, [i])
                 if all(finished(i) for i in group):
                     break
-                out = step(gens(g0, batch_idx), xg)
-                bec, fec, frames, iters = self._read(torch.stack(
-                    [out.bit_errors, out.frame_errors, out.frames, out.iter_sum]))
+                with span("ldpc.loop.dispatch"):
+                    out = step(gens(g0, batch_idx), xg)
+                with span("ldpc.loop.read"):
+                    bec, fec, frames, iters = self._read(torch.stack(
+                        [out.bit_errors, out.frame_errors, out.frames, out.iter_sum]))
                 batch_idx += 1
                 elapsed = time.perf_counter() - t_start
                 t_io = time.perf_counter()
                 planes = None  # read once per batch, by every process alike
-                for slot, i in enumerate(group):
-                    cc = c[i]
-                    if finished(i):
-                        continue
-                    cc.bit_errors += bec[slot]
-                    cc.frame_errors += fec[slot]
-                    cc.frames += frames[slot]
-                    cc.iter_sum += iters[slot]
-                    if self.sim.error_log_file and bec[slot]:
-                        # finished slots are skipped above, so the logged
-                        # frames are exactly the counted ones
-                        if planes is None:
-                            planes = self._read_planes(out.frame_bit_errors, out.hard,
-                                                       out.codeword)
-                        self._log_error_frames(planes[0][slot], planes[1][slot], planes[2][slot],
-                                               x_vals[i], cc.frames)
-                    # a point's clock is the group's wall clock while it is live
-                    cc.elapsed_s = elapsed
-                    results.update_point(
-                        i, bit_errors=cc.bit_errors, frame_errors=cc.frame_errors,
-                        frames=cc.frames, iter_sum=cc.iter_sum, elapsed_s=cc.elapsed_s,
-                        nc=self.code.nc)
-                self._print_status(x_vals, group, c)
-                emit_rows()
-                self._save_checkpoint_wide(x_vals, results, g0, c, batch_idx)
-                # printing and file IO are not charged to the group's clock
-                t_start += time.perf_counter() - t_io
+                with span("ldpc.loop.absorb"):
+                    for slot, i in enumerate(group):
+                        cc = c[i]
+                        if finished(i):
+                            continue
+                        cc.bit_errors += bec[slot]
+                        cc.frame_errors += fec[slot]
+                        cc.frames += frames[slot]
+                        cc.iter_sum += iters[slot]
+                        if self.sim.error_log_file and bec[slot]:
+                            # finished slots are skipped above, so the logged
+                            # frames are exactly the counted ones
+                            if planes is None:
+                                planes = self._read_planes(out.frame_bit_errors, out.hard,
+                                                           out.codeword)
+                            self._log_error_frames(planes[0][slot], planes[1][slot],
+                                                   planes[2][slot], x_vals[i], cc.frames)
+                        # a point's clock is the group's wall clock while it is live
+                        cc.elapsed_s = elapsed
+                        results.update_point(
+                            i, bit_errors=cc.bit_errors, frame_errors=cc.frame_errors,
+                            frames=cc.frames, iter_sum=cc.iter_sum, elapsed_s=cc.elapsed_s,
+                            nc=self.code.nc)
+                with span("ldpc.loop.io"):
+                    self._print_status(x_vals, group, c)
+                    emit_rows()
+                    self._save_checkpoint_wide(x_vals, results, g0, c, batch_idx)
+                    # printing and file IO are not charged to the group's clock
+                    t_start += time.perf_counter() - t_io
             self._save_checkpoint_wide(x_vals, results, g0 + n_pts_parallel, {}, 0)
         emit_rows()
         return results
@@ -781,41 +798,46 @@ class Simulator:
                 return False
             while len(pending) < window and not (all_fin and drained):
                 refill = [s < n_real and not finished(padded[s]) for s in range(n_slots)]
-                state, acc = step_fn(state, gens(g0, batch_idx), xg, refill)
+                with span("ldpc.loop.dispatch"):
+                    state, acc = step_fn(state, gens(g0, batch_idx), xg, refill)
+                    pending.append(torch.stack(list(acc)))
                 batch_idx += 1
-                pending.append(torch.stack(list(acc)))
             if not pending:
                 continue
             n = len(pending) if (all_fin and drained) else max(1, len(pending) - (window - 1) // 2)
             if not all_fin:
                 window = min(depth, window * 2)
-            vals = self._read(torch.stack(pending[:n]))  # one host read
+            first = batch_idx - len(pending)
+            with span("ldpc.loop.read"):
+                vals = self._read(torch.stack(pending[:n]))  # one host read
             del pending[:n]
             elapsed = time.perf_counter() - t_start
             frames_before = sum(c[i].frames for i in group)
-            for bec, fec, fr, it, na in vals:
-                for s in range(n_real):
-                    cc = c[padded[s]]
-                    was_live = not finished(padded[s])
-                    cc.bit_errors += bec[s]
-                    cc.frame_errors += fec[s]
-                    cc.frames += fr[s]
-                    cc.iter_sum += it[s]
-                    # a point's clock runs while it is live or still draining
-                    if was_live or fr[s]:
-                        cc.elapsed_s = elapsed
-                n_active = na
-            for i in group:
-                if c[i].frames:
-                    results.update_point(
-                        i, bit_errors=c[i].bit_errors, frame_errors=c[i].frame_errors,
-                        frames=c[i].frames, iter_sum=c[i].iter_sum, elapsed_s=c[i].elapsed_s,
-                        nc=self.code.nc)
-            t_io = time.perf_counter()
-            self._print_status(x_vals, group, c)
-            emit_rows()
-            self._save_checkpoint_wide(x_vals, results, g0, c, batch_idx)
-            t_start += time.perf_counter() - t_io
+            with span("ldpc.loop.absorb"):
+                for bec, fec, fr, it, na in vals:
+                    for s in range(n_real):
+                        cc = c[padded[s]]
+                        was_live = not finished(padded[s])
+                        cc.bit_errors += bec[s]
+                        cc.frame_errors += fec[s]
+                        cc.frames += fr[s]
+                        cc.iter_sum += it[s]
+                        # a point's clock runs while it is live or still draining
+                        if was_live or fr[s]:
+                            cc.elapsed_s = elapsed
+                    n_active = na
+                for i in group:
+                    if c[i].frames:
+                        results.update_point(
+                            i, bit_errors=c[i].bit_errors, frame_errors=c[i].frame_errors,
+                            frames=c[i].frames, iter_sum=c[i].iter_sum,
+                            elapsed_s=c[i].elapsed_s, nc=self.code.nc)
+            with span("ldpc.loop.io"):
+                t_io = time.perf_counter()
+                self._print_status(x_vals, group, c)
+                emit_rows()
+                self._save_checkpoint_wide(x_vals, results, g0, c, batch_idx)
+                t_start += time.perf_counter() - t_io
             # quota-exhaustion guard (see _run_point_streaming)
             if (not all(finished(i) for i in group)
                     and all(n_active[s] == 0 for s in range(n_real))

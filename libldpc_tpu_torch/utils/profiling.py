@@ -7,11 +7,20 @@ compile-time ``LOG_FRAME_TIME`` / ``LOG_TP`` switches.  Here: a
 ``time_prof`` context manager with the same line, a throughput meter for
 frames/s accounting, and :func:`device_trace`, a ``torch.profiler`` window
 (with the card's activity when there is one) written as a Chrome trace.
+
+The program's own tracing: :func:`span` marks a phase of the sweep (a
+``record_function`` range, so it lands in the profiler's host timeline on
+the clock of the device operations) and :func:`count` adds to a named
+counter.  Both act only while a ``torch.profiler`` profile is recording
+(the profiler's own flag, read at each call); otherwise a span is one
+shared no-op context and a count does nothing.  Neither launches a device
+operation or reads the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Iterator, Optional
@@ -19,6 +28,39 @@ from typing import Iterator, Optional
 import torch
 
 _UNITS = {"s": 1.0, "ms": 1e3, "us": 1e6, "ns": 1e9}
+_NO_SPAN = contextlib.nullcontext()
+_counters: dict = {}
+
+
+def _tracing() -> bool:
+    """Whether a ``torch.profiler`` profile is recording."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str):
+    """A context marking one phase under the constant ``name`` (a trace's
+    breakdown groups idle time by name).  A span carries no argument: the
+    Chrome trace does not export ``record_function``'s argument string, and
+    the loop's phases run in order on one thread, so the k-th dispatch of a
+    point is its step k."""
+    if not _tracing():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while tracing."""
+    if _tracing():
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A copy of the counters."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 @contextlib.contextmanager
@@ -97,8 +139,9 @@ def device_trace(log_dir: Optional[str], device: Optional[torch.device] = None) 
     """A ``torch.profiler`` window over the region when ``log_dir`` is set
     (the CPU activity, and the CUDA activity when ``device`` is a card or,
     without ``device``, when one is available), its Chrome trace written to
-    ``log_dir/trace.json``; yields the profiler, or None when ``log_dir`` is
-    unset, where nothing is traced."""
+    ``log_dir/trace.json`` and the counters it counted (cleared on entry) to
+    ``log_dir/counters.json``; yields the profiler, or None when ``log_dir``
+    is unset, where nothing is traced."""
     if not log_dir:
         yield None
         return
@@ -106,9 +149,12 @@ def device_trace(log_dir: Optional[str], device: Optional[torch.device] = None) 
     cuda = device.type == "cuda" if device is not None else torch.cuda.is_available()
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    reset_counters()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
         if cuda:
             torch.cuda.synchronize(device)
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump(counters(), f, indent=1, sort_keys=True)

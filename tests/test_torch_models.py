@@ -171,7 +171,7 @@ def _actions(parser):
 
 def test_cli_parser_has_every_jax_flag():
     t, j = _actions(cli.build_parser()), _actions(jax_cli.build_parser())
-    assert set(t) == set(j) | {"device"}
+    assert set(t) == set(j) | {"device", "trace_dir"}
     for dest, ja in j.items():
         ta = t[dest]
         assert ta.option_strings == ja.option_strings, dest
@@ -193,4 +193,5 @@ def test_cli_parser_parses_like_jax(argv):
     t = vars(cli.build_parser().parse_args(argv))
     j = vars(jax_cli.build_parser().parse_args(argv))
     assert t.pop("device") == "cuda"
+    assert t.pop("trace_dir") == ""
     assert t == j
