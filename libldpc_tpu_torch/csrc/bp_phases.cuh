@@ -130,7 +130,7 @@ int launch_smem(void (*kernel)(P...), dim3 grid, dim3 block, size_t bytes,
 // holds 32 / F values of ty.  Shared memory holds, in the message type,
 // lc2v [nnz, F] and the stored posterior post [nc, F], then the packed
 // decisions hard [nc] (uint16, bit f for frame f), then the index tables
-// the kernel stages (int32).
+// the kernel stages (int32; K5's uint16, layered_exact_tile.cuh).
 
 __host__ __device__ constexpr size_t align4(size_t n) { return (n + 3) & ~(size_t)3; }
 
@@ -167,14 +167,17 @@ __device__ __forceinline__ Tile<T> tile_of(unsigned char* smem, int nc, int nnz)
 
 // The code's index tables as a tile kernel reads them, in device memory or
 // staged in shared memory (no __restrict__: the block writes a staged table
-// before it reads it).
-struct TileCode {
-  const int* row_ptr;
-  const int* col_sorted;
-  const int* vn_ptr;
-  const int* perm_c2v;
+// before it reads it), with entries of type I: int, or uint16_t where every
+// entry is below 65,536 (K5's tiles).
+template <class I>
+struct TileCodeOf {
+  const I* row_ptr;
+  const I* col_sorted;
+  const I* vn_ptr;
+  const I* perm_c2v;
   int nc, mc, nnz;
 };
+using TileCode = TileCodeOf<int>;
 
 // Copies n int32 entries of src to *dst in shared memory (thread tid of
 // nt), moves *dst past them and returns the copy.
@@ -215,10 +218,10 @@ struct FrameSlots {
 // word per variable into hard (__ballot_sync; a frame not in flight adds
 // 0).  Every thread of the warp calls it.  W > 1 loads W slots before it
 // sums them (q in device memory: W loads in flight a thread).
-template <int F, int W = 1, class Msg, class Q, class P, class Prior>
-__device__ __forceinline__ void frame_variable(const TileCode& c, const Msg& m, Q q, P post,
-                                               uint16_t* hard, int v, bool run, int f, int tid,
-                                               Prior prior) {
+template <int F, int W = 1, class Msg, class Q, class P, class Prior, class I>
+__device__ __forceinline__ void frame_variable(const TileCodeOf<I>& c, const Msg& m, Q q,
+                                               P post, uint16_t* hard, int v, bool run, int f,
+                                               int tid, Prior prior) {
   bool bit = false;
   if (run && v >= 0) {
     const int s0 = c.vn_ptr[v];
@@ -263,8 +266,9 @@ __device__ __forceinline__ void tile_variable(const TileCode& c, const Msg& m,
 // The syndrome of the tile's F frames, checks tid, tid + nt, ...: each the
 // XOR of its variables' decision words; sets bit f of *bad when frame f has
 // an unsatisfied check.
-__device__ __forceinline__ void tile_syndrome(const TileCode& c, const uint16_t* hard, int tid,
-                                              int nt, unsigned* bad) {
+template <class I>
+__device__ __forceinline__ void tile_syndrome(const TileCodeOf<I>& c, const uint16_t* hard,
+                                              int tid, int nt, unsigned* bad) {
   for (int r = tid; r < c.mc; r += nt) {
     const int e1 = c.row_ptr[r + 1];
     unsigned par = 0;

@@ -18,7 +18,9 @@
 // after a layer only the layer's own variables (KernelTables layer_var_ptr
 // / layer_vars; every variable at the decode's first layer) recompute their
 // posterior, summing lc2v in perm_c2v order from the first, so the min-sum
-// family is bit-exact against the plain version.
+// family is bit-exact against the plain version.  Its index tables stay
+// int32 (the tiles' are 16-bit): a code past the tiles may have 65,536
+// edges or more.
 //
 // What bounds it: the slots it moves.  Per frame and iteration a check
 // reads its slots' posterior and lc2v and writes lc2v (3 nnz slots), and
@@ -51,15 +53,14 @@ constexpr int kPlaneFrames = 16;
 // float32 plane took 1.2-1.6x the time; PERF.md section 6).
 template <class Msg, int FAM>
 __global__ void __launch_bounds__(kPlaneFrames * exact_rows(kPlaneFrames))
-bp_decode_layered_plane_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams cp, Msg m,
+bp_decode_layered_plane_kernel(ExactCode<int> x, CnParams cp, Msg m,
                                const float* __restrict__ llr_in,
                                typename Msg::T* __restrict__ out,
                                typename Msg::T* __restrict__ lc2v, uint16_t* hard_scratch,
                                int* __restrict__ iters_out, int* __restrict__ iscw_out, int B_,
                                int iterations, int early_term) {
-  exact_decode<Msg, FAM, kPlaneFrames, true>(c, L, V, nlc, cp, m, llr_in, out, lc2v,
-                                             hard_scratch, iters_out, iscw_out, 0, B_,
-                                             iterations, early_term);
+  exact_decode<Msg, FAM, kPlaneFrames, true>(x, cp, m, llr_in, out, lc2v, hard_scratch, iters_out,
+                                             iscw_out, 0, B_, iterations, early_term);
 }
 
 }  // namespace
@@ -79,17 +80,16 @@ int ldpc_bp_decode_layered(const float* llr_in, void* post, int* iters, int* isc
                            int nlv, int B, int iterations, int early_term, int cn_mode,
                            float scale, float offset, int msg_dtype, float inv_q, void* stream) {
   constexpr int F = kPlaneFrames;
-  Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};
-  Layers L{layer_ptr, layer_checks, nl};
-  LayerVars V{layer_var_ptr, layer_vars, nlv};
+  const ExactCode<int> x{TileCode{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz},
+                         layer_ptr, layer_checks, layer_var_ptr, layer_vars, nl, nlc, nlv};
   CnParams cp{cn_mode, scale, offset};
   return by_form(msg_dtype, inv_q, cn_mode, [&](auto m, auto fam) {
     using Msg = decltype(m);
     using T = typename Msg::T;
     return launch_smem(bp_decode_layered_plane_kernel<Msg, decltype(fam)::value>,
-                       (B + F - 1) / F, dim3(F, exact_rows(F)), 0, (cudaStream_t)stream, c, L,
-                       V, nlc, cp, m, llr_in, (T*)post, (T*)lc2v, (uint16_t*)hard_scratch, iters,
-                       iscw, B, iterations, early_term);
+                       (B + F - 1) / F, dim3(F, exact_rows(F)), 0, (cudaStream_t)stream, x, cp,
+                       m, llr_in, (T*)post, (T*)lc2v, (uint16_t*)hard_scratch, iters, iscw, B,
+                       iterations, early_term);
   });
 }
 

@@ -39,8 +39,10 @@
 // unconverged at its start and at its end); without early termination
 // is_codeword comes from the last layer's syndrome.  The index tables
 // (row_ptr, col_sorted, vn_ptr, perm_c2v, the layers' checks and
-// variables) are staged in shared memory beside the tiles when the wrapper
-// says they fit.
+// variables) are 16-bit in the tiles (every entry of a code whose tile fits
+// a block is below 65,536: KernelTables.exact16, the eight back to back),
+// staged in shared memory beside the tiles when the wrapper says they fit,
+// else read from device memory; the plane form reads them as int32.
 //
 // What bounds it: device memory is read once (the prior, and per layer the
 // prior of the layer's variables, which the L2 keeps) and written once;
@@ -58,41 +60,69 @@
 #include "bp_phases.cuh"
 #include "cn_forms.cuh"
 #include "dispatch.cuh"
-#include "layered_fast.cuh"
 
 namespace {
 
 // Checks (and variables) in flight per frame: 512 threads a block.
 __host__ __device__ constexpr int exact_rows(int frames) { return 512 / frames; }
 
-// Each layer's variables: the union of col_sorted over the layer's checks,
-// sorted labels, CSR over ptr.
-struct LayerVars {
-  const int* __restrict__ ptr;   // [nl + 1]
-  const int* __restrict__ vars;  // [nlv]
-  int nlv;
+// K5's index tables with entries of type I: the code's four, each layer's
+// checks (CSR over lptr) and each layer's variables (the union of
+// col_sorted over the layer's checks, sorted labels, CSR over vptr).
+template <class I>
+struct ExactCode {
+  TileCodeOf<I> c;
+  const I* lptr;   // [nl + 1]
+  const I* lchk;   // [nlc]
+  const I* vptr;   // [nl + 1]
+  const I* lvars;  // [nlv]
+  int nl, nlc, nlv;
 };
 
+// Entries of the eight tables: row_ptr, col_sorted, vn_ptr, perm_c2v,
+// layer_ptr, layer_checks, layer_var_ptr, layer_vars.
+__host__ __device__ constexpr size_t exact_table_entries(int nc, int mc, int nnz, int nl, int nlc,
+                                                         int nlv) {
+  return (size_t)(mc + 1) + nnz + (nc + 1) + nnz + 2 * (size_t)(nl + 1) + nlc + nlv;
+}
+
+// The eight tables back to back from p, in that order (KernelTables.exact16
+// in device memory; the staged copy in shared memory is laid out alike).
+template <class I>
+__host__ __device__ __forceinline__ ExactCode<I> exact_code_at(const I* p, int nc, int mc,
+                                                               int nnz, int nl, int nlc, int nlv) {
+  ExactCode<I> x;
+  x.c = TileCodeOf<I>{p, p + mc + 1, p + mc + 1 + nnz, p + mc + 1 + nnz + nc + 1, nc, mc, nnz};
+  x.lptr = x.c.perm_c2v + nnz;
+  x.lchk = x.lptr + nl + 1;
+  x.vptr = x.lchk + nlc;
+  x.lvars = x.vptr + nl + 1;
+  x.nl = nl;
+  x.nlc = nlc;
+  x.nlv = nlv;
+  return x;
+}
+
 // Shared memory of the tile form (bp_phases.cuh Tile): lc2v, the posterior,
-// the packed decisions and, when staged, the code's four tables, then
-// layer_ptr [nl + 1], layer_checks [nlc], layer_var_ptr [nl + 1] and
-// layer_vars [nlv].
+// the packed decisions and, when staged, the eight 16-bit tables, 4-byte
+// aligned (ops/kernels/decode_layered.py exact_tile_bytes counts the same).
 inline size_t exact_tile_bytes(int nc, int mc, int nnz, int nl, int nlc, int nlv, int frames,
                                int msg, bool stage) {
-  const size_t tables = code_table_ints(nc, mc, nnz) + 2 * (size_t)(nl + 1) + nlc + nlv;
-  return tile_layout_bytes(nc, nnz, frames, msg, stage ? tables : 0);
+  return tile_layout_bytes(nc, nnz, frames, msg, 0) +
+         (stage ? align4(2 * exact_table_entries(nc, mc, nnz, nl, nlc, nlv)) : 0);
 }
 
 // The decode of both forms, the body of their kernels.  PLANE: lc2v [nnz,
 // B] and the stored posterior (the output plane itself) in device memory,
 // the packed decisions in a row of hard_scratch [ceil(B / F), nc] per
-// block, nothing staged, and a variable's slots loaded eight at a time;
-// else the tile.  Every thread of a frame keeps the frame's state in
-// registers and updates it identically; every barrier is reached by the
-// whole block.
-template <class Msg, int FAM, int F, bool PLANE>
-__device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int nlc, CnParams cp,
-                                             Msg m, const float* __restrict__ llr_in,
+// block, int32 tables read from device memory, and a variable's slots
+// loaded eight at a time; else the tile, on 16-bit tables (`code`: in device
+// memory, laid out as exact_code_at; copied into shared memory first when
+// `stage`).  Every thread of a frame keeps the frame's state in registers
+// and updates it identically; every barrier is reached by the whole block.
+template <class Msg, int FAM, int F, bool PLANE, class I>
+__device__ __forceinline__ void exact_decode(ExactCode<I> code, CnParams cp, Msg m,
+                                             const float* __restrict__ llr_in,
                                              typename Msg::T* __restrict__ out,
                                              typename Msg::T* __restrict__ lc2v,
                                              uint16_t* hard_scratch, int* __restrict__ iters_out,
@@ -102,7 +132,8 @@ __device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned badmask[2];  // per layer parity: bit f, frame f has an unsatisfied check
   constexpr int NTY = exact_rows(F);
-  const Tile<T> t = tile_of<T, F>(smem, c.nc, c.nnz);
+  const int nc = code.c.nc, nnz = code.c.nnz;
+  const Tile<T> t = tile_of<T, F>(smem, nc, nnz);
   const int f = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * F + f, nt = F * NTY;
   const size_t B = B_;
@@ -111,18 +142,27 @@ __device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int 
   // this frame's lc2v and stored posterior
   const FrameSlots<T, F, PLANE> q{PLANE ? lc2v + b : t.q + f, B};
   const FrameSlots<T, F, PLANE> post{PLANE ? out + b : t.post + f, B};
-  uint16_t* const hard = PLANE ? hard_scratch + (size_t)blockIdx.x * c.nc : t.hard;
-  int* staged = t.tables;
-  const TileCode tc = tile_code(c, staged, stage, tid, nt);
-  const int* lptr = stage ? stage_table(staged, L.ptr, L.nl + 1, tid, nt) : L.ptr;
-  const int* lchk = stage ? stage_table(staged, L.checks, nlc, tid, nt) : L.checks;
-  const int* vptr = stage ? stage_table(staged, V.ptr, L.nl + 1, tid, nt) : V.ptr;
-  const int* lvars = stage ? stage_table(staged, V.vars, V.nlv, tid, nt) : V.vars;
+  uint16_t* const hard = PLANE ? hard_scratch + (size_t)blockIdx.x * nc : t.hard;
+  if constexpr (!PLANE) {
+    if (stage) {  // the eight tables in 32-bit words (the buffer holds an even count)
+      const int words =
+          (int)((exact_table_entries(nc, code.c.mc, nnz, code.nl, code.nlc, code.nlv) + 1) / 2);
+      const unsigned* src = (const unsigned*)code.c.row_ptr;
+      unsigned* dst = (unsigned*)t.tables;
+      for (int i = tid; i < words; i += nt) dst[i] = __ldg(src + i);
+      code = exact_code_at((const I*)t.tables, nc, code.c.mc, nnz, code.nl, code.nlc, code.nlv);
+    }
+  }
+  const TileCodeOf<I> tc = code.c;
+  const I* const lptr = code.lptr;
+  const I* const lchk = code.lchk;
+  const I* const vptr = code.vptr;
+  const I* const lvars = code.lvars;
   // the first messages: post = store(prior(x)) (so that a check's first
   // extrinsic is store(prior(x))), lc2v = store(0)
   if (valid) {
-    for (int v = ty; v < c.nc; v += NTY) post[v] = m.store(m.prior(llr_in[v * B + b]));
-    for (int e = ty; e < c.nnz; e += NTY) q[e] = m.store(0.0f);
+    for (int v = ty; v < nc; v += NTY) post[v] = m.store(m.prior(llr_in[v * B + b]));
+    for (int e = ty; e < nnz; e += NTY) q[e] = m.store(0.0f);
   }
   if (tid == 0) badmask[0] = badmask[1] = 0;
   bool done = !valid;
@@ -133,8 +173,8 @@ __device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int 
   for (int it = 0; it < iterations; ++it) {
     if (early_term && !__syncthreads_or(!done)) break;
     const bool done_start = done;
-    for (int l = 0; l < L.nl; ++l) {
-      const bool check = !done && (early_term || (it == iterations - 1 && l == L.nl - 1));
+    for (int l = 0; l < code.nl; ++l) {
+      const bool check = !done && (early_term || (it == iterations - 1 && l == code.nl - 1));
       // ---- 1. the layer's checks
       if (!done) {
         const int k1 = lptr[l + 1];
@@ -156,7 +196,7 @@ __device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int 
       __syncthreads();
       // ---- 3. the variable phase over the layer's variables, decisions packed
       const int i0 = first ? 0 : vptr[l];
-      const int n = first ? c.nc : vptr[l + 1] - i0;
+      const int n = first ? nc : vptr[l + 1] - i0;
       const int rounds = (n + NTY - 1) / NTY;
       for (int i = 0; i < rounds; ++i) {
         const int j = i * NTY + ty;
@@ -187,7 +227,7 @@ __device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int 
   }
   if (valid) {
     if (!PLANE)
-      for (int v = ty; v < c.nc; v += NTY) out[v * B + b] = post[v];
+      for (int v = ty; v < nc; v += NTY) out[v * B + b] = post[v];
     if (ty == 0) {
       iters_out[b] = early_term ? iters : iterations;
       iscw_out[b] = iscw;
@@ -195,15 +235,16 @@ __device__ __forceinline__ void exact_decode(Code c, Layers L, LayerVars V, int 
   }
 }
 
-// The tile form's kernel (the int8 tiles run two blocks an SM).
+// The tile form's kernel (the int8 tiles run two blocks an SM), on the
+// 16-bit tables.
 template <class Msg, int FAM, int F>
 __global__ void __launch_bounds__(F * exact_rows(F), sizeof(typename Msg::T) == 1 ? 2 : 1)
-bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams cp, Msg m,
+bp_decode_layered_tile_kernel(ExactCode<uint16_t> x, CnParams cp, Msg m,
                               const float* __restrict__ llr_in, typename Msg::T* __restrict__ out,
                               int* __restrict__ iters_out, int* __restrict__ iscw_out, int stage,
                               int B_, int iterations, int early_term) {
-  exact_decode<Msg, FAM, F, false>(c, L, V, nlc, cp, m, llr_in, out, nullptr, nullptr, iters_out,
-                                   iscw_out, stage, B_, iterations, early_term);
+  exact_decode<Msg, FAM, F, false>(x, cp, m, llr_in, out, nullptr, nullptr, iters_out, iscw_out,
+                                   stage, B_, iterations, early_term);
 }
 
 }  // namespace
@@ -211,20 +252,17 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
 // The extern "C" entry of one tile form (F frames a block), defined by the
 // form's source file.  It returns the launch's cudaGetLastError() (0 =
 // launched).  The arguments are those of ldpc_bp_decode_layered
-// (decode_layered_exact.cu) without its lc2v and decision scratch, plus
-// `stage`: the index tables staged in shared memory.  `post` is of the type
-// of `msg_dtype`.
+// (decode_layered_exact.cu) without its lc2v and decision scratch, with the
+// eight tables 16-bit and back to back in `tables16` (exact_code_at; an even
+// count of entries, 4-byte aligned), plus `stage`: the tables staged in
+// shared memory.  `post` is of the type of `msg_dtype`.
 #define LDPC_EXACT_TILE_ENTRY(NAME, FRAMES)                                                     \
   extern "C" int NAME(const float* llr_in, void* post, int* iters, int* iscw,                   \
-                      const int* row_ptr, const int* col_sorted, const int* vn_ptr,             \
-                      const int* perm_c2v, const int* layer_ptr, const int* layer_checks,       \
-                      const int* layer_var_ptr, const int* layer_vars, int nc, int mc, int nnz, \
-                      int nl, int nlc, int nlv, int B, int iterations, int early_term,          \
-                      int cn_mode, float scale, float offset, int msg_dtype, float inv_q,       \
-                      int stage, void* stream) {                                                \
-    Code c{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz};                                 \
-    Layers L{layer_ptr, layer_checks, nl};                                                      \
-    LayerVars V{layer_var_ptr, layer_vars, nlv};                                                \
+                      const void* tables16, int nc, int mc, int nnz, int nl, int nlc, int nlv,  \
+                      int B, int iterations, int early_term, int cn_mode, float scale,          \
+                      float offset, int msg_dtype, float inv_q, int stage, void* stream) {      \
+    const ExactCode<uint16_t> x =                                                               \
+        exact_code_at((const uint16_t*)tables16, nc, mc, nnz, nl, nlc, nlv);                    \
     CnParams cp{cn_mode, scale, offset};                                                        \
     return by_form(msg_dtype, inv_q, cn_mode, [&](auto m, auto fam) {                           \
       using Msg = decltype(m);                                                                  \
@@ -233,7 +271,7 @@ bp_decode_layered_tile_kernel(Code c, Layers L, LayerVars V, int nlc, CnParams c
                          (B + FRAMES - 1) / FRAMES, dim3(FRAMES, exact_rows(FRAMES)),           \
                          exact_tile_bytes(nc, mc, nnz, nl, nlc, nlv, FRAMES, (int)sizeof(T),    \
                                           stage != 0),                                          \
-                         (cudaStream_t)stream, c, L, V, nlc, cp, m, llr_in, (T*)post, iters,    \
-                         iscw, stage, B, iterations, early_term);                               \
+                         (cudaStream_t)stream, x, cp, m, llr_in, (T*)post, iters, iscw, stage,  \
+                         B, iterations, early_term);                                            \
     });                                                                                         \
   }

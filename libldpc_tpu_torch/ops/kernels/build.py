@@ -217,7 +217,7 @@ def load() -> ctypes.CDLL:
             # the exact layered kernel: the plane form (lc2v, the posterior
             # and the packed decisions in device memory) and the tile form,
             # one entry per frames-a-block; both take each layer's variables
-            # (CSR)
+            # (CSR), the tiles all eight tables 16-bit in one buffer
             lib.ldpc_bp_decode_layered.argtypes = [
                 P, P, P, P, P, P,  # llr_in post iters iscw lc2v hard_scratch
                 *tables, P, P,  # ..., layer_var_ptr layer_vars
@@ -231,7 +231,7 @@ def load() -> ctypes.CDLL:
                           lib.ldpc_bp_decode_layered_tile4):
                 entry.argtypes = [
                     P, P, P, P,  # llr_in post iters iscw
-                    *tables, P, P,  # ..., layer_var_ptr layer_vars
+                    P,  # tables16 (KernelTables.exact16)
                     I, I, I, I, I, I, I,  # nc mc nnz nl nlc nlv B
                     I, I, I, F, F,  # iterations early_term cn_mode scale offset
                     I, F,  # msg_dtype inv_q

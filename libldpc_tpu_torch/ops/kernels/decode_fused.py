@@ -209,7 +209,8 @@ def tile_bytes(tables: KernelTables, frames: int, message_dtype: str, table_ints
     """Dynamic shared memory of a tile form of K1, K2 or K5 (``csrc/bp_phases.cuh``
     ``tile_layout_bytes``): ``lc2v [nnz, frames]`` and the posterior
     ``[nc, frames]`` in the message type, the packed decisions ``[nc]``
-    uint16, then ``table_ints`` int32 entries of staged index tables."""
+    uint16, then ``table_ints`` int32 entries of staged index tables (K5
+    adds its 16-bit tables itself: :func:`.decode_layered.exact_tile_bytes`)."""
     sdc = tables.code
     msg = TORCH_DTYPES[message_dtype].itemsize
     return _align4((sdc.nnz + sdc.nc) * frames * msg) + _align4(sdc.nc * 2) + 4 * table_ints
@@ -260,13 +261,12 @@ def tile_form(bytes_of, frames_choices, blocks_per_sm=lambda frames: 1,
     HBM-plane form.
 
     At every shape timed on the card it picks the fastest form measured,
-    or one within 0.3 % of it (``PERF.md`` section 6).  On wifi 648, whose
-    34 KB of K5 tables fit the 60 KB of L1 beside a 16-frame tile, 16
-    frames staged; unstaged they still beat 8 staged in bf16 BP (30.8
-    against 39.7 ms).  On wifi 1296, whose 66 KB do not: bf16 BP 8 staged
-    59.8 ms against 72.0 at 16 unstaged; int8 BP_MS (two blocks an SM,
-    ``tables_in_l1=False``: :func:`.decode_layered.exact_form`) 16 unstaged
-    34.4 ms against 34.8 at 8 unstaged and 42.7 at 16 staged."""
+    or one within 0.3 % of it (``PERF.md`` section 6).  On wifi 1296, whose
+    33 KB of 16-bit K5 tables stage beside a 16-frame bf16 tile: 54.0 ms
+    against 66.2 unstaged and 59.8 at 8 staged; int8 BP_MS (two blocks an
+    SM, ``tables_in_l1=False``: :func:`.decode_layered.exact_form`) 16
+    unstaged 32.6 ms against 33.7 at 8 unstaged and 42.0 at 16 staged (one
+    block an SM)."""
     for frames in frames_choices:
         tile = bytes_of(frames, False)
         if tile > SMEM_BLOCK_BYTES:

@@ -21,10 +21,12 @@
   converged frame freezes.  The kernel has two forms, chosen by
   :func:`exact_form` from the code's size and the message form: the tile
   form (``csrc/layered_exact_tile.cuh``: a block's 16, 8 or 4 frames keep
-  their messages and posteriors in shared memory for the whole decode, and
-  after a layer only that layer's variables recompute) and the plane form
+  their messages and posteriors in shared memory for the whole decode,
+  after a layer only that layer's variables recompute, and the index
+  tables are 16-bit, ``KernelTables.exact16``) and the plane form
   (``csrc/decode_layered_exact.cu``: the same kernel and schedule with
-  ``lc2v``, the posterior and the decisions in device memory).
+  ``lc2v``, the posterior and the decisions in device memory, and int32
+  tables).
 
 All three take a message storage form (``message_dtype`` float32,
 bfloat16 or int8, and the int8 lattice step ``quant_scale``;
@@ -37,7 +39,10 @@ posterior in the form.  int8 takes the min-sum family only.
 Each wrapper takes its plain PyTorch version (same signature) only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 Each keeps a launch count per form, ``<wrapper>.launches[dtype]``, raised
-by one at every kernel launch of that form and nowhere else.
+by one at every kernel launch of that form and nowhere else.  While a
+profile records, :func:`bp_decode_layered` also counts its tile launches,
+``exact.launches``, and those with the tables staged,
+``exact.staged_launches`` (:func:`...utils.profiling.count`).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import ctypes
 
 import torch
 
+from ...utils.profiling import count
 from .. import layered
 from ..messages import DEFAULT_QUANT_SCALE, DTYPE_CODES, TORCH_DTYPES, MessageForm
 from ..sorted import SortedDecodeOutput, bp_decode_sorted, syndrome_ok_from_posterior
@@ -363,8 +369,8 @@ EXACT_TILE_FRAMES = (16, 8, 4)
 EXACT_FORM_OVERRIDE = None
 
 
-def _exact_table_ints(tables: KernelTables) -> int:
-    """int32 entries the exact kernel stages: the code's four tables and
+def exact_table_entries(tables: KernelTables) -> int:
+    """Entries of the exact kernel's eight tables: the code's four and
     each layer's checks and variables (CSR)."""
     return (code_table_ints(tables) + 2 * (tables.n_layers + 1) + tables.layer_checks.shape[0]
             + tables.layer_vars.shape[0])
@@ -373,9 +379,10 @@ def _exact_table_ints(tables: KernelTables) -> int:
 def exact_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
     """Dynamic shared memory of the exact layered kernel's tile form
     (``csrc/layered_exact_tile.cuh`` ``exact_tile_bytes``, exported by the
-    library as ``ldpc_exact_tile_bytes``): the tile and, staged, the code's
-    four tables and each layer's checks and variables (CSR)."""
-    return tile_bytes(tables, frames, message_dtype, _exact_table_ints(tables) if stage else 0)
+    library as ``ldpc_exact_tile_bytes``): the tile and, staged, the eight
+    tables at 2 bytes an entry (``KernelTables.exact16``), 4-byte aligned."""
+    staged = _align4(2 * exact_table_entries(tables)) if stage else 0
+    return tile_bytes(tables, frames, message_dtype, 0) + staged
 
 
 def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
@@ -383,7 +390,10 @@ def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[in
     message form, by size alone: a tile of :data:`EXACT_TILE_FRAMES` frames
     a block where one fits, else ``(0, False)``, the plane form (``lc2v``,
     the posterior and the decisions in device memory, 16 frames a block),
-    which every tile beat where both fit.
+    which every tile beat where both fit.  The tiles read 16-bit tables: a
+    code without them (``KernelTables.exact16`` None: an entry past 65,535,
+    as in layers that repeat its checks many times over) takes the plane
+    form.
 
     float32 and bfloat16 (one block an SM) take
     :func:`.decode_fused.tile_form`'s tile: the most frames whose tables
@@ -394,21 +404,24 @@ def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[in
     tile does too, whatever the L1 holds.
 
     The choices and their times on the card (``PERF.md`` section 6; 50
-    iterations at B = 16384, BP, int8 BP_MS): wifi 648 16 frames staged in
-    every form (228,640 bytes in float32); wifi 1296 4 staged in float32
-    (74.2 ms against 79.2 at 8 unstaged and 111.5 in the plane form), 8
-    staged in bfloat16 (59.9 against 70.8 at 8 unstaged), 16 unstaged in
-    int8 (34.4 against 34.8 at 8 unstaged); wifi 1944 4 unstaged in float32
-    (134.0 ms against 170.2 in the plane form and 374.2 in the HBM-plane
-    design before it), 4 staged in bfloat16 (100.2 against 120.4 at 8
-    unstaged), 8 unstaged in int8 (57.0 against 63.6 at 4 unstaged and 87.6
-    at 16 unstaged).  Past the tiles, on (3,6) QC codes of 4,800 (float32)
-    and 8,000 (bfloat16) variables, the plane form took 0.68 and 0.93 times
-    the time of a plane form keeping the posterior of 8 frames a block on
-    chip, on 16,000 (int8) 1.10 times: that form was not kept.  At any
-    other shape the rule extrapolates."""
+    iterations at B = 16384, BP, int8 BP_MS; the tables 16-bit, 2 bytes an
+    entry staged): wifi 648 16 frames staged in every form (211,736 bytes
+    in float32); wifi 1296 8 staged in float32 (57.0 ms against 74.5 at 4
+    staged, 72.3 at 8 unstaged and 111.7 in the plane form), 16 staged in
+    bfloat16 (54.0 against 59.8 at 8 staged), 16 unstaged in int8 (32.6,
+    tied with 32.5 at 8 staged and ahead of 33.7 at 8 unstaged); wifi 1944 4
+    staged in float32 (96.7 ms against 121.2 unstaged and 169.5 in the plane
+    form), 8 staged in bfloat16 (92.9 against 99.3 at 4 staged), 8 unstaged
+    in int8 (53.2 against 53.4 at 4 staged and 72.7 at 8 staged, one block an
+    SM).  Past the tiles, on (3,6) QC codes of 4,800 (float32) and 8,000
+    (bfloat16) variables, the plane form took 0.68 and 0.93 times the time
+    of a plane form keeping the posterior of 8 frames a block on chip, on
+    16,000 (int8) 1.10 times: that form was not kept.  At any other shape
+    the rule extrapolates."""
     if EXACT_FORM_OVERRIDE is not None:
         return EXACT_FORM_OVERRIDE
+    if tables.exact16 is None:
+        return 0, False
 
     def bytes_of(frames, stage):
         return exact_tile_bytes(tables, frames, message_dtype, stage)
@@ -486,23 +499,30 @@ def bp_decode_layered(
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     run = (iterations, int(bool(early_term)), mode, scale, offset, form.code, form.inv_q)
     frames, stage = exact_form(tables, form.dtype)
-    layer_args = (_p(tables.layer_var_ptr), _p(tables.layer_vars), nc, sdc.mc, sdc.nnz,
-                  tables.n_layers, tables.layer_checks.shape[0], tables.layer_vars.shape[0], B)
+    shape = (nc, sdc.mc, sdc.nnz, tables.n_layers, tables.layer_checks.shape[0],
+             tables.layer_vars.shape[0], B)
     if frames == 0:
         lc2v = torch.empty((sdc.nnz, B), **msgs)
         # the packed decisions, a row per block of 16 frames
         hard = torch.empty(((B + 15) // 16, nc), dtype=torch.int16, device=dev)
         err = lib.ldpc_bp_decode_layered(
             _p(llr_in), _p(post), _p(iters), _p(iscw), _p(lc2v), _p(hard),
-            *_tables_args(tables), *layer_args, *run, _stream(llr_in),
+            *_tables_args(tables), _p(tables.layer_var_ptr), _p(tables.layer_vars), *shape, *run,
+            _stream(llr_in),
         )
     else:
+        if tables.exact16 is None:  # a tile forced by EXACT_FORM_OVERRIDE
+            raise ValueError("the exact layered kernel's tiles need 16-bit tables; this code's "
+                             "entries pass 65,535 (decode in the plane form)")
         entry = {16: lib.ldpc_bp_decode_layered_tile16, 8: lib.ldpc_bp_decode_layered_tile8,
                  4: lib.ldpc_bp_decode_layered_tile4}[frames]
-        err = entry(_p(llr_in), _p(post), _p(iters), _p(iscw), *_tables_args(tables),
-                    *layer_args, *run, int(stage), _stream(llr_in))
+        err = entry(_p(llr_in), _p(post), _p(iters), _p(iscw), _p(tables.exact16), *shape, *run,
+                    int(stage), _stream(llr_in))
     _raise_on(lib, err, "bp_decode_layered")
     bp_decode_layered.launches[form.dtype] += 1
+    if frames:  # a tile launch, its tables staged or not (read while a profile records)
+        count("exact.launches", 1)
+        count("exact.staged_launches", int(stage))
     bp_decode_layered.last_form = (frames, stage)
     llr_out = form.dequant(post)
     return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,

@@ -14,6 +14,9 @@ arithmetic, no kernel runs.
   K4, K5): the most frames whose tile keeps its tables on chip, staged or
   in the L1 left beside it; K4's ``stream_form`` through it picks what its
   own rule picked.
+* ``KernelTables.exact16``, the 16-bit tables of K5's tiles: entry for
+  entry the int32 tables; 16 bits hold every entry of a code whose
+  smallest tile fits; staged, they take 2 bytes an entry, 4-byte aligned.
 """
 
 import dataclasses
@@ -27,7 +30,7 @@ from libldpc_tpu_torch.convert import code_from_jax
 from libldpc_tpu_torch.models import LDPCCode, make_qc_benchmark_code, qc_natural_layers
 from libldpc_tpu_torch.ops.kernels import decode_fused as df
 from libldpc_tpu_torch.ops.kernels import decode_layered as dl
-from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+from libldpc_tpu_torch.ops.kernels.layout import TABLE16_MAX, kernel_tables
 from libldpc_tpu_torch.ops.sorted import to_sorted_device
 
 DTYPES = ("float32", "bfloat16", "int8")
@@ -79,8 +82,8 @@ K2_RULE = {
 }
 K5_RULE = {
     "wifi648": [(16, True), (16, True), (16, True)],
-    "wifi1296": [(4, True), (8, True), (16, False)],
-    "wifi1944": [(4, False), (4, True), (8, False)],
+    "wifi1296": [(8, True), (16, True), (16, False)],
+    "wifi1944": [(4, True), (8, True), (8, False)],
 }
 
 
@@ -107,7 +110,7 @@ def test_stream_tile_bytes_layout(smoke_codes):
 def test_exact_form_rule(smoke_codes, name):
     tables = smoke_codes[name]
     assert [dl.exact_form(tables, dt) for dt in DTYPES] == K5_RULE[name]
-    assert dl.exact_tile_bytes(smoke_codes["wifi648"], 16, "float32", True) == 228640
+    assert dl.exact_tile_bytes(smoke_codes["wifi648"], 16, "float32", True) == 211736
 
 
 def test_exact_form_int8_takes_two_blocks_an_sm(smoke_codes):
@@ -223,3 +226,95 @@ def test_overrides_take_precedence(smoke_codes):
         df.STREAM_FORM_OVERRIDE = None
         dl.EXACT_FORM_OVERRIDE = None
     assert df.stream_form(t, "int8") == (16, True) and dl.exact_form(t, "int8") == (16, True)
+
+
+def _int32_tables(t):
+    """K5's eight int32 tables in ``exact16``'s order."""
+    return (t.row_ptr, t.col_sorted, t.vn_ptr, t.perm_c2v, t.layer_ptr, t.layer_checks,
+            t.layer_var_ptr, t.layer_vars)
+
+
+@pytest.mark.parametrize("name", ["wifi648", "wifi1296", "wifi1944"])
+def test_exact16_is_the_int32_tables(smoke_codes, name):
+    """Entry for entry the eight int32 tables back to back, read as uint16,
+    then one zero where the count is odd."""
+    t = smoke_codes[name]
+    want = np.concatenate([x.numpy() for x in _int32_tables(t)])
+    got = t.exact16.numpy().view(np.uint16).astype(np.int64)
+    assert want.size == dl.exact_table_entries(t) and got.size == want.size + want.size % 2
+    np.testing.assert_array_equal(got[:want.size], want)
+    assert got[want.size:].tolist() in ([], [0])
+
+
+def test_exact16_without_layers_is_none(smoke_codes):
+    """Built only where the code has layers: the 1152 code's flooding
+    tables carry none, its tables in two layers do."""
+    assert smoke_codes["bench1152"].n_layers == 0 and smoke_codes["bench1152"].exact16 is None
+    code = even_odd(make_benchmark_code(1152, 3, 6, seed=0))
+    assert kernel_tables(to_sorted_device(code_from_jax(code), "cpu")).exact16 is None
+    t = tables_of(code)
+    assert t.n_layers == 2 and t.exact16.numel() == dl.exact_table_entries(t)
+
+
+def _regular(nc, dv, dc, seed=0):
+    rng = np.random.default_rng(seed)
+    mc = nc * dv // dc
+    return LDPCCode(rows=np.repeat(np.arange(mc), dc).astype(np.int32),
+                    cols=rng.permutation(np.repeat(np.arange(nc), dv)).astype(np.int32),
+                    nc=nc, mc=mc, layers=[np.arange(mc // 2), np.arange(mc // 2, mc)])
+
+
+@pytest.mark.parametrize("nc,dv,dc", [(12_900, 3, 6), (12_896, 3, 6), (9_600, 4, 8),
+                                      (7_200, 5, 10), (6_000, 6, 12)])
+def test_a_code_whose_smallest_tile_fits_has_16_bit_tables(nc, dv, dc):
+    """The smallest tile (int8, 4 frames) holds 4 (nnz + nc) bytes, so a code
+    whose tile fits a block has nnz + nc < 58,048: with layers that split
+    its checks, every entry (pointers up to nnz, labels below nc, slots
+    below nnz, layer pointers up to nlc <= mc or nlv <= nnz) is below
+    65,536.  Codes at the edge of that tile, of several degrees."""
+    t = kernel_tables(to_sorted_device(_regular(nc, dv, dc), "cpu", with_layers=True))
+    fits = dl.exact_tile_bytes(t, 4, "int8", False) <= df.SMEM_BLOCK_BYTES
+    assert fits == (nc != 12_900)
+    assert t.code.nnz + t.code.nc < df.SMEM_BLOCK_BYTES // 4 or not fits
+    if fits:
+        assert t.exact16 is not None
+        assert max(int(x.max()) for x in _int32_tables(t) if x.numel()) <= TABLE16_MAX
+
+
+def test_past_16_bits_no_exact16_and_the_plane_form():
+    """A (3,6) code of 30,000 variables (90,000 edges): row pointers pass
+    65,535, so there are no 16-bit tables, and no tile fits: the rule keeps
+    the plane form, which reads the int32 tables."""
+    t = kernel_tables(to_sorted_device(_regular(30_000, 3, 6), "cpu", with_layers=True))
+    assert int(t.row_ptr.max()) > TABLE16_MAX and t.exact16 is None
+    assert all(dl.exact_form(t, dt) == (0, False) for dt in DTYPES)
+
+
+def test_layers_past_16_bits_take_the_plane_form():
+    """A code small enough for every tile, in 1,367 layers that repeat its
+    48 checks: the layer pointers pass 65,535, so there are no 16-bit tables
+    and the rule keeps the plane form in every message form."""
+    code = dataclasses.replace(_regular(96, 3, 6), layers=[np.arange(48)] * 1366 + [np.arange(24)])
+    t = kernel_tables(to_sorted_device(code, "cpu", with_layers=True))
+    assert int(t.layer_ptr.max()) > TABLE16_MAX and t.exact16 is None
+    assert dl.exact_tile_bytes(t, 16, "float32", False) <= df.SMEM_BLOCK_BYTES
+    assert all(dl.exact_form(t, dt) == (0, False) for dt in DTYPES)
+
+
+@pytest.mark.parametrize("name", ["wifi648", "wifi1296", "wifi1944"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_bytes_are_the_tile_and_two_bytes_an_entry(smoke_codes, name, dtype):
+    """Staged: the tile, then the eight tables at 2 bytes an entry, the sum
+    4-byte aligned; unstaged: the tile alone (lc2v and the posterior in the
+    message type, the packed decisions)."""
+    t = smoke_codes[name]
+    c = t.code
+    msg = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    n = dl.exact_table_entries(t)
+    for f in (16, 8, 4):
+        tile = df._align4((c.nnz + c.nc) * f * msg) + df._align4(2 * c.nc)
+        assert dl.exact_tile_bytes(t, f, dtype, False) == tile
+        assert dl.exact_tile_bytes(t, f, dtype, True) == tile + (2 * n + 3) // 4 * 4
+    if name == "wifi1944" and dtype == "float32":  # cell 2's tile: 146,448 + 49,628 bytes
+        assert n == 24_814
+        assert [dl.exact_tile_bytes(t, 4, dtype, s) for s in (False, True)] == [146_448, 196_076]

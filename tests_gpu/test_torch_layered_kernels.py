@@ -15,7 +15,10 @@ checks), at a batch that is no multiple of 4, 16 or 32: the tiles of 16, 8
 and 4 frames a block (tables staged or not), and the plane form (its
 messages, posterior and decisions in device memory).  A tile forced past a
 block's shared memory raises; the tile's Python byte counts are held to
-the library's."""
+the library's.  On wifi 1944 and wifi 1296 the rule's tile with its 16-bit
+tables staged is bit-identical to the same tile reading them from device
+memory, in every message form and CN family, and counts its launches while
+a profile records."""
 
 import dataclasses
 
@@ -63,7 +66,8 @@ def _uneven_layers():
 
 
 CODES = {"wifi1944": lambda: wifi_code(1944), "qc1024": _qc_code, "wifi648": lambda: wifi_code(648),
-         "two_layer96": _two_layer_code, "uneven": _uneven_layers}
+         "two_layer96": _two_layer_code, "uneven": _uneven_layers,
+         "wifi1296": lambda: wifi_code(1296)}
 
 
 @pytest.fixture(scope="module")
@@ -291,10 +295,77 @@ def test_exact_kernel_every_form(tables_of, built, force_exact, name, label, til
 def test_exact_rules_on_wifi1944(tables_of):
     _, tables = tables_of("wifi1944")
     dts = ("float32", "bfloat16", "int8")
-    assert [dl.exact_form(tables, dt) for dt in dts] == [(4, False), (4, True), (8, False)]
+    assert [dl.exact_form(tables, dt) for dt in dts] == [(4, True), (8, True), (8, False)]
 
 
-@pytest.mark.parametrize("name", ["wifi1944", "uneven", "wifi648"])
+@pytest.mark.parametrize("early_term", [True, False])
+@pytest.mark.parametrize("dtype,form", DTYPE_FORMS)
+@pytest.mark.parametrize("name", ["wifi1944", "wifi1296"])
+def test_exact_staged_tables_bit_identical_to_unstaged(tables_of, built, force_exact, name, dtype,
+                                                       form, early_term):
+    """The rule's tile with its 16-bit tables staged in shared memory and the
+    same tile reading them from device memory: the same ``llr_out``,
+    ``iterations`` and ``is_codeword`` for every frame; both held to the
+    plain version."""
+    code, tables = tables_of(name)
+    tile = dl.exact_form(tables, dtype)[0]
+    assert tile and dl.exact_tile_bytes(tables, tile, dtype, True) <= dl.SMEM_BLOCK_BYTES
+    llr, _ = frames(code, tables.code.vn_perm.cpu(), B_RAGGED, 1.8, seed=23)
+    x = torch.from_numpy(llr).to(tables.device)
+    outs = []
+    for stage in (True, False):
+        force_exact((tile, stage))
+        outs.append(dl.bp_decode_layered(tables, x, 12, early_term, form, dtype))
+        assert dl.bp_decode_layered.last_form == (tile, stage)
+    staged, unstaged = outs
+    key = ("exact plain staged", name, dtype, str(form), early_term)
+    if key not in built:
+        built[key] = dl.bp_decode_layered_plain(tables, x, 12, early_term, form, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(staged.llr_out, unstaged.llr_out)
+    assert torch.equal(staged.iterations, unstaged.iterations)
+    assert torch.equal(staged.is_codeword, unstaged.is_codeword)
+    for got in outs:
+        assert_matches(got, built[key], form, 1e-4 if dtype == "float32" else 2 ** -4)
+
+
+def test_exact_tile_forced_without_16_bit_tables_raises(cuda_device, force_exact):
+    """A code whose layers repeat its checks past 65,535 layer entries has no
+    16-bit tables: the rule keeps the plane form, which decodes it, and a
+    tile forced on it raises before any launch."""
+    code = _two_layer_code()
+    code.layers = [np.arange(code.mc, dtype=np.int32)] * 1366 + [code.layers[0]]
+    tables = kernel_tables(to_sorted_device(code, cuda_device, with_layers=True))
+    assert tables.exact16 is None and dl.exact_form(tables) == (0, False)
+    x = torch.randn(code.nc, 40, device=cuda_device) * 2 + 1.5
+    assert dl.bp_decode_layered(tables, x, 1, False, "BP_MS").llr_out.shape == (code.nc, 40)
+    assert dl.bp_decode_layered.last_form == (0, False)
+    force_exact((16, True))
+    with pytest.raises(ValueError, match="16-bit tables"):
+        dl.bp_decode_layered(tables, x, 1, False, "BP_MS")
+
+
+def test_exact_tile_launches_counted_while_profiling(tables_of):
+    """``exact.launches`` and ``exact.staged_launches`` count the tile
+    launches while a profile records (the rule stages wifi 1944's float32
+    tables), and nothing without one."""
+    from libldpc_tpu_torch.utils import profiling
+
+    code, tables = tables_of("wifi1944")
+    x = torch.randn(code.nc, 64, device=tables.device) * 2 + 1.5
+    profiling.reset_counters()
+    dl.bp_decode_layered(tables, x, 2, False, "BP_MS")
+    assert profiling.counters() == {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            dl.bp_decode_layered(tables, x, 2, False, "BP_MS")
+        torch.cuda.synchronize()
+    got = profiling.counters()
+    profiling.reset_counters()
+    assert got["exact.launches"] == got["exact.staged_launches"] == 3
+
+
+@pytest.mark.parametrize("name", ["wifi1944", "uneven", "wifi648", "wifi1296"])
 def test_exact_bytes_match_the_library(tables_of, name):
     """The tile form's shared memory, counted in Python as the launchers
     count it, in every message form, frames a block and staging."""

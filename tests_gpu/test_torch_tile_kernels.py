@@ -278,10 +278,10 @@ def test_exact_form_rule(tables_of):
     _, wifi = tables_of("wifi648")
     assert [dl.exact_form(wifi, dt) for dt in ("float32", "bfloat16", "int8")] == [
         (16, True)] * 3
-    assert dl.exact_tile_bytes(wifi, 16, "float32", True) == 228640
+    assert dl.exact_tile_bytes(wifi, 16, "float32", True) == 211736
     _, wifi1296 = tables_of("wifi1296")
     assert [dl.exact_form(wifi1296, dt) for dt in ("float32", "bfloat16", "int8")] == [
-        (4, True), (8, True), (16, False)]
+        (8, True), (16, True), (16, False)]
 
 
 @pytest.mark.parametrize("name", ["bench1152", "wifi648", "wifi1296", "wifi1944", "regular36",
