@@ -12,10 +12,14 @@ the reference both read are made here and never by the program:
 * ``"qc"``: a quasi-cyclic base matrix expanded at lifting ``Z``
   (``expand_qc``), with its natural layers, one per base row;
 * the generator: bit-packed GF(2) elimination of H, identity on the free
-  columns (``systematic_generator``).
+  columns (``systematic_generator``);
+* ``"puncture"``: ``[[start, stop], ...]``, half-open ranges of variable
+  indices in the code's own labels that are never transmitted (their
+  priors are 0); the transmitted bits are the others, ascending.
 
 :func:`write_code_files` writes the codefile (``row col`` pairs with the
-``nc:``/``mc:`` header), the generator file and the layer file that
+``nc:``/``mc:`` header and the ``puncture [k]:`` line that
+``libldpc_tpu_torch/models/io.py`` reads), the generator file and the layer file that
 ``ldpcsim``'s command line takes, so the program loads the code as its CLI
 loads it.  :func:`cached_code` keeps a built code and its files under a
 name made from its definition and this file, so that only a checkout's
@@ -44,10 +48,21 @@ class Code:
     mc: int
     G: np.ndarray  # uint8 [kc, nc]
     layers: Optional[list] = None  # check index arrays, or None
+    #: int64 [p] punctured variables, ascending
+    puncture: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.int64))
 
     @property
     def nnz(self) -> int:
         return int(self.rows.size)
+
+    @property
+    def transmitted(self) -> np.ndarray:
+        """int64 ``[nct]``: the variables sent over the channel, ascending."""
+        return np.setdiff1d(np.arange(self.nc, dtype=np.int64), self.puncture)
+
+    @property
+    def nct(self) -> int:
+        return self.nc - int(self.puncture.size)
 
     @property
     def kc(self) -> int:
@@ -148,8 +163,23 @@ def _qc_edges(base: np.ndarray, Z: int):
     return rows[order], cols[order], B.shape[1] * Z, B.shape[0] * Z
 
 
+def puncture_of(spec: dict, nc: int) -> np.ndarray:
+    """The punctured variables of a ``"code"`` entry's ``"puncture"`` ranges."""
+    ranges = spec.get("puncture", [])
+    if any(not 0 <= a < b <= nc for a, b in ranges):
+        raise ValueError(f"puncture ranges {ranges} outside [0, {nc})")
+    return np.unique(np.concatenate([np.arange(a, b, dtype=np.int64) for a, b in ranges]
+                                    + [np.zeros(0, np.int64)]))
+
+
 def build_code(spec: dict) -> Code:
     """The code of a configuration's ``"code"`` entry."""
+    code = _build_graph(spec)
+    code.puncture = puncture_of(spec, code.nc)
+    return code
+
+
+def _build_graph(spec: dict) -> Code:
     kind = spec["construction"]
     if kind == "regular":
         nc, dv, dc, seed = spec["nc"], spec["dv"], spec["dc"], spec["seed"]
@@ -179,8 +209,10 @@ def write_code_files(code: Code, directory: pathlib.Path) -> dict:
     paths (``layerfile`` empty without layers)."""
     directory.mkdir(parents=True, exist_ok=True)
     codefile = directory / "code.txt"
-    header = (f"nc: {code.nc}\nmc: {code.mc}\nnct: {code.nc}\nmct: {code.mc}\n"
-              f"nnz: {code.nnz}\npuncture [0]: \nshorten [0]: \n")
+    p = code.puncture
+    header = (f"nc: {code.nc}\nmc: {code.mc}\nnct: {code.nc - p.size}\nmct: {code.mc - p.size}\n"
+              f"nnz: {code.nnz}\npuncture [{p.size}]: {' '.join(map(str, p.tolist()))}\n"
+              f"shorten [0]: \n")
     pairs = "\n".join(f"{r} {c}" for r, c in zip(code.rows.tolist(), code.cols.tolist()))
     codefile.write_text(header + pairs + "\n")
     genfile = directory / "gen.txt"
@@ -210,7 +242,7 @@ def cached_code(spec: dict, directory: pathlib.Path) -> tuple:
         with np.load(arrays) as z:
             layers = [z[f"layer{i}"] for i in range(int(z["n_layers"]))]
             code = Code(z["rows"], z["cols"], int(z["nc"]), int(z["mc"]), z["G"],
-                        layers if int(z["n_layers"]) >= 0 else None)
+                        layers if int(z["n_layers"]) >= 0 else None, z["puncture"])
         layerfile = d / "layers.txt"
         return code, {"codefile": str(d / "code.txt"), "genfile": str(d / "gen.txt"),
                       "layerfile": str(layerfile) if code.layers is not None else ""}
@@ -220,6 +252,7 @@ def cached_code(spec: dict, directory: pathlib.Path) -> tuple:
     tmp = d / "code.npz.partial"
     with open(tmp, "wb") as f:  # written last: its presence means the files are whole
         np.savez(f, rows=code.rows, cols=code.cols, nc=code.nc, mc=code.mc, G=code.G,
+                 puncture=code.puncture,
                  n_layers=len(layers) if code.layers is not None else -1,
                  **{f"layer{i}": np.asarray(l) for i, l in enumerate(layers)})
     os.replace(tmp, arrays)

@@ -28,6 +28,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import Callable
 
 import torch
 
@@ -35,8 +36,9 @@ from . import spec as specmod
 from . import trace as tracemod
 from .codes import cached_code
 from .reference import checks
-from .reference.channel import FrameSource, step_keys
-from .reference.decoders import Graph, StreamReference, bfloat16_store, decode_layered
+from .reference.channel import step_keys
+from .reference.checks import frames_of, graph_of
+from .reference.decoders import StreamReference, bfloat16_store, decode_layered
 
 #: the stopping rule's frame-error count, never reached in a window
 FEC_OUT_OF_REACH = 2**62
@@ -52,15 +54,24 @@ TAIL_S = 1.0
 DEVICE = torch.device("cuda")
 
 
+def _stream_lanes(st) -> tuple:
+    return st.active.clone(), st.age.clone(), st.iters.clone()
+
+
+def _stream_end(st) -> tuple:
+    return st.active, st.iters
+
+
 @dataclasses.dataclass
 class Recorder:
     """What the timed path hands the host: every counter row it read, the
     steps dispatched, each streaming step's refill flag and, from
     ``tail_from`` on the host clock, the lanes at the start of the latest
-    streaming super-step that refills (in flight, age, iterations); and the
+    streaming super-step that refills (``lanes_of``: in flight, age,
+    iterations; the fused pool's also its pool and its frames); and the
     state the last streaming step returned, whose lanes :meth:`close` keeps
-    once the window has closed (in flight, each lane's last frame's
-    iterations)."""
+    once the window has closed (``end_of``: in flight, each lane's last
+    frame's iterations)."""
 
     rows: list = dataclasses.field(default_factory=list)
     dispatches: int = 0
@@ -69,6 +80,8 @@ class Recorder:
     snapshots: dict = dataclasses.field(default_factory=dict)
     last_state: object = None
     end: tuple = None
+    lanes_of: Callable = _stream_lanes
+    end_of: Callable = _stream_end
 
     def clear(self):
         self.rows, self.dispatches, self.refill, self.snapshots = [], 0, [], {}
@@ -77,7 +90,7 @@ class Recorder:
     def close(self):
         """Keep the last state's lanes on the host and let the state go."""
         if self.last_state is not None:
-            self.end = (self.last_state.active.cpu(), self.last_state.iters.cpu())
+            self.end = tuple(t.cpu() for t in self.end_of(self.last_state))
         self.last_state = None
 
     def tail(self):
@@ -104,8 +117,10 @@ def card_line() -> str:
 
 def build_simulator(cell: specmod.Cell, files: dict, seed: int, workdir):
     """The ``Simulator`` of the cell's command line, its counter reads and
-    steps recorded (the recording appends to lists and, at the window's
-    end, copies the lanes' three small state planes on the card)."""
+    steps recorded (the recording appends to lists and, over the window's
+    last second, copies on the card the lanes' state at each refilling
+    super-step: three small planes, and for the fused pool its pool and
+    the frames in flight too, ~190 MB at n = 1152)."""
     from libldpc_tpu_torch.models import LDPCCode
     from libldpc_tpu_torch.sim.driver import Simulator
     from libldpc_tpu_torch.utils.params import ChannelParams, DecoderParams, SimulationParams
@@ -135,6 +150,9 @@ def build_simulator(cell: specmod.Cell, files: dict, seed: int, workdir):
         return out
 
     sim._read = recording_read
+    if sim.engine == "fused-pool":
+        rec.lanes_of = _pool_lanes(sim.tables.code.vn_inv.long())
+        rec.end_of = lambda st: (st.done == 0, st.iters)
     if sim.engine == "batch":
         def recording_step(*a, **k):
             rec.dispatches += 1
@@ -145,8 +163,7 @@ def build_simulator(cell: specmod.Cell, files: dict, seed: int, workdir):
         def recording_stream_step(state, gen, x, refill):
             if refill and time.perf_counter() >= rec.tail_from:
                 # the point's super-step (its first dispatch is the warm-up step)
-                rec.snapshots = {rec.dispatches - 1: (state.active.clone(), state.age.clone(),
-                                                      state.iters.clone())}
+                rec.snapshots = {rec.dispatches - 1: rec.lanes_of(state)}
             rec.dispatches += 1
             rec.refill.append(bool(refill))
             state, acc = stream_step(state, gen, x, refill)
@@ -155,6 +172,18 @@ def build_simulator(cell: specmod.Cell, files: dict, seed: int, workdir):
 
         sim._stream_step = recording_stream_step
     return sim, rec
+
+
+def _pool_lanes(inv: torch.Tensor):
+    """The fused pool's lanes as the recorder keeps them: in flight, age,
+    iterations, entry unused, the frames in flight and in the pool (LLRs,
+    codewords) and the frames started.  The program keeps its planes in its
+    sorted labels; row ``inv[v]`` is the code's variable ``v``."""
+    def lanes_of(st):
+        return (st.done == 0, st.age.clone(), st.iters.clone(), st.avail != 0,
+                st.llr_in[inv], st.codeword[inv] != 0, st.fresh_llr[inv], st.fresh_cw[inv] != 0,
+                st.started.clone())
+    return lanes_of
 
 
 def _sweep(sim, rec: Recorder, seconds: float):
@@ -178,9 +207,8 @@ def _sweep(sim, rec: Recorder, seconds: float):
 def _stream_reference(cell, code, store):
     cfg = cell.config
     B = cfg["batch_size"]
-    return StreamReference(Graph(code.rows, code.cols, code.nc, code.mc, DEVICE),
-                           FrameSource(code.G, cell.traffic["snr_db"], DEVICE), B,
-                           cfg["iterations"], *_stream_rule(B), store)
+    return StreamReference(graph_of(code, DEVICE), frames_of(code, cell.traffic["snr_db"], DEVICE),
+                           B, cfg["iterations"], *_stream_rule(B), store)
 
 
 def _stream_rule(batch: int) -> tuple:
@@ -198,8 +226,8 @@ def compare(cell, code, rec: Recorder, seed: int, store=None) -> tuple:
     if chk["kind"] == "batch":
         rows = rec.rows
         if store is not None:
-            graph = Graph(code.rows, code.cols, code.nc, code.mc, DEVICE)
-            frames = FrameSource(code.G, tr["snr_db"], DEVICE)
+            graph = graph_of(code, DEVICE)
+            frames = frames_of(code, tr["snr_db"], DEVICE)
             rows = [[0, 0, B, 0] for _ in rec.rows]
             for j in checks.sample_indices(seed, len(rec.rows), chk["sample"]):
                 key = step_keys(seed, 0, j, 1, DEVICE)[0]
@@ -211,6 +239,14 @@ def compare(cell, code, rec: Recorder, seed: int, store=None) -> tuple:
     refill = rec.refill[1:]  # the first dispatch is the point's warm-up step
     leading = next((s for s, f in enumerate(refill) if not f), len(refill))
     n = min(chk["supersteps"], leading)
+    if chk["kind"] == "pool":
+        quota = _stream_rule(B)[1]
+        start, detail = checks.pool_start(rec.rows, code, tr["snr_db"], seed, B, its, quota, n,
+                                          DEVICE, store)
+        tail, numbers, tail_detail = checks.pool_tail(rec.rows, refill, rec.tail(), rec.end,
+                                                      code, tr["snr_db"], seed, B, its, quota,
+                                                      DEVICE, store)
+        return {**checks.stream_numbers(start, tail, B), **numbers}, detail + tail_detail
     rows = rec.rows
     if store is not None:
         ctl = _stream_reference(cell, code, store)
@@ -271,7 +307,7 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, t_process: floa
     print(f"portbench: cell {cell.name} seed {seed} engine={sim.engine} schedule={sim.schedule} "
           f"dtype={sim.message_dtype} decode_path={sim.decode_path}", file=sys.stderr)
     print(f"portbench: frames {frames} frame_errors {fe} bit_errors {be} "
-          f"FER {fe / max(frames, 1):.6e} BER {be / max(frames * code.nc, 1):.6e} "
+          f"FER {fe / max(frames, 1):.6e} BER {be / max(frames * code.nct, 1):.6e} "
           f"avg_iter {iter_sum / max(frames, 1):.6f} window_s {window_s:.6f} rows {len(rec.rows)}",
           file=sys.stderr)
 

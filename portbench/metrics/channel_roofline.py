@@ -1,7 +1,7 @@
 """``channel_roofline``: the channel draw K8's share of its roofline, in
 percent: the least time the card could take to draw the window's frames
 (each frame's float32 LLRs and its codeword written once; 12 operations a
-bit and the encode's word operations, ``portbench/roofline.py``) over the
+transmitted bit and the encode's word operations, ``portbench/roofline.py``) over the
 device time of K8's kernels (its plans and its draws, by name)."""
 
 import pathlib
@@ -21,6 +21,6 @@ def read(ctx):
         return None
     code = ctx["code"]
     n = ctx["frames_drawn"]
-    least = roofline.least_seconds(n * roofline.draw_frame_ops(code.nc, code.kc),
+    least = roofline.least_seconds(n * roofline.draw_frame_ops(code.nc, code.kc, code.nct),
                                    n * roofline.draw_frame_bytes(code.nc))
     return 100.0 * least / t

@@ -21,6 +21,20 @@ the seed alone.
   frame's iteration count at the end.  The rows of both ends are compared
   together (:func:`stream_numbers`); the point ends drained (no lane in
   flight).
+* The fused pool (``--pallas``): the same start from empty, on the pool's
+  semantics (:mod:`.pool`, :func:`pool_start`), and the same end
+  (:func:`pool_tail`) from the lanes and the pool at the start of the last
+  refilling super-step.  A lane's frame there was drawn on some chunk's
+  key while it waited in its pool entry, which its age does not tell; so
+  the reference reads which key from the frame's codeword (the key among
+  the chunks of the super-steps before whose draw of that lane gives the
+  frame's info bits, whole codeword and LLRs), draws the frame itself and
+  decodes it again for its age.  A lane in flight or an unused entry
+  whose frame no key draws is a departure.
+
+A code with punctured variables draws, decodes and counts as the program
+does: priors 0 there, bit errors over the transmitted bits only
+(:func:`graph_of`, :func:`frames_of`).
 """
 
 from __future__ import annotations
@@ -30,7 +44,25 @@ import torch
 
 from .channel import FrameSource, step_keys
 from . import decoders
-from .decoders import Graph, StreamReference, decode_layered
+from .decoders import Flooding, Graph, StreamReference, decode_layered
+from .pool import PoolReference, chunking, identify, info_columns
+
+#: super-steps before the last refilling one whose keys may have drawn a
+#: frame that is in the pool or in flight there (a frame is drawn after its
+#: lane took the one before, waits while that one decodes, then decodes:
+#: each at most ``iterations + 1`` passes, about a super-step, and the
+#: lane's idle passes between)
+POOL_LOOKBACK = 6
+
+
+def graph_of(code, device) -> Graph:
+    """The reference's graph of a code, counting its transmitted bits."""
+    return Graph(code.rows, code.cols, code.nc, code.mc, device, code.transmitted)
+
+
+def frames_of(code, snr_db: float, device) -> FrameSource:
+    """The reference's frames of a code, drawing its transmitted bits."""
+    return FrameSource(code.G, snr_db, device, code.transmitted)
 
 
 def sample_indices(seed: int, n_rows: int, n: int) -> list:
@@ -47,8 +79,8 @@ def batch_numbers(rows: list, code, snr_db: float, seed: int, batch: int, iterat
     batch's iteration sum from the reference's, per frame, and the worst,
     ``worst_iter_gap``; ``frame_error_gap`` and ``bit_error_gap``, the sums
     of the departures of the batches' frame and bit errors."""
-    graph = Graph(code.rows, code.cols, code.nc, code.mc, device)
-    frames = FrameSource(code.G, snr_db, device)
+    graph = graph_of(code, device)
+    frames = frames_of(code, snr_db, device)
     lanes = torch.arange(batch, device=device)
     detail, gaps, fe_gap, be_gap = [], [], 0, 0
     for j in sample_indices(seed, len(rows), n_sample):
@@ -67,7 +99,7 @@ def batch_numbers(rows: list, code, snr_db: float, seed: int, batch: int, iterat
         "iter_gap": float(np.mean(gaps)) if gaps else 1.0,
         "worst_iter_gap": max(gaps, default=1.0),
         "frame_error_gap": fe_gap if gaps else batch,
-        "bit_error_gap": be_gap if gaps else batch * code.nc,
+        "bit_error_gap": be_gap if gaps else batch * code.nct,
     }
     return numbers, detail
 
@@ -78,9 +110,8 @@ def stream_start(rows: list, code, snr_db: float, seed: int, batch: int, iterati
     """``(pairs, detail)``: the first ``supersteps`` super-steps' rows,
     each beside the reference's, which runs the streaming engine from
     empty on the same keys."""
-    graph = Graph(code.rows, code.cols, code.nc, code.mc, device)
-    ref = StreamReference(graph, FrameSource(code.G, snr_db, device), batch, iterations,
-                          gen_threshold, quota)
+    ref = StreamReference(graph_of(code, device), frames_of(code, snr_db, device), batch,
+                          iterations, gen_threshold, quota)
     n = min(supersteps, len(rows))
     pairs = [(list(rows[s]), ref.superstep(step_keys(seed, 0, s, passes, device), True))
              for s in range(n)]
@@ -109,7 +140,7 @@ def stream_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, se
     if snapshot is None or end is None or not rows:
         return [], {"tail_state_gap": 1.0, "tail_lane_gap": 1.0, "in_flight_at_end": batch}, []
     s0, active, age, iters = (snapshot[0], *(t.to(device) for t in snapshot[1:]))
-    graph = Graph(code.rows, code.cols, code.nc, code.mc, device)
+    graph = graph_of(code, device)
     keys = {}
 
     def key_of(p: int) -> int:
@@ -119,7 +150,7 @@ def stream_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, se
         return keys[s][k]
 
     def follow(store_fn):
-        ref = StreamReference(graph, FrameSource(code.G, snr_db, device), batch, iterations,
+        ref = StreamReference(graph, frames_of(code, snr_db, device), batch, iterations,
                               gen_threshold, quota, store_fn)
         lanes = active.nonzero().flatten()
         drawn = s0 * passes - age[lanes].to(torch.int64)
@@ -130,13 +161,22 @@ def stream_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, se
                for s in range(s0, len(refill))]
         return at_s0, out, ref.iters
 
-    (ref_active, ref_iters), refs, ref_last = follow(decoders.identity)
-    last = end[1].to(device)
-    if store is not None:
-        (active, iters), prog, last = follow(store)
-    else:
-        prog = [list(r) for r in rows[s0:len(refill)]]
+    ref_end = follow(decoders.identity)
+    prog_end = follow(store) if store is not None else \
+        ((active, iters), [list(r) for r in rows[s0:len(refill)]], end[1].to(device))
+    return _tail_numbers(s0, prog_end, ref_end, batch)
+
+
+def _tail_numbers(s0: int, prog_end: tuple, ref_end: tuple, batch: int, lost=None,
+                  extra: dict = None) -> tuple:
+    """``(pairs, numbers, detail)`` of an end followed from super-step
+    ``s0``: each side's ``((active, iters) at s0, rows, each lane's last
+    iterations)``; ``lost`` marks further lanes departing at ``s0``."""
+    (active, iters), prog, last = prog_end
+    (ref_active, ref_iters), refs, ref_last = ref_end
     differs = (active != ref_active) | (active & (iters != ref_iters))
+    if lost is not None:
+        differs |= lost
     numbers = {
         "tail_state_gap": int(differs.sum()) / batch,
         "tail_lane_gap": int((last != ref_last).sum()) / batch,
@@ -145,7 +185,7 @@ def stream_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, se
     pairs = list(zip(prog, refs))
     detail = [{"superstep": s0 + i, "program": p, "reference": r}
               for i, (p, r) in enumerate(pairs)]
-    detail.append({"superstep": s0, "lanes_in_flight": int(active.sum()),
+    detail.append({"superstep": s0, "lanes_in_flight": int(active.sum()), **(extra or {}),
                    "state_departures": int(differs.sum()),
                    "last_frame_departures": int((last != ref_last).sum())})
     return pairs, numbers, detail
@@ -172,3 +212,83 @@ def stream_numbers(start: list, tail: list, batch: int) -> dict:
         "frame_error_gap": int(gaps[2]) / max(int(total[1]), 1),
         "active_gap": max((abs(p[4] - r[4]) / batch for p, r in start), default=1.0),
     }
+
+
+def pool_start(rows: list, code, snr_db: float, seed: int, batch: int, iterations: int,
+               quota: int, supersteps: int, device, store=None) -> tuple:
+    """``(pairs, detail)`` of the fused pool's first ``supersteps``
+    super-steps: each row beside the reference's, which runs the pool from
+    empty on the same keys.  ``store`` puts the control in the program's
+    place: its rows are judged instead."""
+    graph = graph_of(code, device)
+    _, n_outer = chunking(iterations)
+
+    def run(store_fn):
+        ref = PoolReference(graph, frames_of(code, snr_db, device), batch, iterations, quota,
+                            Flooding(graph, store_fn))
+        return [ref.superstep(step_keys(seed, 0, s, n_outer, device), True)
+                for s in range(min(supersteps, len(rows)))]
+
+    refs = run(decoders.identity)
+    prog = [list(r) for r in rows[:len(refs)]] if store is None else run(store)
+    pairs = list(zip(prog, refs))
+    detail = [{"superstep": s, "program": p, "reference": r} for s, (p, r) in enumerate(pairs)]
+    return pairs, detail
+
+
+def pool_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, seed: int,
+              batch: int, iterations: int, quota: int, device, store=None) -> tuple:
+    """``(pairs, numbers, detail)`` of the fused pool's end, as
+    :func:`stream_tail` gives a streaming point's: ``snapshot`` is ``(s0,
+    active, age, iters, avail, llr, cw, pool_llr, pool_cw, started)``, the
+    program's lanes and pool at the start of super-step ``s0`` (the last
+    that refilled; the planes in the code's labels), ``end`` ``(active,
+    iters)`` its lanes after the last super-step.  The reference finds the
+    key of each frame in flight or in an unused entry among the chunks of
+    the :data:`POOL_LOOKBACK` super-steps before ``s0``
+    (:func:`.pool.identify`), starts the lanes in flight again from its own
+    draws for their ages, puts its draws in the unused entries and follows
+    ``s0`` to the last super-step, drawing every refill from the seed.
+    ``tail_state_gap`` counts the lanes whose in-flight flag or iteration
+    count at ``s0`` differs from the reference's, or whose unused entry
+    holds a frame no key draws; lanes idle at ``s0`` keep the program's
+    count there (their last frame before ``s0`` is not judged)."""
+    if snapshot is None or end is None or not rows:
+        return [], {"tail_state_gap": 1.0, "tail_lane_gap": 1.0, "in_flight_at_end": batch}, []
+    s0 = snapshot[0]
+    active, age, iters, avail, llr, cw, pool_llr, pool_cw, started = (
+        t.to(device) for t in snapshot[1:])
+    graph = graph_of(code, device)
+    frames = frames_of(code, snr_db, device)
+    _, n_outer = chunking(iterations)
+    keys = {s: step_keys(seed, 0, s, n_outer, device)
+            for s in range(max(0, s0 - POOL_LOOKBACK), len(refill))}
+    candidates = [k for s in sorted(keys) if s < s0 for k in keys[s]]
+    info = info_columns(code.G)
+    lanes = active.nonzero().flatten()
+    found, ref_llr, ref_cw = identify(frames, candidates, lanes, llr[:, lanes],
+                                      cw[:, lanes], info)
+    entries = avail.nonzero().flatten()
+    efound, e_llr, e_cw = identify(frames, candidates, entries, pool_llr[:, entries],
+                                   pool_cw[:, entries], info)
+    drawn, edrawn = found >= 0, efound >= 0
+
+    def follow(store_fn):
+        ref = PoolReference(graph, frames, batch, iterations, quota, Flooding(graph, store_fn))
+        ref.restore(lanes[drawn], age[lanes[drawn]], ref_llr[:, drawn], ref_cw[:, drawn])
+        ref.set_pool(entries[edrawn], e_llr[:, edrawn], e_cw[:, edrawn])
+        ref.started = int(started.reshape(-1)[0])
+        idle = ~active
+        ref.iters[idle] = iters[idle].to(ref.iters.dtype)
+        at_s0 = (ref.active.clone(), ref.iters.clone())
+        out = [ref.superstep(keys[s], refill[s]) for s in range(s0, len(refill))]
+        return at_s0, out, ref.iters
+
+    ref_end = follow(decoders.identity)
+    prog_end = follow(store) if store is not None else \
+        ((active, iters), [list(r) for r in rows[s0:len(refill)]], end[1].to(device))
+    lost = torch.zeros(batch, dtype=torch.bool, device=device)
+    lost[entries[~edrawn]] = True
+    return _tail_numbers(s0, prog_end, ref_end, batch, lost, {
+        "frames_undrawn": int((~drawn).sum()), "entries_unused": int(entries.numel()),
+        "entries_undrawn": int((~edrawn).sum())})

@@ -85,10 +85,16 @@ def exclusion(M: torch.Tensor) -> torch.Tensor:
 class Graph:
     """The Tanner graph on a device: edges in (check, variable) order; a
     set of checks is held as ``[count, max degree]`` edge indices and a
-    mask of the slots that exist."""
+    mask of the slots that exist.  ``transmitted``: the variables whose
+    decisions count as bit errors (every one when None), as the program
+    counts over ``bit_pos``."""
 
-    def __init__(self, rows: np.ndarray, cols: np.ndarray, nc: int, mc: int, device):
+    def __init__(self, rows: np.ndarray, cols: np.ndarray, nc: int, mc: int, device,
+                 transmitted=None):
         self.device = torch.device(device)
+        self.tx = None
+        if transmitted is not None and len(transmitted) < nc:
+            self.tx = torch.as_tensor(np.asarray(transmitted, dtype=np.int64), device=self.device)
         order = np.lexsort((cols, rows))
         rows, cols = np.asarray(rows)[order], np.asarray(cols)[order]
         self.nc, self.mc, self.nnz = nc, mc, rows.size
@@ -121,6 +127,12 @@ class Graph:
     def posterior(self, prior: torch.Tensor, lc2v: torch.Tensor) -> torch.Tensor:
         return prior.clone().index_add_(0, self.cols, lc2v)
 
+    def bit_errors(self, post: torch.Tensor, cw: torch.Tensor) -> torch.Tensor:
+        """int ``[B]``: the transmitted bits whose decision (``post <= 0``
+        decides 1) is not the codeword's."""
+        wrong = (post <= 0) != cw
+        return (wrong if self.tx is None else wrong.index_select(0, self.tx)).sum(dim=0)
+
     def syndrome_ok(self, post: torch.Tensor) -> torch.Tensor:
         """bool ``[B]``: the decisions of ``post`` satisfy every check."""
         slots, mask = self.all
@@ -128,68 +140,98 @@ class Graph:
         return ~(bits.sum(dim=1, dtype=torch.int32) % 2).bool().any(dim=0)
 
 
-class StreamReference:
-    """The default sweep's streaming engine on ``B`` lanes, from empty (or
-    from lanes started again by :meth:`restore`)."""
+class Flooding:
+    """One flooding iteration as a pass of a streaming engine: a lane
+    carries its variables' messages (``[nnz, L]``, one list entry); a fresh
+    lane starts from its prior as every edge's first message."""
 
-    def __init__(self, graph: Graph, frames: FrameSource, batch: int, iterations: int,
-                 gen_threshold: int, quota: int, store: Callable = identity):
+    def __init__(self, graph: Graph, store: Callable = identity):
+        self.g, self.store = graph, store
+
+    def start(self, prior: torch.Tensor) -> list:
+        return [self.store(prior.index_select(0, self.g.cols))]
+
+    def step(self, prior: torch.Tensor, state: list) -> tuple:
+        """``(posterior, state)`` after one iteration."""
+        g, st = self.g, self.store
+        lc2v = st(g.cn_update(state[0]))
+        post = st(g.posterior(prior, lc2v))
+        return post, [st(post.index_select(0, g.cols) - lc2v)]
+
+
+class Lanes:
+    """``B`` lanes of a streaming engine, each an independent stream of
+    frames decoded a pass at a time by ``step`` (a pass such as
+    :class:`Flooding`), with the sweep's early termination and counting;
+    the engines differ in when and from where a lane starts."""
+
+    def __init__(self, graph: Graph, batch: int, iterations: int, step):
         dev = graph.device
-        self.g, self.frames, self.B = graph, frames, batch
-        self.iterations, self.gen_threshold, self.quota = iterations, gen_threshold, quota
-        self.store = store
-        f64 = dict(dtype=torch.float64, device=dev)
-        self.llr = torch.zeros((graph.nc, batch), **f64)
+        self.g, self.B, self.iterations, self.step = graph, batch, iterations, step
+        self.llr = torch.zeros((graph.nc, batch), dtype=torch.float64, device=dev)
         self.cw = torch.zeros((graph.nc, batch), dtype=torch.bool, device=dev)
-        self.lv2c = torch.zeros((graph.nnz, batch), **f64)
+        self.state = step.start(self.llr)
         self.active = torch.zeros(batch, dtype=torch.bool, device=dev)
         self.age = torch.zeros(batch, dtype=torch.int32, device=dev)
         self.iters = torch.zeros(batch, dtype=torch.int32, device=dev)
         self.started = 0
 
+    def _start(self, lanes: torch.Tensor, llr: torch.Tensor, cw: torch.Tensor) -> None:
+        """The frames ``llr``, ``cw`` into ``lanes``, each from its prior."""
+        self.llr[:, lanes] = llr
+        self.cw[:, lanes] = cw
+        for s, v in zip(self.state, self.step.start(llr)):
+            s[:, lanes] = v
+        self.active[lanes] = True
+        self.age[lanes] = 1
+        self.iters[lanes] = 0
+        self.started += int(lanes.numel())
+
     def _pass(self) -> list:
-        """One flooding iteration on the lanes in flight (gathered where
-        not every lane is): ``[bit_errors, frame_errors, frames,
-        iter_sum]`` of the frames that stop in it."""
-        g, st = self.g, self.store
+        """One pass on the lanes in flight (gathered where not every lane
+        is): ``[bit_errors, frame_errors, frames, iter_sum]`` of the frames
+        that stop in it."""
+        g = self.g
         lanes = self.active.nonzero().flatten()
         if lanes.numel() == 0:
             return [0, 0, 0, 0]
         every = lanes.numel() == self.B
-        lv2c = self.lv2c if every else self.lv2c[:, lanes]
-        llr = self.llr if every else self.llr[:, lanes]
-        cw = self.cw if every else self.cw[:, lanes]
-        lc2v = st(g.cn_update(lv2c))
-        post = st(g.posterior(llr, lc2v))
+
+        def pick(t):
+            return t if every else t[:, lanes]
+
+        post, state = self.step.step(pick(self.llr), [pick(s) for s in self.state])
         age = self.age[lanes]
         checking = age >= 1
         ok = g.syndrome_ok(post)
         iters = self.iters[lanes] + (checking & ~ok).to(torch.int32)
         age = age + 1
         finished = (checking & ok) | (age >= self.iterations + 1)
-        biterr = ((post <= 0) != cw).sum(dim=0)[finished]
+        biterr = g.bit_errors(post, pick(self.cw))[finished]
         self.iters[lanes] = iters
         self.age[lanes] = age
         self.active[lanes[finished]] = False
-        out = st(post.index_select(0, g.cols) - lc2v)
         if every:
-            self.lv2c = out
+            self.state = state
         else:
-            self.lv2c[:, lanes] = out
+            for s, v in zip(self.state, state):
+                s[:, lanes] = v
         return [int(biterr.sum()), int((biterr > 0).sum()), int(biterr.numel()),
                 int(iters[finished].sum())]
 
-    def _start(self, lanes: torch.Tensor, key: int) -> None:
-        """Fresh frames into ``lanes``, drawn on ``key``: each starts from
-        its prior as every edge's first message."""
-        llr, cw = self.frames.draw(key, lanes)
-        self.llr[:, lanes] = llr
-        self.cw[:, lanes] = cw
-        self.lv2c[:, lanes] = self.store(llr.index_select(0, self.g.cols))
-        self.active[lanes] = True
-        self.age[lanes] = 1
-        self.iters[lanes] = 0
-        self.started += int(lanes.numel())
+
+class StreamReference(Lanes):
+    """The default sweep's streaming engine on ``B`` lanes, from empty (or
+    from lanes started again by :meth:`restore`)."""
+
+    def __init__(self, graph: Graph, frames: FrameSource, batch: int, iterations: int,
+                 gen_threshold: int, quota: int, store: Callable = identity):
+        super().__init__(graph, batch, iterations, Flooding(graph, store))
+        self.frames, self.gen_threshold, self.quota = frames, gen_threshold, quota
+
+    def _draw(self, lanes: torch.Tensor, key: int) -> None:
+        """Fresh frames into ``lanes``, drawn on ``key``."""
+        self._start(lanes, *self.frames.draw(key, lanes))
 
     def superstep(self, keys: list, refill: bool) -> list:
         """One super-step of ``len(keys)`` passes: ``[bit_errors,
@@ -200,8 +242,8 @@ class StreamReference:
             idle = ~self.active
             if refill and int(idle.sum()) >= self.gen_threshold:
                 rank = torch.cumsum(idle.to(torch.int64), 0)
-                self._start((idle & (self.started + rank <= self.quota)).nonzero().flatten(),
-                            key)
+                self._draw((idle & (self.started + rank <= self.quota)).nonzero().flatten(),
+                           key)
         return [int(v) for v in counts] + [int(self.active.sum())]
 
     def restore(self, draws: dict, upto: int, key_of: Callable) -> None:
@@ -213,7 +255,7 @@ class StreamReference:
         for p in range(min(draws, default=upto), upto):
             self._pass()
             if p in draws:
-                self._start(draws[p], key_of(p))
+                self._draw(draws[p], key_of(p))
 
 
 def decode_layered(graph: Graph, layers: list, prior: torch.Tensor, cw: torch.Tensor,
@@ -248,13 +290,13 @@ def decode_layered(graph: Graph, layers: list, prior: torch.Tensor, cw: torch.Te
         it += int((~done).sum())
         fin = done.nonzero().flatten()
         if fin.numel():
-            err = ((post[:, fin] <= 0) != C[:, fin]).sum(dim=0)
+            err = g.bit_errors(post[:, fin], C[:, fin])
             be += int(err.sum())
             fe += int((err > 0).sum())
             keep = (~done).nonzero().flatten()
             P, C, post, lc2v = P[:, keep], C[:, keep], post[:, keep], lc2v[:, keep]
     if P.shape[1]:
-        err = ((post <= 0) != C).sum(dim=0)
+        err = g.bit_errors(post, C)
         be += int(err.sum())
         fe += int((err > 0).sum())
     return {"bit_errors": be, "frame_errors": fe, "frames": B, "iter_sum": it}

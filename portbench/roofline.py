@@ -46,12 +46,13 @@ def decode_frame_bytes(nc: int) -> float:
     return 4.0 * nc + 8.0
 
 
-def draw_frame_ops(nc: int, kc: int) -> float:
+def draw_frame_ops(nc: int, kc: int, nct: int = None) -> float:
     """Operations one frame's draw needs: 12 a transmitted bit (the noise,
-    the BPSK map, the LLR scale: ``decode_frame_cost``'s channel share)
+    the BPSK map, the LLR scale: ``decode_frame_cost``'s channel share;
+    ``nct`` of them, every bit when None: a punctured bit draws no noise)
     and the encode, an AND and a population count a 32-bit word of the
     info word for each of the ``nc - kc`` parity columns."""
-    return 12.0 * nc + 2.0 * (-(-kc // 32)) * (nc - kc)
+    return 12.0 * (nc if nct is None else nct) + 2.0 * (-(-kc // 32)) * (nc - kc)
 
 
 def draw_frame_bytes(nc: int) -> float:

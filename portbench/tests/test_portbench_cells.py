@@ -8,6 +8,7 @@ Run on a machine with one H100, from the repo root:
 """
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -115,7 +116,7 @@ def _broken(kind: str):
 
             def bad(state, gen, x, refill):
                 if kind == "unchanged":
-                    _, acc = step(copy.deepcopy(state), gen, x, refill)
+                    _, acc = step(_copied(state), gen, x, refill)
                     return state, type(acc)(*(torch.zeros_like(v) for v in acc))
                 state, acc = step(state, gen, x, refill)
                 if kind == "half":
@@ -130,6 +131,17 @@ def _broken(kind: str):
                                         acc.iter_sum, acc.n_active)
             sim._stream_step = bad
     return wrap
+
+
+def _copied(state):
+    """A streaming state to step in the original's place: a deep copy, or
+    for the fused pool's state its tensors cloned (its quota watch, which
+    holds CUDA events, shared)."""
+    if getattr(state, "watch", None) is None:
+        return copy.deepcopy(state)
+    return dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
+                                         for f in dataclasses.fields(state)
+                                         if isinstance(getattr(state, f.name), torch.Tensor)})
 
 
 def _bad_decisions(batch_decoder):

@@ -45,7 +45,7 @@ def test_names_and_units(key, entry):
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_cell_resolves_by_name(cell):
     c = spec.resolve(BENCH, cell)
-    assert c.check["kind"] in ("batch", "stream") and c.check["limits"]
+    assert c.check["kind"] in ("batch", "stream", "pool") and c.check["limits"]
     assert c.traffic["channel"] == "AWGN"
     assert {m["name"] for m in c.end_to_end} >= {"frames_per_s", "setup_s"}
     assert c.per_layer
