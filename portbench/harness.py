@@ -38,7 +38,7 @@ from .codes import cached_code
 from .reference import checks
 from .reference.channel import step_keys
 from .reference.checks import frames_of, graph_of
-from .reference.decoders import StreamReference, bfloat16_store, decode_layered
+from .reference.decoders import StreamReference, bfloat16_store
 
 #: the stopping rule's frame-error count, never reached in a window
 FEC_OUT_OF_REACH = 2**62
@@ -120,14 +120,22 @@ def build_simulator(cell: specmod.Cell, files: dict, seed: int, workdir):
     steps recorded (the recording appends to lists and, over the window's
     last second, copies on the card the lanes' state at each refilling
     super-step: three small planes, and for the fused pool its pool and
-    the frames in flight too, ~190 MB at n = 1152)."""
-    from libldpc_tpu_torch.models import LDPCCode
+    the frames in flight too, ~190 MB at n = 1152).  A mix's ``qc`` true
+    declares the code quasi-cyclic at its configuration's lifting ``Z``, as
+    ``--qc-z`` does (``detect_qc``, which raises where H is not): with
+    ``--pallas --layer-file`` the sweep then routes to the fast layered
+    engine."""
+    from libldpc_tpu_torch.models import LDPCCode, detect_qc
     from libldpc_tpu_torch.sim.driver import Simulator
     from libldpc_tpu_torch.utils.params import ChannelParams, DecoderParams, SimulationParams
 
     cfg, tr = cell.config, cell.traffic
     layer_file = files["layerfile"] if tr["layer_file"] else ""
     pcode = LDPCCode.from_files(files["codefile"], files["genfile"], layer_file)
+    if tr.get("qc"):
+        if "Z" not in cfg["code"]:
+            raise ValueError(f"the mix declares {cell.config_name} quasi-cyclic; its code has no Z")
+        detect_qc(pcode, int(cfg["code"]["Z"]))
     snr = float(tr["snr_db"])
     sim = Simulator(
         pcode,
@@ -232,20 +240,19 @@ def compare(cell, code, rec: Recorder, seed: int, store=None) -> tuple:
             for j in checks.sample_indices(seed, len(rec.rows), chk["sample"]):
                 key = step_keys(seed, 0, j, 1, DEVICE)[0]
                 llr, cw = frames.draw(key, torch.arange(B, device=DEVICE))
-                r = decode_layered(graph, code.layers, llr, cw, its, store)
+                r = checks.decode_batch(graph, code, tr, llr, cw, its, store)
                 rows[j] = [r["bit_errors"], r["frame_errors"], r["frames"], r["iter_sum"]]
-        return checks.batch_numbers(rows, code, tr["snr_db"], seed, B, its, chk["sample"],
-                                    DEVICE)
+        return checks.batch_numbers(rows, code, tr, seed, B, its, chk["sample"], DEVICE)
     refill = rec.refill[1:]  # the first dispatch is the point's warm-up step
     leading = next((s for s, f in enumerate(refill) if not f), len(refill))
     n = min(chk["supersteps"], leading)
     if chk["kind"] == "pool":
         quota = _stream_rule(B)[1]
-        start, detail = checks.pool_start(rec.rows, code, tr["snr_db"], seed, B, its, quota, n,
-                                          DEVICE, store)
+        start, detail = checks.pool_start(rec.rows, code, tr, seed, B, its, quota, n, DEVICE,
+                                          store)
         tail, numbers, tail_detail = checks.pool_tail(rec.rows, refill, rec.tail(), rec.end,
-                                                      code, tr["snr_db"], seed, B, its, quota,
-                                                      DEVICE, store)
+                                                      code, tr, seed, B, its, quota, DEVICE,
+                                                      store)
         return {**checks.stream_numbers(start, tail, B), **numbers}, detail + tail_detail
     rows = rec.rows
     if store is not None:

@@ -8,7 +8,9 @@ the seed alone.
 
 * A batch-stepped point (:func:`batch_numbers`): a sample of the window's
   batches, drawn from the seed, each drawn again and decoded by the
-  reference; every batch's frame count is exact.
+  reference (:func:`decode_batch`: the exact layered schedule where the
+  sweep reads a layer file, else flooding, with or without early
+  termination as the sweep runs); every batch's frame count is exact.
 * A streaming point: the reference runs the streaming engine from empty
   over the first ``supersteps`` super-steps, on the same keys
   (:func:`stream_start`).  A super-step's rows depend on every earlier
@@ -30,7 +32,14 @@ the seed alone.
   the chunks of the super-steps before whose draw of that lane gives the
   frame's info bits, whole codeword and LLRs), draws the frame itself and
   decodes it again for its age.  A lane in flight or an unused entry
-  whose frame no key draws is a departure.
+  whose frame no key draws is a departure.  That engine's lanes hold
+  their APP where flooding's hold their prior, so a lane in flight is
+  found by its codeword alone; an unused entry, by its LLRs too.
+
+Each kind takes the cell's traffic mix and decodes on the pass the sweep
+routes that mix to: the exact layered schedule or flooding in batches
+(:func:`decode_batch`), the fast layered engine's iteration or flooding in
+the fused pool (:func:`pool_pass`).
 
 A code with punctured variables draws, decodes and counts as the program
 does: priors 0 there, bit errors over the transmitted bits only
@@ -44,7 +53,8 @@ import torch
 
 from .channel import FrameSource, step_keys
 from . import decoders
-from .decoders import Flooding, Graph, StreamReference, decode_layered
+from .decoders import (Flooding, Graph, Layered, StreamReference, decode_flooding,
+                       decode_layered, identity)
 from .pool import PoolReference, chunking, identify, info_columns
 
 #: super-steps before the last refilling one whose keys may have drawn a
@@ -71,22 +81,38 @@ def sample_indices(seed: int, n_rows: int, n: int) -> list:
     return sorted(rng.choice(n_rows, size=min(n, n_rows), replace=False).tolist())
 
 
-def batch_numbers(rows: list, code, snr_db: float, seed: int, batch: int, iterations: int,
+def decode_batch(graph: Graph, code, traffic: dict, llr: torch.Tensor, cw: torch.Tensor,
+                 iterations: int, store=identity) -> dict:
+    """The reference's decode of one batch of a batch-stepped point of
+    ``traffic``: the exact layered schedule on the code's layers where the
+    sweep reads a layer file (with early termination: there is no reference
+    of it without), else flooding, with early termination as the sweep
+    says."""
+    if traffic["layer_file"]:
+        if not traffic["early_term"]:
+            raise ValueError("no reference of the exact layered schedule without early "
+                             "termination")
+        return decode_layered(graph, code.layers, llr, cw, iterations, store)
+    return decode_flooding(graph, llr, cw, iterations, bool(traffic["early_term"]), store)
+
+
+def batch_numbers(rows: list, code, traffic: dict, seed: int, batch: int, iterations: int,
                   n_sample: int, device) -> tuple:
-    """``(numbers, detail)`` of a batch-stepped point on the exact layered
-    schedule: ``frames_gap`` (batches whose frame count is not ``batch``);
-    over the sampled batches, ``iter_gap``, the mean of the departures of a
-    batch's iteration sum from the reference's, per frame, and the worst,
-    ``worst_iter_gap``; ``frame_error_gap`` and ``bit_error_gap``, the sums
-    of the departures of the batches' frame and bit errors."""
+    """``(numbers, detail)`` of a batch-stepped point of ``traffic``, each
+    sampled batch decoded by :func:`decode_batch`: ``frames_gap`` (batches
+    whose frame count is not ``batch``); over the sampled batches,
+    ``iter_gap``, the mean of the departures of a batch's iteration sum
+    from the reference's, per frame, and the worst, ``worst_iter_gap``;
+    ``frame_error_gap`` and ``bit_error_gap``, the sums of the departures
+    of the batches' frame and bit errors."""
     graph = graph_of(code, device)
-    frames = frames_of(code, snr_db, device)
+    frames = frames_of(code, traffic["snr_db"], device)
     lanes = torch.arange(batch, device=device)
     detail, gaps, fe_gap, be_gap = [], [], 0, 0
     for j in sample_indices(seed, len(rows), n_sample):
         key = step_keys(seed, 0, j, 1, device)[0]
         llr, cw = frames.draw(key, lanes)
-        ref = decode_layered(graph, code.layers, llr, cw, iterations)
+        ref = decode_batch(graph, code, traffic, llr, cw, iterations)
         be, fe, fr, it = rows[j][:4]
         gaps.append(abs(it - ref["iter_sum"]) / batch)
         fe_gap += abs(fe - ref["frame_errors"])
@@ -197,35 +223,49 @@ def stream_numbers(start: list, tail: list, batch: int) -> dict:
     ``frames_gap`` and ``iter_gap``, the sums of the departures of their
     stopped frames and of those frames' iterations, per frame the reference
     stopped; ``frame_error_gap``, the same sum for frame errors, as a share
-    of the reference's; ``active_gap``, the worst departure of the lanes in
-    flight after a super-step of the start, as a share of the lanes.  With
-    either end not followed no number can pass."""
-    gaps, total = np.zeros(3, dtype=np.int64), np.zeros(2, dtype=np.int64)
+    of the reference's; ``frame_error_count_gap`` and
+    ``bit_error_count_gap``, the sums for frame and bit errors themselves
+    (where the reference counts few errors, a share of them swings by one
+    departure); ``active_gap``, the worst departure of the lanes in flight
+    after a super-step of the start, as a share of the lanes.  With either
+    end not followed no number can pass."""
+    gaps, total = np.zeros(4, dtype=np.int64), np.zeros(2, dtype=np.int64)
     for p, r in start + tail:
-        gaps += [abs(p[2] - r[2]), abs(p[3] - r[3]), abs(p[1] - r[1])]
+        gaps += [abs(p[2] - r[2]), abs(p[3] - r[3]), abs(p[1] - r[1]), abs(p[0] - r[0])]
         total += [r[2], r[1]]
     if not start or not tail:
-        gaps, total = np.ones(3, dtype=np.int64), np.ones(2, dtype=np.int64)
+        gaps, total = np.full(4, batch, dtype=np.int64), np.full(2, batch, dtype=np.int64)
     return {
         "frames_gap": int(gaps[0]) / max(int(total[0]), 1),
         "iter_gap": int(gaps[1]) / max(int(total[0]), 1),
         "frame_error_gap": int(gaps[2]) / max(int(total[1]), 1),
+        "frame_error_count_gap": int(gaps[2]),
+        "bit_error_count_gap": int(gaps[3]),
         "active_gap": max((abs(p[4] - r[4]) / batch for p, r in start), default=1.0),
     }
 
 
-def pool_start(rows: list, code, snr_db: float, seed: int, batch: int, iterations: int,
+def pool_pass(graph: Graph, code, traffic: dict, store=identity):
+    """The fused pool's pass for ``traffic``: the fast layered engine's
+    iteration on the code's layers where the mix reads a layer file (a
+    fused pool runs layered only on a code declared quasi-cyclic, ``qc``:
+    ``--layer-file --qc-z``), else flooding."""
+    return Layered(graph, code.layers, store) if traffic["layer_file"] else Flooding(graph, store)
+
+
+def pool_start(rows: list, code, traffic: dict, seed: int, batch: int, iterations: int,
                quota: int, supersteps: int, device, store=None) -> tuple:
     """``(pairs, detail)`` of the fused pool's first ``supersteps``
     super-steps: each row beside the reference's, which runs the pool from
-    empty on the same keys.  ``store`` puts the control in the program's
-    place: its rows are judged instead."""
+    empty on the same keys with the pass :func:`pool_pass` gives.
+    ``store`` puts the control in the program's place: its rows are judged
+    instead."""
     graph = graph_of(code, device)
     _, n_outer = chunking(iterations)
 
     def run(store_fn):
-        ref = PoolReference(graph, frames_of(code, snr_db, device), batch, iterations, quota,
-                            Flooding(graph, store_fn))
+        ref = PoolReference(graph, frames_of(code, traffic["snr_db"], device), batch,
+                            iterations, quota, pool_pass(graph, code, traffic, store_fn))
         return [ref.superstep(step_keys(seed, 0, s, n_outer, device), True)
                 for s in range(min(supersteps, len(rows)))]
 
@@ -236,7 +276,7 @@ def pool_start(rows: list, code, snr_db: float, seed: int, batch: int, iteration
     return pairs, detail
 
 
-def pool_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, seed: int,
+def pool_tail(rows: list, refill: list, snapshot, end, code, traffic: dict, seed: int,
               batch: int, iterations: int, quota: int, device, store=None) -> tuple:
     """``(pairs, numbers, detail)`` of the fused pool's end, as
     :func:`stream_tail` gives a streaming point's: ``snapshot`` is ``(s0,
@@ -246,8 +286,10 @@ def pool_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, seed
     iters)`` its lanes after the last super-step.  The reference finds the
     key of each frame in flight or in an unused entry among the chunks of
     the :data:`POOL_LOOKBACK` super-steps before ``s0``
-    (:func:`.pool.identify`), starts the lanes in flight again from its own
-    draws for their ages, puts its draws in the unused entries and follows
+    (:func:`.pool.identify`; on the fast layered engine, whose lanes carry
+    their APP, a lane in flight by its codeword alone), starts the lanes in flight
+    again from its own draws for their ages with the pass :func:`pool_pass`
+    gives, puts its draws in the unused entries and follows
     ``s0`` to the last super-step, drawing every refill from the seed.
     ``tail_state_gap`` counts the lanes whose in-flight flag or iteration
     count at ``s0`` differs from the reference's, or whose unused entry
@@ -259,22 +301,24 @@ def pool_tail(rows: list, refill: list, snapshot, end, code, snr_db: float, seed
     active, age, iters, avail, llr, cw, pool_llr, pool_cw, started = (
         t.to(device) for t in snapshot[1:])
     graph = graph_of(code, device)
-    frames = frames_of(code, snr_db, device)
+    frames = frames_of(code, traffic["snr_db"], device)
+    app = bool(traffic["layer_file"])  # the fast layered engine's lanes hold their APP
     _, n_outer = chunking(iterations)
     keys = {s: step_keys(seed, 0, s, n_outer, device)
             for s in range(max(0, s0 - POOL_LOOKBACK), len(refill))}
     candidates = [k for s in sorted(keys) if s < s0 for k in keys[s]]
     info = info_columns(code.G)
     lanes = active.nonzero().flatten()
-    found, ref_llr, ref_cw = identify(frames, candidates, lanes, llr[:, lanes],
-                                      cw[:, lanes], info)
+    found, ref_llr, ref_cw = identify(frames, candidates, lanes,
+                                      None if app else llr[:, lanes], cw[:, lanes], info)
     entries = avail.nonzero().flatten()
     efound, e_llr, e_cw = identify(frames, candidates, entries, pool_llr[:, entries],
                                    pool_cw[:, entries], info)
     drawn, edrawn = found >= 0, efound >= 0
 
     def follow(store_fn):
-        ref = PoolReference(graph, frames, batch, iterations, quota, Flooding(graph, store_fn))
+        ref = PoolReference(graph, frames, batch, iterations, quota,
+                            pool_pass(graph, code, traffic, store_fn))
         ref.restore(lanes[drawn], age[lanes[drawn]], ref_llr[:, drawn], ref_cw[:, drawn])
         ref.set_pool(entries[edrawn], e_llr[:, edrawn], e_cw[:, edrawn])
         ref.started = int(started.reshape(-1)[0])

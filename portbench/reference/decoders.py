@@ -1,6 +1,7 @@
 """Belief propagation in float64, in the code's own labels: the flooding
-streaming engine of the default sweep and the exact layered schedule of a
-batch step, with the semantics the sweep states.
+and fast layered passes of the streaming engines, and the batch decodes
+(flooding, the exact layered schedule), with the semantics the sweep
+states.
 
 * A check's message is the box-plus of its other inputs (computed in
   Gallager's ``phi`` form), a variable's posterior its prior plus every
@@ -19,11 +20,17 @@ batch step, with the semantics the sweep states.
   as every edge's first message.  A super-step is a run of passes, each
   with its own key, and reports the counts of the frames that stopped in
   it and the lanes in flight after it.
-* The exact layered schedule (``decode_layered``): per layer, the layer's
-  checks update from the messages ``posterior - own message``, the
-  posteriors take the new messages, and a frame whose decisions then
-  satisfy every check stops, mid-iteration; an iteration counts for a
-  frame that was running both at its start and at its end.
+* A layer step (:func:`layer_step`, shared by :class:`Layered` and
+  :func:`decode_layered`): the layer's checks update from the messages
+  ``posterior - own message``, and the posteriors of their variables move
+  by each new message's difference from the old one.
+* The exact layered schedule (``decode_layered``): the layer steps in
+  order, and a frame whose decisions then satisfy every check stops,
+  mid-iteration; an iteration counts for a frame that was running both at
+  its start and at its end.
+* Flooding in batches (``decode_flooding``): with early termination as
+  above; without it every frame runs every iteration, reports the cap and
+  is judged by the decisions of its last posterior.
 
 ``store`` is the rounding applied where a decoder stores a message or a
 posterior: none for the reference, bfloat16 for the control.
@@ -159,6 +166,63 @@ class Flooding:
         return post, [st(post.index_select(0, g.cols) - lc2v)]
 
 
+def layer_step(g: Graph, post: torch.Tensor, lc2v: torch.Tensor, group, store: Callable,
+               running: torch.Tensor = None) -> torch.Tensor:
+    """One layer's checks (``group``, from :meth:`Graph.checks`) on
+    ``post`` ``[nc, L]`` and ``lc2v`` ``[nnz, L]``: each check's new
+    messages are the exclusion of ``post - own message`` at its slots, and
+    ``lc2v`` and the posteriors of its variables move by the new messages'
+    differences from the old ones (``lc2v`` in place).  Frames not
+    ``running`` (bool ``[L]``; every frame when None) keep both.  Returns
+    the new posterior."""
+    slots, mask = group
+    V = g.cols[slots]
+    old = lc2v[slots]
+    lv = store(torch.where(mask[:, :, None], post[V] - old, PAD))
+    new = store(exclusion(lv))
+    delta = torch.where(mask[:, :, None], new - old, 0.0)
+    if running is not None:
+        delta = delta * running.to(post.dtype)
+    flat = delta.reshape(-1, delta.shape[-1])
+    lc2v.index_add_(0, slots.reshape(-1), flat)
+    return store(post.index_add_(0, V.reshape(-1), flat))
+
+
+class Layered:
+    """One iteration of the fast layered engine as a pass of a streaming
+    engine (``kernel_stream_layered_qc``; the program's
+    ``bp_stream_chunk_layered_fast_plain``): a lane carries its posterior,
+    the APP ``[nc, L]``, and its check messages ``[nnz, L]`` (two list
+    entries).
+
+    * A fresh lane starts with the APP at its prior and every check
+      message 0.
+    * One pass is one iteration: the code's layers in order, each a
+      :func:`layer_step` (the layer's checks update from ``APP - own
+      message``, the APP of their variables moves by the new messages'
+      differences from the old).
+    * The decisions are checked once a pass, after its last layer, on the
+      APP (by :class:`Lanes`: a lane of age 1 or more; nothing stops a
+      frame between layers, unlike :func:`decode_layered`)."""
+
+    def __init__(self, graph: Graph, layers: list, store: Callable = identity):
+        self.g, self.store = graph, store
+        self.groups = [graph.checks(np.asarray(l, dtype=np.int64)) for l in layers]
+
+    def start(self, prior: torch.Tensor) -> list:
+        return [self.store(prior.clone()),
+                torch.zeros((self.g.nnz, prior.shape[1]), dtype=prior.dtype,
+                            device=prior.device)]
+
+    def step(self, prior: torch.Tensor, state: list) -> tuple:
+        """``(posterior, state)`` after one iteration (the state's planes
+        updated in place)."""
+        post, lc2v = state
+        for group in self.groups:
+            post = layer_step(self.g, post, lc2v, group, self.store)
+        return post, [post, lc2v]
+
+
 class Lanes:
     """``B`` lanes of a streaming engine, each an independent stream of
     frames decoded a pass at a time by ``step`` (a pass such as
@@ -265,26 +329,18 @@ def decode_layered(graph: Graph, layers: list, prior: torch.Tensor, cw: torch.Te
     "frame_errors", "frames", "iter_sum"}``.  A layer's new messages change
     the posterior of its variables by their difference from the old ones;
     the frames still running are gathered after every iteration."""
-    g, st = graph, store
-    layer_groups = [g.checks(np.asarray(l, dtype=np.int64)) for l in layers]
+    g = graph
+    layered = Layered(g, layers, store)
     B = prior.shape[1]
     P, C = prior, cw
-    post = st(P.clone())
-    lc2v = torch.zeros((g.nnz, B), dtype=prior.dtype, device=prior.device)
+    post, lc2v = layered.start(P)
     be = fe = it = 0
     for _ in range(iterations):
         if P.shape[1] == 0:
             break
         done = torch.zeros(P.shape[1], dtype=torch.bool, device=prior.device)
-        for slots, mask in layer_groups:
-            V = g.cols[slots]
-            old = lc2v[slots]
-            lv = st(torch.where(mask[:, :, None], post[V] - old, PAD))
-            new = st(exclusion(lv))
-            delta = torch.where(mask[:, :, None], new - old, 0.0) * (~done).to(prior.dtype)
-            flat = delta.reshape(-1, delta.shape[-1])
-            lc2v.index_add_(0, slots.reshape(-1), flat)
-            post = st(post.index_add_(0, V.reshape(-1), flat))
+        for group in layered.groups:
+            post = layer_step(g, post, lc2v, group, store, ~done)
             done = done | g.syndrome_ok(post)
         # an iteration counts for a frame running at its start and its end
         it += int((~done).sum())
@@ -295,6 +351,50 @@ def decode_layered(graph: Graph, layers: list, prior: torch.Tensor, cw: torch.Te
             fe += int((err > 0).sum())
             keep = (~done).nonzero().flatten()
             P, C, post, lc2v = P[:, keep], C[:, keep], post[:, keep], lc2v[:, keep]
+    if P.shape[1]:
+        err = g.bit_errors(post, C)
+        be += int(err.sum())
+        fe += int((err > 0).sum())
+    return {"bit_errors": be, "frame_errors": fe, "frames": B, "iter_sum": it}
+
+
+def decode_flooding(graph: Graph, prior: torch.Tensor, cw: torch.Tensor, iterations: int,
+                    early_term: bool, store: Callable = identity) -> dict:
+    """Flooding on a batch of frames (``prior`` float64 ``[nc, B]``, ``cw``
+    bool), as the batch step counts it (``bp_decode_fused_plain``, the
+    counting of ``_sim_and_count``): ``{"bit_errors", "frame_errors",
+    "frames", "iter_sum"}``.  With ``early_term`` a frame stops at the
+    first check of its decisions that passes, after the pass that makes
+    them (break before increment: a frame reports the passes whose check
+    failed), and is judged by those decisions; the frames still running
+    are gathered after every iteration.  Without it every frame runs
+    ``iterations`` passes, reports ``iterations`` and is judged by the
+    decisions of its last posterior.  Bit errors count the transmitted
+    bits."""
+    g = graph
+    flooding = Flooding(g, store)
+    B = prior.shape[1]
+    P, C = prior, cw
+    state = flooding.start(P)
+    post = P
+    be = fe = it = 0
+    for _ in range(iterations):
+        if P.shape[1] == 0:
+            break
+        post, state = flooding.step(P, state)
+        if not early_term:
+            it += P.shape[1]
+            continue
+        ok = g.syndrome_ok(post)
+        it += int((~ok).sum())
+        fin = ok.nonzero().flatten()
+        if fin.numel():
+            err = g.bit_errors(post[:, fin], C[:, fin])
+            be += int(err.sum())
+            fe += int((err > 0).sum())
+            keep = (~ok).nonzero().flatten()
+            P, C, post = P[:, keep], C[:, keep], post[:, keep]
+            state = [s[:, keep] for s in state]
     if P.shape[1]:
         err = g.bit_errors(post, C)
         be += int(err.sum())

@@ -37,8 +37,17 @@ and K8's ``pool_refill``.
 
 The pass is a parameter (``Pass``: ``start(prior) -> state``, ``step(prior,
 state) -> (posterior, state)``, a state a list of ``[*, L]`` tensors), so
-the same pool runs flooding (:class:`.decoders.Flooding`) or a layered
-pass.
+the same pool runs flooding (:class:`.decoders.Flooding`, ``--pallas``) or
+the fast layered engine's iteration (:class:`.decoders.Layered`,
+``--pallas --layer-file --qc-z Z`` on a QC code's natural layers).  The
+fast layered engine (``bp_stream_chunk_layered_fast`` and its plain
+version) runs in the same super-step (``_shard_stepper``): the same ``k``
+and ``n_outer``, the same K8 ``pool_refill`` before each chunk at the
+same watermark on the same keys, the same grants; only the pass differs.
+Its state differs in what it holds, not in its shapes: the program's
+``llr_in`` plane carries a lane's APP, not its prior, so a lane in flight
+is found by its codeword alone (:func:`identify` without LLRs), while an
+unused entry still holds the raw LLRs K8 drew.
 """
 
 from __future__ import annotations
@@ -148,13 +157,14 @@ def info_columns(G: np.ndarray) -> np.ndarray:
     return cols
 
 
-def identify(frames: FrameSource, keys: list, lanes: torch.Tensor, llr: torch.Tensor,
-             cw: torch.Tensor, info_cols: np.ndarray, tol: float = 1e-3) -> tuple:
+def identify(frames: FrameSource, keys: list, lanes: torch.Tensor, llr, cw: torch.Tensor,
+             info_cols: np.ndarray, tol: float = 1e-3) -> tuple:
     """Which of ``keys`` drew each of the frames ``llr`` (float ``[nc,
     L]``), ``cw`` (bool) held by ``lanes``: ``(found, ref_llr, ref_cw)``,
     ``found[i]`` the index of the key whose draw of lane ``lanes[i]`` has
     the frame's info bits, its whole codeword and its LLRs within ``tol``
-    (-1: none), and that draw, the reference's own (zero where none)."""
+    (-1: none), and that draw, the reference's own (zero where none).
+    ``llr`` None matches the info bits and the codeword alone."""
     dev = frames.device
     L = lanes.numel()
     found = torch.full((L,), -1, dtype=torch.int64, device=dev)
@@ -170,7 +180,9 @@ def identify(frames: FrameSource, keys: list, lanes: torch.Tensor, llr: torch.Te
         if sel.numel() == 0:
             continue
         l, c = frames.draw(key, lanes[sel])
-        good = (c == cw[:, sel]).all(dim=0) & ((l - llr[:, sel].double()).abs() <= tol).all(dim=0)
+        good = (c == cw[:, sel]).all(dim=0)
+        if llr is not None:
+            good &= ((l - llr[:, sel].double()).abs() <= tol).all(dim=0)
         sel, l, c = sel[good], l[:, good], c[:, good]
         found[sel] = i
         ref_llr[:, sel] = l

@@ -60,6 +60,33 @@ def test_reference_frames_are_the_programs_draw(cuda_device, name):
     assert (ch.llr[inv].double() - llr).abs().max().item() < 1e-3
 
 
+def test_qc_mix_builds_the_fast_layered_engine(monkeypatch, tmp_path):
+    """On the CPU: the mix's ``qc`` declares the code quasi-cyclic at its
+    configuration's ``Z``, as ``--qc-z`` does, so ``--pallas --layer-file``
+    routes to the fused pool on the fast layered engine; the same mix
+    without it routes to the exact schedule, batch-stepped; a code that is
+    not quasi-cyclic at its ``Z``, or has none, is refused."""
+    from portbench.codes import cached_code
+
+    monkeypatch.setattr(harness, "DEVICE", torch.device("cpu"))
+    cell = spec.resolve(spec.load_benchmark(), "wifi1944-fast-2.0dB")
+    assert cell.traffic["qc"] is True and cell.traffic["layer_file"] and cell.traffic["pallas"]
+    cell = dataclasses.replace(cell, config={**cell.config, "batch_size": 32})
+    _, files = cached_code(cell.config["code"], tmp_path / "codes")
+    sim, _ = harness.build_simulator(cell, files, 5, tmp_path)
+    assert (sim.engine, sim.schedule) == ("fused-pool", "layered-fast")
+    assert sim.code.qc[0] == 81
+    plain = dataclasses.replace(cell, traffic={k: v for k, v in cell.traffic.items()
+                                               if k != "qc"})
+    sim, _ = harness.build_simulator(plain, files, 5, tmp_path)
+    assert (sim.engine, sim.schedule) == ("batch", "layered")
+    for code in ({**cell.config["code"], "Z": 80},
+                 {k: v for k, v in cell.config["code"].items() if k != "Z"}):
+        bad = dataclasses.replace(cell, config={**cell.config, "code": code})
+        with pytest.raises(ValueError):
+            harness.build_simulator(bad, files, 5, tmp_path)
+
+
 def _run(cell: str, seed: int, seconds: float, trace: int = 0):
     proc = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload", cell, "--seed", str(seed),
@@ -126,9 +153,10 @@ def _broken(kind: str):
                     return state, type(acc)(acc.bit_errors, acc.frame_errors, acc.frames,
                                             acc.iter_sum + acc.frames, acc.n_active)
                 # decisions: one frame in 16 of those counted reads one bit wrong
-                return state, type(acc)(acc.bit_errors + acc.frames // 16,
-                                        acc.frame_errors + acc.frames // 16, acc.frames,
-                                        acc.iter_sum, acc.n_active)
+                # (rare_decisions: one in 16,384)
+                wrong = acc.frames // (16 if kind == "decisions" else 16384)
+                return state, type(acc)(acc.bit_errors + wrong, acc.frame_errors + wrong,
+                                        acc.frames, acc.iter_sum, acc.n_active)
             sim._stream_step = bad
     return wrap
 
@@ -183,5 +211,28 @@ def test_broken_timed_path_is_not_correct(cuda_device, cell, fault, monkeypatch,
     import time
 
     rc = harness.run(cell, SEEDS[1], 1.0, False, time.perf_counter(), ROOT)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["correct"] is False, out["checks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [c for c in CELLS
+                                  if spec.resolve(spec.load_benchmark(), c).check["kind"]
+                                  != "batch"])
+def test_rare_decision_fault_is_not_correct(cuda_device, cell, monkeypatch, capsys):
+    """A streaming cell's counts with one frame in 16,384 read one bit wrong
+    (a frame error rate a few times the code's at 2.0 dB on the
+    802.11n code) come out not correct."""
+    build = harness.build_simulator
+
+    def broken_build(*a, **k):
+        sim, rec = build(*a, **k)
+        _broken("rare_decisions")(sim)
+        return sim, rec
+
+    monkeypatch.setattr(harness, "build_simulator", broken_build)
+    import time
+
+    rc = harness.run(cell, SEEDS[2], 1.0, False, time.perf_counter(), ROOT)
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["correct"] is False, out["checks"]

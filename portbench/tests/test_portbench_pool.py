@@ -13,7 +13,7 @@ from portbench import roofline, spec
 from portbench.codes import Code, build_code, write_code_files
 from portbench.reference import checks
 from portbench.reference.channel import FrameSource, step_keys
-from portbench.reference.decoders import Graph, decode_layered
+from portbench.reference.decoders import Graph, Layered, decode_layered
 from portbench.reference.pool import PoolReference, chunking, identify, info_columns
 
 
@@ -43,11 +43,12 @@ def _nr_like(bg: int, Z: int) -> Code:
 
 class FusedRun:
     """The program's plain fused pool (``make_streaming_fused_step(...,
-    plain=True)``) on the CPU, its pool drawn by the reference's channel on
-    the keys the card would use: chunk ``j`` of super-step ``s`` refills on
+    plain=True)``, with ``layered`` on the fast layered engine) on the
+    CPU, its pool drawn by the reference's channel on the keys the card
+    would use: chunk ``j`` of super-step ``s`` refills on
     ``step_keys(seed, 0, s, n_outer)[j]``."""
 
-    def __init__(self, monkeypatch, code, B, its, snr, seed):
+    def __init__(self, monkeypatch, code, B, its, snr, seed, layered=False):
         from libldpc_tpu_torch.ops import streaming_fused
         from libldpc_tpu_torch.ops.channel import ChannelOutput
         from libldpc_tpu_torch.ops.kernels import pool_refill as k8
@@ -56,7 +57,7 @@ class FusedRun:
         from libldpc_tpu_torch.utils.params import DecoderParams
 
         self.fs = FrameSource(code.G, snr, "cpu", code.transmitted)
-        sdc = to_sorted_device(_program_code(code), "cpu")
+        sdc = to_sorted_device(_program_code(code), "cpu", with_layers=layered)
         self.inv = sdc.vn_inv.long()  # row inv[v] of a plane is the code's variable v
         perm = torch.argsort(self.inv)
         _, self.n_outer = chunking(its)
@@ -77,7 +78,8 @@ class FusedRun:
         monkeypatch.setattr(streaming_fused, "pool_refill", refill)
         monkeypatch.setattr(k8, "simulate_channel", draw)
         init, self._step = streaming_fused.make_streaming_fused_step(
-            kernel_tables(sdc), "AWGN", DecoderParams(iterations=its), B, plain=True)
+            kernel_tables(sdc), "AWGN", DecoderParams(iterations=its), B, layered=layered,
+            plain=True)
         self.state = init()
 
     def step(self, refill: bool) -> list:
@@ -119,11 +121,17 @@ def test_pool_matches_the_programs_plain_fused_chunks(monkeypatch, snr):
     assert want[4] == 0
 
 
-def _pool_numbers(code, rows, refill, snap, end, B, its, snr, seed, store=None):
-    start, _ = checks.pool_start(rows, code, snr, seed, B, its, QUOTA, 3, "cpu", store)
-    tail, numbers, _ = checks.pool_tail(rows, refill, snap, end, code, snr, seed, B, its,
+def _pool_numbers(code, rows, refill, snap, end, B, its, snr, seed, store=None, layered=False):
+    traffic = {"snr_db": snr, "layer_file": layered, "qc": layered}
+    start, _ = checks.pool_start(rows, code, traffic, seed, B, its, QUOTA, 3, "cpu", store)
+    tail, numbers, _ = checks.pool_tail(rows, refill, snap, end, code, traffic, seed, B, its,
                                         QUOTA, "cpu", store)
     return {**checks.stream_numbers(start, tail, B), **numbers}
+
+
+ZERO = {"frames_gap": 0.0, "iter_gap": 0.0, "frame_error_gap": 0.0, "frame_error_count_gap": 0,
+        "bit_error_count_gap": 0, "active_gap": 0.0, "tail_state_gap": 0.0,
+        "tail_lane_gap": 0.0, "in_flight_at_end": 0}
 
 
 def test_pool_numbers_are_nought_on_the_programs_plain_run(monkeypatch):
@@ -142,13 +150,15 @@ def test_pool_numbers_are_nought_on_the_programs_plain_run(monkeypatch):
     assert rows[-1][4] == 0 and int(snap[4].sum()) > 0 and int(snap[1].sum()) > 0
     end = (run.state.done == 0, run.state.iters.clone())
     args = (B, its, snr, seed)
-    assert _pool_numbers(code, rows, refill, snap, end, *args) == {
-        "frames_gap": 0.0, "iter_gap": 0.0, "frame_error_gap": 0.0, "active_gap": 0.0,
-        "tail_state_gap": 0.0, "tail_lane_gap": 0.0, "in_flight_at_end": 0}
+    assert _pool_numbers(code, rows, refill, snap, end, *args) == ZERO
     for s in (1, 11):  # a super-step of the start, then of the end, counted wrong
         bad = [list(r) for r in rows]
         bad[s][3] += 3
         assert _pool_numbers(code, bad, refill, snap, end, *args)["iter_gap"] > 0
+        bad[s][0] += 2
+        bad[s][1] += 1
+        got = _pool_numbers(code, bad, refill, snap, end, *args)
+        assert (got["frame_error_count_gap"], got["bit_error_count_gap"]) == (1, 2)
     older = (*snap[:2], snap[2] + (snap[1] & (torch.arange(B) % 2 == 0)).to(snap[2].dtype),
              *snap[3:])
     assert _pool_numbers(code, rows, refill, older, end, *args)["tail_state_gap"] > 0
@@ -160,6 +170,73 @@ def test_pool_numbers_are_nought_on_the_programs_plain_run(monkeypatch):
     off = (end[0], end[1] + (torch.arange(B) % 7 == 0).to(end[1].dtype))
     assert _pool_numbers(code, rows, refill, snap, off, *args)["tail_lane_gap"] > 0.1
     assert _pool_numbers(code, rows, refill, None, end, *args)["frames_gap"] == 1.0
+
+
+def _qc_tiny():
+    from libldpc_tpu_torch.models.standards import WIFI_648_12
+
+    return build_code({"construction": "qc", "Z": 27, "layers": "natural",
+                       "base_matrix": WIFI_648_12.tolist()})
+
+
+@pytest.mark.parametrize("snr", [0.5, 1.5])
+def test_layered_pool_matches_the_programs_plain_fast_chunks(monkeypatch, snr):
+    """The pool on the fast layered engine's pass against the program's
+    plain chunks (``bp_stream_chunk_layered_fast_plain``): every
+    super-step's row and the lanes' flags, ages, counts and entries."""
+    code = _qc_tiny()
+    B, its, seed = 40, 20, 2**31 + 29
+    run = FusedRun(monkeypatch, code, B, its, snr, seed, layered=True)
+    graph = Graph(code.rows, code.cols, code.nc, code.mc, "cpu", code.transmitted)
+    ref = PoolReference(graph, run.fs, B, its, QUOTA, Layered(graph, code.layers))
+    refill = [True] * 10 + [False] * 4
+    for s, f in enumerate(refill):
+        want = run.step(f)
+        got = ref.superstep(step_keys(seed, 0, s, run.n_outer, "cpu"), f)
+        assert got == want, (s, got, want)
+        st = run.state
+        assert torch.equal(ref.active, st.done == 0), s
+        assert torch.equal(ref.age, st.age) and torch.equal(ref.iters, st.iters), s
+        assert torch.equal(ref.avail, st.avail != 0), s
+    assert want[4] == 0
+
+
+def test_layered_pool_numbers_are_nought_on_the_programs_plain_run(monkeypatch):
+    """The pool check with the layered pass on the program's plain fast
+    engine: every number 0, though its lanes carry their APP and not their
+    prior (found by their codewords); a lane's codeword, a lane's age and
+    an unused entry's LLRs each put wrong are caught; and the flooding
+    pass's check, which matches LLRs, loses every lane in flight."""
+    code = _qc_tiny()
+    B, its, snr, seed = 40, 20, 0.5, 2**33 + 1
+    run = FusedRun(monkeypatch, code, B, its, snr, seed, layered=True)
+    refill = [True] * 8 + [False] * 4
+    rows, snap = [], None
+    for s, f in enumerate(refill):
+        if s == 7:
+            snap = (s, *run.lanes())
+        rows.append(run.step(f))
+    active = snap[1]
+    assert rows[-1][4] == 0 and int(active.sum()) > 0 and int(snap[4].sum()) > 0
+    lane = int(active.nonzero()[0])
+    end = (run.state.done == 0, run.state.iters.clone())
+    args = (B, its, snr, seed)
+    assert _pool_numbers(code, rows, refill, snap, end, *args, layered=True) == ZERO
+    cw = snap[6].clone()
+    cw[0, lane] = ~cw[0, lane]
+    flipped = (*snap[:6], cw, *snap[7:])
+    assert _pool_numbers(code, rows, refill, flipped, end, *args,
+                         layered=True)["tail_state_gap"] >= 1 / B
+    older = (*snap[:2], snap[2] + active.to(snap[2].dtype), *snap[3:])
+    assert _pool_numbers(code, rows, refill, older, end, *args, layered=True)["tail_state_gap"] > 0
+    e = int(snap[4].nonzero()[0])
+    noisy = snap[7].clone()
+    noisy[:, e] += 0.5
+    other = (*snap[:7], noisy, *snap[8:])
+    assert _pool_numbers(code, rows, refill, other, end, *args,
+                         layered=True)["tail_state_gap"] >= 1 / B
+    assert _pool_numbers(code, rows, refill, snap, end, *args)["tail_state_gap"] >= \
+        int(active.sum()) / B
 
 
 def test_identify_finds_each_frames_key():

@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from portbench import roofline, spec
-from portbench.codes import build_code, write_code_files
+from portbench.codes import build_code, satisfies_checks, write_code_files
 from portbench.reference.channel import FrameSource
-from portbench.reference.decoders import Graph, StreamReference, decode_layered
+from portbench.reference.decoders import (Graph, Lanes, Layered, StreamReference, decode_flooding,
+                                          decode_layered)
 from portbench.reference.philox import philox4x32_10
 
 # Random123's known-answer vectors of Philox4x32-10
@@ -227,14 +228,129 @@ def test_stream_numbers_are_nought_on_the_references_own_rows():
         return {**stream_numbers(start, tail, B), **tail_numbers}
 
     assert numbers(rows, snap, end) == {
-        "frames_gap": 0.0, "iter_gap": 0.0, "frame_error_gap": 0.0, "active_gap": 0.0,
-        "tail_state_gap": 0.0, "tail_lane_gap": 0.0, "in_flight_at_end": 0}
+        "frames_gap": 0.0, "iter_gap": 0.0, "frame_error_gap": 0.0, "frame_error_count_gap": 0,
+        "bit_error_count_gap": 0, "active_gap": 0.0, "tail_state_gap": 0.0,
+        "tail_lane_gap": 0.0, "in_flight_at_end": 0}
     for s in (1, 9):  # a super-step of the start, then of the end, counted wrong
         bad = [list(r) for r in rows]
         bad[s][3] += 3
         assert numbers(bad, snap, end)["iter_gap"] > 0
+        bad[s][0] += 2
+        bad[s][1] += 1
+        got = numbers(bad, snap, end)
+        assert (got["frame_error_count_gap"], got["bit_error_count_gap"]) == (1, 2)
     late = (8, snap[1], snap[2] + 1, snap[3])  # every lane drawn one pass earlier
     assert numbers(rows, late, end)["tail_state_gap"] > 0
     off = (end[0], end[1] + (torch.arange(B) % 7 == 0).to(end[1].dtype))
     assert numbers(rows, snap, off)["tail_lane_gap"] > 0.1
     assert numbers(rows, None, end)["frames_gap"] == 1.0
+
+
+def _lanes_once(graph, step, llr, cw, iterations):
+    """Every lane given one frame and never refilled, run to its end:
+    ``(counts, lanes)``."""
+    B = llr.shape[1]
+    lanes = Lanes(graph, B, iterations, step)
+    lanes._start(torch.arange(B), llr, cw)
+    counts = np.zeros(4, dtype=np.int64)
+    while bool(lanes.active.any()):
+        counts += lanes._pass()
+    return counts.tolist(), lanes
+
+
+def test_layered_pass_is_decode_layereds_iteration_on_a_lane_never_refilled():
+    """Where no frame stops (-2 dB, 6 iterations), the streaming pass and
+    the exact schedule run the same layer steps: the same posteriors, so
+    the same bit errors, bit for bit."""
+    code = _tiny("qc")
+    graph = Graph(code.rows, code.cols, code.nc, code.mc, "cpu")
+    llr, cw = FrameSource(code.G, -2.0, "cpu").draw(987654321, torch.arange(256))
+    counts, _ = _lanes_once(graph, Layered(graph, code.layers), llr, cw, 6)
+    ref = decode_layered(graph, code.layers, llr, cw, 6)
+    assert counts == [ref["bit_errors"], ref["frame_errors"], ref["frames"], ref["iter_sum"]]
+    assert counts[1] == 256 and counts[3] == 6 * 256
+
+
+@pytest.mark.parametrize("snr", [1.0, 2.5])
+def test_layered_pass_matches_the_programs_plain_fast_decoder(snr):
+    """A lane never refilled decodes its frame as the fast layered engine's
+    batch decode does (``bp_decode_layered_fast_plain``: the whole
+    iteration, then the check): each frame's iterations, the errors."""
+    from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+    from libldpc_tpu_torch.ops.layered import bp_decode_layered_fast_plain
+    from libldpc_tpu_torch.ops.sorted import to_sorted_device
+
+    code = _tiny("qc")
+    graph = Graph(code.rows, code.cols, code.nc, code.mc, "cpu")
+    llr, cw = FrameSource(code.G, snr, "cpu").draw(2**33 + 5, torch.arange(256))
+    llr32 = llr.to(torch.float32)
+    counts, lanes = _lanes_once(graph, Layered(graph, code.layers), llr32.double(), cw, 50)
+    tables = kernel_tables(to_sorted_device(_program_code(code), "cpu", with_layers=True))
+    inv = tables.code.vn_inv.long()
+    out = bp_decode_layered_fast_plain(tables, llr32[torch.argsort(inv)], 50, True)
+    errs = (out.hard[inv] != cw).sum(0)
+    assert torch.equal(lanes.iters, out.iterations)
+    assert counts == [int(errs.sum()), int((errs > 0).sum()), 256, int(out.iterations.sum())]
+    assert counts[1] > 0 if snr < 2 else counts[1] == 0
+
+
+@pytest.mark.parametrize("early_term", [True, False])
+@pytest.mark.parametrize("snr", [1.0, 2.0])
+def test_flooding_batch_matches_the_programs_plain_decoder(snr, early_term):
+    """``decode_flooding`` against the K1 path's plain decoder
+    (``bp_decode_fused_plain``) on the same frames, counted as the batch
+    step counts: errors from its decisions, its iterations."""
+    from libldpc_tpu_torch.ops.kernels.decode_fused import bp_decode_fused_plain
+    from libldpc_tpu_torch.ops.kernels.layout import kernel_tables
+    from libldpc_tpu_torch.ops.sorted import to_sorted_device
+
+    code = _tiny("regular")
+    graph = Graph(code.rows, code.cols, code.nc, code.mc, "cpu")
+    llr, cw = FrameSource(code.G, snr, "cpu").draw(2**45 + 3, torch.arange(512))
+    llr32 = llr.to(torch.float32)
+    tables = kernel_tables(to_sorted_device(_program_code(code), "cpu"))
+    inv = tables.code.vn_inv.long()
+    out = bp_decode_fused_plain(tables, llr32[torch.argsort(inv)], 30, early_term)
+    errs = (out.hard[inv] != cw).sum(0)
+    ref = decode_flooding(graph, llr32.double(), cw, 30, early_term)
+    assert ref == {"bit_errors": int(errs.sum()), "frame_errors": int((errs > 0).sum()),
+                   "frames": 512, "iter_sum": int(out.iterations.sum())}
+    assert ref["frame_errors"] > 0
+    if not early_term:
+        assert ref["iter_sum"] == 30 * 512
+
+
+def _nr_skeleton(Z: int):
+    from libldpc_tpu_torch.models.construct import detect_qc
+    from libldpc_tpu_torch.models.standards import make_nr_like_code
+
+    base = detect_qc(make_nr_like_code(bg=1, Z=Z, seed=0, with_G=False), Z)
+    return build_code({"construction": "qc", "base_matrix": base.tolist(), "Z": Z,
+                       "layers": "natural", "puncture": [[0, 2 * Z]]})
+
+
+@pytest.mark.parametrize("name", ["bench1152-bp", "wifi1944-bp", "nr-bg1-z16"])
+def test_edge_check_accepts_the_generators_and_refuses_a_flipped_bit(name):
+    """The generator check over H's edges passes the built G of both
+    configurations and of a BG1 skeleton at Z = 16, and refuses each with
+    one bit flipped (in an info column and in a parity column); it agrees
+    with the dense ``H G^T``."""
+    if name.startswith("nr"):
+        code = _nr_skeleton(16)
+    else:
+        code = build_code(json.loads((spec.HERE / "configs" / f"{name}.json").read_text())
+                          ["code"])
+    H = np.zeros((code.mc, code.nc), np.int64)
+    H[code.rows, code.cols] = 1
+    assert satisfies_checks(code.rows, code.cols, code.G)
+    assert not ((H @ code.G.T.astype(np.int64)) % 2).any()
+    rng = np.random.default_rng(7)
+    unit = np.flatnonzero(code.G.sum(0) == 1)
+    for col in (int(rng.choice(unit)), int(rng.choice(np.setdiff1d(np.arange(code.nc), unit)))):
+        G = code.G.copy()
+        row = int(rng.integers(code.kc))
+        G[row, col] ^= 1
+        assert not satisfies_checks(code.rows, code.cols, G)
+        assert ((H @ G.T.astype(np.int64)) % 2).any()
+    shuffled = rng.permutation(code.nnz)  # the edges in any order
+    assert satisfies_checks(code.rows[shuffled], code.cols[shuffled], code.G)
