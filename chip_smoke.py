@@ -2181,18 +2181,23 @@ def main() -> int:
         return f"tile, {frames_} frames a block{', tables staged' if stage else ''}"
 
     def k5_name(tb, dtype="float32", tile=None):
-        """K5's form as the kernels line names it: the rule's, or the one forced."""
+        """K5's form as the kernels line names it: the rule's, or the one
+        forced (``(frames, stage[, priors])``)."""
         tile = dl.exact_form(tb, dtype) if tile is None else tile
         if tile[0]:
-            return form_name(tile)
+            return form_name(tile[:2]) + (", priors staged" if tile[2:] == (True,) else "")
         return "plane, lc2v and the posterior in device memory, 16 frames a block"
 
     def k5_forms(tb, dtype):
-        """Every form of K5 that fits a block: ``(name, forced form)``."""
-        return [(k5_name(tb, dtype, f), f)
-                for f in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False),
-                          (0, False))
-                if f[0] == 0 or dl.exact_tile_bytes(tb, f[0], dtype, f[1]) <= dl.SMEM_BLOCK_BYTES]
+        """Every form of K5 that fits a block, each tile with its priors in
+        shared memory where they fit and in device memory: ``(name, forced
+        (frames, stage, priors))``."""
+        tiles = [f for f in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False))
+                 if dl.exact_tile_bytes(tb, f[0], dtype, f[1]) <= dl.SMEM_BLOCK_BYTES]
+        forms = [(*f, p) for f in tiles for p in (True, False)
+                 if not p or dl.exact_tile_bytes(tb, f[0], dtype, f[1], True)
+                 <= dl.SMEM_BLOCK_BYTES]
+        return [(k5_name(tb, dtype, f), f) for f in forms + [(0, False, False)]]
 
     def k1_forms(key, dtype="float32"):
         """Kernel 1's other forms that fit, as ``also`` pairs: every tile
@@ -2401,10 +2406,11 @@ def main() -> int:
         err_form[f"k4 {dtype}"] = err
 
     # ---- 7. K5 (exact layered schedule) against its plain version, in the
-    # rule's form and, on the same frames, in the 4-frame tile and the plane
+    # rule's form and, on the same frames, in the 4-frame tile (tables and
+    # priors staged: a variable's frames a thread) and the plane
     # form (the rule's for a code whose tile does not fit)
     k5_also = tuple((name, in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", f))
-                    for name, f in (("tile4", (4, True)), ("plane", (0, False))))
+                    for name, f in (("tile4", (4, True, True)), ("plane", (0, False))))
     err5 = compare_batch("K5 wifi648", dl.bp_decode_layered, dl.bp_decode_layered_plain,
                          tables["wifi648"], llrs("wifi648", 5).llr, also=k5_also)
     print(f"K5 form chosen for wifi 648: {dl.exact_form(tables['wifi648'])}")
@@ -2982,7 +2988,7 @@ def main() -> int:
             ms[forced] = ms.get(forced, 0.0) + t / 2
         dl.EXACT_FORM_OVERRIDE = None
         print(f"time K5 wifi648 {dtype} {form} {ITERS} it no-ET B={BATCH}, kernel only: "
-              f"{form_name(dl.exact_form(tb5, dtype))} {ms[None]:.3f} ms, "
+              f"{k5_name(tb5, dtype)} {ms[None]:.3f} ms, "
               f"{k5_name(tb5, dtype, (0, False))} {ms[(0, False)]:.3f} ms [{name_power}]")
         check(ms[None] < ms[(0, False)], f"K5 wifi648 {dtype} {form}: the rule's form is slower")
     # K1 and K3: every form that fits, the HBM-plane form first and last, on
@@ -3028,13 +3034,10 @@ def main() -> int:
         print(f"time K2 tile forms bench1152 {dtype} {form} 6 passes from a full pool "
               f"B={BATCH}: {'; '.join(row)} [{name_power}]")
         row = []
-        for forced in ((16, True), (16, False), (8, True), (8, False), (4, True), (4, False)):
-            if dl.exact_tile_bytes(tb5, forced[0], dtype, forced[1]) > dl.SMEM_BLOCK_BYTES:
-                continue
-            dl.EXACT_FORM_OVERRIDE = forced
-            t = cuda_ms(lambda: dl.bp_decode_layered(tb5, llr5, ITERS, False, form, dtype), 2)
-            row.append(f"{form_name(forced)} {t:.3f} ms")
-        dl.EXACT_FORM_OVERRIDE = None
+        for name_, forced in k5_forms(tb5, dtype)[:-1]:
+            fn = in_form(dl.bp_decode_layered, dl, "EXACT_FORM_OVERRIDE", forced)
+            t = cuda_ms(lambda: fn(tb5, llr5, ITERS, False, form, dtype), 2)
+            row.append(f"{name_} {t:.3f} ms")
         print(f"time K5 tile forms wifi648 {dtype} {form} {ITERS} it no-ET B={BATCH}: "
               f"{'; '.join(row)} [{name_power}]")
     # K5 on wifi 1296 and wifi 1944 (Z = 54 and 81: the exact schedule where

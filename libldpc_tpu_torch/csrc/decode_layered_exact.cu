@@ -60,7 +60,7 @@ bp_decode_layered_plane_kernel(ExactCode<int> x, CnParams cp, Msg m,
                                int* __restrict__ iters_out, int* __restrict__ iscw_out, int B_,
                                int iterations, int early_term) {
   exact_decode<Msg, FAM, kPlaneFrames, true>(x, cp, m, llr_in, out, lc2v, hard_scratch, iters_out,
-                                             iscw_out, 0, B_, iterations, early_term);
+                                             iscw_out, 0, 0, B_, iterations, early_term);
 }
 
 }  // namespace

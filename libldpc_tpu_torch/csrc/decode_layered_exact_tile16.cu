@@ -8,6 +8,7 @@ LDPC_EXACT_TILE_ENTRY(ldpc_bp_decode_layered_tile16, 16)
 // ops/kernels/decode_layered.py exact_tile_bytes counts the same, and the
 // card tests hold the two against each other).
 extern "C" long long ldpc_exact_tile_bytes(int nc, int mc, int nnz, int nl, int nlc, int nlv,
-                                           int frames, int msg, int stage) {
-  return (long long)exact_tile_bytes(nc, mc, nnz, nl, nlc, nlv, frames, msg, stage != 0);
+                                           int frames, int msg, int stage, int priors) {
+  return (long long)exact_tile_bytes(nc, mc, nnz, nl, nlc, nlv, frames, msg, stage != 0,
+                                     priors != 0);
 }

@@ -2,7 +2,11 @@
 // layered_exact_tile.cuh exact_decode at F = 4, the tile form, float32
 // messages), on the 16-bit tables staged in shared memory or read from
 // device memory, or on int32 tables read from device memory (the tile as
-// it was before its tables were 16-bit).  Built and run only by
+// it was before its tables were 16-bit); the frames' priors staged in
+// shared memory or read from device memory; with the priors staged, the
+// variable phase a variable's 4 frames a thread (`rows`:
+// exact_tile_variables, the library's) or a frame a thread
+// (frame_variable, the library's without staged priors).  Built and run only by
 // tests_gpu/exact_stamps.py; not part of the kernel library.
 //
 // Lane 0 of every warp reads clock64() at each phase boundary and adds the
@@ -46,8 +50,8 @@ template <int FAM, class I>
 __global__ void __launch_bounds__(kF * exact_rows(kF), 1)
 stamped_exact_tile4(ExactCode<I> code, CnParams cp, const float* __restrict__ llr_in,
                     float* __restrict__ out, int* __restrict__ iters_out,
-                    int* __restrict__ iscw_out, int stage, int B_, int iterations,
-                    int early_term, unsigned long long* stamps) {
+                    int* __restrict__ iscw_out, int stage, int priors, int rows, int B_,
+                    int iterations, int early_term, unsigned long long* stamps) {
   constexpr int F = kF;
   const F32Msg m{};
   long long acc[X_N] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -65,6 +69,9 @@ stamped_exact_tile4(ExactCode<I> code, CnParams cp, const float* __restrict__ ll
   const FrameSlots<float, F, false> q{t.q + f, B};
   const FrameSlots<float, F, false> post{t.post + f, B};
   uint16_t* const hard = t.hard;
+  float* const pri = (float*)(smem + align16((size_t)((unsigned char*)t.tables - smem) +
+                                             exact_staged_table_bytes(nc, code.c.mc, nnz, code.nl,
+                                                                      code.nlc, code.nlv, stage)));
   if (stage) {
     const int words =
         (int)((exact_table_entries(nc, code.c.mc, nnz, code.nl, code.nlc, code.nlv) + 1) / 2);
@@ -79,11 +86,19 @@ stamped_exact_tile4(ExactCode<I> code, CnParams cp, const float* __restrict__ ll
   const I* const vptr = code.vptr;
   const I* const lvars = code.lvars;
   if (valid) {
-    for (int v = ty; v < nc; v += NTY) post[v] = m.store(m.prior(llr_in[v * B + b]));
+    for (int v = ty; v < nc; v += NTY) {
+      const float x = llr_in[v * B + b];
+      if (priors) pri[v * F + f] = x;
+      post[v] = m.store(m.prior(x));
+    }
     for (int e = ty; e < nnz; e += NTY) q[e] = m.store(0.0f);
+  } else if (priors) {
+    for (int v = ty; v < nc; v += NTY) pri[v * F + f] = 0.0f;
   }
   if (tid == 0) badmask[0] = badmask[1] = 0;
   bool done = !valid;
+  unsigned live = 0;
+  for (int k = 0; k < F; ++k) live |= (size_t)blockIdx.x * F + k < B ? 1u << k : 0u;
   int iters = 0, iscw = 0, steps = 0;
   __syncthreads();
   STAMP(X_ENTRY)
@@ -119,13 +134,19 @@ stamped_exact_tile4(ExactCode<I> code, CnParams cp, const float* __restrict__ ll
       STAMP(X_CHECKS)
       __syncthreads();
       STAMP(X_CHECK_BARRIER)
-      const int i0 = first ? 0 : vptr[l];
-      const int n = first ? nc : vptr[l + 1] - i0;
-      const int rounds = (n + NTY - 1) / NTY;
-      for (int i = 0; i < rounds; ++i) {
-        const int j = i * NTY + ty;
-        frame_variable<F, 1>(tc, m, q, post, hard, j < n ? (first ? j : lvars[i0 + j]) : -1,
-                             !done, f, tid, [&](int v) { return __ldg(llr_in + v * B + b); });
+      if (priors && rows) {
+        exact_tile_variables<F32Msg, F>(code, m, t, l, first, live, pri, tid, nt);
+      } else {
+        const int i0 = first ? 0 : vptr[l];
+        const int n = first ? nc : vptr[l + 1] - i0;
+        const int rounds = (n + NTY - 1) / NTY;
+        for (int i = 0; i < rounds; ++i) {
+          const int j = i * NTY + ty;
+          frame_variable<F, 1>(tc, m, q, post, hard, j < n ? (first ? j : lvars[i0 + j]) : -1,
+                               !done, f, tid, [&](int v) {
+                                 return priors ? pri[v * F + f] : __ldg(llr_in + v * B + b);
+                               });
+        }
       }
       first = false;
       STAMP(X_VARIABLES)
@@ -144,6 +165,7 @@ stamped_exact_tile4(ExactCode<I> code, CnParams cp, const float* __restrict__ ll
             iscw = 1;
           }
         }
+        if (early_term) live &= badmask[parity];
         if (tid == 0) badmask[parity ^ 1] = 0;
         parity ^= 1;
         STAMP(X_SYNDROME_BARRIER)
@@ -166,13 +188,14 @@ stamped_exact_tile4(ExactCode<I> code, CnParams cp, const float* __restrict__ ll
 
 template <class I>
 int launch_stamped(ExactCode<I> x, int cn_mode, float scale, float offset, const float* llr_in,
-                   float* post, int* iters, int* iscw, int stage, int B, int iterations,
-                   int early_term, unsigned long long* stamps, size_t bytes, void* stream) {
+                   float* post, int* iters, int* iscw, int stage, int priors, int rows, int B,
+                   int iterations, int early_term, unsigned long long* stamps, size_t bytes,
+                   void* stream) {
   CnParams cp{cn_mode, scale, offset};
   return by_family(cn_mode, F32Msg{}, [&](auto, auto fam) {
     return launch_smem(stamped_exact_tile4<decltype(fam)::value, I>, (B + kF - 1) / kF,
                        dim3(kF, exact_rows(kF)), bytes, (cudaStream_t)stream, x, cp, llr_in,
-                       post, iters, iscw, stage, B, iterations, early_term, stamps);
+                       post, iters, iscw, stage, priors, rows, B, iterations, early_term, stamps);
   });
 }
 
@@ -184,26 +207,30 @@ int dev_n_exact_phases() { return X_N; }
 
 // The stamped 4-frame tile in float32: on the 16-bit tables `tables16`
 // (KernelTables.exact16), staged when `stage`, or, with tables16 null, on
-// the eight int32 tables in device memory (stage must be 0).  stamps:
-// X_N + 1 zeroed uint64 counters.  Returns the launch's cudaGetLastError().
+// the eight int32 tables in device memory (stage must be 0); the priors
+// staged when `priors`, and then the variable phase a variable's frames a
+// thread when `rows`, else a frame a thread.
+// stamps: X_N + 1 zeroed uint64 counters.  Returns the launch's
+// cudaGetLastError().
 int dev_stamped_exact_tile4(const float* llr_in, float* post, int* iters, int* iscw,
                             const int* row_ptr, const int* col_sorted, const int* vn_ptr,
                             const int* perm_c2v, const int* layer_ptr, const int* layer_checks,
                             const int* layer_var_ptr, const int* layer_vars, const void* tables16,
                             int nc, int mc, int nnz, int nl, int nlc, int nlv, int B,
                             int iterations, int early_term, int cn_mode, float scale, float offset,
-                            int stage, unsigned long long* stamps, void* stream) {
-  const size_t bytes =
-      exact_tile_bytes(nc, mc, nnz, nl, nlc, nlv, kF, 4, tables16 != nullptr && stage != 0);
+                            int stage, int priors, int rows, unsigned long long* stamps,
+                            void* stream) {
+  const size_t bytes = exact_tile_bytes(nc, mc, nnz, nl, nlc, nlv, kF, 4,
+                                        tables16 != nullptr && stage != 0, priors != 0);
   if (tables16)
     return launch_stamped(exact_code_at((const uint16_t*)tables16, nc, mc, nnz, nl, nlc, nlv),
-                          cn_mode, scale, offset, llr_in, post, iters, iscw, stage, B,
-                          iterations, early_term, stamps, bytes, stream);
+                          cn_mode, scale, offset, llr_in, post, iters, iscw, stage, priors, rows,
+                          B, iterations, early_term, stamps, bytes, stream);
   if (stage) return (int)cudaErrorInvalidValue;
   const ExactCode<int> x{TileCode{row_ptr, col_sorted, vn_ptr, perm_c2v, nc, mc, nnz},
                          layer_ptr, layer_checks, layer_var_ptr, layer_vars, nl, nlc, nlv};
-  return launch_stamped(x, cn_mode, scale, offset, llr_in, post, iters, iscw, 0, B, iterations,
-                        early_term, stamps, bytes, stream);
+  return launch_stamped(x, cn_mode, scale, offset, llr_in, post, iters, iscw, 0, priors, rows, B,
+                        iterations, early_term, stamps, bytes, stream);
 }
 
 }  // extern "C"

@@ -235,7 +235,7 @@ def load() -> ctypes.CDLL:
                     I, I, I, I, I, I, I,  # nc mc nnz nl nlc nlv B
                     I, I, I, F, F,  # iterations early_term cn_mode scale offset
                     I, F,  # msg_dtype inv_q
-                    I,  # stage
+                    I, I,  # stage priors
                     P,  # stream
                 ]
                 entry.restype = I
@@ -327,7 +327,8 @@ def load() -> ctypes.CDLL:
             lib.ldpc_flood_tile_bytes.restype = ctypes.c_longlong
             lib.ldpc_fast_tile_bytes.argtypes = [I] * 7  # nc mc nnz nl nlc frames stage
             lib.ldpc_fast_tile_bytes.restype = ctypes.c_longlong
-            lib.ldpc_exact_tile_bytes.argtypes = [I] * 9  # nc mc nnz nl nlc nlv frames msg stage
+            # nc mc nnz nl nlc nlv frames msg stage priors
+            lib.ldpc_exact_tile_bytes.argtypes = [I] * 10
             lib.ldpc_exact_tile_bytes.restype = ctypes.c_longlong
             lib.ldpc_error_string.argtypes = [I]
             lib.ldpc_error_string.restype = ctypes.c_char_p

@@ -22,8 +22,9 @@
   :func:`exact_form` from the code's size and the message form: the tile
   form (``csrc/layered_exact_tile.cuh``: a block's 16, 8 or 4 frames keep
   their messages and posteriors in shared memory for the whole decode,
-  after a layer only that layer's variables recompute, and the index
-  tables are 16-bit, ``KernelTables.exact16``) and the plane form
+  after a layer only that layer's variables recompute, the index tables
+  are 16-bit, ``KernelTables.exact16``, and the frames' priors stay on chip
+  where the rule gives them room) and the plane form
   (``csrc/decode_layered_exact.cu``: the same kernel and schedule with
   ``lc2v``, the posterior and the decisions in device memory, and int32
   tables).
@@ -41,8 +42,9 @@ tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 Each keeps a launch count per form, ``<wrapper>.launches[dtype]``, raised
 by one at every kernel launch of that form and nowhere else.  While a
 profile records, :func:`bp_decode_layered` also counts its tile launches,
-``exact.launches``, and those with the tables staged,
-``exact.staged_launches`` (:func:`...utils.profiling.count`).
+``exact.launches``, those with the tables staged, ``exact.staged_launches``,
+and those with the priors staged, ``exact.prior_staged_launches``
+(:func:`...utils.profiling.count`).
 """
 
 from __future__ import annotations
@@ -365,8 +367,12 @@ bp_stream_chunk_layered_fast.last_form = None
 EXACT_TILE_FRAMES = (16, 8, 4)
 #: Force a form of the exact layered kernel (the card tests and the smoke
 #: run's side-by-side times do): None follows :func:`exact_form`; else
-#: ``(frames, stage)`` with frames 16, 8 or 4 (a tile) or 0 (the plane form).
+#: ``(frames, stage, priors)`` with frames 16, 8 or 4 (a tile) or 0 (the
+#: plane form), or ``(frames, stage)``, the priors read from device memory.
 EXACT_FORM_OVERRIDE = None
+#: Threads of a block's 512 a layer's checks must keep busy (frames x the
+#: checks a layer) for :func:`exact_form` to give up frames for the priors.
+EXACT_BUSY_CHECKS = 256
 
 
 def exact_table_entries(tables: KernelTables) -> int:
@@ -376,55 +382,24 @@ def exact_table_entries(tables: KernelTables) -> int:
             + tables.layer_vars.shape[0])
 
 
-def exact_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool) -> int:
+def exact_tile_bytes(tables: KernelTables, frames: int, message_dtype: str, stage: bool,
+                     priors: bool = False) -> int:
     """Dynamic shared memory of the exact layered kernel's tile form
     (``csrc/layered_exact_tile.cuh`` ``exact_tile_bytes``, exported by the
-    library as ``ldpc_exact_tile_bytes``): the tile and, staged, the eight
-    tables at 2 bytes an entry (``KernelTables.exact16``), 4-byte aligned."""
+    library as ``ldpc_exact_tile_bytes``): the tile, staged, the eight
+    tables at 2 bytes an entry (``KernelTables.exact16``), 4-byte aligned,
+    and with ``priors`` the frames' float32 priors ``[nc, frames]`` after
+    them, 16-byte aligned."""
     staged = _align4(2 * exact_table_entries(tables)) if stage else 0
-    return tile_bytes(tables, frames, message_dtype, 0) + staged
+    n = tile_bytes(tables, frames, message_dtype, 0) + staged
+    return (n + 15) // 16 * 16 + 4 * tables.code.nc * frames if priors else n
 
 
-def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool]:
-    """``(frames, stage)`` of the exact layered kernel for this code and
-    message form, by size alone: a tile of :data:`EXACT_TILE_FRAMES` frames
-    a block where one fits, else ``(0, False)``, the plane form (``lc2v``,
-    the posterior and the decisions in device memory, 16 frames a block),
-    which every tile beat where both fit.  The tiles read 16-bit tables: a
-    code without them (``KernelTables.exact16`` None: an entry past 65,535,
-    as in layers that repeat its checks many times over) takes the plane
-    form.
-
-    float32 and bfloat16 (one block an SM) take
-    :func:`.decode_fused.tile_form`'s tile: the most frames whose tables
-    stay on chip, staged or in the L1 the tile leaves, else the most frames
-    that fit.  The int8 tiles run two blocks an SM
-    (``csrc/layered_exact_tile.cuh`` ``__launch_bounds__``): the most frames
-    whose unstaged tile lets two blocks share an SM, staged if the staged
-    tile does too, whatever the L1 holds.
-
-    The choices and their times on the card (``PERF.md`` section 6; 50
-    iterations at B = 16384, BP, int8 BP_MS; the tables 16-bit, 2 bytes an
-    entry staged): wifi 648 16 frames staged in every form (211,736 bytes
-    in float32); wifi 1296 8 staged in float32 (57.0 ms against 74.5 at 4
-    staged, 72.3 at 8 unstaged and 111.7 in the plane form), 16 staged in
-    bfloat16 (54.0 against 59.8 at 8 staged), 16 unstaged in int8 (32.6,
-    tied with 32.5 at 8 staged and ahead of 33.7 at 8 unstaged); wifi 1944 4
-    staged in float32 (96.7 ms against 121.2 unstaged and 169.5 in the plane
-    form), 8 staged in bfloat16 (92.9 against 99.3 at 4 staged), 8 unstaged
-    in int8 (53.2 against 53.4 at 4 staged and 72.7 at 8 staged, one block an
-    SM).  Past the tiles, on (3,6) QC codes of 4,800 (float32) and 8,000
-    (bfloat16) variables, the plane form took 0.68 and 0.93 times the time
-    of a plane form keeping the posterior of 8 frames a block on chip, on
-    16,000 (int8) 1.10 times: that form was not kept.  At any other shape
-    the rule extrapolates."""
-    if EXACT_FORM_OVERRIDE is not None:
-        return EXACT_FORM_OVERRIDE
-    if tables.exact16 is None:
-        return 0, False
-
+def exact_tile_form(tables: KernelTables, message_dtype: str, priors: bool) -> tuple[int, bool]:
+    """``(frames, stage)`` of the tile rule on the tiles' bytes with or
+    without the frames' priors (:func:`exact_form`)."""
     def bytes_of(frames, stage):
-        return exact_tile_bytes(tables, frames, message_dtype, stage)
+        return exact_tile_bytes(tables, frames, message_dtype, stage, priors)
 
     if TORCH_DTYPES[message_dtype].itemsize > 1:
         return tile_form(bytes_of, EXACT_TILE_FRAMES)
@@ -432,6 +407,60 @@ def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[in
     shared = tuple(f for f in EXACT_TILE_FRAMES if bytes_of(f, False) <= two)
     return tile_form(bytes_of, shared or EXACT_TILE_FRAMES, blocks_per_sm=lambda frames: 2,
                      tables_in_l1=False)
+
+
+def exact_form(tables: KernelTables, message_dtype: str = "float32") -> tuple[int, bool, bool]:
+    """``(frames, stage, priors)`` of the exact layered kernel for this code
+    and message form, by size alone: a tile of :data:`EXACT_TILE_FRAMES`
+    frames a block where one fits, its tables staged or not, its frames'
+    float32 priors in shared memory or not; else ``(0, False, False)``, the
+    plane form (``lc2v``, the posterior and the decisions in device memory,
+    16 frames a block), which every tile beat where both fit.  The tiles
+    read 16-bit tables: a code without them (``KernelTables.exact16`` None:
+    an entry past 65,535, as in layers that repeat its checks many times
+    over) takes the plane form.
+
+    The tile: float32 and bfloat16 (one block an SM) take
+    :func:`.decode_fused.tile_form`'s: the most frames whose tables stay on
+    chip, staged or in the L1 the tile leaves, else the most frames that
+    fit.  The int8 tiles run two blocks an SM (``csrc/layered_exact_tile.cuh``
+    ``__launch_bounds__``): the most frames whose unstaged tile lets two
+    blocks share an SM, staged if the staged tile does too, whatever the L1
+    holds.  The rule runs on the tiles' bytes with the priors and without;
+    the tile with them is taken where it keeps the frames of the tile
+    without, or where its frames still keep :data:`EXACT_BUSY_CHECKS` of
+    the block's threads busy in a layer's checks (frames x the checks a
+    layer).  With the priors on chip the variable phase gives a thread a
+    variable's frames and reads only shared memory; without, a thread takes
+    a variable of one frame and reads its prior from device memory.
+
+    The choices and their times on the card (``PERF.md`` section 6; 50
+    iterations at B = 16384, BP, int8 BP_MS): wifi 648 float32 16 frames
+    staged, no priors (29.1 ms; 8 staged with them 34.8, in BP_MS 17.5
+    against 19.0: 8 x 27 checks keep too few threads busy), 16 staged with
+    them in bfloat16 (24.5 against 30.7 without) and int8 (12.4 against
+    16.1); wifi 1296 float32 8 staged, no priors (57.3 against 61.8 at 4
+    staged with them; in BP_MS 34.2 against 29.4, which the rule gives up),
+    bfloat16 8 staged with them (43.4 against 54.0 at 16 staged), int8 8
+    unstaged with them (19.6 against 32.7 at 16 unstaged); wifi 1944
+    float32 4 staged with them (77.1 against 96.7), bfloat16 4 staged with
+    them (75.1; 75.9 at 8 unstaged with them, 92.1 at 8 staged), int8 4
+    unstaged with them (33.4 against 51.5 at 8 unstaged).  Past the tiles,
+    on (3,6) QC codes of 4,800 (float32) and 8,000 (bfloat16) variables,
+    the plane form took 0.68 and 0.93 times the time of a plane form
+    keeping the posterior of 8 frames a block on chip, on 16,000 (int8)
+    1.10 times: that form was not kept.  At any other shape the rule
+    extrapolates."""
+    if EXACT_FORM_OVERRIDE is not None:
+        return (*EXACT_FORM_OVERRIDE, False)[:3]
+    if tables.exact16 is None:
+        return 0, False, False
+    frames, stage = exact_tile_form(tables, message_dtype, False)
+    on_chip = exact_tile_form(tables, message_dtype, True)
+    checks = tables.layer_checks.shape[0] / tables.n_layers
+    if on_chip[0] and (on_chip[0] == frames or on_chip[0] * checks >= EXACT_BUSY_CHECKS):
+        return (*on_chip, True)
+    return frames, stage, False
 
 
 def bp_decode_layered_plain(
@@ -498,7 +527,7 @@ def bp_decode_layered(
     iscw = torch.empty(B, dtype=torch.int32, device=dev)
     mode, scale, offset = cn_mode_args(form.cn_mode(minsum_mode))
     run = (iterations, int(bool(early_term)), mode, scale, offset, form.code, form.inv_q)
-    frames, stage = exact_form(tables, form.dtype)
+    frames, stage, priors = exact_form(tables, form.dtype)
     shape = (nc, sdc.mc, sdc.nnz, tables.n_layers, tables.layer_checks.shape[0],
              tables.layer_vars.shape[0], B)
     if frames == 0:
@@ -517,18 +546,19 @@ def bp_decode_layered(
         entry = {16: lib.ldpc_bp_decode_layered_tile16, 8: lib.ldpc_bp_decode_layered_tile8,
                  4: lib.ldpc_bp_decode_layered_tile4}[frames]
         err = entry(_p(llr_in), _p(post), _p(iters), _p(iscw), _p(tables.exact16), *shape, *run,
-                    int(stage), _stream(llr_in))
+                    int(stage), int(priors), _stream(llr_in))
     _raise_on(lib, err, "bp_decode_layered")
     bp_decode_layered.launches[form.dtype] += 1
-    if frames:  # a tile launch, its tables staged or not (read while a profile records)
+    if frames:  # a tile launch, its tables and priors staged or not (read while a profile records)
         count("exact.launches", 1)
         count("exact.staged_launches", int(stage))
-    bp_decode_layered.last_form = (frames, stage)
+        count("exact.prior_staged_launches", int(priors))
+    bp_decode_layered.last_form = (frames, stage, priors)
     llr_out = form.dequant(post)
     return SortedDecodeOutput(llr_out=llr_out, hard=llr_out <= 0, iterations=iters,
                               is_codeword=iscw > 0)
 
 
 bp_decode_layered.launches = dict.fromkeys(DTYPE_CODES, 0)
-#: ``(frames, stage)`` of the last launch (:func:`exact_form`)
+#: ``(frames, stage, priors)`` of the last launch (:func:`exact_form`)
 bp_decode_layered.last_form = None

@@ -17,6 +17,10 @@ arithmetic, no kernel runs.
 * ``KernelTables.exact16``, the 16-bit tables of K5's tiles: entry for
   entry the int32 tables; 16 bits hold every entry of a code whose
   smallest tile fits; staged, they take 2 bytes an entry, 4-byte aligned.
+* K5's frames' priors in shared memory: 4 bytes a variable and frame
+  after the tile, 16-byte aligned; ``exact_form`` takes them where the tile
+  rule with them keeps the frames it gives without them, or frames enough
+  to keep ``EXACT_BUSY_CHECKS`` threads busy in a layer's checks.
 """
 
 import dataclasses
@@ -81,6 +85,12 @@ K2_RULE = {
     "wifi1296": [(8, False), (16, False), (16, True)],
 }
 K5_RULE = {
+    "wifi648": [(16, True, False), (16, True, True), (16, True, True)],
+    "wifi1296": [(8, True, False), (8, True, True), (8, False, True)],
+    "wifi1944": [(4, True, True), (4, True, True), (4, False, True)],
+}
+#: K5's tile rule on the tiles without their priors (``exact_tile_form``)
+K5_TILES = {
     "wifi648": [(16, True), (16, True), (16, True)],
     "wifi1296": [(8, True), (16, True), (16, False)],
     "wifi1944": [(4, True), (8, True), (8, False)],
@@ -119,16 +129,17 @@ def test_exact_form_int8_takes_two_blocks_an_sm(smoke_codes):
     ``tile_form``'s tables-on-chip rule over 16, 8 and 4 frames."""
     two = df.SMEM_SM_BYTES // 2 - 1024
     for name, (frames, stage) in zip(("wifi648", "wifi1296", "wifi1944"),
-                                     ((16, True), (16, False), (8, False))):
+                                     ((16, True), (8, False), (4, False))):
         t = smoke_codes[name]
-        assert dl.exact_form(t, "int8") == (frames, stage)
-        assert dl.exact_tile_bytes(t, frames, "int8", stage) <= two
+        assert dl.exact_form(t, "int8") == (frames, stage, True)
+        assert dl.exact_tile_bytes(t, frames, "int8", stage, True) <= two
         if frames < 16:
-            assert dl.exact_tile_bytes(t, 2 * frames, "int8", False) > two
+            assert dl.exact_tile_bytes(t, 2 * frames, "int8", False, True) > two
     t = smoke_codes["wifi1944"]
     for dt in ("float32", "bfloat16"):
-        assert dl.exact_form(t, dt) == df.tile_form(
-            lambda frames, stage: dl.exact_tile_bytes(t, frames, dt, stage), (16, 8, 4))
+        assert dl.exact_form(t, dt) == (*df.tile_form(
+            lambda frames, stage: dl.exact_tile_bytes(t, frames, dt, stage, True), (16, 8, 4)),
+            True)
 
 
 @pytest.mark.parametrize("nc,dtype,frames", [
@@ -142,7 +153,7 @@ def test_exact_form_past_the_tiles_is_the_plane_form(nc, dtype, frames):
     qc_natural_layers(code)
     t = kernel_tables(to_sorted_device(code, "cpu", with_layers=True))
     assert t.n_layers == 25
-    assert dl.exact_form(t, dtype) == (frames, False)
+    assert dl.exact_form(t, dtype) == (frames, False, False)
     assert (dl.exact_tile_bytes(t, 4, dtype, False) <= df.SMEM_BLOCK_BYTES) == (frames == 4)
     assert dl.exact_tile_bytes(t, 8, dtype, False) > df.SMEM_BLOCK_BYTES
 
@@ -211,7 +222,7 @@ def test_too_large_for_any_tile_keeps_the_hbm_planes():
     tables = kernel_tables(to_sorted_device(code, "cpu", with_layers=True))
     for dt in DTYPES:
         assert df.stream_form(tables, dt) == (0, False)
-        assert dl.exact_form(tables, dt) == (0, False)
+        assert dl.exact_form(tables, dt) == (0, False, False)
         assert df.flood_tile_bytes(tables, 4, dt, False) > df.SMEM_BLOCK_BYTES
 
 
@@ -221,11 +232,61 @@ def test_overrides_take_precedence(smoke_codes):
         df.STREAM_FORM_OVERRIDE = (0, False)
         dl.EXACT_FORM_OVERRIDE = (8, False)
         assert df.stream_form(t, "int8") == (0, False)
-        assert dl.exact_form(t, "int8") == (8, False)
+        assert dl.exact_form(t, "int8") == (8, False, False)  # the priors in device memory
+        dl.EXACT_FORM_OVERRIDE = (4, True, True)
+        assert dl.exact_form(t, "float32") == (4, True, True)
     finally:
         df.STREAM_FORM_OVERRIDE = None
         dl.EXACT_FORM_OVERRIDE = None
-    assert df.stream_form(t, "int8") == (16, True) and dl.exact_form(t, "int8") == (16, True)
+    assert df.stream_form(t, "int8") == (16, True)
+    assert dl.exact_form(t, "int8") == (16, True, True)
+
+
+@pytest.mark.parametrize("name", list(K5_RULE))
+def test_exact_priors_rule(smoke_codes, name):
+    """The tile rule without the priors picks what it picked before they
+    could be staged (``K5_TILES``); with them it picks a tile of as many
+    frames or fewer.  ``exact_form`` takes the tile with the priors where it
+    keeps the frames, or keeps ``EXACT_BUSY_CHECKS`` threads busy in a
+    layer's checks (frames x the checks a layer): every form of wifi 1944,
+    wifi 648 and wifi 1296 in bfloat16 and int8 (8 x 54 checks), not wifi
+    648 or wifi 1296 in float32 (8 x 27, 4 x 54).  The tile it takes fits
+    its blocks an SM (one in float32 and bfloat16, two in int8)."""
+    t = smoke_codes[name]
+    two = df.SMEM_SM_BYTES // 2 - 1024
+    checks = t.layer_checks.shape[0] / t.n_layers
+    for dt, want, tiles in zip(DTYPES, K5_RULE[name], K5_TILES[name]):
+        assert dl.exact_tile_form(t, dt, False) == tiles
+        on_chip = dl.exact_tile_form(t, dt, True)
+        assert on_chip[0] <= tiles[0]
+        keep = on_chip[0] == tiles[0] or on_chip[0] * checks >= dl.EXACT_BUSY_CHECKS
+        assert dl.exact_form(t, dt) == want == ((*on_chip, True) if keep else (*tiles, False))
+        room = two if dt == "int8" else df.SMEM_BLOCK_BYTES
+        assert dl.exact_tile_bytes(t, want[0], dt, want[1], want[2]) <= room
+
+
+def test_exact_prior_bytes(smoke_codes):
+    """The priors add float32 ``[nc, frames]`` after the tile and its staged
+    tables, 16-byte aligned: cell 2's 4-frame float32 tile 196,076 (196,080
+    aligned) + 31,104 = 227,184 bytes, under a block's 232,192; wifi 648's
+    16-frame float32 tile does not fit with them (211,744 + 41,472), its
+    int8 tile still lets two blocks share an SM (66,592 + 41,472)."""
+    t = smoke_codes["wifi1944"]
+    assert dl.exact_tile_bytes(t, 4, "float32", True, True) == 227_184 <= df.SMEM_BLOCK_BYTES
+    assert df.SMEM_BLOCK_BYTES == 232_192
+    for name, tb in smoke_codes.items():
+        if tb.exact16 is None:
+            continue
+        for dt in DTYPES:
+            for f in (16, 8, 4):
+                for stage in (True, False):
+                    n = dl.exact_tile_bytes(tb, f, dt, stage)
+                    assert (dl.exact_tile_bytes(tb, f, dt, stage, True)
+                            == (n + 15) // 16 * 16 + 4 * tb.code.nc * f)
+    w648 = smoke_codes["wifi648"]
+    assert dl.exact_tile_bytes(w648, 16, "float32", True, True) == 253_216 > df.SMEM_BLOCK_BYTES
+    assert dl.exact_tile_bytes(w648, 16, "int8", True, True) == 108_064
+    assert 2 * (108_064 + 1024) <= df.SMEM_SM_BYTES
 
 
 def _int32_tables(t):
@@ -287,7 +348,7 @@ def test_past_16_bits_no_exact16_and_the_plane_form():
     the plane form, which reads the int32 tables."""
     t = kernel_tables(to_sorted_device(_regular(30_000, 3, 6), "cpu", with_layers=True))
     assert int(t.row_ptr.max()) > TABLE16_MAX and t.exact16 is None
-    assert all(dl.exact_form(t, dt) == (0, False) for dt in DTYPES)
+    assert all(dl.exact_form(t, dt) == (0, False, False) for dt in DTYPES)
 
 
 def test_layers_past_16_bits_take_the_plane_form():
@@ -298,7 +359,7 @@ def test_layers_past_16_bits_take_the_plane_form():
     t = kernel_tables(to_sorted_device(code, "cpu", with_layers=True))
     assert int(t.layer_ptr.max()) > TABLE16_MAX and t.exact16 is None
     assert dl.exact_tile_bytes(t, 16, "float32", False) <= df.SMEM_BLOCK_BYTES
-    assert all(dl.exact_form(t, dt) == (0, False) for dt in DTYPES)
+    assert all(dl.exact_form(t, dt) == (0, False, False) for dt in DTYPES)
 
 
 @pytest.mark.parametrize("name", ["wifi648", "wifi1296", "wifi1944"])

@@ -2,7 +2,11 @@
 802.11n n=1944 code in float32, on the card: its index tables 16-bit and
 staged in shared memory (the size rule's form), 16-bit in device memory,
 and int32 in device memory (the tile as it was before its tables were
-16-bit).
+16-bit); its frames' priors staged in shared memory (the rule's form),
+with the variable phase a variable's 4 frames a thread, each slot's frames
+one 16-byte row (the library's), or a frame a thread, or the priors read
+from device memory at every variable phase with a frame a thread (the
+library's without staged priors).
 
 Run from the repo root on a machine with one NVIDIA H100:
 
@@ -18,7 +22,8 @@ tile's decode with ``clock64()`` stamps at every phase boundary) into
   ``--layer-file`` sweep's point in the benchmark),
 
 held bit for bit against the library's tile on the same inputs (the
-16-bit forms forced with ``EXACT_FORM_OVERRIDE``).  For each it prints
+16-bit forms forced with ``EXACT_FORM_OVERRIDE``, priors included; the
+int32 row against the unstaged tile).  For each it prints
 each phase's share of the summed warp time and its cycles per warp and
 layer step (a warp's wait at a barrier is a phase of its own), the
 stamped kernel's time and the library kernel's (CUDA events), with the
@@ -44,10 +49,14 @@ ITERS = 50
 PHASES = ("entry_exit", "iteration_vote", "checks", "check_barrier", "variables",
           "syndrome_vote", "syndrome", "syndrome_barrier")
 WARPS_A_BLOCK = 512 // 32
-#: (label, 16-bit tables, staged): the library's 16-bit forms, and int32
-#: tables in device memory
-TABLE_FORMS = (("16-bit staged", True, True), ("16-bit unstaged", True, False),
-               ("int32 unstaged", False, False))
+#: (label, 16-bit tables, staged, priors staged, the variable phase a
+#: variable's frames a thread): the library's 16-bit forms, the priors
+#: staged with a frame a thread, and int32 tables in device memory
+TABLE_FORMS = (("16-bit staged, priors staged, rows", True, True, True, True),
+               ("16-bit staged, priors staged, a frame a thread", True, True, True, False),
+               ("16-bit staged", True, True, False, False),
+               ("16-bit unstaged", True, False, False, False),
+               ("int32 unstaged", False, False, False, False))
 #: (label, CN form, SNR dB, early termination)
 CASES = (("BP 1.5 dB no-ET", "BP", 1.5, False), ("BP_MS 1.5 dB no-ET", "BP_MS", 1.5, False),
          ("BP 2.0 dB ET", "BP", 2.0, True))
@@ -99,7 +108,7 @@ def main() -> int:
     dev = torch.device("cuda")
     lib = build_stamps(build)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dev_stamped_exact_tile4.argtypes = [P] * 13 + [I] * 10 + [F, F, I, P, P]
+    lib.dev_stamped_exact_tile4.argtypes = [P] * 13 + [I] * 10 + [F, F, I, I, I, P, P]
     lib.dev_stamped_exact_tile4.restype = I
     if lib.dev_n_exact_phases() != len(PHASES):
         raise RuntimeError("exact_stamps.cu and this script name different phases")
@@ -117,7 +126,7 @@ def main() -> int:
     for label, form, snr, et in CASES:
         llr = awgn_channel(c, make_generator(dev, 7, 2, 0), BATCH, snr).llr
         mode, scale, offset = cn_mode_args(form)
-        for tlabel, sixteen, stage in TABLE_FORMS:
+        for tlabel, sixteen, stage, priors, rows in TABLE_FORMS:
             stamps = torch.zeros(len(PHASES) + 1, dtype=torch.int64, device=dev)
 
             def stamped():
@@ -127,12 +136,12 @@ def main() -> int:
                     _p(tb.col_sorted), _p(tb.vn_ptr), _p(tb.perm_c2v), _p(tb.layer_ptr),
                     _p(tb.layer_checks), _p(tb.layer_var_ptr), _p(tb.layer_vars),
                     _p(tb.exact16) if sixteen else P(None), *shape, ITERS, int(et), mode, scale,
-                    offset, int(stage), _p(stamps), stream)
+                    offset, int(stage), int(priors), int(rows), _p(stamps), stream)
                 if err:
                     raise RuntimeError(f"stamped 4-frame tile: CUDA error {err}")
 
             def library():
-                dl.EXACT_FORM_OVERRIDE = (4, stage)
+                dl.EXACT_FORM_OVERRIDE = (4, stage, priors)
                 try:
                     return dl.bp_decode_layered(tb, llr, ITERS, et, form)
                 finally:
@@ -158,7 +167,8 @@ def main() -> int:
             }
             result["cases"][f"{label} {tlabel}"] = row
             print(f"stamps K5 tile4 wifi1944 f32 {label} {tlabel} B={BATCH}: stamped "
-                  f"{ms:.3f} ms, library (4, {stage}) {row['library_kernel_ms']:.3f} ms, "
+                  f"{ms:.3f} ms, library (4, {stage}, priors {priors}) "
+                  f"{row['library_kernel_ms']:.3f} ms, "
                   f"{steps} layer steps; cycles a warp and layer step: "
                   + ", ".join(f"{n} {v:.0f} ({row['shares'][n]:.1%})"
                               for n, v in row["cycles_per_warp_layer_step"].items())

@@ -10,7 +10,10 @@ block's shared memory is forced in turn (``decode_layered.EXACT_FORM_OVERRIDE``:
 the tiles of 16, 8 and 4 frames a block, tables staged or not, and the
 plane form, ``(0, False)``; on a tree with ``EXACT_PLANE_OVERRIDE``, the
 plane form's earlier design, with the posterior of 16 or 8 frames on chip,
-staged or not, and in device memory).  First each form decodes B = 1000 frames
+staged or not, and in device memory; on a tree whose ``exact_form``
+also chooses the priors, ``EXACT_BUSY_CHECKS``, each tile with its frames'
+priors in shared memory where they fit, and read from device memory,
+forced as ``(frames, stage, priors)``).  First each form decodes B = 1000 frames
 (no multiple of 16) at 1.5 dB, 12 iterations, early termination on and
 off, against ``bp_decode_layered_plain``: the min-sum family bit-exact, BP
 in decisions and iteration counts on >= 99.9 % of frames.  Then every form
@@ -73,14 +76,21 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     dev = torch.device("cuda")
     planes = hasattr(dl, "EXACT_PLANE_OVERRIDE")
+    priors = hasattr(dl, "EXACT_BUSY_CHECKS")
+    no_priors = (False,) if priors else ()
 
     def forms_of(tb, dtype):
-        """(label, tile override, plane override) of every form that fits."""
-        forms = [(f"tile {f}{' staged' if s else ''}", (f, s), None)
+        """(label, tile override, plane override) of every form that fits;
+        a tile override ``(frames, stage, priors)`` on a tree that stages
+        the priors."""
+        forms = [(f"tile {f}{' staged' if s else ''}", (f, s) + no_priors, None)
                  for f in dl.EXACT_TILE_FRAMES for s in (True, False)
                  if dl.exact_tile_bytes(tb, f, dtype, s) <= dl.SMEM_BLOCK_BYTES]
+        if priors:
+            forms += [(f"{lbl}, priors staged", (t[0], t[1], True), None) for lbl, t, _ in forms
+                      if dl.exact_tile_bytes(tb, t[0], dtype, t[1], True) <= dl.SMEM_BLOCK_BYTES]
         if not planes:
-            return forms + [("plane", (0, False), None)]
+            return forms + [("plane", (0, False) + no_priors, None)]
         forms += [(f"plane, posterior of {f} on chip{' staged' if s else ''}", (0, False), (f, s))
                   for f in dl.EXACT_PLANE_FRAMES for s in (True, False)
                   if dl.exact_plane_bytes(tb, f, dtype, s) <= dl.SMEM_BLOCK_BYTES]

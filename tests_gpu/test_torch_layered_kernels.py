@@ -18,7 +18,9 @@ block's shared memory raises; the tile's Python byte counts are held to
 the library's.  On wifi 1944 and wifi 1296 the rule's tile with its 16-bit
 tables staged is bit-identical to the same tile reading them from device
 memory, in every message form and CN family, and counts its launches while
-a profile records."""
+a profile records.  Where the rule keeps the frames' priors in shared
+memory (wifi 1944 float32, wifi 648 bfloat16 and int8), the tile is
+bit-identical to the same tile reading them from device memory."""
 
 import dataclasses
 
@@ -140,6 +142,7 @@ def test_exact_kernel_matches_plain(tables_of, cuda_device, dtype, form, early_t
     want = dl.bp_decode_layered_plain(tables, x, 12, early_term, form, dtype)
     torch.cuda.synchronize()
     assert dl.bp_decode_layered.launches[dtype] == launches + 1
+    assert dl.bp_decode_layered.last_form == dl.exact_form(tables, dtype)
     assert_matches(got, want, form, 1e-4 if dtype == "float32" else 2 ** -4)
 
 
@@ -247,9 +250,10 @@ def test_simulator_on_card(tables_of, cuda_device, tmp_path, name, schedule, str
 
 
 #: every form of the exact kernel: (label, EXACT_FORM_OVERRIDE); frames 0
-#: is the plane form (lc2v, the posterior and the decisions in device memory)
-EXACT_FORMS = ([(f"tile{f}{'s' if s else ''}", (f, s)) for f in (16, 8, 4)
-                for s in (True, False)] + [("plane", (0, False))])
+#: is the plane form (lc2v, the posterior and the decisions in device
+#: memory); "p": the tile's priors in shared memory
+EXACT_FORMS = ([(f"tile{f}{'s' if s else ''}{'p' if p else ''}", (f, s, p)) for f in (16, 8, 4)
+                for s in (True, False) for p in (False, True)] + [("plane", (0, False, False))])
 B_RAGGED = 301  # no multiple of 4, 16 or 32
 
 
@@ -263,7 +267,8 @@ def force_exact():
 
 
 def _fits(tables, tile, dtype):
-    return tile[0] == 0 or dl.exact_tile_bytes(tables, tile[0], dtype, tile[1]) <= dl.SMEM_BLOCK_BYTES
+    return (tile[0] == 0
+            or dl.exact_tile_bytes(tables, tile[0], dtype, tile[1], tile[2]) <= dl.SMEM_BLOCK_BYTES)
 
 
 @pytest.mark.parametrize("early_term", [True, False])
@@ -295,7 +300,8 @@ def test_exact_kernel_every_form(tables_of, built, force_exact, name, label, til
 def test_exact_rules_on_wifi1944(tables_of):
     _, tables = tables_of("wifi1944")
     dts = ("float32", "bfloat16", "int8")
-    assert [dl.exact_form(tables, dt) for dt in dts] == [(4, True), (8, True), (8, False)]
+    assert [dl.exact_form(tables, dt) for dt in dts] == [(4, True, True), (4, True, True),
+                                                         (4, False, True)]
 
 
 @pytest.mark.parametrize("early_term", [True, False])
@@ -308,15 +314,15 @@ def test_exact_staged_tables_bit_identical_to_unstaged(tables_of, built, force_e
     ``iterations`` and ``is_codeword`` for every frame; both held to the
     plain version."""
     code, tables = tables_of(name)
-    tile = dl.exact_form(tables, dtype)[0]
-    assert tile and dl.exact_tile_bytes(tables, tile, dtype, True) <= dl.SMEM_BLOCK_BYTES
+    tile, _, priors = dl.exact_form(tables, dtype)
+    assert tile and dl.exact_tile_bytes(tables, tile, dtype, True, priors) <= dl.SMEM_BLOCK_BYTES
     llr, _ = frames(code, tables.code.vn_perm.cpu(), B_RAGGED, 1.8, seed=23)
     x = torch.from_numpy(llr).to(tables.device)
     outs = []
     for stage in (True, False):
-        force_exact((tile, stage))
+        force_exact((tile, stage, priors))
         outs.append(dl.bp_decode_layered(tables, x, 12, early_term, form, dtype))
-        assert dl.bp_decode_layered.last_form == (tile, stage)
+        assert dl.bp_decode_layered.last_form == (tile, stage, priors)
     staged, unstaged = outs
     key = ("exact plain staged", name, dtype, str(form), early_term)
     if key not in built:
@@ -329,6 +335,42 @@ def test_exact_staged_tables_bit_identical_to_unstaged(tables_of, built, force_e
         assert_matches(got, built[key], form, 1e-4 if dtype == "float32" else 2 ** -4)
 
 
+#: the codes and message forms whose rule's tile keeps its priors in shared memory
+PRIOR_STAGED = ([("wifi1944", dt) for dt in ("float32", "bfloat16", "int8")]
+                + [(n, dt) for n in ("wifi1296", "wifi648") for dt in ("bfloat16", "int8")])
+
+
+@pytest.mark.parametrize("early_term", [True, False])
+@pytest.mark.parametrize("name,dtype,form", [(n, dt, f) for n, dt in PRIOR_STAGED
+                                             for d, f in DTYPE_FORMS if d == dt])
+def test_exact_staged_priors_bit_identical_to_device_priors(tables_of, built, force_exact, name,
+                                                            dtype, form, early_term):
+    """The rule's tile with its frames' priors in shared memory and the same
+    tile reading them from device memory at every variable phase: the same
+    ``llr_out``, ``iterations`` and ``is_codeword`` for every frame; both
+    held to the plain version."""
+    code, tables = tables_of(name)
+    tile, stage, priors = dl.exact_form(tables, dtype)
+    assert tile and priors
+    llr, _ = frames(code, tables.code.vn_perm.cpu(), B_RAGGED, 1.8, seed=29)
+    x = torch.from_numpy(llr).to(tables.device)
+    outs = []
+    for priors in (True, False):
+        force_exact((tile, stage, priors))
+        outs.append(dl.bp_decode_layered(tables, x, 12, early_term, form, dtype))
+        assert dl.bp_decode_layered.last_form == (tile, stage, priors)
+    on_chip, in_memory = outs
+    key = ("exact plain priors", name, dtype, str(form), early_term)
+    if key not in built:
+        built[key] = dl.bp_decode_layered_plain(tables, x, 12, early_term, form, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(on_chip.llr_out, in_memory.llr_out)
+    assert torch.equal(on_chip.iterations, in_memory.iterations)
+    assert torch.equal(on_chip.is_codeword, in_memory.is_codeword)
+    for got in outs:
+        assert_matches(got, built[key], form, 1e-4 if dtype == "float32" else 2 ** -4)
+
+
 def test_exact_tile_forced_without_16_bit_tables_raises(cuda_device, force_exact):
     """A code whose layers repeat its checks past 65,535 layer entries has no
     16-bit tables: the rule keeps the plane form, which decodes it, and a
@@ -336,19 +378,20 @@ def test_exact_tile_forced_without_16_bit_tables_raises(cuda_device, force_exact
     code = _two_layer_code()
     code.layers = [np.arange(code.mc, dtype=np.int32)] * 1366 + [code.layers[0]]
     tables = kernel_tables(to_sorted_device(code, cuda_device, with_layers=True))
-    assert tables.exact16 is None and dl.exact_form(tables) == (0, False)
+    assert tables.exact16 is None and dl.exact_form(tables) == (0, False, False)
     x = torch.randn(code.nc, 40, device=cuda_device) * 2 + 1.5
     assert dl.bp_decode_layered(tables, x, 1, False, "BP_MS").llr_out.shape == (code.nc, 40)
-    assert dl.bp_decode_layered.last_form == (0, False)
+    assert dl.bp_decode_layered.last_form == (0, False, False)
     force_exact((16, True))
     with pytest.raises(ValueError, match="16-bit tables"):
         dl.bp_decode_layered(tables, x, 1, False, "BP_MS")
 
 
 def test_exact_tile_launches_counted_while_profiling(tables_of):
-    """``exact.launches`` and ``exact.staged_launches`` count the tile
-    launches while a profile records (the rule stages wifi 1944's float32
-    tables), and nothing without one."""
+    """``exact.launches``, ``exact.staged_launches`` and
+    ``exact.prior_staged_launches`` count the tile launches while a profile
+    records (the rule stages wifi 1944's float32 tables and priors), and
+    nothing without one."""
     from libldpc_tpu_torch.utils import profiling
 
     code, tables = tables_of("wifi1944")
@@ -363,12 +406,14 @@ def test_exact_tile_launches_counted_while_profiling(tables_of):
     got = profiling.counters()
     profiling.reset_counters()
     assert got["exact.launches"] == got["exact.staged_launches"] == 3
+    assert got["exact.prior_staged_launches"] == 3
 
 
 @pytest.mark.parametrize("name", ["wifi1944", "uneven", "wifi648", "wifi1296"])
 def test_exact_bytes_match_the_library(tables_of, name):
     """The tile form's shared memory, counted in Python as the launchers
-    count it, in every message form, frames a block and staging."""
+    count it, in every message form, frames a block, staging of the tables
+    and of the priors."""
     lib = build.load()
     _, t = tables_of(name)
     c = t.code
@@ -377,8 +422,9 @@ def test_exact_bytes_match_the_library(tables_of, name):
         msg = TORCH_DTYPES[dtype].itemsize
         for stage in (True, False):
             for f in (16, 8, 4):
-                assert dl.exact_tile_bytes(t, f, dtype, stage) == lib.ldpc_exact_tile_bytes(
-                    *shape, f, msg, int(stage))
+                for priors in (True, False):
+                    assert dl.exact_tile_bytes(t, f, dtype, stage, priors) == \
+                        lib.ldpc_exact_tile_bytes(*shape, f, msg, int(stage), int(priors))
 
 
 def test_exact_plane_form_allocates_no_lv2c(tables_of, force_exact):

@@ -48,7 +48,10 @@ pytestmark = pytest.mark.cuda
 #: frames is the HBM-plane form
 K2_FORMS = [(16, True), (8, True), (4, True), (8, False), (0, False)]
 #: the same for the exact layered kernel
-K5_FORMS = [(16, True), (16, False), (8, True), (8, False), (4, True), (4, False), (0, False)]
+#: K5's forms (frames, stage, priors): every tile with its priors in device
+#: memory, the staged tiles with them in shared memory too, and the plane form
+K5_FORMS = ([(f, s, False) for f in (16, 8, 4) for s in (True, False)]
+            + [(f, True, True) for f in (16, 8, 4)] + [(0, False, False)])
 B_RAGGED = 301  # no multiple of 4, 8 or 16
 
 
@@ -99,8 +102,9 @@ def k2_fits(tables, forced, dtype):
 
 
 def k5_fits(tables, forced, dtype):
-    frames, stage = forced
-    return frames == 0 or dl.exact_tile_bytes(tables, frames, dtype, stage) <= dl.SMEM_BLOCK_BYTES
+    frames, stage, priors = forced
+    return (frames == 0
+            or dl.exact_tile_bytes(tables, frames, dtype, stage, priors) <= dl.SMEM_BLOCK_BYTES)
 
 
 # ----------------------------------------------------------------------- K2
@@ -277,11 +281,11 @@ def test_exact_layered_forms(tables_of, force, built, name, k5, dtype, form, ear
 def test_exact_form_rule(tables_of):
     _, wifi = tables_of("wifi648")
     assert [dl.exact_form(wifi, dt) for dt in ("float32", "bfloat16", "int8")] == [
-        (16, True)] * 3
+        (16, True, False), (16, True, True), (16, True, True)]
     assert dl.exact_tile_bytes(wifi, 16, "float32", True) == 211736
     _, wifi1296 = tables_of("wifi1296")
     assert [dl.exact_form(wifi1296, dt) for dt in ("float32", "bfloat16", "int8")] == [
-        (8, True), (16, True), (16, False)]
+        (8, True, False), (8, True, True), (8, False, True)]
 
 
 @pytest.mark.parametrize("name", ["bench1152", "wifi648", "wifi1296", "wifi1944", "regular36",
@@ -300,4 +304,4 @@ def test_tile_bytes_match_the_kernels(tables_of, name):
                     c.nc, c.mc, c.nnz, frames_, msg, int(stage))
                 assert dl.exact_tile_bytes(t, frames_, dtype, stage) == lib.ldpc_exact_tile_bytes(
                     c.nc, c.mc, c.nnz, t.n_layers, t.layer_checks.shape[0], t.layer_vars.shape[0],
-                    frames_, msg, int(stage))
+                    frames_, msg, int(stage), 0)

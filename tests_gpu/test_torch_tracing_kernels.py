@@ -12,10 +12,11 @@ stepping: K8's channel batch, K5, the counting).
   forced off launches as many kernels, copies and fills, and counts the
   same frames.
 * ``stream.lane_passes`` is 50 x 16,384 lane-passes a super-step (the
-  point's warm-up super-step with them); ``exact.launches`` and
-  ``exact.staged_launches`` count each K5 launch of the ``--layer-file``
-  sweep (wifi 1944's float32 tile stages its tables); neither is counted
-  with the tracing forced off.
+  point's warm-up super-step with them); ``exact.launches``,
+  ``exact.staged_launches`` and ``exact.prior_staged_launches`` count each
+  K5 launch of the ``--layer-file`` sweep (wifi 1944's float32 tile stages
+  its tables and its frames' priors); none is counted with the tracing
+  forced off.
 
 Each sweep ends on its frame limit, so the traced runs repeat step for step.
 """
@@ -103,7 +104,8 @@ def test_every_launch_inside_its_span_and_no_device_operation_added(codes, sweep
         assert counters == {"stream.lane_passes": (dispatches + 1) * ITERS * B}
     else:
         assert engine == "batch"
-        assert counters == {"exact.launches": len(decode), "exact.staged_launches": len(decode)}
+        assert counters == {"exact.launches": len(decode), "exact.staged_launches": len(decode),
+                            "exact.prior_staged_launches": len(decode)}
 
     monkeypatch.setattr(profiling, "_tracing", lambda: False)
     _, res_off, events_off, counters_off = traced_sweep(codes[name], layered, max_frames,
